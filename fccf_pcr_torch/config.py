@@ -78,8 +78,7 @@ class Capacities:
     max_fine_voxels: int = 1 << 15
     # Raw-load capacity consumed by pre_downsample; 0 = max_points.
     max_raw_points: int = 0
-    # Two-key voxelization layout for building-scale extents (not yet
-    # ported: downsample_and_voxelize raises NotImplementedError).
+    # Two-key voxelization layout for building-scale extents.
     wide_extent: bool = False
 
     @property

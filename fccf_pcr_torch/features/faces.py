@@ -1,5 +1,6 @@
 """Planar-face extraction: voxel plane fits + parallel region growing
-(port of ``fccf_pcr_tpu/features/faces.py::faces_from_voxels``).
+(port of ``fccf_pcr_tpu/features/faces.py``: ``extract_faces`` and
+``faces_from_voxels``).
 
 Face growth is connected components of the symmetric voxel-voxel affinity
 (compare_normal / compare_plane on per-voxel stats), computed by min-label
@@ -18,7 +19,7 @@ import torch
 from ..config import Capacities, FCCFParams
 from ..ops import eigen3, geometry
 from ..ops.label_prop import label_propagate
-from ..ops.voxelize import compact
+from ..ops.voxelize import compact, voxel_stats
 
 _BIG = 2**30
 
@@ -64,17 +65,30 @@ def _face_stats(labels, valid, count, centroid, normal, V):
     return csum / denom, nsum / denom, psize, vcount
 
 
+def extract_faces(points, mask, params: FCCFParams, caps: Capacities):
+    """points (N, 3), mask (N,) -> (Faces, (sorted_pts, residual_mask),
+    overflow): voxelizes at ``face_voxel_size`` itself (the non-fused
+    face path, for a leaf that does not nest in the feature voxel)."""
+    vs, sorted_pts, point_voxel = voxel_stats(
+        points, mask, params.face_voxel_size, caps.max_voxels
+    )
+    return faces_from_voxels(vs, sorted_pts, point_voxel, params, caps)
+
+
 def faces_from_voxels(vs, cloud_pts, point_voxel, params: FCCFParams,
-                      caps: Capacities, voxel_start, with_labels: bool = False):
+                      caps: Capacities, voxel_start=None,
+                      with_labels: bool = False):
     """Face growth + top-F selection from per-voxel stats.
 
-    ``cloud_pts`` is the voxel-ordered sparse down cloud of
-    ``downsample_and_voxelize`` with ``point_voxel`` mapping each point to
-    its voxel slot (== V when dropped) and ``voxel_start`` each voxel's
-    first row. Returns (Faces, (cloud_pts, residual_mask), overflow): the
-    residual marks points of voxels that passed the point-count gate but
-    failed the curvature gate (the reference's ``cloud_sub``,
-    FCCF.cpp:527-530), consumed by fine verification.
+    ``cloud_pts`` is the voxel-ordered cloud with ``point_voxel`` mapping
+    each point to its voxel slot (== V when dropped). ``voxel_start`` is
+    each voxel's first row in the sparse layout of
+    ``downsample_and_voxelize``; None for the packed layout of
+    ``voxel_stats``, whose voxel runs tile a prefix. Returns (Faces,
+    (cloud_pts, residual_mask), overflow): the residual marks points of
+    voxels that passed the point-count gate but failed the curvature
+    gate (the reference's ``cloud_sub``, FCCF.cpp:527-530), consumed by
+    fine verification.
 
     with_labels=True also returns (final_label, vvalid, order, fvalid):
     the per-slot face label, the planar gate and the top-F selection.
@@ -107,7 +121,11 @@ def faces_from_voxels(vs, cloud_pts, point_voxel, params: FCCFParams,
     # forward-filled by a running max (run starts strictly increase).
     residual_gate = vs.valid & enough & ~planar
     N = point_voxel.shape[0]
-    start_v = voxel_start.long()
+    if voxel_start is None:
+        # Packed layout: run k starts at the exclusive cumsum of counts.
+        start_v = torch.cumsum(vs.count.long(), dim=0) - vs.count.long()
+    else:
+        start_v = voxel_start.long()
     dest = torch.where(vs.valid, start_v, N)
     marker = torch.zeros((N + 1,), dtype=torch.int64, device=dev)
     marker.scatter_(0, dest, start_v * 2 + residual_gate.long())

@@ -15,31 +15,23 @@ Both reach the same integer fixpoint: labels[i] is the minimum valid slot
 index of i's component, and invalid slots hold ``_BIG``.
 
 The kernel is built with nvcc into ``fccf_pcr_torch/build/`` at first use
-and bound with ctypes. ``LAUNCHES`` counts kernel launches.
+and bound with ctypes (``ops.cuda_build``). ``LAUNCHES`` counts kernel
+launches. The path halving between the kernel's sweeps is the gather
+kernel of ``ops.gather`` (P1); the plain version halves with the plain
+gather.
 """
 
 from __future__ import annotations
 
 import ctypes
-import os
-import pathlib
-import shutil
-import subprocess
 
 import torch
 
+from .cuda_build import CudaLibrary
+from .gather import gather_rows, gather_rows_plain
 from .geometry import cos_deg, normalize
 
 _BIG = 2**30
-
-_PKG = pathlib.Path(__file__).resolve().parent.parent
-_SOURCE = _PKG / "csrc" / "label_prop.cu"
-_BUILD_DIR = _PKG / "build"
-_LIBRARY = _BUILD_DIR / "liblabel_prop.so"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
-)
 
 # Path-halving rounds between kernel sweeps (the JAX wrapper's default).
 _JUMP_ROUNDS = 1
@@ -47,49 +39,24 @@ _JUMP_ROUNDS = 1
 # Number of kernel launches (sweeps) made by label_propagate.
 LAUNCHES = 0
 
-_lib = None
+
+def _bind(lib):
+    fn = lib.fccf_label_prop_sweep
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
+        ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
 
 
-def _nvcc():
-    path = shutil.which("nvcc")
-    if path is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
-        path = "/usr/local/cuda/bin/nvcc"
-    if path is None:
-        raise RuntimeError("nvcc not found: cannot build the label-prop kernel")
-    return path
+_LIBRARY = CudaLibrary("label_prop.cu", _bind)
 
 
 def build(force: bool = False):
     """Compile ``csrc/label_prop.cu`` (if needed, or always with
     ``force``) and load it. Returns the ctypes library."""
-    global _lib
-    stale = (
-        not _LIBRARY.exists()
-        or _LIBRARY.stat().st_mtime < _SOURCE.stat().st_mtime
-    )
-    if force or stale:
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = _LIBRARY.with_name(f"{_LIBRARY.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                f"{proc.stdout}{proc.stderr}"
-            )
-        os.replace(tmp, _LIBRARY)
-        _lib = None
-    if _lib is None:
-        lib = ctypes.CDLL(str(_LIBRARY))
-        fn = lib.fccf_label_prop_sweep
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-            ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
-        ]
-        fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+    return _LIBRARY.load(force)
 
 
 # ---------------------------------------------------------------- plain --
@@ -116,12 +83,14 @@ def pairwise_affinity(normal, centroid, valid, angle_thresh_deg, l, k):
     return vv & ok_normal & ok_plane
 
 
-def pointer_jump(labels, V, rounds: int = 8):
+def pointer_jump(labels, V, rounds: int = 8, gather=gather_rows):
     """Path halving, batched over leading dims:
-    labels <- min(labels, labels[labels]) ``rounds`` times."""
+    labels <- min(labels, labels[labels]) ``rounds`` times, reads clamped
+    to the row of V slots. ``gather`` is ``gather_rows`` (the kernel for
+    CUDA tensors) or its plain version."""
+    assert labels.shape[-1] == V
     for _ in range(rounds):
-        nxt = torch.gather(labels, -1, torch.clamp(labels, max=V - 1).long())
-        labels = torch.minimum(labels, nxt)
+        labels = torch.minimum(labels, gather(labels, labels))
     return labels
 
 
@@ -139,7 +108,8 @@ def _label_propagate(affinity, valid, max_iters):
             torch.where(affinity, labels[..., None, :], _BIG), dim=-1
         )
         new = torch.minimum(labels, neigh)
-        new = torch.where(valid, pointer_jump(new, V), big)
+        new = torch.where(valid, pointer_jump(new, V, gather=gather_rows_plain),
+                          big)
         changed = bool(torch.any(new != labels))
         labels = new
         if not changed:
@@ -224,8 +194,8 @@ def _label_propagate_kernel(normal, centroid, valid, angle_thresh_deg, l, k,
     for _ in range(max_iters):
         changed.zero_()
         _launch_sweep(stats, bound_t, labels, changed, cos_gate, l, k)
-        # Path halving between sweeps (a torch gather, as in the JAX
-        # wrapper); invalid slots stay at _BIG.
+        # Path halving between sweeps (the gather kernel); invalid slots
+        # stay at _BIG.
         labels = torch.where(
             valid, pointer_jump(labels, V, _JUMP_ROUNDS), big
         ).contiguous()

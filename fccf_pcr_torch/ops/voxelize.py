@@ -11,9 +11,10 @@ that is sliced off), so every result is deterministic on the GPU too.
 
 Ported: ``_pack_cells``/``_unpack_cells``, ``sorted_segment_reduce``,
 ``_kth_true_positions`` (scatter form only: no host sync),
-``voxel_grid_downsample``, ``compact`` and the single-key layout of
-``downsample_and_voxelize``. The two-key ``wide_extent`` layout and the
-non-fused ``voxel_stats`` path are not ported yet.
+``voxel_grid_downsample``, ``compact``, ``voxel_stats`` (the non-fused
+face path) and both layouts of ``downsample_and_voxelize``: one combined
+key, and the two-key ``wide_extent`` layout of the building-scale
+presets.
 """
 
 from __future__ import annotations
@@ -261,6 +262,63 @@ def _cov_from_moments(mu, e):
     )
 
 
+def _segment_mean_cov(pts_anchored, anchor, seg, V):
+    """Per-segment mean + covariance over a sorted segment-id vector
+    (``seg == V`` = dropped rows), one pass on cell-anchored coordinates:
+    cov = E[p'p'^T] - mu' mu'^T. The anchor is constant within a segment
+    and read exactly at each run's first row. Returns (mean, cov, cnt)."""
+    dt = pts_anchored.dtype
+    w = (seg < V).to(dt)
+    p = pts_anchored * w[:, None]
+    a = pts_anchored
+    outer6 = torch.stack(
+        [p[:, 0] * a[:, 0], p[:, 1] * a[:, 1], p[:, 2] * a[:, 2],
+         p[:, 0] * a[:, 1], p[:, 0] * a[:, 2], p[:, 1] * a[:, 2]],
+        dim=-1,
+    )
+    sums, cnt, start = sorted_segment_reduce(
+        torch.cat([p, outer6], dim=-1), seg, V, return_start=True
+    )
+    occ = cnt > 0
+    anchor_seg = torch.where(occ[:, None], anchor[start], 0.0)
+    cntf = torch.clamp(cnt.to(dt), min=1.0)
+    mu = sums[:, 0:3] / cntf[:, None]
+    e = sums[:, 3:9] / cntf[:, None]
+    return mu + anchor_seg, _cov_from_moments(mu, e), cnt
+
+
+def voxel_stats(points, mask, res, num_voxels):
+    """Per-voxel centroid + covariance + count over fixed capacity V (the
+    octree voxel loop of ``face_extrate``, FCCF.cpp:481-534).
+
+    Returns (stats, sorted_points (N, 3), point_voxel (N,)): the cloud
+    re-ordered by voxel cell (payloads ride the sort) and each sorted
+    point's voxel slot (== V for dropped or invalid points)."""
+    V = num_voxels
+    dt = points.dtype
+    key, kmin, key_ovf = _pack_cells(cell_index(points, res), mask)
+    k_s, px, py, pz = cosort((key,), (points[:, 0], points[:, 1], points[:, 2]))
+    pts_s = torch.stack([px, py, pz], dim=-1)
+    m_s = k_s != _SENT
+    seg_id = torch.cumsum(_first_flags(k_s).to(torch.int64), dim=0) - 1
+    seg = torch.where(m_s & (seg_id < V), seg_id, V)
+
+    # Per-segment anchor (cell corner), exact from the sorted key itself.
+    anchor = torch.where(
+        m_s[:, None],
+        _unpack_cells(torch.where(m_s, k_s, 0), kmin).to(dt) * res,
+        0.0,
+    )
+    mean, cov, cnt = _segment_mean_cov(pts_s - anchor, anchor, seg, V)
+
+    nvalid_seg = torch.amax(torch.where(m_s, seg_id, -1)) + 1
+    overflow = (nvalid_seg > V) | key_ovf
+    stats = VoxelStats(
+        centroid=mean, cov=cov, count=cnt, valid=cnt > 0, overflow=overflow
+    )
+    return stats, pts_s, seg
+
+
 def downsample_and_voxelize(points, mask, leaf, face_res, num_voxels,
                             wide_extent: bool = False):
     """Fused VoxelGrid downsample + feature-voxel statistics: ONE sort.
@@ -268,16 +326,15 @@ def downsample_and_voxelize(points, mask, leaf, face_res, num_voxels,
     ``face_res`` must be an integer multiple of ``leaf``, so leaf cells
     nest inside feature voxels and one combined key (face cell in the
     high bits, within-face leaf index in the low bits) gives both
-    groupings. Returns (down_pts (N, 3), down_mask (N,), stats, point_voxel
-    (N,), voxel_start (V,)): down points sit SPARSE at each leaf run's last
-    row (address through down_mask), point_voxel is each down point's
-    feature-voxel slot (== V when dropped) and voxel_start[k] the row of
-    voxel k's first down point (== N for unoccupied slots).
+    groupings; ``wide_extent`` sorts by two keys instead (face cell, then
+    within-face leaf index), for the full 2047 x 1023 x 1022-cell face
+    extent of building-scale scenes. Returns (down_pts (N, 3), down_mask
+    (N,), stats, point_voxel (N,), voxel_start (V,)): down points sit
+    SPARSE at each leaf run's last row (address through down_mask),
+    point_voxel is each down point's feature-voxel slot (== V when
+    dropped) and voxel_start[k] the row of voxel k's first down point
+    (== N for unoccupied slots).
     """
-    if wide_extent:
-        raise NotImplementedError(
-            "the two-key wide_extent voxelization layout is not ported yet"
-        )
     n = points.shape[0]
     V = num_voxels
     dev = points.device
@@ -298,24 +355,36 @@ def downsample_and_voxelize(points, mask, leaf, face_res, num_voxels,
     anchor_in = torch.where(mask[:, None], fcell.to(dt) * face_res, 0.0)
     p_in = torch.where(mask[:, None], points - anchor_in, 0.0)
 
-    # ONE combined int32 key: the face-cell bit budget is what remains of
-    # 31 bits after the within-face leaf index (ratio^3 values).
-    bits_w = max((ratio**3 - 1).bit_length(), 1)
-    bits_f = 31 - bits_w
-    bz = bits_f // 3
-    by = bits_f // 3
-    bx = bits_f - by - bz
-    fkey, kmin, ovf = _pack_cells(fcell, mask, bits=(bx, by, bz))
-    ckey = torch.where(mask, (fkey << bits_w) | wkey, _SENT)
-    ck_s, px, py, pz = cosort((ckey,), (p_in[:, 0], p_in[:, 1], p_in[:, 2]))
-    m_s = ck_s != _SENT
-    fk_s = ck_s >> bits_w
-    leaf_first = _first_flags(ck_s)
+    payload = (p_in[:, 0], p_in[:, 1], p_in[:, 2])
+    if wide_extent:
+        # Two keys: the face cell at the default 11/10/10 bits, then the
+        # within-face leaf index; a leaf run starts where either changes.
+        fkey, kmin, ovf = _pack_cells(fcell, mask)
+        wkey_m = torch.where(mask, wkey, _SENT)
+        fk_s, wk_s, px, py, pz = cosort((fkey, wkey_m), payload)
+        m_s = fk_s != _SENT
+        bits = (_XBITS, _YBITS, _ZBITS)
+        leaf_first = _first_flags(fk_s) | _first_flags(wk_s)
+    else:
+        # ONE combined int32 key: the face-cell bit budget is what remains
+        # of 31 bits after the within-face leaf index (ratio^3 values).
+        bits_w = max((ratio**3 - 1).bit_length(), 1)
+        bits_f = 31 - bits_w
+        bz = bits_f // 3
+        by = bits_f // 3
+        bx = bits_f - by - bz
+        bits = (bx, by, bz)
+        fkey, kmin, ovf = _pack_cells(fcell, mask, bits=bits)
+        ckey = torch.where(mask, (fkey << bits_w) | wkey, _SENT)
+        ck_s, px, py, pz = cosort((ckey,), payload)
+        m_s = ck_s != _SENT
+        fk_s = ck_s >> bits_w
+        leaf_first = _first_flags(ck_s)
 
     pts_s = torch.stack([px, py, pz], dim=-1)  # anchored coords
     anchor_s = torch.where(
         m_s[:, None],
-        _unpack_cells(torch.where(m_s, fk_s, 0), kmin, bits=(bx, by, bz)).to(dt)
+        _unpack_cells(torch.where(m_s, fk_s, 0), kmin, bits=bits).to(dt)
         * face_res,
         0.0,
     )

@@ -7,7 +7,8 @@ TARGET frame; internally the target plays the reference's ``face_vecter1``
 role and the source ``face_vecter2``, as at its call site (FCCF.cpp:1683).
 
 Stage map:
-  NaN removal + fused downsample/voxelize -> ops.voxelize
+  NaN removal + downsample/voxelize       -> ops.voxelize (fused, or
+                                             downsample + voxel_stats)
   face extraction x2                      -> features.faces (+ ops.label_prop)
   bases + closed-form hypotheses          -> hypotheses
   per-type clustering                     -> cluster
@@ -31,7 +32,7 @@ from torch.profiler import record_function
 
 from ..cluster.cluster import cluster_hypotheses
 from ..config import Capacities, FCCFParams
-from ..features.faces import faces_from_voxels
+from ..features.faces import extract_faces, faces_from_voxels
 from ..fuse.fuse import fuse_transforms
 from ..hypotheses.bases import select_bases
 from ..hypotheses.transforms import generate_hypotheses
@@ -100,12 +101,10 @@ def register_pair(src_pts, src_mask, tar_pts, tar_mask, params: FCCFParams,
 def _register_pair_impl(src_pts, src_mask, tar_pts, tar_mask, params, caps):
     dev = src_pts.device
     f32 = src_pts.dtype
+    # The downsample fuses with the feature voxelization (one sort per
+    # cloud) when the leaf nests integrally in the feature voxel.
     ratio = params.face_voxel_size / params.leaf_size
-    if abs(ratio - round(ratio)) >= 1e-9 * max(ratio, 1.0):
-        raise NotImplementedError(
-            "the non-fused face path (face_voxel_size not an integer "
-            "multiple of leaf_size) is not ported yet"
-        )
+    fused = abs(ratio - round(ratio)) < 1e-9 * max(ratio, 1.0)
 
     # NaN removal (:1372-1375).
     with record_function("downsample"):
@@ -115,6 +114,10 @@ def _register_pair_impl(src_pts, src_mask, tar_pts, tar_mask, params, caps):
         tar_pts = torch.where(tar_mask[:, None], tar_pts, 0.0)
 
     def cloud_to_faces(pts, msk):
+        if not fused:
+            d, dm, d_ovf = voxel_grid_downsample(pts, msk, params.leaf_size)
+            faces, residual, f_ovf = extract_faces(d, dm, params, caps)
+            return faces, residual, f_ovf | d_ovf
         d, _, vs, pv, vstart = downsample_and_voxelize(
             pts, msk, params.leaf_size, params.face_voxel_size,
             caps.max_voxels, wide_extent=caps.wide_extent,

@@ -1,5 +1,6 @@
-"""The port on a CUDA card: the label-prop kernel against its plain
-version, and the main path on the card against the port on the CPU.
+"""The port on a CUDA card: the label-prop kernel (K1) and the gather
+kernel (P1) against their plain versions, and the main path on the card
+against the port on the CPU.
 
 This file imports no jax, so it runs on a machine without it (the
 repository's conftest.py imports jax, hence --noconftest):
@@ -18,6 +19,7 @@ import torch
 from fccf_pcr_torch import TEST_CAPS, FCCFParams, make_register_fn
 from fccf_pcr_torch import registration_errors
 from fccf_pcr_torch.io import synthetic
+from fccf_pcr_torch.ops import gather as gt
 from fccf_pcr_torch.ops import label_prop as lp
 
 pytestmark = pytest.mark.cuda
@@ -67,6 +69,54 @@ def test_kernel_matches_plain_tail_and_bounds(cuda, angle, l, k):
     plain_cpu = lp.label_propagate(normal, centroid, valid, angle, l, k)
     np.testing.assert_array_equal(got.cpu().numpy(), plain_gpu.cpu().numpy())
     np.testing.assert_array_equal(got.cpu().numpy(), plain_cpu.numpy())
+
+
+def test_kernel_matches_plain_at_building_scale(cuda):
+    """K1 at the heritage preset's V=9216, two pairs with pass-1 and
+    pass-2 sized bounds; the path halving goes through the gather
+    kernel."""
+    rng = np.random.default_rng(9216)
+    bounds = (8526, 100)
+    stats = [_clustered(rng, 9216, b, n_groups=12) for b in bounds]
+    normal, centroid, valid = (
+        torch.from_numpy(np.stack([s[i] for s in stats])).to(cuda)
+        for i in range(3)
+    )
+    k1, g = lp.LAUNCHES, gt.LAUNCHES
+    got = lp.label_propagate(
+        normal, centroid, valid, 5.0, 0.5, 5.0,
+        bound=torch.tensor(bounds, dtype=torch.int32, device=cuda),
+    )
+    torch.cuda.synchronize()
+    assert lp.LAUNCHES > k1 and gt.LAUNCHES > g
+    want = lp.label_propagate_plain(normal, centroid, valid, 5.0, 0.5, 5.0)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+
+
+@pytest.mark.parametrize("shape", [(1, 1024), (8, 9216)])
+def test_gather_kernel_matches_plain(cuda, shape):
+    rng = np.random.default_rng(shape[0])
+    if shape == (1, 1024):  # tools/probe_gather.py's own inputs
+        tbl = (np.arange(1024, dtype=np.int32) * 7)[None]
+        idx = rng.integers(0, 1024, 1024).astype(np.int32)[None]
+    else:
+        tbl = rng.integers(0, 2**30, shape).astype(np.int32)
+        idx = rng.integers(-3, shape[1] + 3, shape).astype(np.int32)
+    before = gt.LAUNCHES
+    got = gt.gather_rows(torch.from_numpy(tbl).to(cuda),
+                         torch.from_numpy(idx).to(cuda))
+    torch.cuda.synchronize()
+    assert gt.LAUNCHES == before + 1
+    want = np.take_along_axis(tbl, np.clip(idx, 0, shape[1] - 1), axis=1)
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+
+
+def test_gather_kernel_rejects_bad_inputs(cuda):
+    tbl = torch.zeros((2, 64), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):  # wrong dtype
+        gt.gather_rows(tbl.long(), tbl.long())
+    with pytest.raises(ValueError):  # shapes differ
+        gt.gather_rows(tbl, tbl[:, :32])
 
 
 def test_kernel_rejects_bad_inputs(cuda):

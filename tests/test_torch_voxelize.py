@@ -1,7 +1,9 @@
-"""Port voxelization (downsample_and_voxelize, voxel_grid_downsample,
-compact, pre_downsample) against the JAX functions on identical inputs.
+"""Port voxelization (downsample_and_voxelize in both layouts,
+voxel_stats, voxel_grid_downsample, compact, pre_downsample) against the
+JAX functions on identical inputs.
 
-Exact: keys, masks, counts, point_voxel, voxel_start, overflow flags.
+Exact: keys, masks, counts, point_voxel, voxel_start, overflow flags; the
+two-key layout and voxel_stats bit for bit, statistics included.
 Float32 centroids, covariances and down points: atol 1e-5 (the port's
 prefix sums use the reference's association, so in practice they agree
 to the last bit or two)."""
@@ -87,11 +89,65 @@ def test_downsample_and_voxelize_extent_overflow():
     assert bool(vs.overflow)
 
 
-def test_wide_extent_not_ported():
-    pts, mask = _scene(0, n=100, cap=128)
-    with pytest.raises(NotImplementedError):
-        tvox.downsample_and_voxelize(_t(pts), _t(mask), 0.1, 1.0, 64,
-                                     wide_extent=True)
+def _check_fused_exact(pts, mask, leaf, face, V, wide_extent):
+    """Every output equal bit for bit, statistics included."""
+    jo = jax.jit(lambda p, m: jvox.downsample_and_voxelize(
+        p, m, leaf, face, V, wide_extent=wide_extent))(pts, mask)
+    to = tvox.downsample_and_voxelize(_t(pts), _t(mask), leaf, face, V,
+                                      wide_extent=wide_extent)
+    jd, jdm, jvs, jpv, jvst = jo
+    td, tdm, tvs, tpv, tvst = to
+    for a, b in ((jd, td), (jdm, tdm), (jpv, tpv), (jvst, tvst)):
+        np.testing.assert_array_equal(b.numpy(), np.asarray(a))
+    for f, a, b in zip(jvs._fields, jvs, tvs):
+        np.testing.assert_array_equal(b.numpy(), np.asarray(a), err_msg=f)
+    return jvs
+
+
+def test_wide_extent_matches_jax_on_single_key_cloud():
+    """The inputs of tests/test_voxelize.py's two-key test: a cloud that
+    fits both layouts."""
+    rng = np.random.default_rng(11)
+    pts = rng.uniform(-9, 9, (3000, 3)).astype(np.float32)
+    mask = np.ones(3000, bool)
+    mask[2800:] = False
+    vs = _check_fused_exact(pts, mask, 0.25, 1.0, 1024, wide_extent=True)
+    assert int(np.asarray(vs.valid).sum()) > 500
+
+
+def test_wide_extent_matches_jax_beyond_single_key_budget():
+    """600 face cells along x: the single-key layout clips and flags, the
+    two-key layout stays clean, and both match the reference."""
+    rng = np.random.default_rng(12)
+    pts = rng.uniform(0, 1, (2000, 3)).astype(np.float32)
+    pts[:, 0] *= 600.0
+    mask = np.ones(2000, bool)
+    narrow = _check_fused_exact(pts, mask, 0.25, 1.0, 2048, wide_extent=False)
+    wide = _check_fused_exact(pts, mask, 0.25, 1.0, 2048, wide_extent=True)
+    assert bool(narrow.overflow) and not bool(wide.overflow)
+
+
+def test_wide_extent_voxel_overflow_matches_jax():
+    pts, mask = _scene(2, n=4000, extent=20.0)
+    vs = _check_fused_exact(pts, mask, 0.25, 1.0, 256, wide_extent=True)
+    assert bool(vs.overflow)
+
+
+@pytest.mark.parametrize("res,V", [(1.0, 2048), (0.5, 512)])
+def test_voxel_stats_matches_jax(res, V):
+    """The non-fused face path's voxelization, bit for bit (V=512 at
+    0.5 m overflows)."""
+    rng = np.random.default_rng(int(res * 10))
+    pts = rng.uniform(-6, 6, (5000, 3)).astype(np.float32)
+    mask = rng.uniform(size=5000) > 0.1
+    (jvs, jpts, jseg) = jax.jit(
+        lambda p, m: jvox.voxel_stats(p, m, res, V))(pts, mask)
+    tvs, tpts, tseg = tvox.voxel_stats(_t(pts), _t(mask), res, V)
+    np.testing.assert_array_equal(tpts.numpy(), np.asarray(jpts))
+    np.testing.assert_array_equal(tseg.numpy(), np.asarray(jseg))
+    for f, a, b in zip(jvs._fields, jvs, tvs):
+        np.testing.assert_array_equal(b.numpy(), np.asarray(a), err_msg=f)
+    assert bool(tvs.overflow) == (V == 512)
 
 
 @pytest.mark.parametrize("res", [0.1, 0.5])
