@@ -10,14 +10,21 @@ result:
      power limit (nvidia-smi); no card -> fail (never a CPU fallback);
   2. build both kernels with nvcc, in parallel: the label-propagation
      sweep K1 (csrc/label_prop.cu) and the per-row gather P1
-     (csrc/gather.cu);
+     (csrc/gather.cu); ptxas's registers, shared memory and spills;
   3. K1 vs its plain PyTorch version on the card: clustered voxel stats
      at V=1536 (office), V=1000 (a tail) and V=9216 (heritage), batch 2
-     (a pass-1 prefix bound and a small pass-2 bound); labels must be
-     equal; times at the office and heritage pass-1 shapes;
+     (a pass-1 prefix bound and a small pass-2 bound), and the edge
+     cases (bounds 0 and 1, no valid row, one component spanning every
+     voxel, only isolated voxels, V under one tile, P=3 with mixed
+     bounds); labels must be equal. Then the main path's own pass-1
+     inputs (seed 0's target cloud at office and heritage): one sweep,
+     a propagation and their plain versions timed, with the bound and
+     the roofline share;
   4. P1 vs its plain version: the TPU probe's own inputs
      (tools/probe_gather.py) and label rows at the main path's shapes,
-     (8, 9216) included; outputs must be equal;
+     (8, 9216) included; outputs must be equal; times beside plain and
+     beside torch.gather alone (the library call, never called by the
+     port);
   5. the main path at the full eth-office preset: bench.CONFIGS["office"]
      scenes for seeds 0-3 -> pre_downsample -> batched register_pair on
      the card, held to the office rows of tests/golden/pipeline.json
@@ -33,7 +40,7 @@ result:
      --caps auto` sweep of the resso seed-0 pair, held to
      bench.GATES["resso"];
   8. steady-state step time at batch 8 (build excluded), office and
-     heritage, in pairs/s;
+     heritage, in pairs/s, and each kernel's launches per step;
   9. one heritage batch-8 step under torch.profiler: host time per stage
      (register.py's record_function scopes), the device's busy share of
      the step, and the kernels with the most device time.
@@ -73,11 +80,22 @@ KERNELS = {
 }
 _BIG = 2**30
 # K1 against plain: (V, per-pair bounds) of batch-2 comparisons, and the
-# main path's pass-1 shapes it is timed at: (name, V, bound, reps).
+# main path's pass-1 shapes it is timed at: (name, reps).
 K1_CASES = ((1536, (1019, 97)), (1000, (1000, 61)), (9216, (8526, 100)))
-K1_TIMED = (("office", 1536, 1019, 20), ("heritage", 9216, 8526, 5))
+K1_TIMED = (("office", 20), ("heritage", 5))
 # P1 against plain: (P, V) label rows (after the TPU probe's own inputs).
 P1_SHAPES = ((1, 1536), (1, 9216), (8, 9216))
+# Peak rates of an H100 SXM at 700 W (NVIDIA's data sheet): float32
+# outside the tensor cores, and HBM3.
+PEAK_F32 = 67e12
+PEAK_BYTES = 3.35e12
+# float32 operations of K1's predicate for one pair (i, j)
+# (csrc/label_prop.cu): the normal test (3 multiplies, 2 adds, a compare),
+# and the plane test, which only a pair that passes the normal test needs
+# (12 multiplies, 11 adds, fmaxf, sqrtf and the division counted as one
+# each, 3 compares).
+K1_NORMAL_OPS = 6
+K1_PLANE_OPS = 29
 
 
 class SmokeFailure(Exception):
@@ -113,19 +131,38 @@ def clustered(rng, V, n_groups=6, prefix=None):
     return normal, centroid, valid
 
 
-def cuda_ms(fn, reps):
+def cuda_ms(fn, reps, reset=None):
+    """Mean ms of one call of ``fn`` on the card's clock, host time of its
+    launches included where the card waits on them: ``reps`` calls back
+    to back between two CUDA events or, with ``reset`` (untimed, before
+    each call), each call between two events of its own."""
     import torch
 
+    if reset is not None:
+        reset()
     fn()  # warm up
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
+    pairs = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+             for _ in range(1 if reset is None else reps)]
+    for a, b in pairs:  # an event is created at its first record: not timed
+        a.record()
+        b.record()
+    if reset is None:
+        ((a, b),) = pairs
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(b) / reps
+    for a, b in pairs:
+        reset()
+        a.record()
         fn()
-    end.record()
+        b.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
+    return sum(a.elapsed_time(b) for a, b in pairs) / reps
 
 
 def phase_build(modules):
@@ -139,6 +176,160 @@ def phase_build(modules):
         return list(ex.map(build, modules))
 
 
+def ptxas_summary(mod):
+    """ptxas's lines for a kernel's build: registers, shared memory,
+    spills."""
+    lines = [ln.strip() for ln in mod._LIBRARY.build_log.splitlines()
+             if "ptxas info" in ln and ("Used" in ln or "spill" in ln)]
+    return " | ".join(ln.split("ptxas info    : ")[-1] for ln in lines)
+
+
+def edge_cases(rng):
+    """K1's edge cases: (name, normal, centroid, valid, bounds) with
+    (P, V, 3) / (P, V) numpy arrays and one bound a pair."""
+    import numpy as np
+
+    def one(V, prefix=None):
+        return clustered(rng, V, prefix=prefix)
+
+    def stack(clouds):
+        return [np.stack([c[k] for c in clouds]) for k in range(3)]
+
+    cases = []
+    n, c, v = stack([one(700, 0), one(700, 1)])
+    v[1, 0] = True  # the one slot below bound 1
+    cases.append(("bounds 0 and 1", n, c, v, (0, 1)))
+    n, c, v = stack([one(700)])
+    cases.append(("no valid row", n, c, np.zeros_like(v), (700,)))
+    # one plane through every voxel: every pair affine (the most atomics)
+    V = 1536
+    n = np.tile(np.float32([0, 0, 1]), (1, V, 1))
+    c = np.concatenate([rng.uniform(-2, 2, (1, V, 2)),
+                        np.zeros((1, V, 1))], axis=2).astype(np.float32)
+    cases.append(("one component", n, c, np.ones((1, V), bool), (V,)))
+    # parallel planes 10 apart: no pair affine
+    c = np.zeros((1, V, 3), np.float32)
+    c[0, :, 2] = 10.0 * np.arange(V)
+    cases.append(("only isolated voxels", n, c, np.ones((1, V), bool), (V,)))
+    for V in (40, 20):
+        n, c, v = stack([one(V)])
+        cases.append((f"V={V} under one tile", n, c, v, (V,)))
+    n, c, v = stack([one(700, 700), one(700, 40), one(700, 1)])
+    cases.append(("P=3 mixed bounds", n, c, v, (700, 40, 1)))
+    return cases
+
+
+def k1_against_plain(lp, dev, normal, centroid, valid, bounds, what,
+                     angle=5.0, l=0.5, k=5.0):
+    import torch
+
+    normal, centroid, valid = (
+        torch.as_tensor(a).to(dev) for a in (normal, centroid, valid))
+    bound = torch.tensor(bounds, dtype=torch.int32, device=dev)
+    before = lp.LAUNCHES
+    got = lp.label_propagate(normal, centroid, valid, angle, l, k,
+                             bound=bound)
+    torch.cuda.synchronize()
+    check(lp.LAUNCHES > before, f"{what}: kernel was not launched")
+    want = lp.label_propagate_plain(normal, centroid, valid, angle, l, k)
+    err = int((got.long() - want.long()).abs().max())
+    check(err == 0, f"{what}: kernel labels differ from plain (max {err})")
+    return got, err
+
+
+def main_path_k1_inputs(name, dev):
+    """The main path's first label propagation (pass 1 of seed 0's target
+    cloud at the ``name`` preset): (normal, centroid, valid) with a pair
+    axis of 1, angle, l, k and the (1,) int32 bound."""
+    import torch
+
+    import bench
+    from fccf_pcr_torch import make_register_fn
+    from fccf_pcr_torch.features import faces
+    from fccf_pcr_torch.models.fccf import get_model
+
+    model = get_model(bench.CONFIGS[name]["model"])
+    args, _ = config_batch(name, [0], model.params, model.caps, dev)
+    calls = []
+    propagate = faces.label_propagate
+
+    def record(*a, **kw):
+        calls.append((a, kw))
+        return propagate(*a, **kw)
+
+    faces.label_propagate = record
+    try:
+        make_register_fn(model.params, model.caps, batched=True,
+                         device=dev)(*args)
+    finally:
+        faces.label_propagate = propagate
+    (normal, centroid, valid, angle, l, k), kw = calls[0]
+    bound = torch.as_tensor(kw["bound"], device=dev).reshape(1)
+    return (normal[None], centroid[None], valid[None], angle, l, k,
+            bound.to(torch.int32))
+
+
+def device_ms(fn, reps, reset=None):
+    """Mean device time of one call of ``fn`` in ms: the sum of the
+    durations of the kernels it launches, read by torch.profiler (CUPTI),
+    so host time between launches does not count; ``reset`` (before each
+    call) is left out."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    if reset is not None:
+        reset()
+    fn()  # warm up
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(reps):
+        if reset is not None:
+            reset()
+            torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        total += sum(e.device_time for e in prof.events()
+                     if e.device_type == torch.autograd.DeviceType.CUDA)
+    return total / reps / 1e3
+
+
+def plain_sweep(lp, normal, centroid, valid, angle, l, k, labels):
+    """One Jacobi sweep of the plain version: the affinity matrix, then
+    each row's minimum over its affine labels."""
+    import torch
+
+    aff = lp.pairwise_affinity(normal, centroid, valid, angle, l, k)
+    neigh = torch.amin(torch.where(aff, labels[..., None, :], _BIG), dim=-1)
+    return torch.minimum(labels, neigh)
+
+
+def k1_bound(stats, labels, nb, cos_gate):
+    """The least time of one sweep from ``labels`` (V,) over the packed
+    stats (12, V): the float32 operations the sweep's pairs need against
+    the bytes (stats and bound read once, labels read and written once,
+    the flag written). A pair needs the normal test when i is valid, both
+    lie below the bound and j's label is below i's (the kernel skips every
+    other pair exactly), and the plane test only when it also passes the
+    normal test, evaluated in the kernel's expression order. Returns
+    (bound ms, bound_by, operations, normal-test pairs, plane-test
+    pairs)."""
+    lab = labels[:nb]
+    need = (lab[None, :] < lab[:, None]) & (lab[:, None] < _BIG)
+    nh = stats[:3, :nb]
+    cos = (nh[0][:, None] * nh[0][None, :] + nh[1][:, None] * nh[1][None, :]
+           + nh[2][:, None] * nh[2][None, :])
+    n_normal = int(need.sum())
+    n_plane = int((need & (cos >= cos_gate)).sum())
+    ops = n_normal * K1_NORMAL_OPS + n_plane * K1_PLANE_OPS
+    ops_s = ops / PEAK_F32
+    V = labels.shape[0]
+    bytes_s = (12 * V * 4 + 4 + 2 * V * 4 + 4) / PEAK_BYTES
+    return (max(ops_s, bytes_s) * 1e3,
+            "operations" if ops_s >= bytes_s else "bytes",
+            ops, n_normal, n_plane)
+
+
 def phase_kernel_vs_plain(lp, dev):
     import numpy as np
     import torch
@@ -147,44 +338,61 @@ def phase_kernel_vs_plain(lp, dev):
     errs = []
     for V, bounds in K1_CASES:
         stats = [clustered(rng, V, prefix=b) for b in bounds]
-        normal, centroid, valid = (
-            torch.from_numpy(np.stack([s[k] for s in stats])).to(dev)
-            for k in range(3)
-        )
-        bound = torch.tensor(bounds, dtype=torch.int32, device=dev)
-        before = lp.LAUNCHES
-        got = lp.label_propagate(normal, centroid, valid, 5.0, 0.5, 5.0,
-                                 bound=bound)
-        torch.cuda.synchronize()
-        check(lp.LAUNCHES > before, "kernel was not launched")
-        want = lp.label_propagate_plain(normal, centroid, valid, 5.0, 0.5, 5.0)
-        err = int((got.long() - want.long()).abs().max())
-        check(err == 0, f"V={V}: kernel labels differ from plain (max {err})")
+        got, err = k1_against_plain(
+            lp, dev, *(np.stack([s[k] for s in stats]) for k in range(3)),
+            bounds, f"V={V}")
         errs.append(err)
-        check(len(torch.unique(got[0][valid[0]])) >= 2, "no components formed")
-        del want
+        check(len(torch.unique(got[0][got[0] < _BIG])) >= 2,
+              "no components formed")
+    for what, normal, centroid, valid, bounds in edge_cases(rng):
+        got, err = k1_against_plain(lp, dev, normal, centroid, valid, bounds,
+                                    what)
+        errs.append(err)
+        comps = [len(torch.unique(g[g < _BIG])) for g in got]
+        print(f"[kernel] K1 equal to plain: {what} (V={valid.shape[1]}, "
+              f"bounds {bounds}, components {comps})", flush=True)
 
-    # Times at the main path's pass-1 shapes: one cloud, the office
-    # (V=1536, bound 1019) and heritage (V=9216, bound 8526) prefixes.
+    # Times at the main path's own pass-1 inputs: one sweep from the
+    # initial labels (reset before each), a propagation, and the plain
+    # versions of both.
     times = {}
-    for name, V, b, reps in K1_TIMED:
-        normal, centroid, valid = (
-            torch.from_numpy(a)[None].to(dev)
-            for a in clustered(rng, V, prefix=b)
-        )
-        bound = torch.tensor([b], dtype=torch.int32, device=dev)
+    for name, reps in K1_TIMED:
+        normal, centroid, valid, angle, l, k, bound = main_path_k1_inputs(
+            name, dev)
+        V, nb = valid.shape[1], int(bound[0])
+        _, err = k1_against_plain(lp, dev, normal, centroid, valid, (nb,),
+                                  f"{name} pass 1", angle, l, k)
+        errs.append(err)
         ms = cuda_ms(lambda: lp.label_propagate(
-            normal, centroid, valid, 5.0, 0.5, 5.0, bound=bound), reps)
+            normal, centroid, valid, angle, l, k, bound=bound), reps)
         plain_ms = cuda_ms(lambda: lp.label_propagate_plain(
-            normal, centroid, valid, 5.0, 0.5, 5.0), reps)
+            normal, centroid, valid, angle, l, k), reps)
         stats = lp._pack_stats(normal, centroid, valid)
-        labels = torch.where(valid, torch.arange(V, dtype=torch.int32,
-                                                 device=dev), _BIG).contiguous()
+        init = torch.where(valid, torch.arange(V, dtype=torch.int32,
+                                               device=dev), _BIG).contiguous()
+        labels = init.clone()
         changed = torch.zeros(1, dtype=torch.int32, device=dev)
-        sweep_ms = cuda_ms(lambda: lp._launch_sweep(
-            stats, bound, labels, changed, lp.cos_deg(5.0), 0.5, 5.0), 4 * reps)
-        times[name] = dict(V=V, bound=b, ms=ms, plain_ms=plain_ms,
-                           sweep_ms=sweep_ms)
+        cos_gate = lp.cos_deg(angle)
+        def sweep():
+            lp._launch_sweep(stats, bound, labels, changed, cos_gate, l, k)
+
+        def reset():
+            labels.copy_(init)
+
+        sweep_ms = device_ms(sweep, 10, reset)
+        sweep_call_ms = cuda_ms(sweep, 4 * reps, reset)
+        plain_sweep_ms = device_ms(lambda: plain_sweep(
+            lp, normal, centroid, valid, angle, l, k, init), 10)
+        bound_ms, bound_by, ops, n_normal, n_plane = k1_bound(
+            stats[0], init[0], nb, cos_gate)
+        times[name] = dict(
+            V=V, bound=nb, ms=ms, plain_ms=plain_ms, sweep_ms=sweep_ms,
+            sweep_call_ms=sweep_call_ms,
+            plain_sweep_ms=plain_sweep_ms, bound_ms=bound_ms,
+            bound_by=bound_by, ops=ops, normal_pairs=n_normal,
+            plane_pairs=n_plane,
+            full_bound_ms=nb * nb * (K1_NORMAL_OPS + K1_PLANE_OPS)
+            / PEAK_F32 * 1e3)
     return max(errs), times
 
 
@@ -227,11 +435,23 @@ def phase_gather_vs_plain(gt, dev):
             err = int((got.long() - want.long()).abs().max())
             check(err == 0, f"({P}, {V}): gather differs from plain (max {err})")
             errs.append(err)
-        times[(P, V)] = (
-            cuda_ms(lambda: gt.gather_rows(labels, labels), 200),
-            cuda_ms(lambda: gt.gather_rows_plain(labels, labels), 200),
-        )
+        # torch.gather alone, on indices already in range: the library
+        # call that computes P1's function (the port never calls it here).
+        idx = torch.clamp(labels, 0, V - 1).long()
+        fns = dict(kernel=lambda: gt.gather_rows(labels, labels),
+                   plain=lambda: gt.gather_rows_plain(labels, labels),
+                   library=lambda: torch.gather(labels, -1, idx))
+        times[(P, V)] = {
+            **{f"{k}_call_ms": cuda_ms(fn, 200) for k, fn in fns.items()},
+            **{f"{k}_ms": device_ms(fn, 10) for k, fn in fns.items()},
+        }
     return max(errs), times
+
+
+def p1_bound(P, V):
+    """(bound ms, bound_by) of one gather over (P, V) int32 rows: the
+    table and the indices read once, the output written once."""
+    return 3 * P * V * 4 / PEAK_BYTES * 1e3, "bytes"
 
 
 @functools.lru_cache(maxsize=None)
@@ -414,7 +634,9 @@ def phase_cli():
         check(g_rre < gate[0] and g_rte < gate[1], "CLI sweep: GT gate failed")
 
 
-def phase_timing(name, dev, batch=8, reps=2):
+def phase_timing(name, dev, counters, batch=8, reps=2):
+    """Steady-state step time at ``batch`` pairs, and each kernel's
+    launches per step (the counts of the timed steps over ``reps``)."""
     import torch
 
     import bench
@@ -428,12 +650,15 @@ def phase_timing(name, dev, batch=8, reps=2):
     res = fn(*args)  # warm up
     torch.cuda.synchronize()
     check(bool((res.status == 0).all()), f"{name} timing batch: non-zero status")
+    for mod in counters.values():
+        mod.LAUNCHES = 0
     t0 = time.perf_counter()
     for _ in range(reps):
         fn(*args)
     torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) / reps
-    return batch / dt, dt, (fn, args)
+    per_step = {k: mod.LAUNCHES / reps for k, mod in counters.items()}
+    return batch / dt, dt, per_step, (fn, args)
 
 
 def phase_profile(fn, args):
@@ -468,6 +693,11 @@ def phase_profile(fn, args):
     for name, us in by_name.most_common(8):
         print(f"[profile] kernel {us / 1e3:.1f} ms over {calls[name]} "
               f"launches: {name[:90]}", flush=True)
+    for ours in ("label_prop_sweep_kernel", "gather_rows"):
+        for name, us in by_name.items():
+            if ours in name:
+                print(f"[profile] {ours}: {us / 1e3:.2f} ms of device time "
+                      f"over {calls[name]} launches in the step", flush=True)
 
 
 def main():
@@ -503,22 +733,42 @@ def main():
         secs = phase_build([lp, gt])
         print(f"[build] label_prop.cu {secs[0]:.2f} s, gather.cu {secs[1]:.2f} s "
               f"(in parallel, {time.perf_counter() - t_start:.2f} s)", flush=True)
+        ptxas = {"label_prop_sweep": ptxas_summary(lp),
+                 "gather_rows": ptxas_summary(gt)}
+        for name, info in ptxas.items():
+            print(f"[build] ptxas {name}: {info}", flush=True)
 
         k1_err, k1 = phase_kernel_vs_plain(lp, dev)
         print("[kernel] K1 labels equal to plain at V=1536, V=1000 and V=9216 "
-              "(batch 2)", flush=True)
+              "(batch 2), at every edge case and at the main path's pass-1 "
+              "inputs", flush=True)
         for name, t in k1.items():
-            print(f"[kernel] K1 {name} pass-1 shape (V={t['V']}, bound "
-                  f"{t['bound']}): propagation {t['ms']:.3f} ms vs plain "
-                  f"{t['plain_ms']:.3f} ms; one sweep {t['sweep_ms']:.4f} ms "
-                  f"| {smi}", flush=True)
+            print(f"[kernel] K1 {name} pass-1 inputs (seed 0 target, V={t['V']}, "
+                  f"bound {t['bound']}): one sweep {t['sweep_ms']:.4f} ms of "
+                  f"device time ({t['sweep_call_ms']:.4f} ms a call with the "
+                  f"wrapper) vs plain {t['plain_sweep_ms']:.4f} ms; propagation "
+                  f"{t['ms']:.3f} ms vs plain {t['plain_ms']:.3f} ms; sweep "
+                  f"bound {t['bound_ms'] * 1e3:.3f} us ({t['bound_by']}: "
+                  f"{t['normal_pairs']} pairs need the normal test, "
+                  f"{t['plane_pairs']} of them the plane test, {t['ops']} "
+                  f"ops; both tests on all {t['bound']}^2 pairs: "
+                  f"{t['full_bound_ms'] * 1e3:.2f} us), roofline share "
+                  f"{100 * t['bound_ms'] / t['sweep_ms']:.2f}%, achieved "
+                  f"{t['ops'] / t['sweep_ms'] / 1e9:.3f} TFLOP/s "
+                  f"| ptxas {ptxas['label_prop_sweep']} | {smi}", flush=True)
 
         p1_err, p1 = phase_gather_vs_plain(gt, dev)
         print("[gather] equal to tbl[idx] at the probe's inputs (1, 1024) and "
               "to plain at (1, 1536), (1, 9216), (8, 9216)", flush=True)
-        for (P, V), (ms, plain_ms) in p1.items():
-            print(f"[gather] ({P}, {V}): {ms * 1e3:.2f} us vs plain "
-                  f"{plain_ms * 1e3:.2f} us | {smi}", flush=True)
+        for (P, V), t in p1.items():
+            b_ms, _ = p1_bound(P, V)
+            print(f"[gather] ({P}, {V}) device time: {t['kernel_ms'] * 1e3:.2f} "
+                  f"us vs plain {t['plain_ms'] * 1e3:.2f} us, torch.gather "
+                  f"alone {t['library_ms'] * 1e3:.2f} us; a call with its "
+                  f"wrapper: {t['kernel_call_ms'] * 1e3:.2f} / "
+                  f"{t['plain_call_ms'] * 1e3:.2f} / "
+                  f"{t['library_call_ms'] * 1e3:.2f} us; bound "
+                  f"{b_ms * 1e3:.3f} us (bytes) | {smi}", flush=True)
 
         launches = {k: 0 for k in counters}
         for name, repeat in (("office", True), ("heritage", False)):
@@ -528,10 +778,12 @@ def main():
         phase_cli()
 
         step = None
+        per_step = {}
         for name in ("office", "heritage"):
-            pps, dt, step = phase_timing(name, dev)
+            pps, dt, per_step[name], step = phase_timing(name, dev, counters)
             print(f"[timing] {name} batch 8: {dt * 1e3:.1f} ms/step, "
-                  f"{pps:.2f} pairs/s | {smi} | torch {torch.__version__} "
+                  f"{pps:.2f} pairs/s; launches per step "
+                  f"{per_step[name]} | {smi} | torch {torch.__version__} "
                   f"cuda {torch.version.cuda}", flush=True)
         phase_profile(*step)
         print(f"[done] {time.perf_counter() - t_start:.1f} s after the build "
@@ -541,14 +793,32 @@ def main():
         print("FAIL", file=sys.stderr)
         return 1
 
+    her = k1["heritage"]
+    g = p1[(1, 9216)]
+    p1_bound_ms, p1_bound_by = p1_bound(1, 9216)
     print(json.dumps({"kernels": [
         dict(KERNELS["label_prop_sweep"], launches=launches["label_prop_sweep"],
-             max_abs_err=k1_err, ms=k1["heritage"]["ms"],
-             plain_ms=k1["heritage"]["plain_ms"],
-             shape="V=9216, bound 8526, one cloud"),
+             max_abs_err=k1_err, ms=her["sweep_ms"],
+             plain_ms=her["plain_sweep_ms"], bound_ms=her["bound_ms"],
+             bound_by=her["bound_by"], library_ms=None,
+             bound_us=her["bound_ms"] * 1e3,
+             launches_per_step={k: v["label_prop_sweep"]
+                                for k, v in per_step.items()},
+             call_ms=her["sweep_call_ms"], propagation_ms=her["ms"],
+             plain_propagation_ms=her["plain_ms"],
+             ptxas=ptxas["label_prop_sweep"],
+             shape=f"one sweep, heritage seed 0 pass 1 (V={her['V']}, "
+                   f"bound {her['bound']}), from the initial labels; ms "
+                   "device time"),
         dict(KERNELS["gather_rows"], launches=launches["gather_rows"],
-             max_abs_err=p1_err, ms=p1[(1, 9216)][0],
-             plain_ms=p1[(1, 9216)][1], shape="(1, 9216) int32"),
+             max_abs_err=p1_err, ms=g["kernel_ms"], plain_ms=g["plain_ms"],
+             bound_ms=p1_bound_ms, bound_by=p1_bound_by,
+             library_ms=g["library_ms"], call_ms=g["kernel_call_ms"],
+             bound_us=p1_bound_ms * 1e3,
+             launches_per_step={k: v["gather_rows"]
+                                for k, v in per_step.items()},
+             ptxas=ptxas["gather_rows"],
+             shape="(1, 9216) int32; ms device time"),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

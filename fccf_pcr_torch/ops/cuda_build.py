@@ -3,7 +3,9 @@ plain C interface, compiled by nvcc for Hopper (sm_90a) into a shared
 library under ``fccf_pcr_torch/build/`` (gitignored) and loaded with
 ctypes. Each library is built at its first use in a process when it is
 missing or older than its source, or always with ``force``. A missing
-nvcc or a failed build raises.
+nvcc or a failed build raises. ``CudaLibrary.build_log`` keeps nvcc's
+output of the last build, with ptxas's registers, shared memory and
+spills of each kernel (``-Xptxas -v``).
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ CSRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+    "--fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC",
 )
 
 
@@ -41,6 +43,7 @@ class CudaLibrary:
         self.path = BUILD_DIR / f"lib{self.source.stem}.so"
         self._bind = bind
         self._lib = None
+        self.build_log = ""
 
     def compile(self):
         """Run nvcc (into a temporary name, then an atomic rename)."""
@@ -54,6 +57,7 @@ class CudaLibrary:
                 f"{proc.stdout}{proc.stderr}"
             )
         os.replace(tmp, self.path)
+        self.build_log = proc.stdout + proc.stderr
         self._lib = None
 
     def load(self, force: bool = False):

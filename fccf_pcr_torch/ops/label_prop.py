@@ -24,6 +24,7 @@ gather.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -44,8 +45,9 @@ def _bind(lib):
     fn = lib.fccf_label_prop_sweep
     fn.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_float,
-        ctypes.c_float, ctypes.c_float, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_float, ctypes.c_float, ctypes.c_float,
+        ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
 
@@ -57,6 +59,30 @@ def build(force: bool = False):
     """Compile ``csrc/label_prop.cu`` (if needed, or always with
     ``force``) and load it. Returns the ctypes library."""
     return _LIBRARY.load(force)
+
+
+# The kernel's grid: (row tiles, j slices, P) tiles of BI rows (one thread
+# a row; BI is fixed in csrc/label_prop.cu) by BJ columns, the widest
+# slices that still give 32 blocks per SM: several waves of short blocks
+# balance the SMs, as the work of a tile depends on its labels. On an H100
+# (132 SMs): V = 9216 -> 144 x 36 tiles of 64 x 256; V = 1536 -> 24 x 48
+# tiles of 64 x 32 (the narrowest).
+BI = 64
+
+
+def sweep_grid(V: int, sms: int):
+    """(BJ, row tiles, j slices) of the kernel's grid over [0, V)^2 on a
+    card of ``sms`` multiprocessors."""
+    rows = -(-V // BI)
+    BJ = 512
+    while BJ > 32 and rows * -(-V // BJ) < 32 * sms:
+        BJ //= 2
+    return BJ, rows, -(-V // BJ)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 # ---------------------------------------------------------------- plain --
@@ -166,9 +192,11 @@ def _launch_sweep(stats, bound, labels, changed, cos_gate, l, k):
     _check(changed, "changed", torch.int32, (P,), dev)
     lib = build()
     stream = torch.cuda.current_stream(dev).cuda_stream
+    BJ, _, _ = sweep_grid(V, _sm_count(dev))
     rc = lib.fccf_label_prop_sweep(
         stats.data_ptr(), bound.data_ptr(), labels.data_ptr(),
-        changed.data_ptr(), P, V, cos_gate, float(l), float(k), stream,
+        changed.data_ptr(), P, V, BJ, cos_gate, float(l), float(k),
+        stream,
     )
     LAUNCHES += 1
     if rc != 0:

@@ -77,20 +77,32 @@ def _as_tensor(x, dtype, device):
     return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
 
 
-def _device_of(x, device):
-    if device is not None:
-        return torch.device(device)
-    return x.device if isinstance(x, torch.Tensor) else torch.device("cpu")
+def resolve_device(device, like=None) -> torch.device:
+    """The device an entry point runs on. Every entry point defaults to
+    ``"cuda"``; ``device=None`` keeps the device of a tensor ``like`` (and
+    takes ``"cuda"`` for anything else). A CUDA device without a card
+    raises: the port never falls back to the CPU, which runs only when it
+    is asked for (``device="cpu"``, as the CPU tests do)."""
+    if device is None:
+        device = like.device if isinstance(like, torch.Tensor) else "cuda"
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "fccf_pcr_torch runs on a CUDA card by default, and "
+            "torch.cuda.is_available() is False; pass device=\"cpu\" to run "
+            "on the CPU"
+        )
+    return dev
 
 
 def register_pair(src_pts, src_mask, tar_pts, tar_mask, params: FCCFParams,
-                  caps: Capacities, device=None) -> RegistrationResult:
+                  caps: Capacities, device="cuda") -> RegistrationResult:
     """Register one masked pair of clouds: (N, 3) points + (N,) masks,
     numpy arrays or tensors, already voxel-grid downsampled once by the
-    caller (``pre_downsample``). Runs on ``device`` (default: the points'
-    device, or the CPU for numpy inputs)."""
+    caller (``pre_downsample``). Runs on ``device`` (``resolve_device``:
+    the card by default, the points' own device with ``None``)."""
     set_precision()
-    dev = _device_of(src_pts, device)
+    dev = resolve_device(device, src_pts)
     src_pts = _as_tensor(src_pts, torch.float32, dev)
     tar_pts = _as_tensor(tar_pts, torch.float32, dev)
     src_mask = _as_tensor(src_mask, torch.bool, dev)
@@ -230,11 +242,11 @@ def _register_pair_impl(src_pts, src_mask, tar_pts, tar_mask, params, caps):
 
 
 def pre_downsample(points, mask, params: FCCFParams, caps: Capacities,
-                   device=None):
+                   device="cuda"):
     """CLI-level first voxel-grid pass (FCCF.cpp:1668-1678): a
-    raw-capacity cloud in, the compacted ``caps.max_points`` cloud out.
-    Returns (pts, mask, overflow)."""
-    dev = _device_of(points, device)
+    raw-capacity cloud in, the compacted ``caps.max_points`` cloud out, on
+    ``device`` (``resolve_device``). Returns (pts, mask, overflow)."""
+    dev = resolve_device(device, points)
     points = _as_tensor(points, torch.float32, dev)
     mask = _as_tensor(mask, torch.bool, dev)
     d, dm, ovf = voxel_grid_downsample(points, mask, params.leaf_size)
@@ -243,13 +255,18 @@ def pre_downsample(points, mask, params: FCCFParams, caps: Capacities,
 
 
 def make_register_fn(params: FCCFParams, caps: Capacities,
-                     batched: bool = False, device="cpu"):
-    """Registration function with fixed params/capacities on ``device``.
+                     batched: bool = False, device="cuda"):
+    """Registration function with fixed params/capacities on ``device``
+    (``resolve_device``: the card by default, which is checked here, so
+    that a missing card raises before any pair is registered).
 
     batched=False: (src (N,3), src_mask, tar (N,3), tar_mask) -> result
     batched=True:  a leading pair axis on every argument; the pairs are
     registered one after another and the results stacked.
     """
+    if device is not None:
+        device = resolve_device(device)
+
     def fn(src, src_mask, tar, tar_mask):
         return register_pair(
             src, src_mask, tar, tar_mask, params, caps, device=device

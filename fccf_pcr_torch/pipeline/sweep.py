@@ -92,9 +92,11 @@ def run_sweep(
     out_path: str | None = None,
     resume: bool = True,
     escalate_caps=None,
-    device="cpu",
+    device="cuda",
 ):
-    """Register a list of (src_points, tar_points) pairs on ``device``.
+    """Register a list of (src_points, tar_points) pairs on ``device``
+    (the card by default; without one this raises, see
+    ``register.resolve_device``).
 
     pairs: list of (np.ndarray (M, 3), np.ndarray (K, 3)).
     ground_truth: optional list of 4x4 arrays (src -> tar).
@@ -112,11 +114,11 @@ def run_sweep(
     """
     from ..io.synthetic import pad_points
     from .metrics import registration_errors
-    from .register import make_register_fn, pre_downsample
+    from .register import make_register_fn, pre_downsample, resolve_device
 
     if escalate_caps is not None:
         _check_dominates(caps, escalate_caps)
-    device = torch.device(device)
+    device = resolve_device(device)
     done = {}
     if resume and out_path and os.path.exists(out_path):
         done = _load_done(out_path, len(pairs))

@@ -29,39 +29,71 @@ def _exp_quat(v):
     return torch.cat([w[..., None], k[..., None] * v], dim=-1)
 
 
-def _residuals(q, t, n1, p1, n2, p2, w):
-    """(..., P, 4) weighted residuals; masked pairs carry w = 0."""
-    n2r = geometry.quat_rotate(q[..., None, :], n2)
-    p2r = geometry.quat_rotate(q[..., None, :], p2) + t[..., None, :]
+def _residual_terms(q, t, n1, n1p1, n2, p2, w):
+    """The weighted residuals (Bt, P, 4) at (q, t), masked pairs carrying
+    w = 0, and what the Jacobian reuses: v = (n2, p2) on one axis
+    (Bt, 2P, 3), quat_rotate's u x v, the rotated normals n2r and the
+    moved points p2r. ``n1p1`` is n1 . p1, which does not depend on the
+    pose. The rotation is ``geometry.quat_rotate``'s expression."""
+    P = n1.shape[1]
+    v = torch.cat([n2, p2], dim=1)
+    u = q[:, None, 1:]
+    uv = geometry.cross(u, v)
+    rot = v + 2.0 * (q[:, None, :1] * uv + geometry.cross(u, uv))
+    n2r, p2r = rot[:, :P], rot[:, P:] + t[:, None, :]
     crs = geometry.cross(n1, n2r)
-    off = torch.sum(n1 * p1, dim=-1) - torch.sum(n2r * p2r, dim=-1)
-    r = torch.cat([crs, off[..., None]], dim=-1)
-    return r * w[..., None]
+    off = n1p1 - torch.sum(n2r * p2r, dim=-1)
+    r = torch.cat([crs, off[..., None]], dim=-1) * w[..., None]
+    return r, v, uv, n2r, p2r
 
 
-def _jacobian(q, t, n1, n2, w):
-    """(Bt, 4P, 6) Jacobian of the residuals w.r.t. the local step
-    delta = (v, dt) at delta = 0 (the JAX package's jacfwd, written out).
+# The tangent of exp(v) * q at v = 0 along v = e_k (k = 0, 1, 2): the
+# tangent of _exp_quat there is exactly (0, e_k / 2), and quat_multiply
+# turns it into q's components in this order with these signs (exact).
+_DQ_INDEX = ((1, 0, 3, 2), (2, 3, 0, 1), (3, 2, 1, 0))
+_DQ_SIGN = ((-0.5, 0.5, -0.5, 0.5), (-0.5, 0.5, 0.5, -0.5),
+            (-0.5, -0.5, 0.5, 0.5))
+_R1, _R2 = [1, 2, 0], [2, 0, 1]  # cross(a, b)[c] = a[R1] b[R2] - a[R2] b[R1]
 
-    With q' = exp(v) * q, d(R' x)/dv = -[R x]_x, so per pair, scaled by w:
-      d(n1 x n2r)/dv = (n1 . n2r) I - n2r n1^T,   d(n1 x n2r)/dt = 0,
-      d(offset)/dv   = -(n2r x t),                d(offset)/dt   = -n2r.
-    """
-    n2r = geometry.quat_rotate(q[:, None, :], n2)  # (Bt, P, 3)
-    eye = torch.eye(3, dtype=n2r.dtype, device=n2r.device)
-    d_cross = (
-        geometry.dot(n1, n2r)[..., None, None] * eye
-        - n2r[..., :, None] * n1[..., None, :]
-    )  # (Bt, P, 3, 3)
-    d_off = torch.cat(
-        [-geometry.cross(n2r, t[:, None, :]), -n2r], dim=-1
-    )  # (Bt, P, 6)
-    rows = torch.cat(
-        [torch.cat([d_cross, torch.zeros_like(d_cross)], dim=-1),
-         d_off[..., None, :]],
-        dim=-2,
-    )  # (Bt, P, 4, 6)
-    return (rows * w[..., None, None]).flatten(1, 2)
+
+def _cross_tangent(a, da, b, db):
+    """Tangent of cross(a, b) as forward-mode AD forms it: each product
+    gives da * b + a * db, and the two products are then subtracted."""
+    return ((da[..., _R1] * b[..., _R2] + a[..., _R1] * db[..., _R2])
+            - (da[..., _R2] * b[..., _R1] + a[..., _R2] * db[..., _R1]))
+
+
+def _residuals_and_jacobian(q, t, n1, n1p1, n2, p2, w):
+    """The weighted residuals (Bt, 4P) at (q, t) and their (Bt, 4P, 6)
+    Jacobian w.r.t. the local step delta = (v, dt) at delta = 0, where
+    q' = exp(v) * q and t' = t + dt.
+
+    The chain rule is written out in the reference's operand order
+    (``jax.jacfwd(local_residual)``: _exp_quat -> quat_multiply ->
+    quat_rotate -> cross, offset, weight), so it rounds as forward-mode
+    AD does. The three rotation directions ride on one axis; along a
+    translation direction every rotation tangent is zero and the
+    residual's tangent is (0, 0, 0, -n2r_k) * w exactly."""
+    Bt, P, _ = n1.shape
+    r, v, uv, n2r, p2r = _residual_terms(q, t, n1, n1p1, n2, p2, w)
+    wq, u = q[:, None, None, :1], q[:, None, None, 1:]   # (Bt, 1, 1, .)
+
+    sign = torch.tensor(_DQ_SIGN, dtype=q.dtype, device=q.device)
+    dq = (q[:, _DQ_INDEX] * sign)[:, :, None, :]         # (Bt, 3, 1, 4)
+    dw, du = dq[..., :1], dq[..., 1:]
+    uv3 = uv[:, None]
+    duv = geometry.cross(du, v[:, None])                 # (Bt, 3, 2P, 3)
+    drot = 2.0 * ((dw * uv3 + wq * duv)
+                  + _cross_tangent(u, du, uv3, duv))
+    dn2r, dp2r = drot[:, :, :P], drot[:, :, P:]
+    dcrs = geometry.cross(n1[:, None], dn2r)
+    doff = -torch.sum(dn2r * p2r[:, None] + n2r[:, None] * dp2r, dim=-1)
+    d_rot = torch.cat([dcrs, doff[..., None]], dim=-1) * w[:, None, :, None]
+
+    J = torch.zeros((Bt, P, 4, 6), dtype=q.dtype, device=q.device)
+    J[..., :3] = d_rot.permute(0, 2, 3, 1)
+    J[:, :, 3, 3:] = -n2r * w[..., None]
+    return r.flatten(1), J.flatten(1, 2)
 
 
 def refine_pairs(n1, p1, n2, p2, w, iters: int = 50):
@@ -81,19 +113,17 @@ def refine_pairs(n1, p1, n2, p2, w, iters: int = 50):
     done = torch.zeros((Bt,), dtype=torch.bool, device=dev)
     eye6 = torch.eye(6, dtype=dt, device=dev)
 
-    def residual(q, t):
-        return _residuals(q, t, n1, p1, n2, p2, w).flatten(-2)
+    n1p1 = torch.sum(n1 * p1, dim=-1)
 
     for _ in range(iters):
         active = ~done & (it < iters)
-        r = residual(q, t)
+        r, J = _residuals_and_jacobian(q, t, n1, n1p1, n2, p2, w)
         c_old = torch.sum(r * r, dim=-1)
         # A lane at zero cost can never accept a step (c_new < 0), so its
         # q and t are final: the loop may stop once every other lane is
         # done, with outputs identical to running it to the cap.
         if not bool(torch.any(active & (c_old > 0))):  # one host sync
             break
-        J = _jacobian(q, t, n1, n2, w)
         JtJ = J.mT @ J
         g = (J.mT @ r[..., None])[..., 0]
         damped = (
@@ -106,7 +136,7 @@ def refine_pairs(n1, p1, n2, p2, w, iters: int = 50):
             geometry.quat_multiply(_exp_quat(delta[:, :3]), q)
         )
         t_new = t + delta[:, 3:]
-        r_new = residual(q_new, t_new)
+        r_new = _residual_terms(q_new, t_new, n1, n1p1, n2, p2, w)[0].flatten(1)
         c_new = torch.sum(r_new * r_new, dim=-1)
         accept = c_new < c_old
         # Ceres-style function_tolerance termination (relative 1e-6).

@@ -86,11 +86,14 @@ def test_pad_points_subsamples_identically():
 
 
 def test_port_imports_no_jax():
-    """An AST walk of every module of the port: no import of jax or of
-    the JAX package, at any depth."""
+    """An AST walk of every module of the port, of chip_smoke.py and of the
+    port's tools: no import of jax or of the JAX package, at any depth
+    (the card's machine has no jax)."""
     banned = ("jax", "jaxlib", "fccf_pcr_tpu")
     files = sorted(PORT.rglob("*.py"))
     assert len(files) > 20
+    files += [PORT.parent / "chip_smoke.py",
+              *sorted((PORT.parent / "tools").glob("torch_*.py"))]
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
         for node in ast.walk(tree):

@@ -1,6 +1,8 @@
 """The port on a CUDA card: the label-prop kernel (K1) and the gather
-kernel (P1) against their plain versions, and the main path on the card
-against the port on the CPU.
+kernel (P1) against their plain versions (K1 also at its edge cases:
+bounds 0 and 1, no valid row, one component spanning every voxel, only
+isolated voxels, V under one tile), the main path on the card against
+the port on the CPU, and the entry points' default device.
 
 This file imports no jax, so it runs on a machine without it (the
 repository's conftest.py imports jax, hence --noconftest):
@@ -93,6 +95,62 @@ def test_kernel_matches_plain_at_building_scale(cuda):
     np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
 
 
+def _one_plane(V):
+    """Every voxel on the plane z = 0 with normal +z: every pair affine."""
+    rng = np.random.default_rng(V)
+    normal = np.tile(np.float32([0, 0, 1]), (V, 1))
+    centroid = np.zeros((V, 3), np.float32)
+    centroid[:, :2] = rng.uniform(-2, 2, (V, 2))
+    return normal, centroid, np.ones(V, bool)
+
+
+def _stacked_planes(V):
+    """Parallel planes 10 apart: no pair affine."""
+    normal, centroid, valid = _one_plane(V)
+    centroid[:, 2] = 10.0 * np.arange(V)
+    return normal, centroid, valid
+
+
+def _edge_case(name):
+    """(normal, centroid, valid) with a pair axis, and one bound a pair."""
+    rng = np.random.default_rng(len(name))
+    if name == "bounds_0_and_1":
+        clouds = [_clustered(rng, 700, 0), _clustered(rng, 700, 1)]
+        clouds[1][2][0] = True
+        bounds = (0, 1)
+    elif name == "no_valid_row":
+        n, c, v = _clustered(rng, 700, 700)
+        clouds, bounds = [(n, c, np.zeros_like(v))], (700,)
+    elif name == "one_component":
+        clouds, bounds = [_one_plane(1536)], (1536,)
+    elif name == "only_isolated":
+        clouds, bounds = [_stacked_planes(1536)], (1536,)
+    else:  # V under one tile of rows (64) and of columns (32)
+        V = int(name.split("_")[1])
+        clouds, bounds = [_clustered(rng, V, V)], (V,)
+    return [np.stack([c[i] for c in clouds]) for i in range(3)], bounds
+
+
+@pytest.mark.parametrize("name", [
+    "bounds_0_and_1", "no_valid_row", "one_component", "only_isolated",
+    "V_40", "V_20"])
+def test_kernel_matches_plain_at_edge_cases(cuda, name):
+    (normal, centroid, valid), bounds = _edge_case(name)
+    normal, centroid, valid = (torch.from_numpy(a).to(cuda)
+                               for a in (normal, centroid, valid))
+    got = lp.label_propagate(
+        normal, centroid, valid, 5.0, 0.5, 5.0,
+        bound=torch.tensor(bounds, dtype=torch.int32, device=cuda),
+    )
+    want = lp.label_propagate_plain(normal, centroid, valid, 5.0, 0.5, 5.0)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+    n_comp = [len(np.unique(g[g < 2**30])) for g in want.cpu().numpy()]
+    if name == "one_component":
+        assert n_comp == [1]
+    if name == "only_isolated":
+        assert n_comp == [1536]
+
+
 @pytest.mark.parametrize("shape", [(1, 1024), (8, 9216)])
 def test_gather_kernel_matches_plain(cuda, shape):
     rng = np.random.default_rng(shape[0])
@@ -131,6 +189,19 @@ def test_kernel_rejects_bad_inputs(cuda):
                          bound, labels, changed, 0.99, 0.5, 5.0)
     with pytest.raises(ValueError):  # wrong device
         lp._launch_sweep(stats.cpu(), bound, labels, changed, 0.99, 0.5, 5.0)
+
+
+def test_make_register_fn_defaults_to_the_card(cuda):
+    caps = TEST_CAPS
+    params = FCCFParams(leaf_size=0.25)
+    src, tar, _ = synthetic.make_pair(seed=3, points_per_plane=1500,
+                                      clutter_points=900)
+    args = synthetic.pad_points(src, caps.max_points) + synthetic.pad_points(
+        tar, caps.max_points)
+    before = lp.LAUNCHES
+    res = make_register_fn(params, caps)(*args)
+    assert res.transform.device.type == "cuda"
+    assert lp.LAUNCHES > before
 
 
 def test_register_pair_on_card_matches_cpu(cuda):

@@ -141,3 +141,21 @@ def test_kernel_matches_plain_on_cuda(V):
     assert tlp.LAUNCHES > before
     want = tlp.label_propagate_plain(normal, centroid, valid, 5.0, 0.5, 5.0)
     np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+
+
+@pytest.mark.parametrize("V", [1, 63, 700, 1000, 1536, 9216])
+def test_sweep_grid_covers_the_square_once(V):
+    """The kernel's (row tiles, j slices) grid covers [0, V)^2 exactly:
+    every (i, j) in one tile, no tile past the edge, and enough tiles
+    to give every SM of an H100 (132 SMs) several blocks at V >= 1536."""
+    BI = tlp.BI
+    BJ, rows, cols = tlp.sweep_grid(V, 132)
+    assert BJ % 32 == 0 and 32 <= BJ <= 512
+    cover = np.zeros((V, V), np.int32)
+    for r in range(rows):
+        for c in range(cols):
+            assert r * BI < V and c * BJ < V  # no empty tile
+            cover[r * BI:(r + 1) * BI, c * BJ:(c + 1) * BJ] += 1
+    np.testing.assert_array_equal(cover, 1)
+    if V >= 1536:
+        assert rows * cols >= 8 * 132

@@ -61,7 +61,7 @@ def assert_result_matches(t, j):
 def test_register_pair_matches_jax(small_pair, params, caps):
     src_p, src_m, tar_p, tar_m, T_gt = small_pair
     j = jmake(params, caps)(src_p, src_m, tar_p, tar_m)
-    t = tmake(*_port_config(params, caps))(src_p, src_m, tar_p, tar_m)
+    t = tmake(*_port_config(params, caps), device="cpu")(src_p, src_m, tar_p, tar_m)
     assert t.transform.dtype == torch.float32
     assert_result_matches(t, j)
     rre, rte = _drift(t.transform, T_gt)
@@ -78,7 +78,7 @@ def test_batched_entry_matches_jax(params, caps):
                      + synthetic.pad_points(tar, caps.max_points))
     args = [np.stack([p[k] for p in pairs]) for k in range(4)]
     j = jmake(params, caps, batched=True)(*args)
-    t = tmake(*_port_config(params, caps), batched=True)(*args)
+    t = tmake(*_port_config(params, caps), batched=True, device="cpu")(*args)
     assert t.transform.shape == (2, 4, 4)
     for b in range(2):
         assert_result_matches(
@@ -88,7 +88,7 @@ def test_batched_entry_matches_jax(params, caps):
 
 def test_empty_cloud_is_degenerate(small_pair, params, caps):
     src_p, src_m, tar_p, tar_m, _ = small_pair
-    t = tmake(*_port_config(params, caps))(
+    t = tmake(*_port_config(params, caps), device="cpu")(
         src_p, np.zeros_like(src_m), tar_p, tar_m
     )
     assert int(t.status) & STATUS_DEGENERATE
@@ -105,7 +105,7 @@ def test_register_pair_variant_matches_jax(small_pair, params, caps, variant):
     caps = dataclasses.replace(caps, **variant.get("caps", {}))
     src_p, src_m, tar_p, tar_m, T_gt = small_pair
     j = jmake(params, caps)(src_p, src_m, tar_p, tar_m)
-    t = tmake(*_port_config(params, caps))(src_p, src_m, tar_p, tar_m)
+    t = tmake(*_port_config(params, caps), device="cpu")(src_p, src_m, tar_p, tar_m)
     assert_result_matches(t, j)
     rre, rte = _drift(t.transform, T_gt)
     assert rre < 0.5 and rte < 0.15
@@ -121,7 +121,7 @@ def _check_golden_through_port(name, fine_atol=1e-5):
     cfg = bench.CONFIGS[name]
     model = get_model(cfg["model"])
     params, caps = model.params, model.caps
-    fn = tmake(params, caps)
+    fn = tmake(params, caps, device="cpu")
     gate = bench.GATES[name]
     for row in data["configs"][name]:
         seed = row["seed"]
@@ -129,7 +129,8 @@ def _check_golden_through_port(name, fine_atol=1e-5):
             seed=seed, **cfg["scene"], **cfg["pair"]
         )
         clouds = [tsynthetic.pad_points(c, caps.raw_points) for c in (src, tar)]
-        (sp, sm, so), (tp, tm, to) = (tpre(p, m, params, caps) for p, m in clouds)
+        (sp, sm, so), (tp, tm, to) = (tpre(p, m, params, caps, device="cpu")
+                                  for p, m in clouds)
         assert not bool(so) and not bool(to)
         res = fn(sp, sm, tp, tm)
         rre, rte = _drift(res.transform, row["T"])
@@ -151,11 +152,46 @@ def test_office_golden_through_port():
 
 
 @pytest.mark.slow
-@pytest.mark.parametrize("name", ["resso", "heritage"])
-def test_building_golden_through_port(name):
+@pytest.mark.parametrize("name, fine_atol", [("resso", 5e-4), ("heritage", 1e-5)],
+                         ids=["resso", "heritage"])
+def test_building_golden_through_port(name, fine_atol):
     """Both presets voxelize in the two-key wide_extent layout; heritage
-    runs label propagation at V = 9216. Fine scores atol 2e-3 (the band of
-    test_torch_sweep.py): on resso seed 1 the LM refinement of a candidate
-    that fusion drops moves 8e-4 away from the reference's and its fine
-    score by 1.5e-4 (ROADMAP Queue 3)."""
-    _check_golden_through_port(name, fine_atol=2e-3)
+    runs label propagation at V = 9216. Resso's fine scores compare at
+    atol 5e-4: on seed 1 the type-2/3 candidates, which fusion drops,
+    have 4 matched planes that leave their translation nearly free, and
+    where the LM ends along that direction is set by rounding. On the
+    same inputs the reference's own vmapped and per-lane compilations of
+    refine_pairs end up to 1.0e-3 apart in the transform entries and the
+    port 5.7e-4 from the vmapped one (tools/lm_spread.py); the fine score
+    reads 0.016119 against 0.016551 pinned (ROADMAP Queue 3)."""
+    _check_golden_through_port(name, fine_atol=fine_atol)
+
+
+def test_entry_points_need_a_card_by_default(params, caps):
+    """make_register_fn, register_pair, pre_downsample and run_sweep run on
+    the card unless asked for the CPU; without a card the default raises
+    (here, before any work) and never falls back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: tests/test_torch_cuda.py runs the "
+                    "default on it")
+    from fccf_pcr_torch import register_pair
+    from fccf_pcr_torch.pipeline.sweep import run_sweep
+
+    tparams, tcaps = _port_config(params, caps)
+    pts = np.zeros((tcaps.max_points, 3), np.float32)
+    mask = np.zeros(tcaps.max_points, bool)
+    calls = [
+        lambda: tmake(tparams, tcaps),
+        lambda: tmake(tparams, tcaps, batched=True),
+        lambda: register_pair(pts, mask, pts, mask, tparams, tcaps),
+        lambda: tpre(pts, mask, tparams, tcaps),
+        lambda: tpre(pts, mask, tparams, tcaps, device=None),  # numpy: card
+        lambda: run_sweep([], tparams, tcaps),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="device=\"cpu\""):
+            call()
+    # device=None keeps a CPU tensor's device
+    _, _, ovf = tpre(torch.from_numpy(pts), torch.from_numpy(mask), tparams,
+                     tcaps, device=None)
+    assert not bool(ovf)

@@ -1,0 +1,150 @@
+"""The port's LM refinement (refine/gauss_newton.py) against the JAX
+package's: the Jacobian of the residuals w.r.t. the local step against
+``jax.jacfwd`` of the reference's ``local_residual``, and ``refine_pairs``
+on seeded candidates.
+
+Tolerances. Against jacfwd evaluated one primitive at a time
+(``jax.disable_jit``: every multiply and add rounded once) the Jacobian and
+the residuals are bit-equal: the port writes the chain in the reference's
+operand order. Against the compiled jacfwd they agree within 32 ulps of
+the lane's largest entry (20 seen): XLA's CPU backend contracts
+multiply-add pairs into FMAs inside its fusions, where the port rounds
+each product, and which pairs it contracts depends on how the program is
+compiled (the reference's vmapped and per-lane compilations differ from
+each other by as much). ``refine_pairs`` on well-conditioned candidates
+(12 pairs of planes in general position) agrees within 2e-6. The ops of
+one LM iteration are counted too (each a kernel launch on the card)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+
+from fccf_pcr_tpu.ops import geometry as jgeo
+from fccf_pcr_tpu.refine import gauss_newton as jgn
+from fccf_pcr_torch.refine import gauss_newton as tgn
+
+
+def _unit(rng, shape):
+    v = rng.normal(size=shape)
+    return v / np.linalg.norm(v, axis=-1, keepdims=True)
+
+
+def _lm_inputs(seed, B=8, P=16):
+    """Random unit q, t, planes, weights with zeros."""
+    rng = np.random.default_rng(seed)
+    q = _unit(rng, (B, 4))
+    t = rng.normal(0, 2, (B, 3))
+    n1, n2 = _unit(rng, (B, P, 3)), _unit(rng, (B, P, 3))
+    p1, p2 = rng.uniform(-10, 10, (B, P, 3)), rng.uniform(-10, 10, (B, P, 3))
+    w = rng.uniform(0, 0.2, (B, P))
+    w[rng.uniform(size=(B, P)) < 0.3] = 0.0
+    return [a.astype(np.float32) for a in (q, t, n1, p1, n2, p2, w)]
+
+
+def _local_residual(delta, q, t, n1, p1, n2, p2, w):
+    """The reference's LM residual of the local step (refine_pairs'
+    closure, fccf_pcr_tpu/refine/gauss_newton.py)."""
+    dq = jgn._exp_quat(delta[:3])
+    return jgn._residuals(
+        jgeo.quat_multiply(dq, q), t + delta[3:], n1, p1, n2, p2, w
+    ).reshape(-1)
+
+
+def _reference(q, t, n1, p1, n2, p2, w):
+    zero = jnp.zeros(6, jnp.float32)
+    r = _local_residual(zero, q, t, n1, p1, n2, p2, w)
+    J = jax.jacfwd(_local_residual)(zero, q, t, n1, p1, n2, p2, w)
+    return r, J
+
+
+def _port(q, t, n1, p1, n2, p2, w):
+    q, t, n1, p1, n2, p2, w = map(torch.from_numpy, (q, t, n1, p1, n2, p2, w))
+    n1p1 = torch.sum(n1 * p1, dim=-1)
+    r, J = tgn._residuals_and_jacobian(q, t, n1, n1p1, n2, p2, w)
+    return r.numpy(), J.numpy()
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_jacobian_bit_equal_to_jacfwd_op_by_op(seed):
+    args = _lm_inputs(seed, B=3)
+    r, J = _port(*args)
+    with jax.disable_jit():
+        for b in range(3):
+            rj, Jj = _reference(*(a[b] for a in args))
+            np.testing.assert_array_equal(r[b], np.asarray(rj))
+            np.testing.assert_array_equal(J[b], np.asarray(Jj))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_jacobian_matches_compiled_jacfwd(seed):
+    args = _lm_inputs(seed)
+    r, J = _port(*args)
+    rj, Jj = (np.asarray(x) for x in jax.jit(jax.vmap(_reference))(*args))
+    assert J.shape == Jj.shape == (8, 64, 6)
+    scale = np.abs(Jj).max(axis=(1, 2), keepdims=True)
+    assert np.all(np.abs(J - Jj) <= 32 * np.spacing(scale))
+    r_scale = np.abs(rj).max(axis=1, keepdims=True)
+    assert np.all(np.abs(r - rj) <= 32 * np.spacing(r_scale))
+    # rows of zero-weight pairs are exactly zero in both
+    zero_rows = np.repeat(args[6] == 0, 4, axis=1)
+    assert np.all(J[zero_rows] == 0) and np.all(Jj[zero_rows] == 0)
+
+
+def _candidates(seed, B=6, P=16, n_pairs=12):
+    """Plane pairs under a small per-lane pose error, 12 valid pairs in
+    general position (a well-conditioned LM problem), 4 masked."""
+    rng = np.random.default_rng(seed)
+    n1 = _unit(rng, (B, P, 3))
+    p1 = rng.uniform(-5, 5, (B, P, 3))
+    ang = rng.normal(0, 0.03, (B, 3))
+    q = np.concatenate([np.ones((B, 1)), ang / 2], axis=1)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    R = np.asarray(jgeo.quat_to_matrix(jnp.asarray(q, jnp.float32)))
+    n2 = np.einsum("bij,bpj->bpi", R, n1)
+    p2 = np.einsum("bij,bpj->bpi", R, p1) + rng.normal(0, 0.05, (B, 1, 3))
+    w = rng.uniform(0.05, 0.2, (B, P))
+    w[:, n_pairs:] = 0.0
+    return [a.astype(np.float32) for a in (n1, p1, n2, p2, w)]
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_refine_pairs_matches_reference(seed):
+    args = _candidates(seed)
+    j = np.asarray(jax.jit(jax.vmap(lambda *a: jgn.refine_pairs(*a)))(*args))
+    t = tgn.refine_pairs(*(torch.from_numpy(a) for a in args)).numpy()
+    np.testing.assert_allclose(t, j, rtol=0, atol=2e-6)
+    assert not np.allclose(j, np.eye(4), atol=1e-3)  # the LM moved
+
+
+class _CountLaunches(TorchDispatchMode):
+    """Counts the aten ops that compute (views excluded): on the card,
+    one kernel launch each."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if not func.is_view:
+            self.n += 1
+        return func(*args, **(kwargs or {}))
+
+
+def test_lm_iteration_launches():
+    """The LM loop is bound by kernel launches on the card (PERF.md
+    section 5), so the ops of one iteration are pinned: 412 with the
+    Jacobian written out as forward-mode AD forms it and one residual
+    helper shared with the step's cost, against 455 for the closed-form
+    Jacobian it replaced (same count)."""
+    args = [torch.from_numpy(a) for a in _candidates(3, B=12)]
+    counts = []
+    for iters in (1, 2, 3):
+        with _CountLaunches() as c:
+            tgn.refine_pairs(*args, iters=iters)
+        counts.append(c.n)
+    per_iteration = counts[2] - counts[1]
+    assert per_iteration == counts[1] - counts[0]  # every lane still runs
+    assert per_iteration == 412

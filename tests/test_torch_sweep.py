@@ -57,6 +57,10 @@ def _port(params, caps):
             interop.caps_from_reference(dataclasses.asdict(caps)))
 
 
+def _sweep(*args, **kwargs):
+    return tsweep.run_sweep(*args, device="cpu", **kwargs)
+
+
 def _assert_records_match(t, j):
     assert [r["pair"] for r in t] == [r["pair"] for r in j]
     for a, b in zip(t, j):
@@ -79,8 +83,8 @@ def test_records_match_jax(params, caps, sweep_pairs, tmp_path):
     j, jsum = jsweep.run_sweep(pairs, params, caps, batch_size=2,
                                ground_truth=gt, use_mesh=False)
     out = str(tmp_path / "sweep.jsonl")
-    t, tsum = tsweep.run_sweep(pairs, *_port(params, caps), batch_size=2,
-                               ground_truth=gt, out_path=out)
+    t, tsum = _sweep(pairs, *_port(params, caps), batch_size=2,
+                     ground_truth=gt, out_path=out)
     _assert_records_match(t, j)
     assert set(jsum) <= set(tsum)
     assert tsum["n_pairs"] == 3 and tsum["n_devices"] == 1
@@ -97,16 +101,16 @@ def test_resume_skips_recorded_pairs(params, caps, light_pairs, tmp_path):
     pairs = light_pairs
     tparams, tcaps = _port(params, caps)
     out = str(tmp_path / "sweep.jsonl")
-    first, _ = tsweep.run_sweep(pairs, tparams, tcaps, batch_size=2,
-                                out_path=out)
+    first, _ = _sweep(pairs, tparams, tcaps, batch_size=2,
+                      out_path=out)
     kept = [line for line in open(out) if '"pair": 2' not in line
             and "summary" not in line]
     stale = dict(first[0], status=99)  # an older record of pair 0
     with open(out, "w") as f:
         f.write(json.dumps(stale) + "\n")
         f.writelines(kept)
-    again, summary = tsweep.run_sweep(pairs, tparams, tcaps, batch_size=2,
-                                      out_path=out)
+    again, summary = _sweep(pairs, tparams, tcaps, batch_size=2,
+                            out_path=out)
     assert summary["n_resumed"] == 2
     assert [r["pair"] for r in again] == [0, 1, 2]
     assert again[0] == first[0]  # the later record of pair 0 won
@@ -117,10 +121,10 @@ def test_resume_false_truncates(params, caps, light_pairs, tmp_path):
     pairs = light_pairs
     tparams, tcaps = _port(params, caps)
     out = str(tmp_path / "s.jsonl")
-    tsweep.run_sweep(pairs, tparams, tcaps, batch_size=2, out_path=out)
-    records, summary = tsweep.run_sweep(pairs[:2], tparams, tcaps,
-                                        batch_size=2, out_path=out,
-                                        resume=False)
+    _sweep(pairs, tparams, tcaps, batch_size=2, out_path=out)
+    records, summary = _sweep(pairs[:2], tparams, tcaps,
+                              batch_size=2, out_path=out,
+                              resume=False)
     assert summary["n_resumed"] == 0
     assert [r["pair"] for r in records] == [0, 1]
     assert sorted(json.loads(l)["pair"] for l in open(out) if '"pair"' in l) == [0, 1]
@@ -134,9 +138,9 @@ def test_escalation_mask_and_domination(params, caps):
     assert tsweep.needs_escalation({"status": 0, "preprocess_overflow": True})
     tparams, tcaps = _port(params, caps)
     with pytest.raises(ValueError, match="must dominate"):
-        tsweep.run_sweep([], tparams, tcaps, escalate_caps=tcaps.replace(
+        _sweep([], tparams, tcaps, escalate_caps=tcaps.replace(
             max_hypotheses=tcaps.max_hypotheses // 2))
-    records, summary = tsweep.run_sweep(
+    records, summary = _sweep(
         [], tparams, tcaps.replace(max_raw_points=tcaps.max_points // 2),
         escalate_caps=tcaps)
     assert records == [] and summary["n_escalated"] == 0
@@ -156,14 +160,14 @@ def test_capacity_escalation(params, caps, tmp_path):
     tparams, tcaps = _port(params, caps)
     tight = tcaps.replace(max_raw_points=(sizes[0] + min(sizes[1:])) // 2)
     out = str(tmp_path / "esc.jsonl")
-    records, summary = tsweep.run_sweep(pairs, tparams, tight, batch_size=2,
-                                        ground_truth=gt, out_path=out,
-                                        escalate_caps=tcaps)
+    records, summary = _sweep(pairs, tparams, tight, batch_size=2,
+                              ground_truth=gt, out_path=out,
+                              escalate_caps=tcaps)
     by_pair = {r["pair"]: r for r in records}
     assert summary["n_escalated"] == 2
     assert "escalated" not in by_pair[0]
-    full, _ = tsweep.run_sweep(pairs, tparams, tcaps, batch_size=2,
-                               ground_truth=gt)
+    full, _ = _sweep(pairs, tparams, tcaps, batch_size=2,
+                     ground_truth=gt)
     for i in (1, 2):
         rec = by_pair[i]
         assert rec["escalated"] is True and "status_tight" in rec
@@ -173,9 +177,9 @@ def test_capacity_escalation(params, caps, tmp_path):
     lines = [l for l in open(out) if "summary" not in l]
     with open(out, "w") as f:
         f.writelines(lines)
-    again, summary2 = tsweep.run_sweep(pairs, tparams, tight, batch_size=2,
-                                       ground_truth=gt, out_path=out,
-                                       escalate_caps=tcaps)
+    again, summary2 = _sweep(pairs, tparams, tight, batch_size=2,
+                             ground_truth=gt, out_path=out,
+                             escalate_caps=tcaps)
     assert summary2["n_resumed"] == 3 and summary2["n_escalated"] == 0
     assert {r["pair"]: r for r in again}[1]["escalated"] is True
 

@@ -212,7 +212,7 @@ def test_pre_downsample(small_pair, params, caps):
     tcaps = interop.caps_from_reference(dataclasses.asdict(small))
     tparams = interop.params_from_reference(dataclasses.asdict(params))
     jp, jm, jo = jax.jit(lambda p, m: jpre(p, m, params, small))(src_p, src_m)
-    tp, tm, to = tpre(src_p, src_m, tparams, tcaps)
+    tp, tm, to = tpre(src_p, src_m, tparams, tcaps, device="cpu")
     np.testing.assert_array_equal(tm.numpy(), np.asarray(jm))
     assert bool(to) == bool(jo)
     np.testing.assert_allclose(tp.numpy(), np.asarray(jp), atol=ATOL)
