@@ -8,18 +8,24 @@ result:
 
   1. environment: torch / CUDA / nvcc versions and the card's name and
      power limit (nvidia-smi); no card -> fail (never a CPU fallback);
-  2. build both kernels with nvcc, in parallel: the label-propagation
-     sweep K1 (csrc/label_prop.cu) and the per-row gather P1
-     (csrc/gather.cu); ptxas's registers, shared memory and spills;
-  3. K1 vs its plain PyTorch version on the card: clustered voxel stats
-     at V=1536 (office), V=1000 (a tail) and V=9216 (heritage), batch 2
-     (a pass-1 prefix bound and a small pass-2 bound), and the edge
-     cases (bounds 0 and 1, no valid row, one component spanning every
-     voxel, only isolated voxels, V under one tile, P=3 with mixed
-     bounds); labels must be equal. Then the main path's own pass-1
-     inputs (seed 0's target cloud at office and heritage): one sweep,
-     a propagation and their plain versions timed, with the bound and
-     the roofline share;
+  2. build both sources with nvcc, in parallel: csrc/label_prop.cu
+     (the label-propagation kernels: the propagation entry, one
+     cooperative launch a propagation, and the one-sweep entry K1) and
+     csrc/gather.cu (the per-row gather P1); ptxas's registers, shared
+     memory and spills of each kernel;
+  3. label propagation vs its plain PyTorch version on the card, through
+     the propagation kernel and through the per-sweep host loop (K1 +
+     P1 launches): clustered voxel stats at V=1536 (office), V=1000 (a
+     tail) and V=9216 (heritage), batch 2 (a pass-1 prefix bound and a
+     small pass-2 bound), and the edge cases (bounds 0 and 1, no valid
+     row, one component spanning every voxel, only isolated voxels, V
+     under one tile, P=3 with mixed bounds); labels must be equal. Then
+     the main path's own pass-1 inputs (seed 0's target cloud at office
+     and heritage): one sweep and its plain version timed, with the
+     bound and the roofline share; one propagation through the kernel
+     and through the host loop, in device time and wall time, the
+     sweeps it ran, the device time outside its sweep phase, and its
+     bound;
   4. P1 vs its plain version: the TPU probe's own inputs
      (tools/probe_gather.py) and label rows at the main path's shapes,
      (8, 9216) included; outputs must be equal; times beside plain and
@@ -29,8 +35,10 @@ result:
      scenes for seeds 0-3 -> pre_downsample -> batched register_pair on
      the card, held to the office rows of tests/golden/pipeline.json
      (transform within 0.1 deg / 0.02 m, status and kept mask equal) and
-     to bench.GATES["office"] against ground truth; both kernels' launch
-     counts must grow; a second run must give bitwise-equal transforms;
+     to bench.GATES["office"] against ground truth; the propagation
+     kernel's launch count must grow and the one-sweep and gather
+     kernels' must not (the main path launches neither); a second run
+     must give bitwise-equal transforms;
   6. the building-scale path at the full heritage preset (two-key
      voxelization, V=9216), seeds 0-3, held to its golden rows and
      bench.GATES["heritage"] the same way;
@@ -40,7 +48,8 @@ result:
      --caps auto` sweep of the resso seed-0 pair, held to
      bench.GATES["resso"];
   8. steady-state step time at batch 8 (build excluded), office and
-     heritage, in pairs/s, and each kernel's launches per step;
+     heritage, in pairs/s, each kernel's launches per step and the
+     sweeps the propagation kernel ran;
   9. one heritage batch-8 step under torch.profiler: host time per stage
      (register.py's record_function scopes), the device's busy share of
      the step, and the kernels with the most device time.
@@ -65,6 +74,13 @@ from concurrent.futures import ThreadPoolExecutor
 ROOT = pathlib.Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "golden" / "pipeline.json"
 KERNELS = {
+    "label_prop_propagate": dict(
+        name="label_prop_propagate",
+        route="cuda",
+        source="fccf_pcr_torch/csrc/label_prop.cu",
+        replaces="tools/probe_gather.py:23",
+        also_replaces="fccf_pcr_tpu/ops/pallas/label_prop.py:72",
+    ),
     "label_prop_sweep": dict(
         name="label_prop_sweep",
         route="cuda",
@@ -176,12 +192,16 @@ def phase_build(modules):
         return list(ex.map(build, modules))
 
 
-def ptxas_summary(mod):
-    """ptxas's lines for a kernel's build: registers, shared memory,
-    spills."""
-    lines = [ln.strip() for ln in mod._LIBRARY.build_log.splitlines()
-             if "ptxas info" in ln and ("Used" in ln or "spill" in ln)]
-    return " | ".join(ln.split("ptxas info    : ")[-1] for ln in lines)
+def ptxas_summary(mod, kernel=""):
+    """ptxas's lines for a source's build, of the kernels whose mangled
+    name holds ``kernel``: registers, shared memory, spills."""
+    lines, name = [], ""
+    for ln in mod._LIBRARY.build_log.splitlines():
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1] if "'" in ln else ln
+        elif kernel in name and ("Used" in ln or "spill" in ln):
+            lines.append(ln.split("ptxas info    : ")[-1].strip())
+    return " | ".join(lines)
 
 
 def edge_cases(rng):
@@ -221,20 +241,33 @@ def edge_cases(rng):
 
 def k1_against_plain(lp, dev, normal, centroid, valid, bounds, what,
                      angle=5.0, l=0.5, k=5.0):
+    """label_propagate (the propagation kernel, one launch) and the
+    per-sweep host loop (one-sweep kernel + gather kernel) against the
+    plain version: labels must be equal. Returns the kernel's labels and
+    the largest error of each route."""
     import torch
 
     normal, centroid, valid = (
         torch.as_tensor(a).to(dev) for a in (normal, centroid, valid))
     bound = torch.tensor(bounds, dtype=torch.int32, device=dev)
-    before = lp.LAUNCHES
-    got = lp.label_propagate(normal, centroid, valid, angle, l, k,
-                             bound=bound)
-    torch.cuda.synchronize()
-    check(lp.LAUNCHES > before, f"{what}: kernel was not launched")
     want = lp.label_propagate_plain(normal, centroid, valid, angle, l, k)
-    err = int((got.long() - want.long()).abs().max())
-    check(err == 0, f"{what}: kernel labels differ from plain (max {err})")
-    return got, err
+    routes = {
+        "propagate": ("PROPAGATIONS", lambda: lp.label_propagate(
+            normal, centroid, valid, angle, l, k, bound=bound)),
+        "host loop": ("LAUNCHES", lambda: lp._label_propagate_host_loop(
+            normal, centroid, valid, angle, l, k, bound, 32)),
+    }
+    got, errs = {}, {}
+    for route, (counter, fn) in routes.items():
+        before = getattr(lp, counter)
+        got[route] = fn()
+        torch.cuda.synchronize()
+        check(getattr(lp, counter) > before,
+              f"{what}: the {route} kernel was not launched")
+        errs[route] = int((got[route].long() - want.long()).abs().max())
+        check(errs[route] == 0, f"{what}: {route} labels differ from plain "
+              f"(max {errs[route]})")
+    return got["propagate"], errs
 
 
 def main_path_k1_inputs(name, dev):
@@ -269,11 +302,11 @@ def main_path_k1_inputs(name, dev):
             bound.to(torch.int32))
 
 
-def device_ms(fn, reps, reset=None):
+def device_ms(fn, reps, reset=None, only=""):
     """Mean device time of one call of ``fn`` in ms: the sum of the
-    durations of the kernels it launches, read by torch.profiler (CUPTI),
-    so host time between launches does not count; ``reset`` (before each
-    call) is left out."""
+    durations of the kernels it launches (those whose name holds
+    ``only``), read by torch.profiler (CUPTI), so host time between
+    launches does not count; ``reset`` (before each call) is left out."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -290,8 +323,54 @@ def device_ms(fn, reps, reset=None):
             fn()
             torch.cuda.synchronize()
         total += sum(e.device_time for e in prof.events()
-                     if e.device_type == torch.autograd.DeviceType.CUDA)
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and only in e.name)
     return total / reps / 1e3
+
+
+def wall_ms(fn, reps):
+    """Mean and least wall time of one call of ``fn`` in ms, host clock,
+    from an idle card to the end of its work (a synchronize on each
+    side)."""
+    import torch
+
+    fn()  # warm up
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sum(times) / reps, min(times)
+
+
+def sweep_device_times(fn):
+    """Device ms of each one-sweep kernel launch of one call of ``fn``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.device_time / 1e3 for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and "label_prop_sweep_kernel" in e.name]
+
+
+def propagate_once(lp, stats, bound, init, cos_gate, l, k, max_iters):
+    """One launch of the propagation kernel from ``init``: (labels,
+    sweeps run)."""
+    import torch
+
+    labels = init.clone()
+    flags = torch.zeros((max_iters, labels.shape[0] + 1), dtype=torch.int32,
+                        device=labels.device)
+    sweeps = torch.zeros((1,), dtype=torch.int64, device=labels.device)
+    lp._launch_propagate(stats, bound, labels, flags, sweeps, cos_gate, l, k,
+                         max_iters)
+    torch.cuda.synchronize()
+    return labels, int(sweeps)
 
 
 def plain_sweep(lp, normal, centroid, valid, angle, l, k, labels):
@@ -335,65 +414,107 @@ def phase_kernel_vs_plain(lp, dev):
     import torch
 
     rng = np.random.default_rng(0)
-    errs = []
+    errs = collections.defaultdict(list)
+
+    def compare(*args, **kw):
+        got, e = k1_against_plain(lp, dev, *args, **kw)
+        for route, err in e.items():
+            errs[route].append(err)
+        return got
+
     for V, bounds in K1_CASES:
         stats = [clustered(rng, V, prefix=b) for b in bounds]
-        got, err = k1_against_plain(
-            lp, dev, *(np.stack([s[k] for s in stats]) for k in range(3)),
-            bounds, f"V={V}")
-        errs.append(err)
+        got = compare(*(np.stack([s[k] for s in stats]) for k in range(3)),
+                      bounds, f"V={V}")
         check(len(torch.unique(got[0][got[0] < _BIG])) >= 2,
               "no components formed")
     for what, normal, centroid, valid, bounds in edge_cases(rng):
-        got, err = k1_against_plain(lp, dev, normal, centroid, valid, bounds,
-                                    what)
-        errs.append(err)
+        got = compare(normal, centroid, valid, bounds, what)
         comps = [len(torch.unique(g[g < _BIG])) for g in got]
-        print(f"[kernel] K1 equal to plain: {what} (V={valid.shape[1]}, "
-              f"bounds {bounds}, components {comps})", flush=True)
+        print(f"[kernel] propagation and host loop equal to plain: {what} "
+              f"(V={valid.shape[1]}, bounds {bounds}, components {comps})",
+              flush=True)
 
     # Times at the main path's own pass-1 inputs: one sweep from the
-    # initial labels (reset before each), a propagation, and the plain
-    # versions of both.
+    # initial labels (reset before each) and its plain version; one
+    # propagation through the kernel, through the per-sweep host loop
+    # and through the plain version.
     times = {}
     for name, reps in K1_TIMED:
         normal, centroid, valid, angle, l, k, bound = main_path_k1_inputs(
             name, dev)
         V, nb = valid.shape[1], int(bound[0])
-        _, err = k1_against_plain(lp, dev, normal, centroid, valid, (nb,),
-                                  f"{name} pass 1", angle, l, k)
-        errs.append(err)
-        ms = cuda_ms(lambda: lp.label_propagate(
-            normal, centroid, valid, angle, l, k, bound=bound), reps)
-        plain_ms = cuda_ms(lambda: lp.label_propagate_plain(
-            normal, centroid, valid, angle, l, k), reps)
+        compare(normal, centroid, valid, (nb,), f"{name} pass 1", angle, l, k)
         stats = lp._pack_stats(normal, centroid, valid)
         init = torch.where(valid, torch.arange(V, dtype=torch.int32,
                                                device=dev), _BIG).contiguous()
         labels = init.clone()
         changed = torch.zeros(1, dtype=torch.int32, device=dev)
         cos_gate = lp.cos_deg(angle)
+
         def sweep():
             lp._launch_sweep(stats, bound, labels, changed, cos_gate, l, k)
 
         def reset():
             labels.copy_(init)
 
-        sweep_ms = device_ms(sweep, 10, reset)
-        sweep_call_ms = cuda_ms(sweep, 4 * reps, reset)
-        plain_sweep_ms = device_ms(lambda: plain_sweep(
+        def fused():
+            return lp.label_propagate(normal, centroid, valid, angle, l, k,
+                                      bound=bound)
+
+        def host_loop():
+            return lp._label_propagate_host_loop(
+                normal, centroid, valid, angle, l, k, bound, 32)
+
+        t = dict(V=V, bound=nb)
+        t["sweep_ms"] = device_ms(sweep, 10, reset)
+        t["sweep_call_ms"] = cuda_ms(sweep, 4 * reps, reset)
+        t["plain_sweep_ms"] = device_ms(lambda: plain_sweep(
             lp, normal, centroid, valid, angle, l, k, init), 10)
-        bound_ms, bound_by, ops, n_normal, n_plane = k1_bound(
-            stats[0], init[0], nb, cos_gate)
-        times[name] = dict(
-            V=V, bound=nb, ms=ms, plain_ms=plain_ms, sweep_ms=sweep_ms,
-            sweep_call_ms=sweep_call_ms,
-            plain_sweep_ms=plain_sweep_ms, bound_ms=bound_ms,
-            bound_by=bound_by, ops=ops, normal_pairs=n_normal,
-            plane_pairs=n_plane,
-            full_bound_ms=nb * nb * (K1_NORMAL_OPS + K1_PLANE_OPS)
-            / PEAK_F32 * 1e3)
-    return max(errs), times
+        (t["bound_ms"], t["bound_by"], t["ops"], t["normal_pairs"],
+         t["plane_pairs"]) = k1_bound(stats[0], init[0], nb, cos_gate)
+        t["full_bound_ms"] = (nb * nb * (K1_NORMAL_OPS + K1_PLANE_OPS)
+                              / PEAK_F32 * 1e3)
+        # Propagation: kernel and host loop in turns (kernel, loop, loop,
+        # kernel), wall and device time.
+        for which in ("propagate", "host_loop", "host_loop", "propagate"):
+            fn = fused if which == "propagate" else host_loop
+            mean, least = wall_ms(fn, reps)
+            t.setdefault(f"{which}_wall_ms", []).append(mean)
+            t.setdefault(f"{which}_wall_min_ms", []).append(least)
+        t["propagate_ms"] = device_ms(fused, 10, only="label_prop_propagate")
+        t["host_loop_ms"] = device_ms(host_loop, 10)
+        t["host_loop_sweeps_ms"] = sweep_device_times(host_loop)
+        t["plain_ms"] = device_ms(lambda: lp.label_propagate_plain(
+            normal, centroid, valid, angle, l, k), 3)
+        t["plain_wall_ms"] = wall_ms(lambda: lp.label_propagate_plain(
+            normal, centroid, valid, angle, l, k), 3)[0]
+        # The sweeps the kernel runs and the labels before each (a launch
+        # capped at s sweeps): the propagation's bound counts each sweep's
+        # operations from those labels, against its bytes (stats and
+        # bound read once, labels read and written once, the flags).
+        final, n = propagate_once(lp, stats, bound, init, cos_gate, l, k, 32)
+        check(torch.equal(final, lp.label_propagate_plain(
+            normal, centroid, valid, angle, l, k)), f"{name}: labels differ")
+        t["sweeps"] = n
+        sweep_bounds = [k1_bound(stats[0], propagate_once(
+            lp, stats, bound, init, cos_gate, l, k, s)[0][0], nb, cos_gate)
+            for s in range(n)]
+        t["sweep_bounds_ms"] = [b[0] for b in sweep_bounds]
+        t["halving_bound_ms"] = halving_bound(1, V)
+        ops_s = sum(b[2] for b in sweep_bounds) / PEAK_F32
+        flag_bytes = 32 * 2 * 4  # (max_iters, P + 1) int32
+        bytes_s = (12 * V * 4 + 4 + 2 * V * 4 + flag_bytes) / PEAK_BYTES
+        t["propagate_bound_ms"] = max(ops_s, bytes_s) * 1e3
+        t["propagate_bound_by"] = "operations" if ops_s >= bytes_s else "bytes"
+        # The sweep phase: the kernel's sweeps timed as the host loop's
+        # one-sweep launches (their mean, times the kernel's count).
+        host = t["host_loop_sweeps_ms"]
+        sweep_phase_ms = sum(host) / len(host) * n
+        t["sweep_share"] = sweep_phase_ms / t["propagate_ms"]
+        t["outside_per_sweep_ms"] = (t["propagate_ms"] - sweep_phase_ms) / n
+        times[name] = t
+    return {route: max(e) for route, e in errs.items()}, times
 
 
 def label_rows(rng, P, V):
@@ -454,6 +575,12 @@ def p1_bound(P, V):
     return 3 * P * V * 4 / PEAK_BYTES * 1e3, "bytes"
 
 
+def halving_bound(P, V):
+    """ms of one in-place halving round over (P, V) int32 labels: read
+    once and written once (the table is the labels themselves)."""
+    return 2 * P * V * 4 / PEAK_BYTES * 1e3
+
+
 @functools.lru_cache(maxsize=None)
 def scene(name, seed):
     """(src, tar, T_gt) of bench.CONFIGS[name] for one seed."""
@@ -501,9 +628,27 @@ def drift(T, T_ref):
     return float(rre), float(rte)
 
 
+def zero_counts(counters, dev):
+    """Every kernel's launch count, and the propagation kernel's sweeps,
+    to 0."""
+    for mod, attr in counters.values():
+        setattr(mod, attr, 0)
+    counters["label_prop_propagate"][0].sweep_counter(dev).zero_()
+
+
+def read_counts(counters, dev):
+    """Launch counts by kernel and the propagation kernel's sweeps, read
+    after a synchronize."""
+    counts = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+    counts["sweeps"] = int(
+        counters["label_prop_propagate"][0].sweep_counter(dev))
+    return counts
+
+
 def phase_path(name, counters, dev, repeat=False):
     """One config's golden seeds through the batched main path; returns
-    each kernel's launch count in that run (counts reset just before)."""
+    each kernel's launch count in that run (counts reset just before) and
+    the sweeps the propagation kernel ran."""
     import torch
 
     import bench
@@ -516,13 +661,15 @@ def phase_path(name, counters, dev, repeat=False):
     args, T_gt = config_batch(name, seeds, model.params, model.caps, dev)
     fn = make_register_fn(model.params, model.caps, batched=True, device=dev)
 
-    for mod in counters.values():
-        mod.LAUNCHES = 0
+    zero_counts(counters, dev)
     res = fn(*args)
     torch.cuda.synchronize()
-    launches = {k: mod.LAUNCHES for k, mod in counters.items()}
-    for k, n in launches.items():
-        check(n > 0, f"the {name} path launched no {k} kernel")
+    launches = read_counts(counters, dev)
+    check(launches["label_prop_propagate"] > 0 and launches["sweeps"] > 0,
+          f"the {name} path launched no propagation kernel")
+    for k in ("label_prop_sweep", "gather_rows"):
+        check(launches[k] == 0, f"the {name} path launched the {k} kernel "
+              f"{launches[k]} times (it runs inside the propagation kernel)")
 
     T = res.transform
     check(T.shape == (len(seeds), 4, 4) and bool(torch.isfinite(T).all()),
@@ -635,8 +782,9 @@ def phase_cli():
 
 
 def phase_timing(name, dev, counters, batch=8, reps=2):
-    """Steady-state step time at ``batch`` pairs, and each kernel's
-    launches per step (the counts of the timed steps over ``reps``)."""
+    """Steady-state step time at ``batch`` pairs, each kernel's launches
+    per step and the propagation kernel's sweeps per step (the counts of
+    the timed steps over ``reps``)."""
     import torch
 
     import bench
@@ -650,14 +798,13 @@ def phase_timing(name, dev, counters, batch=8, reps=2):
     res = fn(*args)  # warm up
     torch.cuda.synchronize()
     check(bool((res.status == 0).all()), f"{name} timing batch: non-zero status")
-    for mod in counters.values():
-        mod.LAUNCHES = 0
+    zero_counts(counters, dev)
     t0 = time.perf_counter()
     for _ in range(reps):
         fn(*args)
     torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) / reps
-    per_step = {k: mod.LAUNCHES / reps for k, mod in counters.items()}
+    per_step = {k: n / reps for k, n in read_counts(counters, dev).items()}
     return batch / dt, dt, per_step, (fn, args)
 
 
@@ -693,7 +840,8 @@ def phase_profile(fn, args):
     for name, us in by_name.most_common(8):
         print(f"[profile] kernel {us / 1e3:.1f} ms over {calls[name]} "
               f"launches: {name[:90]}", flush=True)
-    for ours in ("label_prop_sweep_kernel", "gather_rows"):
+    for ours in ("label_prop_propagate_kernel", "label_prop_sweep_kernel",
+                 "gather_rows"):
         for name, us in by_name.items():
             if ours in name:
                 print(f"[profile] {ours}: {us / 1e3:.2f} ms of device time "
@@ -718,7 +866,9 @@ def main():
               "needs a CUDA card", file=sys.stderr)
         return 1
 
-    counters = {"label_prop_sweep": lp, "gather_rows": gt}
+    counters = {"label_prop_propagate": (lp, "PROPAGATIONS"),
+                "label_prop_sweep": (lp, "LAUNCHES"),
+                "gather_rows": (gt, "LAUNCHES")}
     try:
         dev = torch.device("cuda:0")
         smi = run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -733,21 +883,23 @@ def main():
         secs = phase_build([lp, gt])
         print(f"[build] label_prop.cu {secs[0]:.2f} s, gather.cu {secs[1]:.2f} s "
               f"(in parallel, {time.perf_counter() - t_start:.2f} s)", flush=True)
-        ptxas = {"label_prop_sweep": ptxas_summary(lp),
+        ptxas = {"label_prop_propagate": ptxas_summary(lp, "propagate_kernel"),
+                 "label_prop_sweep": ptxas_summary(lp, "sweep_kernel"),
                  "gather_rows": ptxas_summary(gt)}
         for name, info in ptxas.items():
+            check(info, f"no ptxas lines for {name}")
             print(f"[build] ptxas {name}: {info}", flush=True)
 
-        k1_err, k1 = phase_kernel_vs_plain(lp, dev)
-        print("[kernel] K1 labels equal to plain at V=1536, V=1000 and V=9216 "
+        lp_err, k1 = phase_kernel_vs_plain(lp, dev)
+        print("[kernel] labels of the propagation kernel and of the host loop "
+              "(K1 + P1 launches) equal to plain at V=1536, V=1000 and V=9216 "
               "(batch 2), at every edge case and at the main path's pass-1 "
               "inputs", flush=True)
         for name, t in k1.items():
             print(f"[kernel] K1 {name} pass-1 inputs (seed 0 target, V={t['V']}, "
                   f"bound {t['bound']}): one sweep {t['sweep_ms']:.4f} ms of "
                   f"device time ({t['sweep_call_ms']:.4f} ms a call with the "
-                  f"wrapper) vs plain {t['plain_sweep_ms']:.4f} ms; propagation "
-                  f"{t['ms']:.3f} ms vs plain {t['plain_ms']:.3f} ms; sweep "
+                  f"wrapper) vs plain {t['plain_sweep_ms']:.4f} ms; sweep "
                   f"bound {t['bound_ms'] * 1e3:.3f} us ({t['bound_by']}: "
                   f"{t['normal_pairs']} pairs need the normal test, "
                   f"{t['plane_pairs']} of them the plane test, {t['ops']} "
@@ -756,6 +908,25 @@ def main():
                   f"{100 * t['bound_ms'] / t['sweep_ms']:.2f}%, achieved "
                   f"{t['ops'] / t['sweep_ms'] / 1e9:.3f} TFLOP/s "
                   f"| ptxas {ptxas['label_prop_sweep']} | {smi}", flush=True)
+            host = t["host_loop_sweeps_ms"]
+            print(f"[kernel] propagation {name} pass 1: kernel "
+                  f"{t['propagate_ms']:.4f} ms device, {t['sweeps']} sweeps, "
+                  f"wall {[round(x, 4) for x in t['propagate_wall_ms']]} ms "
+                  f"(least {[round(x, 4) for x in t['propagate_wall_min_ms']]}"
+                  f"); host loop {t['host_loop_ms']:.4f} ms device ("
+                  f"{len(host)} sweeps of {[round(x, 4) for x in host]} ms), "
+                  f"wall {[round(x, 4) for x in t['host_loop_wall_ms']]} ms "
+                  f"(least {[round(x, 4) for x in t['host_loop_wall_min_ms']]}"
+                  f"), turns kernel, loop, loop, kernel; plain "
+                  f"{t['plain_ms']:.3f} ms device, {t['plain_wall_ms']:.3f} ms "
+                  f"wall; sweep phase {100 * t['sweep_share']:.1f}% of the "
+                  f"kernel's device time, outside it "
+                  f"{t['outside_per_sweep_ms'] * 1e3:.2f} us a sweep (halving "
+                  f"bound {t['halving_bound_ms'] * 1e3:.4f} us a round); "
+                  f"bound {t['propagate_bound_ms'] * 1e3:.3f} us "
+                  f"({t['propagate_bound_by']}; sweeps "
+                  f"{[round(x * 1e3, 3) for x in t['sweep_bounds_ms']]} us) | "
+                  f"ptxas {ptxas['label_prop_propagate']} | {smi}", flush=True)
 
         p1_err, p1 = phase_gather_vs_plain(gt, dev)
         print("[gather] equal to tbl[idx] at the probe's inputs (1, 1024) and "
@@ -770,10 +941,9 @@ def main():
                   f"{t['library_call_ms'] * 1e3:.2f} us; bound "
                   f"{b_ms * 1e3:.3f} us (bytes) | {smi}", flush=True)
 
-        launches = {k: 0 for k in counters}
+        launches = collections.Counter()
         for name, repeat in (("office", True), ("heritage", False)):
-            for k, n in phase_path(name, counters, dev, repeat).items():
-                launches[k] += n
+            launches.update(phase_path(name, counters, dev, repeat))
 
         phase_cli()
 
@@ -781,6 +951,9 @@ def main():
         per_step = {}
         for name in ("office", "heritage"):
             pps, dt, per_step[name], step = phase_timing(name, dev, counters)
+            check(per_step[name]["label_prop_sweep"] == 0
+                  and per_step[name]["gather_rows"] == 0,
+                  f"{name} timing: one-sweep or gather kernel launched")
             print(f"[timing] {name} batch 8: {dt * 1e3:.1f} ms/step, "
                   f"{pps:.2f} pairs/s; launches per step "
                   f"{per_step[name]} | {smi} | torch {torch.__version__} "
@@ -796,29 +969,49 @@ def main():
     her = k1["heritage"]
     g = p1[(1, 9216)]
     p1_bound_ms, p1_bound_by = p1_bound(1, 9216)
+
+    def per_step_of(k):
+        return {name: v[k] for name, v in per_step.items()}
+
     print(json.dumps({"kernels": [
+        dict(KERNELS["label_prop_propagate"],
+             launches=launches["label_prop_propagate"],
+             max_abs_err=lp_err["propagate"], ms=her["propagate_ms"],
+             plain_ms=her["plain_ms"], bound_ms=her["propagate_bound_ms"],
+             bound_by=her["propagate_bound_by"], library_ms=None,
+             sweeps=her["sweeps"], sweeps_on_main_path=launches["sweeps"],
+             launches_per_step=per_step_of("label_prop_propagate"),
+             sweeps_per_step=per_step_of("sweeps"),
+             wall_ms=her["propagate_wall_ms"],
+             host_loop_wall_ms=her["host_loop_wall_ms"],
+             host_loop_ms=her["host_loop_ms"],
+             outside_sweep_phase_us_per_sweep=her["outside_per_sweep_ms"] * 1e3,
+             sweep_phase_share=her["sweep_share"],
+             halving_bound_us=her["halving_bound_ms"] * 1e3,
+             plain_wall_ms=her["plain_wall_ms"],
+             ptxas=ptxas["label_prop_propagate"],
+             shape=f"one propagation, heritage seed 0 pass 1 (V={her['V']}, "
+                   f"bound {her['bound']}); ms device time of the kernel, "
+                   "plain_ms the plain version's device time"),
         dict(KERNELS["label_prop_sweep"], launches=launches["label_prop_sweep"],
-             max_abs_err=k1_err, ms=her["sweep_ms"],
+             max_abs_err=lp_err["host loop"], ms=her["sweep_ms"],
              plain_ms=her["plain_sweep_ms"], bound_ms=her["bound_ms"],
              bound_by=her["bound_by"], library_ms=None,
              bound_us=her["bound_ms"] * 1e3,
-             launches_per_step={k: v["label_prop_sweep"]
-                                for k, v in per_step.items()},
-             call_ms=her["sweep_call_ms"], propagation_ms=her["ms"],
-             plain_propagation_ms=her["plain_ms"],
+             launches_per_step=per_step_of("label_prop_sweep"),
+             call_ms=her["sweep_call_ms"],
              ptxas=ptxas["label_prop_sweep"],
              shape=f"one sweep, heritage seed 0 pass 1 (V={her['V']}, "
                    f"bound {her['bound']}), from the initial labels; ms "
-                   "device time"),
+                   "device time; off the main path"),
         dict(KERNELS["gather_rows"], launches=launches["gather_rows"],
              max_abs_err=p1_err, ms=g["kernel_ms"], plain_ms=g["plain_ms"],
              bound_ms=p1_bound_ms, bound_by=p1_bound_by,
              library_ms=g["library_ms"], call_ms=g["kernel_call_ms"],
              bound_us=p1_bound_ms * 1e3,
-             launches_per_step={k: v["gather_rows"]
-                                for k, v in per_step.items()},
+             launches_per_step=per_step_of("gather_rows"),
              ptxas=ptxas["gather_rows"],
-             shape="(1, 9216) int32; ms device time"),
+             shape="(1, 9216) int32; ms device time; off the main path"),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

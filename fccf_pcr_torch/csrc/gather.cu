@@ -5,17 +5,20 @@
 // Replaces tools/probe_gather.py::kernel, the per-lane gather
 // out[i] = tbl[idx[i]] on int32 (1, 1024) that probed whether
 // label-prop's pointer jump label[label] could run inside the TPU sweep
-// kernel. Here it is that pointer jump: the path-halving step between
-// label-prop sweeps (ops/label_prop.py::pointer_jump), one row per pair.
-// The clamp keeps every read inside its row (invalid slots hold 2^30).
+// kernel. Here it is that pointer jump as a launch of its own: the
+// path-halving step between the sweeps of the per-sweep host loop
+// (ops/label_prop.py::pointer_jump), one row per pair. The main path
+// halves inside csrc/label_prop.cu's propagation kernel instead, where
+// the gather is an ordinary load. The clamp keeps every read inside its
+// row (invalid slots hold 2^30).
 //
 // Design. One thread per output element over the flattened (P, V) array:
 // reads of idx and writes of out are coalesced; the table reads are
 // random within a row of V * 4 bytes (36 KB at V = 9216, so L1/L2
 // resident) and go through the read-only path (__ldg). At the main
 // path's sizes (P <= 8, V <= 9216) a launch moves under 1 MB and is
-// bound by launch latency, not bytes. Staging the row in shared memory
-// and fusing the min with the valid mask into this pass are later work.
+// bound by launch latency, not bytes, which is why the main path's
+// halving moved into the propagation kernel.
 
 #include <cuda_runtime.h>
 

@@ -1,7 +1,17 @@
-// Label-propagation sweep over the voxel affinity graph, for Hopper (sm_90a).
+// Label propagation over the voxel affinity graph, for Hopper (sm_90a).
 //
-// Replaces fccf_pcr_tpu/ops/pallas/label_prop.py::_sweep_kernel. One launch
-// is one sweep for every pair p of a batch:
+// Two entry points share one tile body:
+//
+// - fccf_label_prop_sweep: one launch is one sweep for every pair p of a
+//   batch. Replaces fccf_pcr_tpu/ops/pallas/label_prop.py::_sweep_kernel.
+// - fccf_label_prop_propagate: one launch is a whole propagation (sweep,
+//   path halving, convergence test, repeated) as a persistent cooperative
+//   kernel. The halving is the redesign of tools/probe_gather.py::kernel
+//   (P1), the per-lane gather label[label] that the TPU could not lower
+//   inside its sweep kernel and so ran between kernel calls; the loop is
+//   the reference's device-side lax.while_loop (label_prop.py:294-306).
+//
+// A sweep is
 //
 //   labels[p, i] = min(labels[p, i], min over affine j < bound[p] of labels[p, j])
 //
@@ -31,15 +41,16 @@
 // multiply and add issues alone, and at most half that peak is reachable.
 // No tensor cores: the four dot products of a pair are K = 3 products,
 // too shallow for wgmma, whose float32 input is TF32, and TF32 flips the
-// cos-5 deg predicate (TF32 is off throughout the port).
+// cos-5 deg predicate (TF32 is off throughout the port). A halving round
+// reads and writes V labels a pair: bound by bytes, far below a launch.
 //
-// Design.
-// - Fill the card: grid (row tiles, j slices, P) of 64-row x BJ-column
-//   tiles (one row a thread), BJ picked by the wrapper from V and the SM
-//   count (ops/label_prop.py::sweep_grid): 144 x 36 tiles of 64 x 256 at
-//   V = 9216, 24 x 48 of 64 x 32 at V = 1536 on 132 SMs, several waves of
-//   blocks on every SM. Blocks past bound[p] in either direction return
-//   at once.
+// Design of a sweep.
+// - Fill the card: tiles of 64 rows x BJ columns (one row a thread), BJ
+//   picked by the wrapper from V and the SM count
+//   (ops/label_prop.py::sweep_grid): 144 x 36 tiles of 64 x 256 at
+//   V = 9216, 24 x 48 of 64 x 32 at V = 1536 on 132 SMs. The sweep entry
+//   launches one block a tile, several waves on every SM; tiles past
+//   bound[p] in either direction return at once.
 //   Each row's partial minimum over its slice is merged with atomicMin;
 //   changed[p] is set only where atomicMin lowered the label.
 //   Min-relaxation is monotone, so any order of blocks reaches the same
@@ -61,8 +72,70 @@
 //   the cheap test, the other 8 fields field-major (16-byte copies where
 //   V % 4 == 0). The slice's labels are read once, at staging time; a
 //   stale label only delays a lowering by one sweep.
+//
+// Design of a propagation (one cooperative launch of G blocks of 64
+// threads, G = min(the tiles of the whole (V, V) square of every pair,
+// co-resident blocks): the occupancy query at the launch's shared memory
+// times the SM count; tiles are those of the sweep entry, so a tile's
+// work is the same). flags is (max_iters, P + 1) int32 zeros: row it
+// holds sweep it's per-pair flags and, last, its tile counter.
+// For it = 0, 1, ... while it < max_iters:
+//   (a) sweep: the active tiles of every pair (ceil(nb/64) x
+//       ceil(nb/BJ), counted by each block from bound[p]) are handed out
+//       one at a time by an atomicAdd on sweep it's tile counter, so a
+//       block that drew cheap tiles takes more, as the hardware hands out
+//       the blocks of the one-sweep grid (a fixed share per block, b,
+//       b + G, ..., left the phase as slow as its slowest block: 53 us a
+//       heritage sweep over the one-sweep grid's time on an H100). A
+//       lowered label sets flags[it, p];
+//   (b) grid barrier;
+//   (c) every thread reads the flags of sweep it: if no pair's flag is
+//       set, every thread leaves the loop alike (the labels are then a
+//       fixpoint, which halving would not change);
+//   (d) halving (P1): a grid-stride pass over the P x V labels; each row
+//       whose label is not 2^30 takes jump_rounds rounds of
+//       l[i] = min(l[i], l[min(l[i], V - 1)]), in place;
+//   (e) grid barrier.
+// The number of sweeps run is added to sweeps_out[0]. The labels are the
+// host loop's: sweep, halve, stop after a sweep that lowered nothing,
+// at most max_iters sweeps.
+//
+// Where it could go wrong, and why it does not:
+// - Stale labels from L1. A persistent block keeps L1 lines from earlier
+//   phases, and a stale, larger label of the slice could make a sweep
+//   lower nothing too early: a wrong fixpoint, not a delay. So the slice's
+//   labels are volatile loads (relaxed, system scope: served by L2, which
+//   is coherent); the row's label before each chunk, the halving's loads
+//   and the flags are __ldcg loads (L2); stores go to L2 (__stcg) and the
+//   merges are L2 atomics. The row's first read of its own label stays a
+//   plain load: a stale value is larger, which only narrows the block's
+//   test for a slice it can skip, and the candidate takes the L2 value
+//   before it is compared with any j. (__ldcg loads there and in the
+//   staging took 12 more registers a thread in ptxas.) Stats are
+//   read-only.
+// - Flags. Each iteration has its own flag slots and tile counter,
+//   zeroed by the wrapper before the launch: one slot reused would need
+//   zeroing while a slower block may still read it.
+// - In-place halving races with other threads of the same phase. Only
+//   row i's thread writes l[i] in that phase, and sweeps are fenced off
+//   by the barriers. Every label is the index of a node of its row's
+//   component and labels only fall, so whichever value of l[l[i]] a
+//   thread reads, old or new, is a node of i's component no smaller than
+//   the component minimum: the write keeps both invariants. A sweep that
+//   lowers nothing then means l[i] <= l[j] on every edge, so labels are
+//   constant on each component and equal its minimum, the plain version's
+//   fixpoint. Labels after a max_iters cap may differ between schedules,
+//   as they already do between the atomic sweep and the Jacobi plain one.
+// - Co-residency: the grid barrier deadlocks if any block is not
+//   resident, so G comes from the occupancy query, never from the tile
+//   count alone, and cudaLaunchCooperativeKernel refuses a grid that does
+//   not fit. A card without cooperative launch returns an error: the
+//   wrapper raises and never falls back to the host loop.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -105,24 +178,21 @@ __device__ __forceinline__ bool plane_ok(const float* fi, const float* sh,
   return !(dist > 1e-9f) || (fabsf(m1) < td && fabsf(m2) < td);
 }
 
-__global__ void __launch_bounds__(BI, 16)
-label_prop_sweep_kernel(const float* __restrict__ stats,
-                        const int* __restrict__ bound, int* labels,
-                        int* changed, int V, int BJ, float cos_gate, float l,
-                        float k) {
-  // shq[jj] = (nh_j, label_j); then sh[f * BJ + jj] for the fields f >= 3
-  extern __shared__ __align__(16) float smem[];
-  __shared__ int red_min[BI / 32], red_max[BI / 32];
-
-  const int p = blockIdx.z;
-  const int nb = min(bound[p], V);
-  const int i0 = blockIdx.x * BI;
-  const int j0 = blockIdx.y * BJ;
-  if (i0 >= nb || j0 >= nb) return;  // uniform over the block
+// One tile of a sweep of pair p: rows i0 .. i0 + 63 against the slice
+// j0 .. j0 + BJ - 1, with nb = the pair's bound (i0 < nb and j0 < nb).
+// Sets changed[p] where a label fell. Every thread of the block calls it,
+// and its returns are uniform over the block. smem holds (NS + 1) * BJ
+// floats, red_min and red_max BI / 32 ints each; a caller that runs
+// another tile after this one syncs the block first, as both are reused.
+__device__ __forceinline__ void sweep_tile(
+    const float* __restrict__ stats, int* labels, int* changed, int p,
+    int nb, int V, int BJ, int i0, int j0, float cos_gate, float l, float k,
+    float* smem, int* red_min, int* red_max) {
   const int jn = min(BJ, nb - j0);
 
   const float* s = stats + (size_t)p * NF * V;
   int* lab = labels + (size_t)p * V;
+  // shq[jj] = (nh_j, label_j); then sh[f * BJ + jj] for the fields f >= 3
   float4* shq = reinterpret_cast<float4*>(smem);
   float* sh = smem + BJ;  // sh[f * BJ + jj], f >= 3, starts after shq
   const int tid = threadIdx.x;
@@ -133,7 +203,7 @@ label_prop_sweep_kernel(const float* __restrict__ stats,
   // -1 for a row that no label can lower (past the bound, or invalid).
   int lmin = BIG;
   for (int jj = tid; jj < jn; jj += BI) {
-    const int v = lab[j0 + jj];
+    const int v = *reinterpret_cast<const volatile int*>(&lab[j0 + jj]);
     shq[jj].w = __int_as_float(v);
     lmin = min(lmin, v);
   }
@@ -221,6 +291,90 @@ label_prop_sweep_kernel(const float* __restrict__ stats,
   if (found && atomicMin(&lab[i], cand) > cand) atomicOr(&changed[p], 1);
 }
 
+__global__ void __launch_bounds__(BI, 16)
+label_prop_sweep_kernel(const float* __restrict__ stats,
+                        const int* __restrict__ bound, int* labels,
+                        int* changed, int V, int BJ, float cos_gate, float l,
+                        float k) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ int red_min[BI / 32], red_max[BI / 32];
+
+  const int p = blockIdx.z;
+  const int nb = min(bound[p], V);
+  const int i0 = blockIdx.x * BI;
+  const int j0 = blockIdx.y * BJ;
+  if (i0 >= nb || j0 >= nb) return;  // uniform over the block
+  sweep_tile(stats, labels, changed, p, nb, V, BJ, i0, j0, cos_gate, l, k,
+             smem, red_min, red_max);
+}
+
+__global__ void __launch_bounds__(BI, 16)
+label_prop_propagate_kernel(const float* __restrict__ stats,
+                            const int* __restrict__ bound, int* labels,
+                            int* flags, unsigned long long* sweeps_out,
+                            int P, int V, int BJ, float cos_gate, float l,
+                            float k, int max_iters, int jump_rounds) {
+  extern __shared__ __align__(16) float smem[];
+  __shared__ int red_min[BI / 32], red_max[BI / 32];
+  __shared__ int drawn;
+  const cg::grid_group grid = cg::this_grid();
+  const int G = gridDim.x;
+  const int b = blockIdx.x;
+
+  int total = 0;  // active tiles of a sweep, over every pair
+  for (int p = 0; p < P; ++p) {
+    const int nb = min(bound[p], V);
+    if (nb > 0) total += ((nb + BI - 1) / BI) * ((nb + BJ - 1) / BJ);
+  }
+
+  int it = 0;
+  while (it < max_iters) {
+    int* flag = flags + (size_t)it * (P + 1);
+    // (a) Sweep: draw tiles from the counter flag[P] until none is left;
+    // tile t of pair p is (row tile t % rows, slice t / rows), rows
+    // fastest, as the one-sweep grid orders them.
+    for (;;) {
+      if (threadIdx.x == 0) drawn = atomicAdd(&flag[P], 1);
+      __syncthreads();
+      int t = drawn;
+      if (t >= total) break;  // uniform over the block
+      int p = 0, nb = 0, rows = 1;
+      for (;; ++p) {
+        nb = min(bound[p], V);
+        if (nb <= 0) continue;
+        rows = (nb + BI - 1) / BI;
+        const int n = rows * ((nb + BJ - 1) / BJ);
+        if (t < n) break;
+        t -= n;
+      }
+      sweep_tile(stats, labels, flag, p, nb, V, BJ, (t % rows) * BI,
+                 (t / rows) * BJ, cos_gate, l, k, smem, red_min, red_max);
+      __syncthreads();  // smem, red_* and drawn are reused by the next tile
+    }
+    grid.sync();
+    ++it;
+    // (c) Uniform over the grid: every thread reads the same flags.
+    bool lowered = false;
+    for (int p = 0; p < P; ++p) lowered |= __ldcg(&flag[p]) != 0;
+    if (!lowered) break;
+    // (d) Path halving, in place; invalid slots stay at BIG.
+    if (jump_rounds > 0) {
+      const int n = P * V;
+      for (int e = b * BI + threadIdx.x; e < n; e += G * BI) {
+        const int* row = labels + (size_t)(e / V) * V;
+        const int x0 = __ldcg(&labels[e]);
+        if (x0 >= BIG) continue;
+        int x = x0;
+        for (int r = 0; r < jump_rounds; ++r)
+          x = min(x, __ldcg(&row[min(x, V - 1)]));
+        if (x < x0) __stcg(&labels[e], x);
+      }
+    }
+    grid.sync();
+  }
+  if (b == 0 && threadIdx.x == 0) atomicAdd(sweeps_out, (unsigned long long)it);
+}
+
 }  // namespace
 
 // One sweep for P pairs on `stream`, in (ceil(V / 64), ceil(V / BJ), P)
@@ -237,5 +391,55 @@ extern "C" int fccf_label_prop_sweep(const void* stats, const void* bound,
   label_prop_sweep_kernel<<<grid, BI, shmem, (cudaStream_t)stream>>>(
       (const float*)stats, (const int*)bound, (int*)labels, (int*)changed, V,
       BJ, cos_gate, l, k);
+  return (int)cudaGetLastError();
+}
+
+// A whole propagation for P pairs on `stream`, as one cooperative launch
+// on the current device: at most max_iters sweeps, each followed by
+// jump_rounds path-halving rounds, until a sweep lowers no label. flags
+// is (max_iters, P + 1) int32, all zero; sweeps_out one uint64 to which
+// the number of sweeps run is added. BJ as for fccf_label_prop_sweep.
+// Returns 0 once launched, else the CUDA error: cudaErrorNotSupported on
+// a device without cooperative launch, the launch's own error where it
+// is refused.
+extern "C" int fccf_label_prop_propagate(const void* stats, const void* bound,
+                                         void* labels, void* flags,
+                                         void* sweeps_out, int P, int V,
+                                         int BJ, float cos_gate, float l,
+                                         float k, int max_iters,
+                                         int jump_rounds, void* stream) {
+  if (P <= 0 || V <= 0 || BJ < 32 || BJ > 512 || BJ % 32 != 0 ||
+      max_iters < 0 || jump_rounds < 0 || (long long)P * V > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  int dev = 0, coop = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (err == cudaSuccess && !coop) err = cudaErrorNotSupported;
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const size_t shmem = (size_t)(NS + 1) * BJ * sizeof(float);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, label_prop_propagate_kernel, BI, shmem);
+  if (err == cudaSuccess && per_sm < 1) err = cudaErrorCooperativeLaunchTooLarge;
+  if (err != cudaSuccess) return (int)err;
+
+  const long long tiles =
+      (long long)P * ((V + BI - 1) / BI) * ((V + BJ - 1) / BJ);
+  const int G = (int)(tiles < (long long)per_sm * sms ? tiles
+                                                      : (long long)per_sm * sms);
+  const float* stats_ = (const float*)stats;
+  const int* bound_ = (const int*)bound;
+  int* labels_ = (int*)labels;
+  int* flags_ = (int*)flags;
+  unsigned long long* sweeps_ = (unsigned long long*)sweeps_out;
+  void* args[] = {&stats_, &bound_,   &labels_, &flags_,    &sweeps_,
+                  &P,      &V,        &BJ,      &cos_gate,  &l,
+                  &k,      &max_iters, &jump_rounds};
+  err = cudaLaunchCooperativeKernel((const void*)label_prop_propagate_kernel,
+                                    dim3(G), dim3(BI), args, shmem,
+                                    (cudaStream_t)stream);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }

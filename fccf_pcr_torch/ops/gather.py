@@ -10,9 +10,11 @@ Two versions of one function, ``gather_rows``:
   - the plain PyTorch version ``gather_rows_plain`` (``torch.gather``
     with the same clamp), taken for CPU tensors.
 
-On the main path it is label-prop's path-halving step ``label[label]``
-between kernel sweeps (``ops.label_prop.pointer_jump``). ``LAUNCHES``
-counts kernel launches.
+It is label-prop's path-halving step ``label[label]`` between sweeps in
+the per-sweep host loop (``ops.label_prop._label_propagate_host_loop``,
+kept for A/B timing); the main path halves inside the propagation kernel
+of ``csrc/label_prop.cu`` and launches no gather. ``LAUNCHES`` counts
+kernel launches.
 """
 
 from __future__ import annotations

@@ -1,12 +1,15 @@
-"""Connected-component min labels of the voxel affinity graph (K1).
+"""Connected-component min labels of the voxel affinity graph (K1, P1).
 
 Two versions of one function, ``label_propagate``:
 
-  - the CUDA kernel ``csrc/label_prop.cu`` (one launch = one sweep for a
-    batch of pairs), which replaces the JAX package's Pallas kernel
-    ``fccf_pcr_tpu/ops/pallas/label_prop.py::_sweep_kernel``; it is taken
-    for CUDA tensors, and there is no fallback: a missing ``nvcc``, a
-    failed build or a refused launch raises;
+  - the CUDA kernel ``csrc/label_prop.cu``, taken for CUDA tensors: one
+    cooperative launch runs the whole propagation on the card (sweeps,
+    the path halving between them and the convergence test), with no
+    host sync. Its sweep is the port of the JAX package's Pallas kernel
+    ``fccf_pcr_tpu/ops/pallas/label_prop.py::_sweep_kernel`` (K1), its
+    halving the redesign of ``tools/probe_gather.py::kernel`` (P1). There
+    is no fallback: a missing ``nvcc``, a failed build, a card without
+    cooperative launch or a refused launch raises;
   - the plain PyTorch version ``label_propagate_plain`` (the JAX package's
     XLA path: ``_pairwise_affinity`` + ``_label_propagate`` +
     ``pointer_jump``, ``features/faces.py:58-151``), taken for CPU tensors.
@@ -14,11 +17,18 @@ Two versions of one function, ``label_propagate``:
 Both reach the same integer fixpoint: labels[i] is the minimum valid slot
 index of i's component, and invalid slots hold ``_BIG``.
 
-The kernel is built with nvcc into ``fccf_pcr_torch/build/`` at first use
-and bound with ctypes (``ops.cuda_build``). ``LAUNCHES`` counts kernel
-launches. The path halving between the kernel's sweeps is the gather
-kernel of ``ops.gather`` (P1); the plain version halves with the plain
-gather.
+The library also exports one sweep a launch (``_launch_sweep``), which
+``_label_propagate_host_loop`` drives from the host with the gather
+kernel of ``ops.gather`` between sweeps and one host sync a sweep: the
+design before the single launch, kept for A/B timing
+(``tools/torch_k1_ab.py``, ``chip_smoke.py``) and never taken by
+``label_propagate``.
+
+The kernels are built with nvcc into ``fccf_pcr_torch/build/`` at first
+use and bound with ctypes (``ops.cuda_build``). ``PROPAGATIONS`` counts
+launches of the propagation kernel, ``LAUNCHES`` launches of the
+one-sweep kernel; ``sweep_counter(device)`` holds the sweeps the
+propagation kernel has run on that device.
 """
 
 from __future__ import annotations
@@ -37,8 +47,12 @@ _BIG = 2**30
 # Path-halving rounds between kernel sweeps (the JAX wrapper's default).
 _JUMP_ROUNDS = 1
 
-# Number of kernel launches (sweeps) made by label_propagate.
+# Launches of the one-sweep kernel (_launch_sweep).
 LAUNCHES = 0
+# Launches of the propagation kernel (_launch_propagate).
+PROPAGATIONS = 0
+# device -> (1,) int64 count of the sweeps the propagation kernel ran.
+_SWEEPS = {}
 
 
 def _bind(lib):
@@ -48,6 +62,14 @@ def _bind(lib):
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_float, ctypes.c_float, ctypes.c_float,
         ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
+    fn = lib.fccf_label_prop_propagate
+    fn.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_float,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
     fn.restype = ctypes.c_int
 
@@ -198,37 +220,101 @@ def _launch_sweep(stats, bound, labels, changed, cos_gate, l, k):
         changed.data_ptr(), P, V, BJ, cos_gate, float(l), float(k),
         stream,
     )
-    LAUNCHES += 1
     if rc != 0:
         raise RuntimeError(f"label-prop kernel launch failed: CUDA error {rc}")
+    LAUNCHES += 1
 
 
-def _label_propagate_kernel(normal, centroid, valid, angle_thresh_deg, l, k,
-                            bound, max_iters):
+def sweep_counter(device) -> torch.Tensor:
+    """(1,) int64 on ``device``: the sweeps run there by the propagation
+    kernel since the counter was made or last zeroed. The kernel adds to
+    it on the card; read it after a synchronize."""
+    device = torch.device(device)
+    if device not in _SWEEPS:
+        _SWEEPS[device] = torch.zeros((1,), dtype=torch.int64, device=device)
+    return _SWEEPS[device]
+
+
+def _launch_propagate(stats, bound, labels, flags, sweeps, cos_gate, l, k,
+                      max_iters, jump_rounds=_JUMP_ROUNDS):
+    """A whole propagation for every pair, in place on ``labels``: one
+    cooperative launch on the current stream, asynchronously, with no
+    host sync. ``flags`` is (max_iters, P + 1) int32 zeros (each sweep's
+    per-pair flags and tile counter); the number of sweeps run is added
+    to ``sweeps`` ((1,) int64). Raises if the card has no cooperative
+    launch or the launch is refused."""
+    global PROPAGATIONS
+    P, V = labels.shape
+    dev = labels.device
+    if dev.type != "cuda":
+        raise ValueError(f"the label-prop kernel needs CUDA tensors, got {dev}")
+    _check(stats, "stats", torch.float32, (P, 12, V), dev)
+    _check(bound, "bound", torch.int32, (P,), dev)
+    _check(labels, "labels", torch.int32, (P, V), dev)
+    _check(flags, "flags", torch.int32, (max_iters, P + 1), dev)
+    _check(sweeps, "sweeps", torch.int64, (1,), dev)
+    if jump_rounds < 0:
+        raise ValueError(f"jump_rounds must be >= 0, got {jump_rounds}")
+    lib = build()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    BJ, _, _ = sweep_grid(V, _sm_count(dev))
+    rc = lib.fccf_label_prop_propagate(
+        stats.data_ptr(), bound.data_ptr(), labels.data_ptr(),
+        flags.data_ptr(), sweeps.data_ptr(), P, V, BJ, cos_gate, float(l),
+        float(k), max_iters, jump_rounds, stream,
+    )
+    if rc != 0:
+        raise RuntimeError(
+            f"label-prop propagation kernel launch failed: CUDA error {rc}")
+    PROPAGATIONS += 1
+
+
+def _kernel_inputs(normal, centroid, valid, bound):
+    """(stats, (P,) int32 bound, initial labels) on normal's device."""
     P, V, _ = normal.shape
     dev = normal.device
     stats = _pack_stats(normal.to(torch.float32), centroid.to(torch.float32),
                         valid)
     if bound is None:
-        bound_t = torch.full((P,), V, dtype=torch.int32, device=dev)
+        bound = V
+    if isinstance(bound, int):
+        bound_t = torch.full((P,), bound, dtype=torch.int32, device=dev)
     else:
         bound_t = torch.as_tensor(bound, device=dev).to(torch.int32)
         bound_t = bound_t.reshape(-1).expand(P).contiguous()
-    big = torch.full((P, V), _BIG, dtype=torch.int32, device=dev)
     ar = torch.arange(V, dtype=torch.int32, device=dev).expand(P, V)
-    labels = torch.where(valid, ar, big).contiguous()
-    changed = torch.zeros((P,), dtype=torch.int32, device=dev)
+    labels = torch.where(valid, ar, _BIG).contiguous()
+    return stats, bound_t, labels
+
+
+def _label_propagate_fused(normal, centroid, valid, angle_thresh_deg, l, k,
+                           bound, max_iters):
+    """The propagation kernel: one launch, no host sync."""
+    stats, bound_t, labels = _kernel_inputs(normal, centroid, valid, bound)
+    flags = torch.zeros((max_iters, labels.shape[0] + 1), dtype=torch.int32,
+                        device=labels.device)
+    _launch_propagate(stats, bound_t, labels, flags,
+                      sweep_counter(labels.device), cos_deg(angle_thresh_deg),
+                      l, k, max_iters)
+    return labels
+
+
+def _label_propagate_host_loop(normal, centroid, valid, angle_thresh_deg, l,
+                               k, bound, max_iters):
+    """The per-sweep host loop: one sweep launch, one gather launch (path
+    halving) and one host sync (the flag) a sweep. For A/B timing
+    against the propagation kernel; ``label_propagate`` never takes it."""
+    stats, bound_t, labels = _kernel_inputs(normal, centroid, valid, bound)
+    P, V = labels.shape
+    big = torch.full((P, V), _BIG, dtype=torch.int32, device=labels.device)
+    changed = torch.zeros((P,), dtype=torch.int32, device=labels.device)
     cos_gate = cos_deg(angle_thresh_deg)
     for _ in range(max_iters):
         changed.zero_()
         _launch_sweep(stats, bound_t, labels, changed, cos_gate, l, k)
-        # Path halving between sweeps (the gather kernel); invalid slots
-        # stay at _BIG.
         labels = torch.where(
             valid, pointer_jump(labels, V, _JUMP_ROUNDS), big
         ).contiguous()
-        # Reading the flag is one host sync per sweep; removing it (a
-        # device-side loop or a CUDA graph) is later work.
         if not bool(torch.any(changed)):
             break
     return labels
@@ -243,7 +329,7 @@ def label_propagate(normal, centroid, valid, angle_thresh_deg, l, k,
     it; the kernel prunes its sweeps to that prefix, the plain version
     ignores it. ``max_iters`` caps the sweeps. Returns int32 labels of
     valid's shape. CPU tensors take the plain version, CUDA tensors the
-    kernel; any other device raises.
+    propagation kernel (no host sync); any other device raises.
     """
     squeeze = normal.dim() == 2
     if squeeze:
@@ -253,7 +339,7 @@ def label_propagate(normal, centroid, valid, angle_thresh_deg, l, k,
             normal, centroid, valid, angle_thresh_deg, l, k, max_iters
         )
     elif normal.device.type == "cuda":
-        labels = _label_propagate_kernel(
+        labels = _label_propagate_fused(
             normal, centroid, valid, angle_thresh_deg, l, k, bound, max_iters
         )
     else:

@@ -1,8 +1,10 @@
-"""The port on a CUDA card: the label-prop kernel (K1) and the gather
-kernel (P1) against their plain versions (K1 also at its edge cases:
-bounds 0 and 1, no valid row, one component spanning every voxel, only
-isolated voxels, V under one tile), the main path on the card against
-the port on the CPU, and the entry points' default device.
+"""The port on a CUDA card: the label-prop propagation kernel (K1's sweep
+and P1's path halving in one launch), the per-sweep host loop and the
+gather kernel against their plain versions (label prop also at its edge
+cases: bounds 0 and 1, no valid row, one component spanning every voxel,
+only isolated voxels, V under one tile; under a cap on the sweeps; at the
+widest slices; with no host sync), the main path on the card against the
+port on the CPU, and the entry points' default device.
 
 This file imports no jax, so it runs on a machine without it (the
 repository's conftest.py imports jax, hence --noconftest):
@@ -58,13 +60,13 @@ def test_kernel_matches_plain_tail_and_bounds(cuda, angle, l, k):
     normal, centroid, valid = (
         torch.from_numpy(np.stack([s[i] for s in stats])) for i in range(3)
     )
-    before = lp.LAUNCHES
+    before = lp.PROPAGATIONS
     got = lp.label_propagate(
         normal.to(cuda), centroid.to(cuda), valid.to(cuda), angle, l, k,
         bound=torch.tensor(bounds, dtype=torch.int32, device=cuda),
     )
     torch.cuda.synchronize()
-    assert lp.LAUNCHES > before
+    assert lp.PROPAGATIONS == before + 1
     plain_gpu = lp.label_propagate_plain(
         normal.to(cuda), centroid.to(cuda), valid.to(cuda), angle, l, k
     )
@@ -74,9 +76,9 @@ def test_kernel_matches_plain_tail_and_bounds(cuda, angle, l, k):
 
 
 def test_kernel_matches_plain_at_building_scale(cuda):
-    """K1 at the heritage preset's V=9216, two pairs with pass-1 and
-    pass-2 sized bounds; the path halving goes through the gather
-    kernel."""
+    """The propagation kernel at the heritage preset's V=9216, two pairs
+    with pass-1 and pass-2 sized bounds: one launch, and neither the
+    one-sweep kernel nor the gather kernel."""
     rng = np.random.default_rng(9216)
     bounds = (8526, 100)
     stats = [_clustered(rng, 9216, b, n_groups=12) for b in bounds]
@@ -84,13 +86,13 @@ def test_kernel_matches_plain_at_building_scale(cuda):
         torch.from_numpy(np.stack([s[i] for s in stats])).to(cuda)
         for i in range(3)
     )
-    k1, g = lp.LAUNCHES, gt.LAUNCHES
+    k1, g, prop = lp.LAUNCHES, gt.LAUNCHES, lp.PROPAGATIONS
     got = lp.label_propagate(
         normal, centroid, valid, 5.0, 0.5, 5.0,
         bound=torch.tensor(bounds, dtype=torch.int32, device=cuda),
     )
     torch.cuda.synchronize()
-    assert lp.LAUNCHES > k1 and gt.LAUNCHES > g
+    assert (lp.LAUNCHES, gt.LAUNCHES, lp.PROPAGATIONS) == (k1, g, prop + 1)
     want = lp.label_propagate_plain(normal, centroid, valid, 5.0, 0.5, 5.0)
     np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
 
@@ -151,6 +153,107 @@ def test_kernel_matches_plain_at_edge_cases(cuda, name):
         assert n_comp == [1536]
 
 
+def _on(cuda, arrays, bounds):
+    normal, centroid, valid = (torch.from_numpy(a).to(cuda) for a in arrays)
+    return normal, centroid, valid, torch.tensor(bounds, dtype=torch.int32,
+                                                 device=cuda)
+
+
+@pytest.mark.parametrize("name", [
+    "bounds_0_and_1", "no_valid_row", "one_component", "only_isolated",
+    "V_40", "V_20"])
+def test_host_loop_matches_plain_at_edge_cases(cuda, name):
+    """The per-sweep host loop (one-sweep kernel + gather kernel), kept
+    for A/B timing, reaches the plain labels too."""
+    normal, centroid, valid, bound = _on(cuda, *_edge_case(name))
+    k1, g = lp.LAUNCHES, gt.LAUNCHES
+    got = lp._label_propagate_host_loop(normal, centroid, valid, 5.0, 0.5,
+                                        5.0, bound, 32)
+    torch.cuda.synchronize()
+    assert lp.LAUNCHES > k1 and gt.LAUNCHES > g
+    want = lp.label_propagate_plain(normal, centroid, valid, 5.0, 0.5, 5.0)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+
+
+def _propagate(normal, centroid, valid, bound, max_iters, jump_rounds=1):
+    """One launch of the propagation kernel: (labels, sweeps run)."""
+    stats, bound_t, labels = lp._kernel_inputs(normal, centroid, valid, bound)
+    flags = torch.zeros((max_iters, labels.shape[0] + 1), dtype=torch.int32,
+                        device=labels.device)
+    sweeps = torch.zeros((1,), dtype=torch.int64, device=labels.device)
+    lp._launch_propagate(stats, bound_t, labels, flags, sweeps,
+                         lp.cos_deg(5.0), 0.5, 5.0, max_iters, jump_rounds)
+    torch.cuda.synchronize()
+    return labels, int(sweeps)
+
+
+@pytest.mark.parametrize("max_iters", [1, 2, 32])
+def test_propagation_respects_the_sweep_cap(cuda, max_iters):
+    """A cap of 1 or 2 sweeps stops the device loop there; the labels are
+    then an upper bound of the fixpoint (labels only fall) and no larger
+    than the initial ones. Uncapped, it reaches the plain labels."""
+    rng = np.random.default_rng(77)
+    arrays = [np.stack([a]) for a in _clustered(rng, 9216, 8526, 12)]
+    normal, centroid, valid, bound = _on(cuda, arrays, (8526,))
+    got, sweeps = _propagate(normal, centroid, valid, bound, max_iters)
+    want = lp.label_propagate_plain(normal, centroid, valid, 5.0, 0.5, 5.0)
+    init = torch.where(valid, torch.arange(9216, device=cuda), 2**30)
+    assert 1 <= sweeps <= max_iters
+    assert bool((got >= want).all()) and bool((got <= init).all())
+    if max_iters == 32:
+        assert sweeps >= 2  # the last sweep lowers nothing
+        np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+
+
+@pytest.mark.parametrize("jump_rounds", [0, 3])
+def test_propagation_any_halving_rounds(cuda, jump_rounds):
+    (normal, centroid, valid), bounds = _edge_case("bounds_0_and_1")
+    arrays = [np.concatenate([a, b[None]]) for a, b in zip(
+        (normal, centroid, valid), _clustered(np.random.default_rng(3), 700,
+                                              700))]
+    normal, centroid, valid, bound = _on(cuda, arrays, bounds + (700,))
+    got, _ = _propagate(normal, centroid, valid, bound, 32, jump_rounds)
+    want = lp.label_propagate_plain(normal, centroid, valid, 5.0, 0.5, 5.0)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+
+
+def test_propagation_at_the_widest_slices(cuda):
+    """V = 12288 gets 512-column slices on an H100, the most shared memory
+    a block of the cooperative grid asks for: it launches (every block
+    co-resident) and reaches the plain labels."""
+    V = 12288
+    if lp.sweep_grid(V, lp._sm_count(cuda))[0] != 512:
+        pytest.skip("this card's SM count gives narrower slices at V=12288")
+    rng = np.random.default_rng(512)
+    arrays = [np.stack([a]) for a in _clustered(rng, V, 11000, 12)]
+    normal, centroid, valid, bound = _on(cuda, arrays, (11000,))
+    got, sweeps = _propagate(normal, centroid, valid, bound, 32)
+    want = lp.label_propagate_plain(normal, centroid, valid, 5.0, 0.5, 5.0)
+    assert 1 <= sweeps <= 32
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+
+
+def test_label_propagate_makes_no_host_sync(cuda):
+    """label_propagate on CUDA tensors (the main path's form: a 0-d
+    tensor bound) never waits for the card: CUDA's sync debug mode raises
+    on any synchronizing call."""
+    rng = np.random.default_rng(4)
+    normal, centroid, valid = (torch.from_numpy(a).to(cuda)
+                               for a in _clustered(rng, 1536, 1400))
+    bound = torch.amax(torch.where(valid, torch.arange(1536, device=cuda),
+                                   -1)) + 1
+    lp.label_propagate(normal, centroid, valid, 5.0, 0.5, 5.0, bound=bound)
+    torch.cuda.synchronize()  # built and warm
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = lp.label_propagate(normal, centroid, valid, 5.0, 0.5, 5.0,
+                                 bound=bound)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    want = lp.label_propagate_plain(normal, centroid, valid, 5.0, 0.5, 5.0)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+
+
 @pytest.mark.parametrize("shape", [(1, 1024), (8, 9216)])
 def test_gather_kernel_matches_plain(cuda, shape):
     rng = np.random.default_rng(shape[0])
@@ -191,6 +294,31 @@ def test_kernel_rejects_bad_inputs(cuda):
         lp._launch_sweep(stats.cpu(), bound, labels, changed, 0.99, 0.5, 5.0)
 
 
+def test_propagation_kernel_rejects_bad_inputs(cuda):
+    labels = torch.zeros((1, 64), dtype=torch.int32, device=cuda)
+    bound = torch.full((1,), 64, dtype=torch.int32, device=cuda)
+    stats = torch.zeros((1, 12, 64), device=cuda)
+    flags = torch.zeros((4, 2), dtype=torch.int32, device=cuda)
+    sweeps = torch.zeros((1,), dtype=torch.int64, device=cuda)
+    args = (0.99, 0.5, 5.0, 4)
+    before = lp.PROPAGATIONS
+    with pytest.raises(ValueError):  # wrong dtype
+        lp._launch_propagate(stats.double(), bound, labels, flags, sweeps,
+                             *args)
+    with pytest.raises(ValueError):  # not contiguous
+        lp._launch_propagate(stats.transpose(1, 2).contiguous().transpose(
+            1, 2), bound, labels, flags, sweeps, *args)
+    with pytest.raises(ValueError):  # wrong device
+        lp._launch_propagate(stats, bound.cpu(), labels, flags, sweeps, *args)
+    with pytest.raises(ValueError):  # flags not (max_iters, P + 1)
+        lp._launch_propagate(stats, bound, labels, flags[:2], sweeps, *args)
+    with pytest.raises(ValueError):  # sweep counter not int64
+        lp._launch_propagate(stats, bound, labels, flags, sweeps.int(), *args)
+    with pytest.raises(ValueError):  # negative halving rounds
+        lp._launch_propagate(stats, bound, labels, flags, sweeps, *args, -1)
+    assert lp.PROPAGATIONS == before
+
+
 def test_make_register_fn_defaults_to_the_card(cuda):
     caps = TEST_CAPS
     params = FCCFParams(leaf_size=0.25)
@@ -198,10 +326,10 @@ def test_make_register_fn_defaults_to_the_card(cuda):
                                       clutter_points=900)
     args = synthetic.pad_points(src, caps.max_points) + synthetic.pad_points(
         tar, caps.max_points)
-    before = lp.LAUNCHES
+    before = lp.PROPAGATIONS
     res = make_register_fn(params, caps)(*args)
     assert res.transform.device.type == "cuda"
-    assert lp.LAUNCHES > before
+    assert lp.PROPAGATIONS > before
 
 
 def test_register_pair_on_card_matches_cpu(cuda):

@@ -1,6 +1,7 @@
-"""Label propagation (K1): the port's plain PyTorch version against the
-JAX Pallas kernel in interpret mode and the JAX XLA path, and the CUDA
-kernel against the plain version on the card.
+"""Label propagation (K1, P1): the port's plain PyTorch version against
+the JAX Pallas kernel in interpret mode and the JAX XLA path, a numpy
+model of the CUDA propagation kernel's schedule against the JAX XLA path,
+and the CUDA kernel against the plain version on the card.
 
 Labels are integers and must be EQUAL (no tolerance)."""
 
@@ -111,6 +112,7 @@ def test_cpu_never_launches_the_kernel():
     normal, centroid, valid = _clustered(5, 256)
     _port(normal, centroid, valid)
     assert tlp.LAUNCHES == before == 0
+    assert tlp.PROPAGATIONS == 0
 
 
 def test_other_devices_raise():
@@ -134,11 +136,11 @@ def test_kernel_matches_plain_on_cuda(V):
     centroid = torch.from_numpy(np.stack([p[1] for p in pairs])).to(dev)
     valid = torch.from_numpy(np.stack([p[2] for p in pairs])).to(dev)
     bound = torch.tensor([V, 97], dtype=torch.int32, device=dev)
-    before = tlp.LAUNCHES
+    before = tlp.PROPAGATIONS
     got = tlp.label_propagate(normal, centroid, valid, 5.0, 0.5, 5.0,
                               bound=bound)
     torch.cuda.synchronize()
-    assert tlp.LAUNCHES > before
+    assert tlp.PROPAGATIONS == before + 1
     want = tlp.label_propagate_plain(normal, centroid, valid, 5.0, 0.5, 5.0)
     np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
 
@@ -159,3 +161,114 @@ def test_sweep_grid_covers_the_square_once(V):
     np.testing.assert_array_equal(cover, 1)
     if V >= 1536:
         assert rows * cols >= 8 * 132
+
+
+# ------------------------------------------- the propagation kernel's schedule --
+
+
+def _ring(seed, V=120):
+    """Voxels on a circle of radius 10 at 3 deg steps, normals radial: only
+    neighbours on the circle are affine (6 deg fails the 5 deg gate), so
+    components are long chains (arcs between invalid slots). Slots are
+    shuffled, so labels do not fall along a chain."""
+    rng = np.random.default_rng(seed)
+    a = np.deg2rad(3.0 * np.arange(V))
+    order = rng.permutation(V)
+    normal = np.stack([np.cos(a), np.sin(a), np.zeros(V)], 1)[order]
+    centroid = 10.0 * normal
+    valid = rng.uniform(size=V) < 0.95
+    return normal.astype(np.float32), centroid.astype(np.float32), valid
+
+
+def _kernel_schedule(aff, valid, rng, jump_rounds, sweep, max_iters=64):
+    """numpy model of csrc/label_prop.cu's propagation kernel: a sweep
+    (Jacobi from the labels before it, or ``in_place``: rows in a random
+    order, each reading the labels as the others leave them, as the
+    atomicMin merges do); stop if it lowered nothing, else ``jump_rounds``
+    rounds of path halving in place, rows in a random order. Returns the
+    labels and the number of sweeps."""
+    V = valid.shape[0]
+    lab = np.where(valid, np.arange(V), _BIG_NP).astype(np.int64)
+    sweeps = 0
+    while sweeps < max_iters:
+        sweeps += 1
+        if sweep == "jacobi":
+            neigh = np.where(aff, lab[None, :], _BIG_NP).min(axis=1)
+            lowered = bool((neigh < lab).any())
+            lab = np.minimum(lab, neigh)
+        else:
+            lowered = False
+            for i in rng.permutation(V):
+                m = lab[aff[i]].min(initial=_BIG_NP)
+                if valid[i] and m < lab[i]:
+                    lab[i], lowered = m, True
+        if not lowered:
+            break
+        for i in rng.permutation(V):
+            if lab[i] >= _BIG_NP:
+                continue
+            for _ in range(jump_rounds):
+                lab[i] = min(lab[i], lab[min(lab[i], V - 1)])
+    return lab, sweeps
+
+
+_BIG_NP = 2**30
+
+
+@pytest.mark.parametrize("sweep", ["jacobi", "in_place"])
+@pytest.mark.parametrize("jump_rounds", [0, 1, 2])
+@pytest.mark.parametrize("graph", ["clustered", "ring"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_kernel_schedule_reaches_the_reference_fixpoint(seed, graph,
+                                                        jump_rounds, sweep):
+    """Any order of rows in the sweep and in the in-place halving, and any
+    number of halving rounds, ends at the JAX package's labels
+    (``_label_propagate(_pairwise_affinity(...))``) on random clustered
+    graphs and on long chains."""
+    if graph == "clustered":
+        normal, centroid, valid = _clustered(40 + seed, 300)
+    else:
+        normal, centroid, valid = _ring(40 + seed)
+    want = _jax_xla(normal, centroid, valid)
+    aff = np.asarray(_pairwise_affinity(
+        jnp.asarray(normal), jnp.asarray(centroid), jnp.asarray(valid),
+        5.0, 0.5, 5.0))
+    rng = np.random.default_rng(seed)
+    got, sweeps = _kernel_schedule(aff, valid, rng, jump_rounds, sweep)
+    np.testing.assert_array_equal(got, want)
+    assert sweeps < 64
+    if graph == "ring":  # chains: more than one component, more than one sweep
+        assert len(np.unique(got[valid])) >= 2 and sweeps >= 3
+
+
+@pytest.mark.parametrize("bound", [None, 40, "tensor"])
+def test_kernel_inputs(bound):
+    """The kernels' inputs, built on the CPU: field-major stats, one bound
+    a pair, initial labels (slot index, 2^30 where invalid)."""
+    normal, centroid, valid = _clustered(8, 100, prefix=60)
+    P = 2
+    n, c, v = (torch.from_numpy(np.stack([a, a])) for a in
+               (normal, centroid, valid))
+    if bound == "tensor":
+        bound = torch.tensor(60)
+    stats, bound_t, labels = tlp._kernel_inputs(n, c, v, bound)
+    assert stats.shape == (P, 12, 100) and stats.is_contiguous()
+    assert bound_t.dtype == torch.int32 and bound_t.shape == (P,)
+    want_bound = {None: 100, 40: 40}.get(bound, 60)
+    assert bound_t.tolist() == [want_bound] * P
+    want = np.where(valid, np.arange(100), 2**30)
+    assert labels.dtype == torch.int32 and labels.is_contiguous()
+    np.testing.assert_array_equal(labels.numpy(), np.stack([want, want]))
+    np.testing.assert_array_equal(stats[0, 11].numpy(), valid.astype(np.float32))
+
+
+def test_propagation_kernel_refuses_cpu_tensors():
+    normal, centroid, valid = _clustered(9, 64)
+    stats, bound, labels = tlp._kernel_inputs(
+        *(torch.from_numpy(a)[None] for a in (normal, centroid, valid)), None)
+    flags = torch.zeros((4, 2), dtype=torch.int32)
+    sweeps = torch.zeros((1,), dtype=torch.int64)
+    with pytest.raises(ValueError):
+        tlp._launch_propagate(stats, bound, labels, flags, sweeps, 0.99, 0.5,
+                              5.0, 4)
+    assert tlp.PROPAGATIONS == 0
