@@ -19,7 +19,9 @@ result:
      tail) and V=9216 (heritage), batch 2 (a pass-1 prefix bound and a
      small pass-2 bound), and the edge cases (bounds 0 and 1, no valid
      row, one component spanning every voxel, only isolated voxels, V
-     under one tile, P=3 with mixed bounds); labels must be equal. Then
+     under one tile, P=3 with mixed bounds, P=3 pairs that converge at
+     different sweeps, so the kernel drops a pair at its fixpoint from
+     the later sweeps); labels must be equal. Then
      the main path's own pass-1 inputs (seed 0's target cloud at office
      and heritage): one sweep and its plain version timed, with the
      bound and the roofline share; one propagation through the kernel
@@ -32,13 +34,17 @@ result:
      beside torch.gather alone (the library call, never called by the
      port);
   5. the main path at the full eth-office preset: bench.CONFIGS["office"]
-     scenes for seeds 0-3 -> pre_downsample -> batched register_pair on
-     the card, held to the office rows of tests/golden/pipeline.json
-     (transform within 0.1 deg / 0.02 m, status and kept mask equal) and
-     to bench.GATES["office"] against ground truth; the propagation
-     kernel's launch count must grow and the one-sweep and gather
-     kernels' must not (the main path launches neither); a second run
-     must give bitwise-equal transforms;
+     scenes for seeds 0-3 -> one batched pre_downsample a side -> the
+     batched program (make_register_fn(batched=True), one program for
+     the batch) on the card, held to the office rows of
+     tests/golden/pipeline.json (transform within 0.1 deg / 0.02 m,
+     status and kept mask equal) and to bench.GATES["office"] against
+     ground truth; the propagation kernel's launch count must grow and
+     the one-sweep and gather kernels' must not (the main path launches
+     neither); each pair registered alone (P = 1) must match its batch
+     row (status, kept mask, hypothesis and face counts equal, transform
+     within 1e-3 deg / 1e-4 m); a second run must give bitwise-equal
+     transforms;
   6. the building-scale path at the full heritage preset (two-key
      voxelization, V=9216), seeds 0-3, held to its golden rows and
      bench.GATES["heritage"] the same way;
@@ -49,7 +55,11 @@ result:
      bench.GATES["resso"];
   8. steady-state step time at batch 8 (build excluded), office and
      heritage, in pairs/s, each kernel's launches per step and the
-     sweeps the propagation kernel ran;
+     sweeps the propagation kernel ran (at most 4 propagation launches a
+     step, no one-sweep or gather launch), and per step: every kernel
+     launched (torch.profiler), the host syncs (counted under
+     torch.cuda.set_sync_debug_mode("warn")) and the peak device memory
+     (torch.cuda.max_memory_allocated);
   9. one heritage batch-8 step under torch.profiler: host time per stage
      (register.py's record_function scopes), the device's busy share of
      the step, and the kernels with the most device time.
@@ -236,7 +246,29 @@ def edge_cases(rng):
         cases.append((f"V={V} under one tile", n, c, v, (V,)))
     n, c, v = stack([one(700, 700), one(700, 40), one(700, 1)])
     cases.append(("P=3 mixed bounds", n, c, v, (700, 40, 1)))
+    n, c, v = stack([ring(2), one(700, 700), ring(0)])
+    cases.append(("P=3 converging at different sweeps", n, c, v,
+                  (700, 700, 700)))
     return cases
+
+
+def ring(seed, V=700, n=120):
+    """n voxels on a circle of radius 10 at 3 deg steps, normals radial,
+    slots shuffled, ~5% invalid, in the first n of V slots: only
+    neighbours on the circle are affine (6 deg fails the 5 deg gate), so
+    components are long chains that take 12-14 sweeps to settle (seeds 2
+    and 0; a numpy model of the kernel's schedule, Jacobi sweeps), where
+    a clustered pair takes 2-3."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    a = np.deg2rad(3.0 * np.arange(n))
+    normal = np.zeros((V, 3), np.float32)
+    normal[:n] = np.stack([np.cos(a), np.sin(a), np.zeros(n)], 1)[
+        rng.permutation(n)]
+    valid = np.zeros(V, bool)
+    valid[:n] = rng.uniform(size=n) < 0.95
+    return normal, 10.0 * normal, valid
 
 
 def k1_against_plain(lp, dev, normal, centroid, valid, bounds, what,
@@ -296,9 +328,10 @@ def main_path_k1_inputs(name, dev):
                          device=dev)(*args)
     finally:
         faces.label_propagate = propagate
+    # The first call is pass 1 of the batch's 2P clouds, targets first.
     (normal, centroid, valid, angle, l, k), kw = calls[0]
-    bound = torch.as_tensor(kw["bound"], device=dev).reshape(1)
-    return (normal[None], centroid[None], valid[None], angle, l, k,
+    bound = torch.as_tensor(kw["bound"], device=dev).reshape(-1)[:1]
+    return (normal[:1], centroid[:1], valid[:1], angle, l, k,
             bound.to(torch.int32))
 
 
@@ -616,6 +649,21 @@ def config_batch(name, seeds, params, caps, dev):
     return args, torch.from_numpy(np.stack(gts).astype(np.float64))
 
 
+def rotation_gap(T, T_ref):
+    """(deg, m) between two transforms: the rotation angle from
+    |R - R_ref| (2 sqrt(2) sin(angle / 2) for rotations), exactly 0 for
+    equal matrices, which the trace form is not for float32 matrices a
+    few ulps from orthonormal; and the translations' distance."""
+    import math
+
+    import torch
+
+    T, T_ref = (torch.as_tensor(x, dtype=torch.float64) for x in (T, T_ref))
+    fro = float(torch.linalg.norm(T[:3, :3] - T_ref[:3, :3]))
+    deg = math.degrees(2.0 * math.asin(min(1.0, fro / (2.0 * math.sqrt(2.0)))))
+    return deg, float(torch.linalg.norm(T[:3, 3] - T_ref[:3, 3]))
+
+
 def drift(T, T_ref):
     import torch
 
@@ -701,6 +749,25 @@ def phase_path(name, counters, dev, repeat=False):
         check(g_rre < gate[0] and g_rte < gate[1],
               f"{name} seed {row['seed']}: ground-truth gate failed")
 
+    # Each pair alone (P = 1) against its batch row.
+    single = make_register_fn(model.params, model.caps, device=dev)
+    worst = [0.0, 0.0]
+    for k, row in enumerate(rows):
+        alone = single(*(a[k] for a in args))
+        for f in ("status", "kept", "n_hypotheses", "n_faces"):
+            check(torch.equal(getattr(alone, f), getattr(res, f)[k]),
+                  f"{name} seed {row['seed']}: {f} of the pair alone "
+                  "differs from its batch row")
+        d = rotation_gap(alone.transform.double().cpu(), T64[k])
+        worst = [max(w, x) for w, x in zip(worst, d)]
+        check(d[0] <= 1e-3 and d[1] <= 1e-4,
+              f"{name} seed {row['seed']}: the pair alone is {d[0]:.3g} deg "
+              f"/ {d[1]:.3g} m from its batch row")
+    print(f"[{name}] each pair alone (P = 1) matches its batch row: status, "
+          f"kept, n_hypotheses and n_faces equal; largest transform "
+          f"difference {worst[0]:.3g} deg / {worst[1]:.3g} m (limit 1e-3 deg "
+          "/ 1e-4 m)", flush=True)
+
     note = ""
     if repeat:
         again = fn(*args)
@@ -781,10 +848,48 @@ def phase_cli():
         check(g_rre < gate[0] and g_rte < gate[1], "CLI sweep: GT gate failed")
 
 
+def count_syncs(fn, *args):
+    """Host syncs in one call of ``fn``: the warnings that
+    torch.cuda.set_sync_debug_mode("warn") raises, one per synchronizing
+    call (a copy to or from the host, a tensor read as a Python value),
+    counted by the source line that made the call."""
+    import warnings
+
+    import torch
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn(*args)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    return collections.Counter(
+        f"{os.path.relpath(w.filename, ROOT)}:{w.lineno}" for w in caught
+        if "called a synchronizing" in str(w.message))
+
+
+def count_kernels(fn, *args):
+    """Kernels launched on the card by one call of ``fn`` (torch.profiler,
+    CUDA activity only)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn(*args)
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
 def phase_timing(name, dev, counters, batch=8, reps=2):
     """Steady-state step time at ``batch`` pairs, each kernel's launches
     per step and the propagation kernel's sweeps per step (the counts of
-    the timed steps over ``reps``)."""
+    the timed steps over ``reps``), the peak device memory of those
+    steps, and, in one more step each, the host syncs and every kernel
+    launched."""
     import torch
 
     import bench
@@ -798,13 +903,21 @@ def phase_timing(name, dev, counters, batch=8, reps=2):
     res = fn(*args)  # warm up
     torch.cuda.synchronize()
     check(bool((res.status == 0).all()), f"{name} timing batch: non-zero status")
+    del res
     zero_counts(counters, dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
     t0 = time.perf_counter()
     for _ in range(reps):
         fn(*args)
     torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) / reps
     per_step = {k: n / reps for k, n in read_counts(counters, dev).items()}
+    per_step["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    per_step["peak_bytes_over_inputs"] = per_step["peak_bytes"] - base
+    per_step["host_sync_lines"] = count_syncs(fn, *args)
+    per_step["host_syncs"] = sum(per_step["host_sync_lines"].values())
+    per_step["kernel_launches"] = count_kernels(fn, *args)
     return batch / dt, dt, per_step, (fn, args)
 
 
@@ -951,12 +1064,24 @@ def main():
         per_step = {}
         for name in ("office", "heritage"):
             pps, dt, per_step[name], step = phase_timing(name, dev, counters)
-            check(per_step[name]["label_prop_sweep"] == 0
-                  and per_step[name]["gather_rows"] == 0,
+            t = per_step[name]
+            check(t["label_prop_sweep"] == 0 and t["gather_rows"] == 0,
                   f"{name} timing: one-sweep or gather kernel launched")
+            check(0 < t["label_prop_propagate"] <= 4,
+                  f"{name} timing: {t['label_prop_propagate']} propagation "
+                  "launches a step (at most 4)")
             print(f"[timing] {name} batch 8: {dt * 1e3:.1f} ms/step, "
-                  f"{pps:.2f} pairs/s; launches per step "
-                  f"{per_step[name]} | {smi} | torch {torch.__version__} "
+                  f"{pps:.2f} pairs/s; per step: {t['kernel_launches']} "
+                  f"kernel launches, {t['label_prop_propagate']:g} "
+                  f"propagation launches ({t['sweeps']:g} sweeps), "
+                  f"{t['label_prop_sweep']:g} one-sweep and "
+                  f"{t['gather_rows']:g} gather launches, "
+                  f"{t['host_syncs']} host syncs "
+                  f"({dict(t['host_sync_lines'].most_common())}), peak "
+                  "device memory "
+                  f"{t['peak_bytes'] / 2**30:.3f} GiB "
+                  f"({t['peak_bytes_over_inputs'] / 2**30:.3f} GiB over the "
+                  f"step's inputs) | {smi} | torch {torch.__version__} "
                   f"cuda {torch.version.cuda}", flush=True)
         phase_profile(*step)
         print(f"[done] {time.perf_counter() - t_start:.1f} s after the build "
@@ -982,6 +1107,9 @@ def main():
              sweeps=her["sweeps"], sweeps_on_main_path=launches["sweeps"],
              launches_per_step=per_step_of("label_prop_propagate"),
              sweeps_per_step=per_step_of("sweeps"),
+             step_kernel_launches=per_step_of("kernel_launches"),
+             step_host_syncs=per_step_of("host_syncs"),
+             step_peak_bytes=per_step_of("peak_bytes"),
              wall_ms=her["propagate_wall_ms"],
              host_loop_wall_ms=her["host_loop_wall_ms"],
              host_loop_ms=her["host_loop_ms"],

@@ -195,7 +195,6 @@ def main(argv=None):
     # pipeline performs the second, internal one. Truncation at either
     # capacity is surfaced, never silent.
     def run_at(stage_caps):
-        padded = []
         pre_overflow = list(load_truncated)
         for k, c in enumerate(clouds):
             if len(c) > stage_caps.raw_points:
@@ -203,15 +202,16 @@ def main(argv=None):
                       f"subsampled to raw capacity {stage_caps.raw_points} "
                       "(use --caps large)", file=sys.stderr)
                 pre_overflow.append(k)
-            p, m = pad_points(c, stage_caps.raw_points)
-            pd, md, ovf = pre_downsample(p, m, params, stage_caps,
-                                         device=device)
-            if bool(ovf) and k not in pre_overflow:
+        # Every scan in one batch through one pre_downsample call.
+        p, m = zip(*(pad_points(c, stage_caps.raw_points) for c in clouds))
+        pd, md, ovf = pre_downsample(np.stack(p), np.stack(m), params,
+                                     stage_caps, device=device)
+        for k, o in enumerate(ovf.tolist()):
+            if o and k not in pre_overflow:
                 print(f"# WARNING: scan {scans[k]} overflows max_points="
                       f"{stage_caps.max_points} after downsampling; "
                       "truncated (use --caps large)", file=sys.stderr)
                 pre_overflow.append(k)
-            padded.append((pd, md))
 
         fn = make_register_fn(
             params, stage_caps, batched=args.batch is not None, device=device
@@ -219,13 +219,9 @@ def main(argv=None):
         sync()
         t0 = time.perf_counter()
         if args.batch:
-            src, tar = padded[:-1], padded[1:]
-            res = fn(torch.stack([s[0] for s in src]),
-                     torch.stack([s[1] for s in src]),
-                     torch.stack([t[0] for t in tar]),
-                     torch.stack([t[1] for t in tar]))
+            res = fn(pd[:-1], md[:-1], pd[1:], md[1:])
         else:
-            res = fn(padded[0][0], padded[0][1], padded[1][0], padded[1][1])
+            res = fn(pd[0], md[0], pd[1], md[1])
         sync()
         return res, sorted(set(pre_overflow)), time.perf_counter() - t0
 

@@ -80,21 +80,25 @@
 // work is the same). flags is (max_iters, P + 1) int32 zeros: row it
 // holds sweep it's per-pair flags and, last, its tile counter.
 // For it = 0, 1, ... while it < max_iters:
-//   (a) sweep: the active tiles of every pair (ceil(nb/64) x
-//       ceil(nb/BJ), counted by each block from bound[p]) are handed out
-//       one at a time by an atomicAdd on sweep it's tile counter, so a
-//       block that drew cheap tiles takes more, as the hardware hands out
-//       the blocks of the one-sweep grid (a fixed share per block, b,
-//       b + G, ..., left the phase as slow as its slowest block: 53 us a
-//       heritage sweep over the one-sweep grid's time on an H100). A
-//       lowered label sets flags[it, p];
+//   (a) sweep: the active tiles (ceil(nb/64) x ceil(nb/BJ), counted by
+//       each block from bound[p]) of the sweep's pairs (every pair in
+//       the first sweep, then only the pairs whose flag the previous
+//       sweep set: a pair whose sweep lowered nothing is at its
+//       fixpoint, where sweeps and halving change nothing, so skipping
+//       it is exact) are handed out one at a time by an atomicAdd on
+//       sweep it's tile counter, so a block that drew cheap tiles takes
+//       more, as the hardware hands out the blocks of the one-sweep grid
+//       (a fixed share per block, b, b + G, ..., left the phase as slow
+//       as its slowest block: 53 us a heritage sweep over the one-sweep
+//       grid's time on an H100). A lowered label sets flags[it, p];
 //   (b) grid barrier;
 //   (c) every thread reads the flags of sweep it: if no pair's flag is
 //       set, every thread leaves the loop alike (the labels are then a
 //       fixpoint, which halving would not change);
 //   (d) halving (P1): a grid-stride pass over the P x V labels; each row
-//       whose label is not 2^30 takes jump_rounds rounds of
-//       l[i] = min(l[i], l[min(l[i], V - 1)]), in place;
+//       of a pair whose flag is set, and whose label is not 2^30, takes
+//       jump_rounds rounds of l[i] = min(l[i], l[min(l[i], V - 1)]), in
+//       place;
 //   (e) grid barrier.
 // The number of sweeps run is added to sweeps_out[0]. The labels are the
 // host loop's: sweep, halve, stop after a sweep that lowered nothing,
@@ -321,15 +325,19 @@ label_prop_propagate_kernel(const float* __restrict__ stats,
   const int G = gridDim.x;
   const int b = blockIdx.x;
 
-  int total = 0;  // active tiles of a sweep, over every pair
-  for (int p = 0; p < P; ++p) {
-    const int nb = min(bound[p], V);
-    if (nb > 0) total += ((nb + BI - 1) / BI) * ((nb + BJ - 1) / BJ);
-  }
-
   int it = 0;
   while (it < max_iters) {
     int* flag = flags + (size_t)it * (P + 1);
+    // The pairs this sweep works on: every pair in the first sweep, then
+    // only those whose previous sweep lowered a label (the others are at
+    // their fixpoint). Their tiles, counted alike by every block.
+    const int* prev = it > 0 ? flags + (size_t)(it - 1) * (P + 1) : nullptr;
+    int total = 0;
+    for (int p = 0; p < P; ++p) {
+      const int nb = min(bound[p], V);
+      if (nb > 0 && (prev == nullptr || __ldcg(&prev[p]) != 0))
+        total += ((nb + BI - 1) / BI) * ((nb + BJ - 1) / BJ);
+    }
     // (a) Sweep: draw tiles from the counter flag[P] until none is left;
     // tile t of pair p is (row tile t % rows, slice t / rows), rows
     // fastest, as the one-sweep grid orders them.
@@ -341,7 +349,7 @@ label_prop_propagate_kernel(const float* __restrict__ stats,
       int p = 0, nb = 0, rows = 1;
       for (;; ++p) {
         nb = min(bound[p], V);
-        if (nb <= 0) continue;
+        if (nb <= 0 || (prev != nullptr && __ldcg(&prev[p]) == 0)) continue;
         rows = (nb + BI - 1) / BI;
         const int n = rows * ((nb + BJ - 1) / BJ);
         if (t < n) break;
@@ -357,11 +365,14 @@ label_prop_propagate_kernel(const float* __restrict__ stats,
     bool lowered = false;
     for (int p = 0; p < P; ++p) lowered |= __ldcg(&flag[p]) != 0;
     if (!lowered) break;
-    // (d) Path halving, in place; invalid slots stay at BIG.
+    // (d) Path halving, in place, of the pairs this sweep lowered (at a
+    // fixpoint it changes nothing); invalid slots stay at BIG.
     if (jump_rounds > 0) {
       const int n = P * V;
       for (int e = b * BI + threadIdx.x; e < n; e += G * BI) {
-        const int* row = labels + (size_t)(e / V) * V;
+        const int p = e / V;
+        if (__ldcg(&flag[p]) == 0) continue;
+        const int* row = labels + (size_t)p * V;
         const int x0 = __ldcg(&labels[e]);
         if (x0 >= BIG) continue;
         int x = x0;

@@ -7,28 +7,33 @@ from __future__ import annotations
 import torch
 
 from ..ops import geometry
+from ..ops.batch import constant
 
 
 def fuse_transforms(quat, t, score, valid):
-    """quat (K, 4), t (K, 3), score (K,), valid (K,) -> fused 4x4.
+    """quat (..., K, 4), t (..., K, 3), score (..., K), valid (..., K) ->
+    fused (..., 4, 4), one transform for each set of the leading batch
+    dims.
 
     Translation is the score-weighted mean; rotation is rebuilt (two
     Rodrigues steps) from the weighted, normalized means of the rotated
-    x/y axes. A fully degenerate set yields identity.
+    x/y axes. A fully degenerate set yields identity. The weighted sums
+    are elementwise products summed over K, which round alike for every
+    batch size.
     """
-    K = quat.shape[0]
     dt = t.dtype
     dev = t.device
     w = torch.where(valid, score, 0.0)
-    s = torch.sum(w)
-    w = w / torch.clamp(s, min=1e-20)
-    mean_t = w @ t
-    xhat = torch.tensor([1.0, 0.0, 0.0], dtype=dt, device=dev).expand(K, 3)
-    yhat = torch.tensor([0.0, 1.0, 0.0], dtype=dt, device=dev).expand(K, 3)
+    s = torch.sum(w, dim=-1)
+    w = (w / torch.clamp(s, min=1e-20)[..., None])[..., None]
+    mean_t = torch.sum(w * t, dim=-2)
+    xhat = constant((1.0, 0.0, 0.0), dt, dev).expand(t.shape)
+    yhat = constant((0.0, 1.0, 0.0), dt, dev).expand(t.shape)
     x = geometry.quat_rotate(quat, xhat)
     y = geometry.quat_rotate(quat, yhat)
-    nt1 = geometry.normalize(w @ x)
-    nt2 = geometry.normalize(w @ y)
+    nt1 = geometry.normalize(torch.sum(w * x, dim=-2))
+    nt2 = geometry.normalize(torch.sum(w * y, dim=-2))
     R = geometry.rotation_from_two_axes(nt1, nt2)
     T = geometry.make_transform(R, mean_t)
-    return torch.where(s > 0, T, torch.eye(4, dtype=dt, device=dev))
+    return torch.where((s > 0)[..., None, None], T,
+                       torch.eye(4, dtype=dt, device=dev))

@@ -25,17 +25,20 @@ import torch
 from ..config import Capacities, FCCFParams
 from ..features.faces import Faces
 from ..ops import geometry
+from ..ops.batch import small_matmul, take
 from ..ops.voxelize import compact
 from .bases import Bases
 
 
 class Hypotheses(NamedTuple):
-    quat: torch.Tensor      # (H, 4) w,x,y,z
-    t: torch.Tensor         # (H, 3)
-    type_: torch.Tensor     # (H,) int32 in {0,1,2}
-    valid: torch.Tensor     # (H,) bool
-    count: torch.Tensor     # () int32 valid hypotheses kept
-    overflow: torch.Tensor  # () bool
+    """Leading batch dims (a pair axis) go before H."""
+
+    quat: torch.Tensor      # (..., H, 4) w,x,y,z
+    t: torch.Tensor         # (..., H, 3)
+    type_: torch.Tensor     # (..., H) int32 in {0,1,2}
+    valid: torch.Tensor     # (..., H) bool
+    count: torch.Tensor     # (...) int32 valid hypotheses kept
+    overflow: torch.Tensor  # (...) bool
 
 
 def _inv3x3(A):
@@ -66,115 +69,120 @@ def _inv3x3(A):
 
 
 def _match_all(f1: Faces, f2: Faces, i1, j1, i2, j2, params: FCCFParams):
-    """``_match_one`` of the JAX package, batched over the M matches.
-    Returns quat (M, 4), T3 (M, Fs, Ft, 3), pair_ok (M, Fs, Ft),
-    t_fb (M, 3), fallback (M,)."""
-    M = i1.shape[0]
-    F = f1.valid.shape[0]
+    """``_match_one`` of the JAX package, batched over the M matches of
+    each face set of the leading batch dims (...). Returns quat (..., M,
+    4), T3 (..., M, Fs, Ft, 3), pair_ok (..., M, Fs, Ft), t_fb (..., M,
+    3), fallback (..., M)."""
+    M = i1.shape[-1]
+    F = f1.valid.shape[-1]
+    shp = tuple(i1.shape) + (F, F)  # (..., M, Fs, Ft)
     ar = torch.arange(F, device=i1.device)
-    n1 = f1.normal[i1]
-    m1 = f1.normal[j1]
-    n2 = f2.normal[i2]
-    m2 = f2.normal[j2]
+    n1 = take(f1.normal, i1)
+    m1 = take(f1.normal, j1)
+    n2 = take(f2.normal, i2)
+    m2 = take(f2.normal, j2)
 
     R, m2r = geometry.rotation_between_planes(n1, m1, n2, m2)
 
     # Third source planes (:906-927): normalized n1 x m1 against raw n_s.
     n1cm1 = geometry.normalize(geometry.cross(n1, m1))
-    span_s = torch.abs(geometry.dot(f1.normal[None], n1cm1[:, None, :]))
+    span_s = torch.abs(geometry.dot(f1.normal[..., None, :, :],
+                                    n1cm1[..., None, :]))
     src_ok = (
-        f1.valid[None]
+        f1.valid[..., None, :]
         & (span_s > params.third_plane_threshold)
-        & (ar[None] != i1[:, None])
-        & (ar[None] != j1[:, None])
+        & (ar != i1[..., None])
+        & (ar != j1[..., None])
     )
 
     # Rotated target face normals/centroids (:936-948).
-    nt_r = f2.normal[None] @ R.mT  # (M, Ft, 3)
-    ct_r = f2.centroid[None] @ R.mT
+    nt_r = small_matmul(f2.normal[..., None, :, :], R.mT)  # (..., M, Ft, 3)
+    ct_r = small_matmul(f2.centroid[..., None, :, :], R.mT)
     n2cm2 = geometry.normalize(geometry.cross(n2, m2r))  # quirk (:930)
     tar_ok = (
-        f2.valid[None]
-        & (torch.abs(geometry.dot(nt_r, n2cm2[:, None, :]))
+        f2.valid[..., None, :]
+        & (torch.abs(geometry.dot(nt_r, n2cm2[..., None, :]))
            > params.third_plane_threshold)
-        & (ar[None] != i2[:, None])
-        & (ar[None] != j2[:, None])
+        & (ar != i2[..., None])
+        & (ar != j2[..., None])
     )
-    ang3 = geometry.angle_deg(f1.normal[None, :, None, :], nt_r[:, None, :, :])
+    ang3 = geometry.angle_deg(f1.normal[..., None, :, None, :],
+                              nt_r[..., None, :, :])
     pair_ok = (
-        src_ok[:, :, None] & tar_ok[:, None, :]
+        src_ok[..., :, None] & tar_ok[..., None, :]
         & (ang3 < params.third_normal_threshold)
     )
 
     # 3-plane translation solve (:969-987): rows of A are raw source normals.
-    c11 = f1.centroid[i1]
-    c12 = f1.centroid[j1]
-    c21 = f2.centroid[i2]
-    c22 = f2.centroid[j2]
+    c11 = take(f1.centroid, i1)
+    c12 = take(f1.centroid, j1)
+    c21 = take(f2.centroid, i2)
+    c22 = take(f2.centroid, j2)
     d11 = geometry.dot(c11, n1)
     d12 = geometry.dot(c12, m1)
     d21 = geometry.dot(c21, n2)
     d22 = geometry.dot(c22, m2r)  # reference quirk (:973)
-    d13 = geometry.dot(f1.centroid, f1.normal)  # (Fs,)
-    d23 = geometry.dot(ct_r, nt_r)              # (M, Ft)
+    d13 = geometry.dot(f1.centroid, f1.normal)  # (..., Fs)
+    d23 = geometry.dot(ct_r, nt_r)              # (..., M, Ft)
     D = torch.stack(
         [
-            (d11 - d21)[:, None, None].expand(M, F, F),
-            (d12 - d22)[:, None, None].expand(M, F, F),
-            d13[None, :, None] - d23[:, None, :],
+            (d11 - d21)[..., None, None].expand(shp),
+            (d12 - d22)[..., None, None].expand(shp),
+            d13[..., None, :, None] - d23[..., None, :],
         ],
         dim=-1,
-    )  # (M, Fs, Ft, 3)
+    )  # (..., M, Fs, Ft, 3)
     A = torch.stack(
         [
-            n1[:, None, :].expand(M, F, 3),
-            m1[:, None, :].expand(M, F, 3),
-            f1.normal[None].expand(M, F, 3),
+            n1[..., None, :].expand(shp[:-1] + (3,)),
+            m1[..., None, :].expand(shp[:-1] + (3,)),
+            f1.normal[..., None, :, :].expand(shp[:-1] + (3,)),
         ],
         dim=-2,
-    )  # (M, Fs, 3, 3)
-    AtA = A.mT @ A
-    P = _inv3x3(AtA) @ A.mT
-    T3 = torch.einsum("msij,mstj->msti", P, D)
+    )  # (..., M, Fs, 3, 3)
+    P = small_matmul(_inv3x3(small_matmul(A.mT, A)), A.mT)
+    T3 = small_matmul(D, P.mT)  # T3[s, t, i] = sum_j P[s, i, j] D[s, t, j]
 
     # Fallback translation (:1000-1017).
-    w11, w12 = f1.point_size[i1], f1.point_size[j1]
-    w21, w22 = f2.point_size[i2], f2.point_size[j2]
-    src_center = (c11 * w11[:, None] + c12 * w12[:, None]) / torch.clamp(
+    w11, w12 = take(f1.point_size, i1), take(f1.point_size, j1)
+    w21, w22 = take(f2.point_size, i2), take(f2.point_size, j2)
+    src_center = (c11 * w11[..., None] + c12 * w12[..., None]) / torch.clamp(
         w11 + w12, min=1e-12
-    )[:, None]
-    tar_center = (c21 * w21[:, None] + c22 * w22[:, None]) / torch.clamp(
+    )[..., None]
+    tar_center = (c21 * w21[..., None] + c22 * w22[..., None]) / torch.clamp(
         w21 + w22, min=1e-12
-    )[:, None]
+    )[..., None]
     t_fb = src_center - geometry.matvec(R, tar_center)
 
     quat = geometry.matrix_to_quat(R)
-    fallback = ~torch.any(pair_ok.reshape(M, F * F), dim=1)
+    fallback = ~torch.any(pair_ok.flatten(-2), dim=-1)
     return quat, T3, pair_ok, t_fb, fallback
 
 
 def generate_hypotheses(f1: Faces, f2: Faces, b1: Bases, b2: Bases,
                         params: FCCFParams, caps: Capacities) -> Hypotheses:
-    B = b1.valid.shape[0]
-    F = f1.valid.shape[0]
+    """Hypotheses of each face-set pair of the leading batch dims."""
+    lead = tuple(b1.valid.shape[:-1])
+    nb = len(lead)
+    B = b1.valid.shape[-1]
+    F = f1.valid.shape[-1]
     M = caps.max_matches
     H = caps.max_hypotheses
     dev = f1.valid.device
 
     # (B1 x B2) compatibility (:1420), flattened b1-major.
     match = (
-        b1.valid[:, None]
-        & b2.valid[None, :]
-        & (torch.abs(b1.angle[:, None] - b2.angle[None, :]) < params.angle_same)
-        & (b1.type_[:, None] == b2.type_[None, :])
+        b1.valid[..., :, None]
+        & b2.valid[..., None, :]
+        & (torch.abs(b1.angle[..., :, None] - b2.angle[..., None, :])
+           < params.angle_same)
+        & (b1.type_[..., :, None] == b2.type_[..., None, :])
     )
-    bi1 = b1.i[:, None].expand(B, B)
-    bj1 = b1.j[:, None].expand(B, B)
-    bi2 = b2.i[None, :].expand(B, B)
-    bj2 = b2.j[None, :].expand(B, B)
-    btype = b1.type_[:, None].expand(B, B)
+    sq = lead + (B, B)
     (_, m_overflow, m_valid, mi1, mj1, mi2, mj2, mtype) = compact(
-        match, M, bi1, bj1, bi2, bj2, btype
+        match, M, b1.i[..., :, None].expand(sq), b1.j[..., :, None].expand(sq),
+        b2.i[..., None, :].expand(sq), b2.j[..., None, :].expand(sq),
+        b1.type_[..., :, None].expand(sq), batch_dims=nb,
     )
 
     quat, T3, pair_ok, t_fb, fb = _match_all(f1, f2, mi1, mj1, mi2, mj2, params)
@@ -182,29 +190,31 @@ def generate_hypotheses(f1: Faces, f2: Faces, b1: Bases, b2: Bases,
     # Slots per match: F*F third-plane hits (s-major) then 1 fallback.
     S = F * F + 1
     slot_valid = torch.cat(
-        [(pair_ok & m_valid[:, None, None]).reshape(M, F * F),
-         (fb & m_valid)[:, None]],
-        dim=1,
-    )  # (M, S)
-    slot_t = torch.cat([T3.reshape(M, F * F, 3), t_fb[:, None, :]], dim=1)
+        [(pair_ok & m_valid[..., None, None]).flatten(-2),
+         (fb & m_valid)[..., None]],
+        dim=-1,
+    )  # (..., M, S)
+    slot_t = torch.cat([T3.flatten(-3, -2), t_fb[..., None, :]], dim=-2)
 
     # Two-stage compaction: each match's first PER_MATCH hits in slot
     # order (a stable descending sort of the negated slot index, whose
     # valid entries are unique), then one compaction of M*PER_MATCH slots.
     PER_MATCH = min(caps.per_match_hits, S)
     ar_s = torch.arange(S, device=dev)
-    neg = torch.where(slot_valid, -ar_s[None, :], -S - 1)
-    vals, idxs = torch.sort(neg, dim=1, descending=True, stable=True)
-    vals, idxs = vals[:, :PER_MATCH], idxs[:, :PER_MATCH]
+    neg = torch.where(slot_valid, -ar_s, -S - 1)
+    vals, idxs = torch.sort(neg, dim=-1, descending=True, stable=True)
+    vals, idxs = vals[..., :PER_MATCH], idxs[..., :PER_MATCH]
     hit_valid = vals > -S - 1
-    row_overflow = torch.any(torch.sum(slot_valid, dim=1) > PER_MATCH)
+    row_overflow = torch.any(torch.sum(slot_valid, dim=-1) > PER_MATCH, dim=-1)
 
-    flat = torch.arange(M, device=dev)[:, None] * S + idxs  # (M, K)
-    (h_count, h_overflow, h_valid, hflat) = compact(hit_valid, H, flat)
+    flat = torch.arange(M, device=dev)[:, None] * S + idxs  # (..., M, K)
+    (h_count, h_overflow, h_valid, hflat) = compact(hit_valid, H, flat,
+                                                    batch_dims=nb)
     hm = torch.div(hflat, S, rounding_mode="floor")
-    ht = torch.where(h_valid[:, None], slot_t.reshape(M * S, 3)[hflat], 0.0)
-    hq = torch.where(h_valid[:, None], quat[hm], 0.0)
-    htype = torch.where(h_valid, mtype[hm], 0).to(torch.int32)
+    ht = torch.where(h_valid[..., None], take(slot_t.flatten(-3, -2), hflat),
+                     0.0)
+    hq = torch.where(h_valid[..., None], take(quat, hm), 0.0)
+    htype = torch.where(h_valid, take(mtype, hm), 0).to(torch.int32)
     return Hypotheses(
         quat=hq,
         t=ht,

@@ -33,6 +33,8 @@ import math
 import numpy as np
 import torch
 
+from .batch import constant
+
 _EPS = 1e-20
 _THIRD = float(np.float32(1.0) / np.float32(3.0))
 _SIXTH = float(np.float32(1.0) / np.float32(6.0))
@@ -146,7 +148,7 @@ def _eigvec_for(A, lam):
     v = torch.gather(cands, -2, idx)[..., 0, :]
     nrm = _sqrt(_sum_sq(v[..., 0], v[..., 1], v[..., 2]))[..., None]
     # Degenerate (isotropic) matrix: +z; callers gate on curvature.
-    fallback = torch.tensor([0.0, 0.0, 1.0], dtype=A.dtype, device=A.device)
+    fallback = constant((0.0, 0.0, 1.0), A.dtype, A.device)
     return torch.where(
         nrm > 1e-12, v / torch.clamp(nrm, min=_EPS), fallback.expand(v.shape)
     )

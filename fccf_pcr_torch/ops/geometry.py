@@ -14,6 +14,8 @@ import math
 
 import torch
 
+from .batch import constant, small_matmul
+
 _EPS = 1e-12
 
 
@@ -116,15 +118,13 @@ def rotation_between_planes(n1, m1, n2, m2):
     cos2 = (m2dm1 - m2dr2 * m1dr2) / denom
     sin2 = dot(cross(r2, m2r), m1) / denom
     R2 = rodrigues(r2, cos2, sin2)
-    return R2 @ R1, m2r
+    return small_matmul(R2, R1), m2r
 
 
 def rotation_from_two_axes(nt1, nt2):
     """R with R@x_hat ~ nt1 and R@y_hat ~ nt2 (FCCF.cpp:1148-1196)."""
-    ns1 = torch.tensor([1.0, 0.0, 0.0], dtype=nt1.dtype, device=nt1.device)
-    ns2 = torch.tensor([0.0, 1.0, 0.0], dtype=nt1.dtype, device=nt1.device)
-    ns1 = ns1.expand(nt1.shape)
-    ns2 = ns2.expand(nt1.shape)
+    ns1 = constant((1.0, 0.0, 0.0), nt1.dtype, nt1.device).expand(nt1.shape)
+    ns2 = constant((0.0, 1.0, 0.0), nt1.dtype, nt1.device).expand(nt1.shape)
     r1 = normalize(cross(ns1, nt1))
     cos1 = dot(nt1, ns1)
     sin1 = dot(nt1, cross(r1, ns1))
@@ -138,7 +138,7 @@ def rotation_from_two_axes(nt1, nt2):
     cos2 = (ns2dnt2 - ns2dr2 * nt2dr2) / denom
     sin2 = dot(cross(r2, ns2r), nt2) / denom
     R2 = rodrigues(r2, cos2, sin2)
-    return R2 @ R1
+    return small_matmul(R2, R1)
 
 
 # Quaternions: (w, x, y, z).

@@ -6,7 +6,10 @@ flags, RTE/RRE against ground truth when given, and the batch's wall
 time; records stream to a JSONL file that a restarted sweep resumes from
 (last record wins). Pairs whose status shows a capacity hit re-run at
 larger capacities (``escalate_caps``). One device: the JAX package's
-split of the pair axis over a mesh is not ported.
+split of the pair axis over a mesh is not ported. Each chunk of
+``batch_size`` pairs (the last one padded with repeats of its last pair)
+is one batch: one ``pre_downsample`` call a side on the (P, raw, 3)
+clouds, then one call of the batched registration program.
 """
 
 from __future__ import annotations
@@ -140,24 +143,19 @@ def run_sweep(
             idxs = list(chunk)
             # pad the final chunk to the batch size (dummy repeats)
             eff = idxs + [idxs[-1]] * (batch_size - len(idxs))
-            clouds = {"s": [], "t": []}
-            pre_ovf = []
-            for i in eff:
-                ovf = False
-                for side, cloud in zip("st", pairs[i]):
-                    ovf |= len(cloud) > stage_caps.raw_points
-                    p, m = pad_points(
-                        np.asarray(cloud, np.float32), stage_caps.raw_points
-                    )
-                    d, dm, o = pre_downsample(p, m, params, stage_caps,
-                                              device=device)
-                    clouds[side].append((d, dm))
-                    ovf |= bool(o)
-                pre_ovf.append(ovf)
-            sp, sm, tp, tm = (
-                torch.stack([c[k] for c in clouds[side]])
-                for side in "st" for k in (0, 1)
-            )
+            raw = stage_caps.raw_points
+            pre_ovf = np.array([len(s) > raw or len(t) > raw
+                                for s, t in (pairs[i] for i in eff)])
+            # One batch a side: (P, raw, 3) clouds through one
+            # pre_downsample each.
+            sides = []
+            for side in range(2):
+                p, m = zip(*(pad_points(np.asarray(pairs[i][side], np.float32),
+                                        raw) for i in eff))
+                sides.append(pre_downsample(np.stack(p), np.stack(m), params,
+                                            stage_caps, device=device))
+            (sp, sm, s_ovf), (tp, tm, t_ovf) = sides
+            pre_ovf |= (s_ovf | t_ovf).cpu().numpy()
 
             sync()
             t0 = time.perf_counter()
@@ -169,7 +167,8 @@ def run_sweep(
                 if not escalated:  # escalated pairs already counted once
                     n_done += len(idxs)
 
-            T = res.transform.cpu()
+            res = type(res)(*(f.cpu() for f in res))
+            T = res.transform
             for k, i in enumerate(idxs):
                 rec = {
                     "pair": i,

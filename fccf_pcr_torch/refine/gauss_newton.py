@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from ..ops import geometry
+from ..ops.batch import constant, fold_sum
 from ..ops.linalg6 import solve_spd6
 
 
@@ -53,14 +54,23 @@ def _residual_terms(q, t, n1, n1p1, n2, p2, w):
 _DQ_INDEX = ((1, 0, 3, 2), (2, 3, 0, 1), (3, 2, 1, 0))
 _DQ_SIGN = ((-0.5, 0.5, -0.5, 0.5), (-0.5, 0.5, 0.5, -0.5),
             (-0.5, -0.5, 0.5, 0.5))
-_R1, _R2 = [1, 2, 0], [2, 0, 1]  # cross(a, b)[c] = a[R1] b[R2] - a[R2] b[R1]
+
+
+# cross(a, b)[c] = a[R1] b[R2] - a[R2] b[R1], R1 = [1, 2, 0], R2 = [2, 0, 1],
+# as rolls: indexing with a list copies it to the card, a host sync.
+def _r1(x):
+    return torch.roll(x, -1, dims=-1)
+
+
+def _r2(x):
+    return torch.roll(x, 1, dims=-1)
 
 
 def _cross_tangent(a, da, b, db):
     """Tangent of cross(a, b) as forward-mode AD forms it: each product
     gives da * b + a * db, and the two products are then subtracted."""
-    return ((da[..., _R1] * b[..., _R2] + a[..., _R1] * db[..., _R2])
-            - (da[..., _R2] * b[..., _R1] + a[..., _R2] * db[..., _R1]))
+    return ((_r1(da) * _r2(b) + _r1(a) * _r2(db))
+            - (_r2(da) * _r1(b) + _r2(a) * _r1(db)))
 
 
 def _residuals_and_jacobian(q, t, n1, n1p1, n2, p2, w):
@@ -78,8 +88,8 @@ def _residuals_and_jacobian(q, t, n1, n1p1, n2, p2, w):
     r, v, uv, n2r, p2r = _residual_terms(q, t, n1, n1p1, n2, p2, w)
     wq, u = q[:, None, None, :1], q[:, None, None, 1:]   # (Bt, 1, 1, .)
 
-    sign = torch.tensor(_DQ_SIGN, dtype=q.dtype, device=q.device)
-    dq = (q[:, _DQ_INDEX] * sign)[:, :, None, :]         # (Bt, 3, 1, 4)
+    sign = constant(_DQ_SIGN, q.dtype, q.device)
+    dq = (q[:, constant(_DQ_INDEX, torch.long, q.device)] * sign)[:, :, None, :]
     dw, du = dq[..., :1], dq[..., 1:]
     uv3 = uv[:, None]
     duv = geometry.cross(du, v[:, None])                 # (Bt, 3, 2P, 3)
@@ -106,7 +116,7 @@ def refine_pairs(n1, p1, n2, p2, w, iters: int = 50):
     Bt = n1.shape[0]
     dt = p1.dtype
     dev = p1.device
-    q = torch.tensor([1.0, 0.0, 0.0, 0.0], dtype=dt, device=dev).repeat(Bt, 1)
+    q = constant((1.0, 0.0, 0.0, 0.0), dt, dev).repeat(Bt, 1)
     t = torch.zeros((Bt, 3), dtype=dt, device=dev)
     lam = torch.full((Bt,), 1e-4, dtype=dt, device=dev)
     it = torch.zeros((Bt,), dtype=torch.int32, device=dev)
@@ -124,8 +134,10 @@ def refine_pairs(n1, p1, n2, p2, w, iters: int = 50):
         # done, with outputs identical to running it to the cap.
         if not bool(torch.any(active & (c_old > 0))):  # one host sync
             break
-        JtJ = J.mT @ J
-        g = (J.mT @ r[..., None])[..., 0]
+        # J^T J and J^T r as fixed pairwise sums over the residuals, so a
+        # lane rounds alike in every batch.
+        JtJ = fold_sum(J[..., :, None] * J[..., None, :], dim=1)
+        g = fold_sum(J * r[..., None], dim=1)
         damped = (
             JtJ
             + lam[:, None, None] * torch.diag_embed(torch.diagonal(JtJ, dim1=-2, dim2=-1))

@@ -4,7 +4,9 @@ gather kernel against their plain versions (label prop also at its edge
 cases: bounds 0 and 1, no valid row, one component spanning every voxel,
 only isolated voxels, V under one tile; under a cap on the sweeps; at the
 widest slices; with no host sync), the main path on the card against the
-port on the CPU, and the entry points' default device.
+port on the CPU, each row of a batch against its pair registered alone,
+the host syncs of a batched step, and the entry points' default
+device.
 
 This file imports no jax, so it runs on a machine without it (the
 repository's conftest.py imports jax, hence --noconftest):
@@ -358,3 +360,73 @@ def test_register_pair_on_card_matches_cpu(cuda):
         np.testing.assert_allclose(getattr(gpu, f).cpu().numpy(),
                                    getattr(cpu, f).numpy(), rtol=1e-3,
                                    atol=1e-5, err_msg=f)
+
+
+# Pairs of different content (tests/test_torch_batch.py's): a clean room,
+# a noisier room, noisy stairs whose residual overflows.
+_BATCH_PAIRS = (dict(seed=0), dict(seed=2, noise=0.02),
+                dict(seed=1, scene="stairs", noise=0.04))
+
+
+def _batch(caps):
+    args = []
+    for kw in _BATCH_PAIRS:
+        src, tar, _ = synthetic.make_pair(points_per_plane=1500,
+                                          clutter_points=900, **kw)
+        args.append(synthetic.pad_points(src, caps.max_points)
+                    + synthetic.pad_points(tar, caps.max_points))
+    return [np.stack([a[i] for a in args]) for i in range(4)]
+
+
+def test_batch_rows_match_single_runs_on_card(cuda):
+    """Row k of a batched step equals pair k registered alone on the card:
+    status, kept mask, hypothesis and face counts equal, the transform
+    within 1e-3 deg / 1e-4 m (chip_smoke.py's limit for the golden
+    pairs)."""
+    caps = TEST_CAPS
+    params = FCCFParams(leaf_size=0.25)
+    batch = _batch(caps)
+    res = make_register_fn(params, caps, batched=True, device=cuda)(*batch)
+    single = make_register_fn(params, caps, device=cuda)
+    for k in range(len(_BATCH_PAIRS)):
+        alone = single(*(a[k] for a in batch))
+        for f in ("status", "kept", "n_hypotheses", "n_faces"):
+            assert torch.equal(getattr(alone, f), getattr(res, f)[k]), (k, f)
+        # The rotation angle from |R - R_row| (2 sqrt(2) sin(angle / 2)),
+        # which is 0 for equal matrices, unlike the trace form.
+        Ta, Tb = alone.transform.double(), res.transform[k].double()
+        fro = float(torch.linalg.norm(Ta[:3, :3] - Tb[:3, :3]))
+        deg = np.degrees(2.0 * np.arcsin(min(1.0, fro / (2.0 * np.sqrt(2.0)))))
+        dist = float(torch.linalg.norm(Ta[:3, 3] - Tb[:3, 3]))
+        assert deg <= 1e-3 and dist <= 1e-4, (k, deg, dist)
+    assert res.status.tolist() == [0, 0, 16]
+
+
+def test_batched_step_host_syncs_are_bounded(cuda):
+    """A batched step waits for the card at most refine_iters + 30 times,
+    whatever the batch size: the LM loop's all-done test once an
+    iteration for every lane of the batch, the cluster scan's block count
+    and fixpoint tests, the floor walk's two transfers and the inputs'
+    copies; label propagation none. Counted under CUDA's sync debug
+    mode, which warns at each synchronizing call."""
+    import warnings
+
+    caps = TEST_CAPS
+    params = FCCFParams(leaf_size=0.25)
+    batch = [torch.from_numpy(a).to(cuda) for a in _batch(caps)]
+    fn = make_register_fn(params, caps, batched=True, device=cuda)
+    counts = []
+    for P in (1, 3):
+        args = [a[:P] for a in batch]
+        fn(*args)
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                fn(*args)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        counts.append(sum("called a synchronizing" in str(w.message)
+                          for w in caught))
+    assert 0 < counts[0] and max(counts) <= params.refine_iters + 30, counts

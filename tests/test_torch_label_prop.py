@@ -180,36 +180,51 @@ def _ring(seed, V=120):
     return normal.astype(np.float32), centroid.astype(np.float32), valid
 
 
-def _kernel_schedule(aff, valid, rng, jump_rounds, sweep, max_iters=64):
-    """numpy model of csrc/label_prop.cu's propagation kernel: a sweep
-    (Jacobi from the labels before it, or ``in_place``: rows in a random
-    order, each reading the labels as the others leave them, as the
-    atomicMin merges do); stop if it lowered nothing, else ``jump_rounds``
-    rounds of path halving in place, rows in a random order. Returns the
-    labels and the number of sweeps."""
-    V = valid.shape[0]
-    lab = np.where(valid, np.arange(V), _BIG_NP).astype(np.int64)
+def _kernel_schedule(affs, valids, rng, jump_rounds, sweep, max_iters=64):
+    """numpy model of csrc/label_prop.cu's propagation kernel over a batch
+    of pairs (``affs``, ``valids``: one (V, V) affinity and (V,) mask
+    each): a sweep (Jacobi from the labels before it, or ``in_place``:
+    rows in a random order, each reading the labels as the others leave
+    them, as the atomicMin merges do) of every pair in the first sweep,
+    then only of the pairs whose previous sweep lowered a label; stop once
+    a sweep lowered nothing, else ``jump_rounds`` rounds of path halving
+    in place over the pairs this sweep lowered, rows in a random order.
+    Returns the labels of each pair, the sweeps run and, per pair, the
+    sweeps that worked on it."""
+    labs = [np.where(v, np.arange(v.shape[0]), _BIG_NP).astype(np.int64)
+            for v in valids]
+    active = [True] * len(labs)
+    swept = [0] * len(labs)
     sweeps = 0
     while sweeps < max_iters:
         sweeps += 1
-        if sweep == "jacobi":
-            neigh = np.where(aff, lab[None, :], _BIG_NP).min(axis=1)
-            lowered = bool((neigh < lab).any())
-            lab = np.minimum(lab, neigh)
-        else:
-            lowered = False
-            for i in rng.permutation(V):
-                m = lab[aff[i]].min(initial=_BIG_NP)
-                if valid[i] and m < lab[i]:
-                    lab[i], lowered = m, True
-        if not lowered:
-            break
-        for i in rng.permutation(V):
-            if lab[i] >= _BIG_NP:
+        lowered = [False] * len(labs)
+        for p, (aff, valid, lab) in enumerate(zip(affs, valids, labs)):
+            if not active[p]:
                 continue
-            for _ in range(jump_rounds):
-                lab[i] = min(lab[i], lab[min(lab[i], V - 1)])
-    return lab, sweeps
+            swept[p] += 1
+            if sweep == "jacobi":
+                neigh = np.where(aff, lab[None, :], _BIG_NP).min(axis=1)
+                lowered[p] = bool((neigh < lab).any())
+                lab[:] = np.minimum(lab, neigh)
+            else:
+                for i in rng.permutation(lab.shape[0]):
+                    m = lab[aff[i]].min(initial=_BIG_NP)
+                    if valid[i] and m < lab[i]:
+                        lab[i], lowered[p] = m, True
+        if not any(lowered):
+            break
+        for p, lab in enumerate(labs):
+            if not lowered[p]:
+                continue
+            V = lab.shape[0]
+            for i in rng.permutation(V):
+                if lab[i] >= _BIG_NP:
+                    continue
+                for _ in range(jump_rounds):
+                    lab[i] = min(lab[i], lab[min(lab[i], V - 1)])
+        active = lowered
+    return labs, sweeps, swept
 
 
 _BIG_NP = 2**30
@@ -234,11 +249,33 @@ def test_kernel_schedule_reaches_the_reference_fixpoint(seed, graph,
         jnp.asarray(normal), jnp.asarray(centroid), jnp.asarray(valid),
         5.0, 0.5, 5.0))
     rng = np.random.default_rng(seed)
-    got, sweeps = _kernel_schedule(aff, valid, rng, jump_rounds, sweep)
+    (got,), sweeps, _ = _kernel_schedule([aff], [valid], rng, jump_rounds,
+                                         sweep)
     np.testing.assert_array_equal(got, want)
     assert sweeps < 64
     if graph == "ring":  # chains: more than one component, more than one sweep
         assert len(np.unique(got[valid])) >= 2 and sweeps >= 3
+
+
+@pytest.mark.parametrize("sweep", ["jacobi", "in_place"])
+@pytest.mark.parametrize("jump_rounds", [0, 1])
+def test_kernel_schedule_skips_pairs_at_their_fixpoint(jump_rounds, sweep):
+    """A batch whose pairs converge at different sweeps (long chains, a
+    clustered graph, no valid slot): after the first sweep the kernel
+    sweeps and halves only the pairs whose previous sweep lowered a
+    label, and every pair still ends at the JAX package's labels."""
+    graphs = [_ring(50), _clustered(51, 120), _ring(52),
+              (*_clustered(53, 120)[:2], np.zeros(120, bool))]
+    affs = [np.asarray(_pairwise_affinity(
+        jnp.asarray(n), jnp.asarray(c), jnp.asarray(v), 5.0, 0.5, 5.0))
+        for n, c, v in graphs]
+    rng = np.random.default_rng(jump_rounds)
+    labs, sweeps, swept = _kernel_schedule(
+        affs, [g[2] for g in graphs], rng, jump_rounds, sweep)
+    for (n, c, v), got in zip(graphs, labs):
+        np.testing.assert_array_equal(got, _jax_xla(n, c, v))
+    assert swept[3] == 1 and swept[1] < max(swept[0], swept[2]) == sweeps
+    assert len(set(swept)) >= 3  # pairs converge at different sweeps
 
 
 @pytest.mark.parametrize("bound", [None, 40, "tensor"])

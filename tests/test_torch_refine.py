@@ -135,10 +135,13 @@ class _CountLaunches(TorchDispatchMode):
 
 def test_lm_iteration_launches():
     """The LM loop is bound by kernel launches on the card (PERF.md
-    section 5), so the ops of one iteration are pinned: 412 with the
-    Jacobian written out as forward-mode AD forms it and one residual
-    helper shared with the step's cost, against 455 for the closed-form
-    Jacobian it replaced (same count)."""
+    section 5), so the ops of one iteration are pinned: 422 with the
+    Jacobian written out as forward-mode AD forms it, one residual helper
+    shared with the step's cost, J^T J and J^T r as fixed pairwise sums
+    (the same rounding in every batch; 412 with two matrix products) and
+    the cross tangent's index permutations as rolls (no index list copied
+    to the card), against 455 for the closed-form Jacobian it replaced
+    (same count)."""
     args = [torch.from_numpy(a) for a in _candidates(3, B=12)]
     counts = []
     for iters in (1, 2, 3):
@@ -147,4 +150,4 @@ def test_lm_iteration_launches():
         counts.append(c.n)
     per_iteration = counts[2] - counts[1]
     assert per_iteration == counts[1] - counts[0]  # every lane still runs
-    assert per_iteration == 412
+    assert per_iteration == 422
