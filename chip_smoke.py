@@ -43,11 +43,16 @@ result:
      the one-sweep and gather kernels' must not (the main path launches
      neither); each pair registered alone (P = 1) must match its batch
      row (status, kept mask, hypothesis and face counts equal, transform
-     within 1e-3 deg / 1e-4 m); a second run must give bitwise-equal
-     transforms;
-  6. the building-scale path at the full heritage preset (two-key
-     voxelization, V=9216), seeds 0-3, held to its golden rows and
-     bench.GATES["heritage"] the same way;
+     within 1e-3 deg / 1e-4 m); a second run, timed, must give
+     bitwise-equal transforms; office, structured, resso and heritage
+     also within tests/test_twin_production.py's bands of the NumPy
+     twin's cached transforms (tests/golden/twin_production.json);
+  6. the same for every other golden config at its full preset:
+     structured (stairs and hall scenes, round-robin by seed), resso,
+     apartment, cross-season and the building-scale heritage (two-key
+     voxelization, V=9216); then office seed 0 with the target cut to its
+     valid rows (another length than the source's), every field bitwise
+     equal to the equal-length run;
   7. the command line in subprocesses: `python -m fccf_pcr_torch SRC TAR
      0.2 --caps heritage --device cuda --json` on the heritage seed-0
      pair written as PLY, held to its golden row; and a `--batch --out
@@ -60,9 +65,19 @@ result:
      launched (torch.profiler), the host syncs (counted under
      torch.cuda.set_sync_debug_mode("warn")) and the peak device memory
      (torch.cuda.max_memory_allocated);
-  9. one heritage batch-8 step under torch.profiler: host time per stage
-     (register.py's record_function scopes), the device's busy share of
-     the step, and the kernels with the most device time.
+  9. the mesh dry run: the office batch of 8 split over one card listed
+     k times (parallel/mesh.py, make_mesh([cuda:0] * k), k = 2 and 4) and
+     over make_mesh() (every card), every field bitwise equal to the
+     unsplit batch; step wall times for k = 1, 2, 4 in turns and
+     sharded_mean_errors against ground truth;
+ 10. the face-membership diff (twin/diff.py) on the five twin-sweep
+     families' seed-30 targets at TEST_CAPS: the pipeline membership on
+     the card equal to the CPU run's, the propagation kernel launched,
+     pair_agreement > 0.98 and matched_fraction > 0.95;
+ 11. one heritage batch-8 step under utils/profiling.py's trace (its
+     Chrome trace must name label_prop_propagate) and a StageTimer: host
+     time per stage (register.py's record_function scopes), the device's
+     busy share of the step, and the kernels with the most device time.
 
 Then one JSON line describing the kernels, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
@@ -72,6 +87,7 @@ Then one JSON line describing the kernels, the nvidia-smi line, and last
 import collections
 import functools
 import json
+import math
 import os
 import pathlib
 import subprocess
@@ -83,6 +99,10 @@ from concurrent.futures import ThreadPoolExecutor
 
 ROOT = pathlib.Path(__file__).resolve().parent
 GOLDEN = ROOT / "tests" / "golden" / "pipeline.json"
+TWIN_PRODUCTION = GOLDEN.with_name("twin_production.json")
+# The golden configs, in the order phases 5-6 run them.
+PATH_CONFIGS = ("office", "structured", "resso", "apartment", "cross-season",
+                "heritage")
 KERNELS = {
     "label_prop_propagate": dict(
         name="label_prop_propagate",
@@ -122,6 +142,9 @@ PEAK_BYTES = 3.35e12
 # each, 3 compares).
 K1_NORMAL_OPS = 6
 K1_PLANE_OPS = 29
+# torch.profiler captures taken again because CUPTI had dropped records
+# (kernel_times), by the kernel name they were taken for.
+RETAKEN = collections.Counter()
 
 
 class SmokeFailure(Exception):
@@ -335,30 +358,82 @@ def main_path_k1_inputs(name, dev):
             bound.to(torch.int32))
 
 
-def device_ms(fn, reps, reset=None, only=""):
-    """Mean device time of one call of ``fn`` in ms: the sum of the
-    durations of the kernels it launches (those whose name holds
-    ``only``), read by torch.profiler (CUPTI), so host time between
-    launches does not count; ``reset`` (before each call) is left out."""
+def capture(fn, only="", reset=None):
+    """Device ms of each record whose name holds ``only`` in one
+    torch.profiler (CUPTI) capture of one call of ``fn``, after ``reset``
+    (untimed)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     if reset is not None:
         reset()
+        torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [e.device_time / 1e3 for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and only in e.name]
+
+
+def record_count(fn, only="", reset=None, n=3, tries=10):
+    """The records named ``only`` that a whole capture of one call of
+    ``fn`` holds: the most of ``n`` captures (CUPTI drops records and
+    never adds one), and of up to ``tries`` while every capture is
+    empty."""
+    counts = []
+    while len(counts) < n or (not max(counts) and len(counts) < tries):
+        counts.append(len(capture(fn, only, reset)))
+    check(max(counts) > 0, f"torch.profiler captured no record named "
+          f"{only!r} in {len(counts)} captures")
+    return max(counts)
+
+
+def kernel_times(fn, only="", reset=None, launched=None, records=None,
+                 tries=10):
+    """Device ms of each kernel whose name holds ``only`` that one call
+    of ``fn`` launches (``capture``). The capture must hold exactly as
+    many records as the call launched: the growth of ``launched()`` (a
+    launch count of the port's) over the call, or else ``records``
+    (``record_count``). CUPTI can drop records (in chip runs, one capture
+    of the host loop held none of its sweep kernels, and three captures of
+    a gather in a row held no kernel at all): a capture with another count
+    is taken again after a pause that grows with each try, up to ``tries``
+    times, and then the phase fails. RETAKEN counts the captures taken
+    again."""
+    got = []
+    for attempt in range(tries):
+        if attempt:
+            RETAKEN[only] += 1
+            time.sleep(0.05 * attempt)
+        before = launched() if launched else 0
+        times = capture(fn, only, reset)
+        want = launched() - before if launched else records
+        check(want > 0, f"the call launched no kernel named {only!r}")
+        if len(times) == want:
+            return times
+        got.append(len(times))
+    raise SmokeFailure(f"torch.profiler captured {got} records named "
+                       f"{only!r} in {tries} captures of a call that "
+                       f"launched {want}")
+
+
+def device_ms(fn, reps, reset=None, only="", launched=None):
+    """Mean device time of one call of ``fn`` in ms: the sum of the
+    durations of the kernels it launches (those whose name holds
+    ``only``), so host time between launches does not count; ``reset``
+    (before each call) is left out. Each capture holds every record of
+    the call (``kernel_times``): as many as ``launched`` grew by, or as a
+    whole capture holds."""
+    import torch
+
+    if reset is not None:
+        reset()
     fn()  # warm up
     torch.cuda.synchronize()
-    total = 0.0
-    for _ in range(reps):
-        if reset is not None:
-            reset()
-            torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            fn()
-            torch.cuda.synchronize()
-        total += sum(e.device_time for e in prof.events()
-                     if e.device_type == torch.autograd.DeviceType.CUDA
-                     and only in e.name)
-    return total / reps / 1e3
+    records = None if launched else record_count(fn, only, reset)
+    return sum(sum(kernel_times(fn, only, reset, launched, records))
+               for _ in range(reps)) / reps
 
 
 def wall_ms(fn, reps):
@@ -378,17 +453,13 @@ def wall_ms(fn, reps):
     return sum(times) / reps, min(times)
 
 
-def sweep_device_times(fn):
-    """Device ms of each one-sweep kernel launch of one call of ``fn``."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [e.device_time / 1e3 for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and "label_prop_sweep_kernel" in e.name]
+def sweep_device_times(fn, launched=None):
+    """Device ms of each one-sweep kernel launch of one call of ``fn``
+    (``kernel_times``: as many as ``launched`` grew by, or as a whole
+    capture holds)."""
+    only = "label_prop_sweep_kernel"
+    return kernel_times(fn, only, launched=launched, records=(
+        None if launched else record_count(fn, only)))
 
 
 def propagate_once(lp, stats, bound, init, cos_gate, l, k, max_iters):
@@ -500,7 +571,8 @@ def phase_kernel_vs_plain(lp, dev):
                 normal, centroid, valid, angle, l, k, bound, 32)
 
         t = dict(V=V, bound=nb)
-        t["sweep_ms"] = device_ms(sweep, 10, reset)
+        t["sweep_ms"] = device_ms(sweep, 10, reset, "label_prop_sweep_kernel",
+                                  lambda: lp.LAUNCHES)
         t["sweep_call_ms"] = cuda_ms(sweep, 4 * reps, reset)
         t["plain_sweep_ms"] = device_ms(lambda: plain_sweep(
             lp, normal, centroid, valid, angle, l, k, init), 10)
@@ -515,9 +587,11 @@ def phase_kernel_vs_plain(lp, dev):
             mean, least = wall_ms(fn, reps)
             t.setdefault(f"{which}_wall_ms", []).append(mean)
             t.setdefault(f"{which}_wall_min_ms", []).append(least)
-        t["propagate_ms"] = device_ms(fused, 10, only="label_prop_propagate")
+        t["propagate_ms"] = device_ms(fused, 10, only="label_prop_propagate",
+                                      launched=lambda: lp.PROPAGATIONS)
         t["host_loop_ms"] = device_ms(host_loop, 10)
-        t["host_loop_sweeps_ms"] = sweep_device_times(host_loop)
+        t["host_loop_sweeps_ms"] = sweep_device_times(
+            host_loop, lambda: lp.LAUNCHES)
         t["plain_ms"] = device_ms(lambda: lp.label_propagate_plain(
             normal, centroid, valid, angle, l, k), 3)
         t["plain_wall_ms"] = wall_ms(lambda: lp.label_propagate_plain(
@@ -597,7 +671,9 @@ def phase_gather_vs_plain(gt, dev):
                    library=lambda: torch.gather(labels, -1, idx))
         times[(P, V)] = {
             **{f"{k}_call_ms": cuda_ms(fn, 200) for k, fn in fns.items()},
-            **{f"{k}_ms": device_ms(fn, 10) for k, fn in fns.items()},
+            "kernel_ms": device_ms(fns["kernel"], 10, only="gather_rows_kernel",
+                                   launched=lambda: gt.LAUNCHES),
+            **{f"{k}_ms": device_ms(fns[k], 10) for k in ("plain", "library")},
         }
     return max(errs), times
 
@@ -616,12 +692,15 @@ def halving_bound(P, V):
 
 @functools.lru_cache(maxsize=None)
 def scene(name, seed):
-    """(src, tar, T_gt) of bench.CONFIGS[name] for one seed."""
+    """(src, tar, T_gt) of bench.CONFIGS[name] for one seed, as
+    bench.pairs_for_config makes it."""
     import bench
     from fccf_pcr_torch.io import synthetic
 
     cfg = bench.CONFIGS[name]
-    return synthetic.make_pair(seed=seed, **cfg["scene"], **cfg["pair"])
+    fams = cfg.get("scenes")  # mixed-family configs: round-robin by seed
+    kw = fams[seed % len(fams)] if fams else cfg["scene"]
+    return synthetic.make_pair(seed=seed, **kw, **cfg["pair"])
 
 
 def config_batch(name, seeds, params, caps, dev):
@@ -693,15 +772,17 @@ def read_counts(counters, dev):
     return counts
 
 
-def phase_path(name, counters, dev, repeat=False):
+def phase_path(name, counters, dev):
     """One config's golden seeds through the batched main path; returns
     each kernel's launch count in that run (counts reset just before) and
-    the sweeps the propagation kernel ran."""
+    the sweeps the propagation kernel ran, and the wall ms of a second,
+    repeated step (which must give bitwise-equal transforms)."""
     import torch
 
     import bench
     from fccf_pcr_torch import make_register_fn
     from fccf_pcr_torch.models.fccf import get_model
+    from fccf_pcr_torch.twin.families import TWIN_BANDS
 
     model = get_model(bench.CONFIGS[name]["model"])
     rows = json.loads(GOLDEN.read_text())["configs"][name]
@@ -748,6 +829,8 @@ def phase_path(name, counters, dev, repeat=False):
         check(kept == row["kept"], f"{name} seed {row['seed']}: kept mask differs")
         check(g_rre < gate[0] and g_rte < gate[1],
               f"{name} seed {row['seed']}: ground-truth gate failed")
+    if name in TWIN_BANDS:
+        check_twin_bands(name, seeds, T64)
 
     # Each pair alone (P = 1) against its batch row.
     single = make_register_fn(model.params, model.caps, device=dev)
@@ -768,16 +851,204 @@ def phase_path(name, counters, dev, repeat=False):
           f"difference {worst[0]:.3g} deg / {worst[1]:.3g} m (limit 1e-3 deg "
           "/ 1e-4 m)", flush=True)
 
-    note = ""
-    if repeat:
-        again = fn(*args)
-        torch.cuda.synchronize()
-        check(torch.equal(again.transform, res.transform),
-              f"{name}: a repeated run gave different transforms")
-        note = "; repeated run bitwise equal"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    again = fn(*args)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    check(torch.equal(again.transform, res.transform),
+          f"{name}: a repeated run gave different transforms")
     print(f"[{name}] {len(seeds)} pairs inside the golden bands; launches "
-          f"{launches}{note}", flush=True)
-    return launches
+          f"{launches}; repeated run bitwise equal, its step "
+          f"{step_ms:.1f} ms wall (batch {len(seeds)})", flush=True)
+    return launches, step_ms
+
+
+def check_twin_bands(name, seeds, T64):
+    """The batch's transforms against the NumPy twin's cached ones of
+    tests/golden/twin_production.json, within TWIN_BANDS[name]."""
+    import numpy as np
+
+    from fccf_pcr_torch.twin.families import TWIN_BANDS
+
+    rows = {r["seed"]: r for r in json.loads(TWIN_PRODUCTION.read_text())[
+        "rows"] if r["config"] == name}
+    band = TWIN_BANDS[name]
+    worst = [0.0, 0.0]
+    for k, seed in enumerate(seeds):
+        r = rows[seed]
+        src, tar, _ = scene(name, seed)
+        check((len(src), len(tar)) == (r["n_src"], r["n_tar"]),
+              f"{name} seed {seed}: scene differs from the twin fixture's")
+        d = drift(T64[k], np.reshape(r["T_twin"], (4, 4)))
+        worst = [max(w, x) for w, x in zip(worst, d)]
+        check(d[0] < band[0] and d[1] < band[1],
+              f"{name} seed {seed}: {d[0]:.4f} deg / {d[1]:.5f} m from the "
+              f"twin (band {band})")
+    print(f"[{name}] seeds {seeds} within the twin-production band {band}: "
+          f"worst {worst[0]:.4f} deg / {worst[1]:.5f} m", flush=True)
+
+
+def phase_unequal(dev):
+    """Office seed 0 with the target cut to its valid rows (another N than
+    the source's): every field bitwise equal to the equal-N run."""
+    import torch
+
+    import bench
+    from fccf_pcr_torch import make_register_fn
+    from fccf_pcr_torch.models.fccf import get_model
+
+    model = get_model(bench.CONFIGS["office"]["model"])
+    (sp, sm, tp, tm), _ = config_batch("office", [0], model.params,
+                                       model.caps, dev)
+    n = int(tm[0].sum())
+    check(bool(tm[0, :n].all()) and n < tm.shape[1],
+          "office seed 0: the target's valid rows are not a proper prefix")
+    fn = make_register_fn(model.params, model.caps, device=dev)
+    equal = fn(sp[0], sm[0], tp[0], tm[0])
+    cut = fn(sp[0], sm[0], tp[0, :n], tm[0, :n])
+    for f, a, b in zip(equal._fields, equal, cut):
+        check(torch.equal(a, b), f"unequal N: {f} differs from the equal-N run")
+    print(f"[unequal] office seed 0, source {sp.shape[1]} rows, target cut "
+          f"to its {n} valid rows: every field bitwise equal to the equal-N "
+          "run", flush=True)
+
+
+def phase_mesh(dev, counters):
+    """The office batch of 8 split over make_mesh([dev] * k) for k = 2 and
+    4 and over make_mesh() (every card): every field bitwise equal to the
+    unsplit batch, and so for k = 2 from the raw clouds through
+    sharded_pre_downsample (run_sweep's mesh path). Step wall times for
+    k = 1, 2, 4 in turns (1, 2, 4, 4, 2, 1); sharded_mean_errors against
+    ground truth."""
+    import numpy as np
+    import torch
+
+    import bench
+    from fccf_pcr_torch import make_register_fn, registration_errors
+    from fccf_pcr_torch.io import synthetic
+    from fccf_pcr_torch.models.fccf import get_model
+    from fccf_pcr_torch.parallel.mesh import (
+        make_mesh, make_sharded_register_fn, sharded_mean_errors,
+        sharded_pre_downsample)
+
+    model = get_model(bench.CONFIGS["office"]["model"])
+    args, T_gt = config_batch("office", list(range(8)), model.params,
+                              model.caps, dev)
+    fns = {1: make_register_fn(model.params, model.caps, batched=True,
+                               device=dev)}
+    meshes = {k: make_mesh([dev] * k) for k in (2, 4)}
+    for k, mesh in meshes.items():
+        fns[k] = make_sharded_register_fn(model.params, model.caps, mesh)
+    whole = fns[1](*args)
+    torch.cuda.synchronize()
+    every = make_mesh()
+    runs = {**{k: (fns[k], f"[{dev}] * {k}") for k in (2, 4)},
+            "all": (make_sharded_register_fn(model.params, model.caps, every),
+                    f"make_mesh() = {[str(d) for d in every]}")}
+    for k, (fn, what) in runs.items():
+        zero_counts(counters, dev)
+        split = fn(*args)
+        torch.cuda.synchronize()
+        props = read_counts(counters, dev)["label_prop_propagate"]
+        for f, a, b in zip(whole._fields, split, whole):
+            check(torch.equal(a, b), f"mesh {what}: {f} differs from the "
+                  "unsplit batch")
+        n_chunks = len(every) if k == "all" else k
+        check(props == 2 * n_chunks, f"mesh {what}: {props} propagation "
+              f"launches (want 2 a chunk, {2 * n_chunks})")
+        print(f"[mesh] office batch 8 split over {what}: every field bitwise "
+              f"equal to the unsplit batch; {props} propagation launches",
+              flush=True)
+    # The raw clouds downsampled chunk by chunk, each on its own device,
+    # and registered where they lie (run_sweep's mesh path).
+    chunks = []
+    for side in (0, 2):  # sources, then targets
+        raw = [synthetic.pad_points(scene("office", s)[side // 2],
+                                    model.caps.raw_points) for s in range(8)]
+        pts, valid, ovf = sharded_pre_downsample(
+            np.stack([r[0] for r in raw]), np.stack([r[1] for r in raw]),
+            model.params, model.caps, meshes[2])
+        check(not bool(ovf.any()), "mesh: sharded_pre_downsample overflow")
+        for got, want in ((pts, args[side]), (valid, args[side + 1])):
+            check(torch.equal(torch.cat(got), want), "mesh: a chunk of "
+                  "sharded_pre_downsample differs from its clouds alone")
+        chunks += [pts, valid]
+    split = fns[2](*chunks)
+    for f, a, b in zip(whole._fields, split, whole):
+        check(torch.equal(a, b), f"mesh sharded_pre_downsample: {f} differs "
+              "from the unsplit batch")
+    print(f"[mesh] office raw clouds through sharded_pre_downsample over "
+          f"[{dev}] * 2: every chunk equal to its clouds downsampled alone, "
+          f"every field of the split batch bitwise equal to the unsplit "
+          f"batch", flush=True)
+    times = collections.defaultdict(list)
+    for k in (1, 2, 4, 4, 2, 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fns[k](*args)
+        torch.cuda.synchronize()
+        times[k].append((time.perf_counter() - t0) * 1e3)
+    # sharded_mean_errors (float32, like the batch) against the same
+    # errors of the whole batch on the card; float64 errors for reference.
+    rre32, rte32 = registration_errors(whole.transform,
+                                       T_gt.float().to(dev))
+    rre, rte = registration_errors(whole.transform.double().cpu(), T_gt)
+    errs = {k: sharded_mean_errors(whole.transform, T_gt, meshes[k])
+            for k in (2, 4)}
+    for k, (m_rre, m_rte) in errs.items():
+        check(math.isclose(m_rre, float(rre32.mean()), rel_tol=1e-5)
+              and math.isclose(m_rte, float(rte32.mean()), rel_tol=1e-5),
+              f"mesh [{dev}] * {k}: sharded_mean_errors {m_rre}, {m_rte} "
+              f"disagrees with the whole batch's {float(rre32.mean())}, "
+              f"{float(rte32.mean())}")
+    print(f"[mesh] torch.cuda.device_count() {torch.cuda.device_count()}; "
+          f"office batch-8 step wall ms in turns (k = 1, 2, 4, 4, 2, 1): "
+          f"k=1 {[round(x, 1) for x in times[1]]}, k=2 "
+          f"{[round(x, 1) for x in times[2]]}, k=4 "
+          f"{[round(x, 1) for x in times[4]]} (one card listed k times: "
+          f"its chunks run in turn); sharded_mean_errors vs ground truth "
+          f"{errs} (float32, as the batch; in float64 {float(rre.mean()):.5f} "
+          f"deg {float(rte.mean()):.6f} m)", flush=True)
+
+
+def phase_diff(lp):
+    """twin/diff.py on the FAMILIES targets (seed 30, TEST_CAPS): the
+    pipeline membership on the card equal to the CPU run's, the
+    propagation kernel launched, and the diff's metrics inside
+    tests/test_twin_sweep.py's limits. Returns the wall seconds of the
+    card-side diffs."""
+    import numpy as np
+
+    from fccf_pcr_torch import TEST_CAPS, FCCFParams
+    from fccf_pcr_torch.io import synthetic
+    from fccf_pcr_torch.twin import diff
+    from fccf_pcr_torch.twin.families import FAMILIES
+
+    params = FCCFParams()
+    wall = 0.0
+    for fam, cfg in FAMILIES.items():
+        _, tar, _ = synthetic.make_pair(seed=30, **cfg["scene"], **cfg["pair"])
+        cloud = np.asarray(tar, np.float32)
+        before = lp.PROPAGATIONS
+        on_card = diff._pipeline_membership(cloud, params, TEST_CAPS,
+                                            device="cuda")
+        check(lp.PROPAGATIONS > before,
+              f"diff {fam}: the propagation kernel was not launched")
+        on_cpu = diff._pipeline_membership(cloud, params, TEST_CAPS,
+                                           device="cpu")
+        check(on_card == on_cpu, f"diff {fam}: the card's membership differs "
+              "from the CPU's")
+        t0 = time.perf_counter()
+        res = diff.face_membership_diff(tar, params, TEST_CAPS, device="cuda")
+        wall += time.perf_counter() - t0
+        check(res["pair_agreement"] > 0.98 and res["matched_fraction"] > 0.95,
+              f"diff {fam}: {res}")
+        print(f"[diff] {fam} seed 30 target: card membership == CPU "
+              f"membership ({len(on_card)} cells); {res}", flush=True)
+    print(f"[diff] {len(FAMILIES)} face_membership_diff calls on the card: "
+          f"{wall:.2f} s wall", flush=True)
+    return wall
 
 
 def run_cli(args, what):
@@ -873,15 +1144,8 @@ def count_syncs(fn, *args):
 
 def count_kernels(fn, *args):
     """Kernels launched on the card by one call of ``fn`` (torch.profiler,
-    CUDA activity only)."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn(*args)
-        torch.cuda.synchronize()
-    return sum(1 for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA)
+    CUDA activity only; ``record_count``)."""
+    return record_count(lambda: fn(*args))
 
 
 def phase_timing(name, dev, counters, batch=8, reps=2):
@@ -922,14 +1186,26 @@ def phase_timing(name, dev, counters, batch=8, reps=2):
 
 
 def phase_profile(fn, args):
+    """One heritage step under utils.profiling.trace (its Chrome trace
+    must name the propagation kernel) and a StageTimer."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn(*args)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    from fccf_pcr_torch.utils.profiling import StageTimer, trace
+
+    timer = StageTimer()
+    with tempfile.TemporaryDirectory() as logdir:
+        with trace(logdir) as prof:
+            t0 = time.perf_counter()
+            with timer.stage("heritage batch-8 step") as live:
+                live.append(fn(*args))
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        text = pathlib.Path(prof.trace_path).read_text()
+        check("label_prop_propagate" in text,
+              "the exported trace does not name label_prop_propagate")
+        print(f"[profile] trace exported by utils.profiling.trace: "
+              f"{os.path.basename(prof.trace_path)}, {len(text)} bytes, "
+              f"names label_prop_propagate", flush=True)
+    print(f"[profile] StageTimer report:\n{timer.report()}", flush=True)
     stages = ("downsample", "faces", "hypotheses", "cluster", "quick_verify",
               "refine", "fine_verify")
     # Device work = the kernels' own time (one stream, so no overlap);
@@ -1055,8 +1331,13 @@ def main():
                   f"{b_ms * 1e3:.3f} us (bytes) | {smi}", flush=True)
 
         launches = collections.Counter()
-        for name, repeat in (("office", True), ("heritage", False)):
-            launches.update(phase_path(name, counters, dev, repeat))
+        path_ms = {}
+        for name in PATH_CONFIGS:
+            counts, path_ms[name] = phase_path(name, counters, dev)
+            launches.update(counts)
+        print(f"[paths] repeated-step wall ms by config: {path_ms} | {smi}",
+              flush=True)
+        phase_unequal(dev)
 
         phase_cli()
 
@@ -1083,9 +1364,14 @@ def main():
                   f"({t['peak_bytes_over_inputs'] / 2**30:.3f} GiB over the "
                   f"step's inputs) | {smi} | torch {torch.__version__} "
                   f"cuda {torch.version.cuda}", flush=True)
+        phase_mesh(dev, counters)
+        print(f"[mesh] {smi}", flush=True)
+        phase_diff(lp)
+        print(f"[diff] {smi}", flush=True)
         phase_profile(*step)
         print(f"[done] {time.perf_counter() - t_start:.1f} s after the build "
-              "started", flush=True)
+              f"started; torch.profiler captures taken again for dropped "
+              f"records: {dict(RETAKEN)}", flush=True)
     except Exception:  # any failed phase fails the run
         traceback.print_exc()
         print("FAIL", file=sys.stderr)

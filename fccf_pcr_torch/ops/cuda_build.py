@@ -15,6 +15,7 @@ import os
 import pathlib
 import shutil
 import subprocess
+import threading
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
@@ -44,6 +45,9 @@ class CudaLibrary:
         self._bind = bind
         self._lib = None
         self.build_log = ""
+        # One build at a time: host threads of a split over devices all
+        # load the library at their first launch.
+        self._lock = threading.Lock()
 
     def compile(self):
         """Run nvcc (into a temporary name, then an atomic rename)."""
@@ -66,14 +70,17 @@ class CudaLibrary:
         this, and two file stats per launch cost more than the launch."""
         if self._lib is not None and not force:
             return self._lib
-        stale = (
-            not self.path.exists()
-            or self.path.stat().st_mtime < self.source.stat().st_mtime
-        )
-        if force or stale:
-            self.compile()
-        if self._lib is None:
-            lib = ctypes.CDLL(str(self.path))
-            self._bind(lib)
-            self._lib = lib
-        return self._lib
+        with self._lock:
+            if self._lib is not None and not force:
+                return self._lib
+            stale = (
+                not self.path.exists()
+                or self.path.stat().st_mtime < self.source.stat().st_mtime
+            )
+            if force or stale:
+                self.compile()
+            if self._lib is None:
+                lib = ctypes.CDLL(str(self.path))
+                self._bind(lib)
+                self._lib = lib
+            return self._lib

@@ -20,13 +20,16 @@ kernel launches.
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import torch
 
 from .cuda_build import CudaLibrary
 
-# Number of kernel launches made by gather_rows.
+# Number of kernel launches made by gather_rows, kept under the lock (host
+# threads may launch on several cards).
 LAUNCHES = 0
+_COUNT_LOCK = threading.Lock()
 
 
 def _bind(lib):
@@ -68,10 +71,12 @@ def _launch(tbl, idx):
     out = torch.empty_like(idx)
     lib = build()
     stream = torch.cuda.current_stream(tbl.device).cuda_stream
-    rc = lib.fccf_gather_rows(
-        tbl.data_ptr(), idx.data_ptr(), out.data_ptr(), P, V, stream
-    )
-    LAUNCHES += 1
+    with torch.cuda.device(tbl.device):  # the C entry launches on it
+        rc = lib.fccf_gather_rows(
+            tbl.data_ptr(), idx.data_ptr(), out.data_ptr(), P, V, stream
+        )
+    with _COUNT_LOCK:
+        LAUNCHES += 1
     if rc != 0:
         raise RuntimeError(f"gather kernel launch failed: CUDA error {rc}")
     return out

@@ -28,13 +28,15 @@ The kernels are built with nvcc into ``fccf_pcr_torch/build/`` at first
 use and bound with ctypes (``ops.cuda_build``). ``PROPAGATIONS`` counts
 launches of the propagation kernel, ``LAUNCHES`` launches of the
 one-sweep kernel; ``sweep_counter(device)`` holds the sweeps the
-propagation kernel has run on that device.
+propagation kernel has run on that device. The counts are kept under a
+lock, so that host threads launching on several cards lose no launch.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 
 import torch
 
@@ -53,6 +55,9 @@ LAUNCHES = 0
 PROPAGATIONS = 0
 # device -> (1,) int64 count of the sweeps the propagation kernel ran.
 _SWEEPS = {}
+# Guards the counts and _SWEEPS: a split over devices launches from one
+# host thread a device (parallel/mesh.py).
+_COUNT_LOCK = threading.Lock()
 
 
 def _bind(lib):
@@ -215,14 +220,16 @@ def _launch_sweep(stats, bound, labels, changed, cos_gate, l, k):
     lib = build()
     stream = torch.cuda.current_stream(dev).cuda_stream
     BJ, _, _ = sweep_grid(V, _sm_count(dev))
-    rc = lib.fccf_label_prop_sweep(
-        stats.data_ptr(), bound.data_ptr(), labels.data_ptr(),
-        changed.data_ptr(), P, V, BJ, cos_gate, float(l), float(k),
-        stream,
-    )
+    with torch.cuda.device(dev):  # the C entry launches on the current one
+        rc = lib.fccf_label_prop_sweep(
+            stats.data_ptr(), bound.data_ptr(), labels.data_ptr(),
+            changed.data_ptr(), P, V, BJ, cos_gate, float(l), float(k),
+            stream,
+        )
     if rc != 0:
         raise RuntimeError(f"label-prop kernel launch failed: CUDA error {rc}")
-    LAUNCHES += 1
+    with _COUNT_LOCK:
+        LAUNCHES += 1
 
 
 def sweep_counter(device) -> torch.Tensor:
@@ -230,9 +237,13 @@ def sweep_counter(device) -> torch.Tensor:
     kernel since the counter was made or last zeroed. The kernel adds to
     it on the card; read it after a synchronize."""
     device = torch.device(device)
-    if device not in _SWEEPS:
-        _SWEEPS[device] = torch.zeros((1,), dtype=torch.int64, device=device)
-    return _SWEEPS[device]
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    with _COUNT_LOCK:
+        if device not in _SWEEPS:
+            _SWEEPS[device] = torch.zeros((1,), dtype=torch.int64,
+                                          device=device)
+        return _SWEEPS[device]
 
 
 def _launch_propagate(stats, bound, labels, flags, sweeps, cos_gate, l, k,
@@ -258,15 +269,17 @@ def _launch_propagate(stats, bound, labels, flags, sweeps, cos_gate, l, k,
     lib = build()
     stream = torch.cuda.current_stream(dev).cuda_stream
     BJ, _, _ = sweep_grid(V, _sm_count(dev))
-    rc = lib.fccf_label_prop_propagate(
-        stats.data_ptr(), bound.data_ptr(), labels.data_ptr(),
-        flags.data_ptr(), sweeps.data_ptr(), P, V, BJ, cos_gate, float(l),
-        float(k), max_iters, jump_rounds, stream,
-    )
+    with torch.cuda.device(dev):  # the C entry sizes and launches on it
+        rc = lib.fccf_label_prop_propagate(
+            stats.data_ptr(), bound.data_ptr(), labels.data_ptr(),
+            flags.data_ptr(), sweeps.data_ptr(), P, V, BJ, cos_gate,
+            float(l), float(k), max_iters, jump_rounds, stream,
+        )
     if rc != 0:
         raise RuntimeError(
             f"label-prop propagation kernel launch failed: CUDA error {rc}")
-    PROPAGATIONS += 1
+    with _COUNT_LOCK:
+        PROPAGATIONS += 1
 
 
 def _kernel_inputs(normal, centroid, valid, bound):

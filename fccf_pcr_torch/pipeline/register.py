@@ -129,9 +129,27 @@ def _split(nt, P):
     return type(nt)(*(x[:P] for x in nt)), type(nt)(*(x[P:] for x in nt))
 
 
+def _pad_rows(pts, mask, n):
+    """(P, N, 3) points + (P, N) mask with masked zero rows appended up
+    to n rows."""
+    extra = n - pts.shape[1]
+    if extra == 0:
+        return pts, mask
+    P = pts.shape[0]
+    return (torch.cat([pts, pts.new_zeros((P, extra, 3))], dim=1),
+            torch.cat([mask, mask.new_zeros((P, extra))], dim=1))
+
+
 def _register_batch(src_pts, src_mask, tar_pts, tar_mask, params, caps):
-    """Register P pairs: (P, N, 3) points + (P, N) masks."""
+    """Register P pairs: (P, Ns, 3) / (P, Nt, 3) points + (P, Ns) /
+    (P, Nt) masks. The shorter cloud is padded with masked rows to the
+    longer one's length, so that the 2P clouds stack; masked rows are
+    dropped by every stage, as the JAX package's separate runs of the two
+    clouds drop them."""
     P = src_pts.shape[0]
+    n = max(src_pts.shape[1], tar_pts.shape[1])
+    src_pts, src_mask = _pad_rows(src_pts, src_mask, n)
+    tar_pts, tar_mask = _pad_rows(tar_pts, tar_mask, n)
     dev = src_pts.device
     f32 = src_pts.dtype
     # The downsample fuses with the feature voxelization (one sort per

@@ -5,11 +5,14 @@ Every pair gets a JSON record with the transform, scores, counts, status
 flags, RTE/RRE against ground truth when given, and the batch's wall
 time; records stream to a JSONL file that a restarted sweep resumes from
 (last record wins). Pairs whose status shows a capacity hit re-run at
-larger capacities (``escalate_caps``). One device: the JAX package's
-split of the pair axis over a mesh is not ported. Each chunk of
-``batch_size`` pairs (the last one padded with repeats of its last pair)
-is one batch: one ``pre_downsample`` call a side on the (P, raw, 3)
-clouds, then one call of the batched registration program.
+larger capacities (``escalate_caps``). Each chunk of ``batch_size`` pairs
+(the last one padded with repeats of its last pair) is one batch: one
+``pre_downsample`` call a side on the (P, raw, 3) clouds, then one call
+of the batched registration program. With more than one card and a
+batch size they divide, both are split over the cards
+(``parallel/mesh.py``: each card downsamples and registers its own chunk
+of the pair axis), as the JAX package shards them over its mesh; the
+summary's ``n_devices`` and ``sharded`` say which ran.
 """
 
 from __future__ import annotations
@@ -96,10 +99,16 @@ def run_sweep(
     resume: bool = True,
     escalate_caps=None,
     device="cuda",
+    use_mesh: bool = True,
 ):
     """Register a list of (src_points, tar_points) pairs on ``device``
     (the card by default; without one this raises, see
     ``register.resolve_device``).
+
+    ``device="cuda"`` names every card (``mesh.make_mesh()``), a device
+    with an index (``"cuda:1"``, ``"cpu"``) that one alone. With
+    ``use_mesh``, more than one card and a ``batch_size`` that they
+    divide, each batch runs split over the cards.
 
     pairs: list of (np.ndarray (M, 3), np.ndarray (K, 3)).
     ground_truth: optional list of 4x4 arrays (src -> tar).
@@ -116,19 +125,38 @@ def run_sweep(
     warm-up).
     """
     from ..io.synthetic import pad_points
+    from ..parallel.mesh import (
+        make_mesh, make_sharded_register_fn, sharded_pre_downsample)
     from .metrics import registration_errors
     from .register import make_register_fn, pre_downsample, resolve_device
 
     if escalate_caps is not None:
         _check_dominates(caps, escalate_caps)
     device = resolve_device(device)
+    every_card = device.type == "cuda" and device.index is None
+    devices = make_mesh(None if every_card else [device])
+    mesh = None
+    if use_mesh and len(devices) > 1 and batch_size % len(devices) == 0:
+        mesh = devices
     done = {}
     if resume and out_path and os.path.exists(out_path):
         done = _load_done(out_path, len(pairs))
 
     def sync():
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
+        for dev in set(mesh or [device]):
+            if dev.type == "cuda":
+                torch.cuda.synchronize(dev)
+
+    def build(stage_caps):
+        """(pre, register) at one capacity config."""
+        if mesh is not None:
+            return ((lambda p, m: sharded_pre_downsample(
+                        p, m, params, stage_caps, mesh)),
+                    make_sharded_register_fn(params, stage_caps, mesh))
+        return ((lambda p, m: pre_downsample(p, m, params, stage_caps,
+                                              device=device)),
+                make_register_fn(params, stage_caps, batched=True,
+                                 device=device))
 
     out_f = open(out_path, "a" if resume else "w") if out_path else None
     total_time = 0.0
@@ -137,7 +165,7 @@ def run_sweep(
     def run_pass(todo, stage_caps, escalated, tight_status=None):
         """One pass over pair indices ``todo`` at one capacity config."""
         nonlocal total_time, n_done
-        fn = make_register_fn(params, stage_caps, batched=True, device=device)
+        pre, fn = build(stage_caps)
         pass_records = []
         for chunk_idx, chunk in enumerate(_chunk(todo, batch_size)):
             idxs = list(chunk)
@@ -147,13 +175,12 @@ def run_sweep(
             pre_ovf = np.array([len(s) > raw or len(t) > raw
                                 for s, t in (pairs[i] for i in eff)])
             # One batch a side: (P, raw, 3) clouds through one
-            # pre_downsample each.
+            # pre_downsample each (one a chunk on a mesh).
             sides = []
             for side in range(2):
                 p, m = zip(*(pad_points(np.asarray(pairs[i][side], np.float32),
                                         raw) for i in eff))
-                sides.append(pre_downsample(np.stack(p), np.stack(m), params,
-                                            stage_caps, device=device))
+                sides.append(pre(np.stack(p), np.stack(m)))
             (sp, sm, s_ovf), (tp, tm, t_ovf) = sides
             pre_ovf |= (s_ovf | t_ovf).cpu().numpy()
 
@@ -234,8 +261,8 @@ def run_sweep(
         "pairs_per_sec": (
             (n_done / total_time) if n_done > 0 and total_time > 0 else None
         ),
-        "n_devices": 1,
-        "sharded": False,
+        "n_devices": len(devices),
+        "sharded": mesh is not None,
         "device": str(device),
     }
     if escalate_caps is not None:

@@ -92,6 +92,10 @@ def test_port_imports_no_jax():
     banned = ("jax", "jaxlib", "fccf_pcr_tpu")
     files = sorted(PORT.rglob("*.py"))
     assert len(files) > 20
+    for module in ("parallel/mesh.py", "utils/profiling.py",
+                   "utils/records.py", "io/visualize.py", "twin/twin.py",
+                   "twin/diff.py"):
+        assert PORT / module in files, module
     files += [PORT.parent / "chip_smoke.py",
               *sorted((PORT.parent / "tools").glob("torch_*.py"))]
     for path in files:

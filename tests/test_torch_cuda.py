@@ -5,8 +5,11 @@ cases: bounds 0 and 1, no valid row, one component spanning every voxel,
 only isolated voxels, V under one tile; under a cap on the sweeps; at the
 widest slices; with no host sync), the main path on the card against the
 port on the CPU, each row of a batch against its pair registered alone,
-the host syncs of a batched step, and the entry points' default
-device.
+the host syncs of a batched step, the entry points' default device, a
+batch split over one card listed twice against the unsplit batch, launch
+counts kept across host threads, StageTimer's wait for the card, the
+face-membership diff on the card against the CPU, and the non-fused face
+path on the card against the CPU.
 
 This file imports no jax, so it runs on a machine without it (the
 repository's conftest.py imports jax, hence --noconftest):
@@ -430,3 +433,111 @@ def test_batched_step_host_syncs_are_bounded(cuda):
         counts.append(sum("called a synchronizing" in str(w.message)
                           for w in caught))
     assert 0 < counts[0] and max(counts) <= params.refine_iters + 30, counts
+
+
+def test_mesh_split_on_one_card_is_bitwise_equal(cuda):
+    """A batch of 4 split over [cuda:0] * 2 (one card standing in for
+    two) against the unsplit batch: every field bitwise equal."""
+    from fccf_pcr_torch.parallel.mesh import make_mesh, make_sharded_register_fn
+
+    caps = TEST_CAPS
+    params = FCCFParams(leaf_size=0.25)
+    batch = [np.concatenate([a, a[:1]]) for a in _batch(caps)]
+    whole = make_register_fn(params, caps, batched=True, device=cuda)(*batch)
+    before = lp.PROPAGATIONS
+    split = make_sharded_register_fn(params, caps,
+                                     make_mesh(["cuda:0"] * 2))(*batch)
+    assert lp.PROPAGATIONS == before + 4  # two passes a chunk
+    for name, a, b in zip(split._fields, split, whole):
+        assert a.device == b.device and torch.equal(a, b), name
+
+
+def test_launch_counts_lose_nothing_across_threads(cuda):
+    """More host threads than cores launching the propagation kernel at
+    once, with a short switch interval: the count grows by exactly their
+    launches (the counts are kept under a lock)."""
+    import os
+    import sys
+    from concurrent.futures import ThreadPoolExecutor
+
+    rng = np.random.default_rng(8)
+    normal, centroid, valid = (torch.from_numpy(a).to(cuda)
+                               for a in _clustered(rng, 700, 700))
+
+    def work(_):
+        for _ in range(25):
+            lp.label_propagate(normal, centroid, valid, 5.0, 0.5, 5.0)
+        torch.cuda.synchronize()
+
+    lp.label_propagate(normal, centroid, valid, 5.0, 0.5, 5.0)  # built
+    n = 2 * (os.cpu_count() or 4)
+    before = lp.PROPAGATIONS
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        with ThreadPoolExecutor(n) as ex:
+            for f in [ex.submit(work, i) for i in range(n)]:
+                f.result(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert lp.PROPAGATIONS == before + n * 25
+
+
+def test_stage_timer_waits_for_the_card(cuda):
+    """A tensor inside a NamedTuple in the stage's list: on exit the card
+    has finished the work that made it."""
+    from fccf_pcr_torch.pipeline.register import RegistrationResult
+    from fccf_pcr_torch.utils.profiling import StageTimer
+
+    x = torch.randn((4096, 4096), device=cuda)
+    torch.cuda.synchronize()
+    t = StageTimer()
+    with t.stage("matmuls") as live:
+        y = x
+        for _ in range(20):
+            y = y @ x / 64.0
+        live.append([RegistrationResult(*([y] * 9))])
+        assert not torch.cuda.current_stream(cuda).query()  # still running
+    assert torch.cuda.current_stream(cuda).query()
+    assert t.times["matmuls"] > 0.0
+
+
+def test_membership_diff_on_card_equals_cpu(cuda):
+    """twin/diff.py's pipeline membership on the card (the propagation
+    kernel) equals the CPU run's (the plain versions)."""
+    from fccf_pcr_torch.twin import diff
+    from fccf_pcr_torch.twin.families import FAMILIES
+
+    cfg = FAMILIES["office"]
+    _, tar, _ = synthetic.make_pair(seed=30, **cfg["scene"], **cfg["pair"])
+    cloud = np.asarray(tar, np.float32)
+    params = FCCFParams()
+    before = lp.PROPAGATIONS
+    on_card = diff._pipeline_membership(cloud, params, TEST_CAPS)
+    assert lp.PROPAGATIONS > before
+    assert on_card == diff._pipeline_membership(cloud, params, TEST_CAPS,
+                                                device="cpu")
+    res = diff.face_membership_diff(tar, params, TEST_CAPS)
+    assert res["pair_agreement"] > 0.98 and res["matched_fraction"] > 0.95
+
+
+def test_non_fused_path_on_card_matches_cpu(cuda):
+    """A leaf that does not nest in the feature voxel (0.3 in 1.0) takes
+    the non-fused face path: downsample, then voxel_stats. On the card it
+    matches the port on the CPU."""
+    caps = TEST_CAPS
+    params = FCCFParams(leaf_size=0.3)
+    src, tar, _ = synthetic.make_pair(seed=3, points_per_plane=1500,
+                                      clutter_points=900)
+    args = synthetic.pad_points(src, caps.max_points) + synthetic.pad_points(
+        tar, caps.max_points)
+    cpu = make_register_fn(params, caps, device="cpu")(*args)
+    before = lp.PROPAGATIONS
+    gpu = make_register_fn(params, caps, device=cuda)(*args)
+    assert lp.PROPAGATIONS > before
+    rre, rte = registration_errors(gpu.transform.cpu().double(),
+                                   cpu.transform.double())
+    assert float(rre) < 0.1 and float(rte) < 0.02
+    for f in ("status", "n_faces", "n_hypotheses", "kept"):
+        np.testing.assert_array_equal(getattr(gpu, f).cpu().numpy(),
+                                      getattr(cpu, f).numpy(), err_msg=f)

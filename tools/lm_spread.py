@@ -6,12 +6,13 @@ refined three ways on identical inputs: the port, the JAX package's
 refine_pairs compiled over the candidates (jit of vmap, as its pipeline
 runs it) and compiled one candidate at a time (jit).
 
-    python3 tools/lm_spread.py [--config resso] [--seed 1]
+    python3 tools/lm_spread.py [--config resso] [--seed 1] [--ref05]
 
 Prints, per candidate, its number of matched pairs and the largest
 difference of the transform entries between each two of the three, then
-the port's fine scores against the golden row's. Needs jax (the reference)
-and runs on the CPU only.
+the port's fine scores against the golden row's (``--ref05``: the row of
+tests/golden/pipeline_ref05.json, at its curvature_threshold). Needs jax
+(the reference) and runs on the CPU only.
 """
 
 import argparse
@@ -27,6 +28,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--config", default="resso")
     ap.add_argument("--seed", type=int, default=1)
+    ap.add_argument("--ref05", action="store_true",
+                    help="the pipeline_ref05.json fixture and its params")
     args = ap.parse_args()
 
     import jax
@@ -45,8 +48,15 @@ def main():
     cfg = bench.CONFIGS[args.config]
     model = get_model(cfg["model"])
     params, caps = model.params, model.caps
-    src, tar, _ = synthetic.make_pair(seed=args.seed, **cfg["scene"],
-                                      **cfg["pair"])
+    fixture = ROOT / "tests" / "golden" / (
+        "pipeline_ref05.json" if args.ref05 else "pipeline.json")
+    golden = json.loads(fixture.read_text())
+    if args.ref05:
+        golden = golden["pipeline"]
+        params = params.replace(**golden["params_set"])
+    fams = cfg.get("scenes")  # mixed-family configs: round-robin by seed
+    scene = fams[args.seed % len(fams)] if fams else cfg["scene"]
+    src, tar, _ = synthetic.make_pair(seed=args.seed, **scene, **cfg["pair"])
     clouds = [synthetic.pad_points(c, caps.raw_points) for c in (src, tar)]
     (sp, sm, _), (tp, tm, _) = (pre_downsample(p, m, params, caps, device="cpu")
                                 for p, m in clouds)
@@ -78,9 +88,8 @@ def main():
               f", vmapped-per-candidate "
               f"{np.abs(vmapped[b] - per_lane[b]).max():.3g}, port-per-"
               f"candidate {np.abs(port[b] - per_lane[b]).max():.3g}")
-    row = next(r for r in json.loads(
-        (ROOT / "tests" / "golden" / "pipeline.json").read_text()
-    )["configs"][args.config] if r["seed"] == args.seed)
+    row = next(r for r in golden["configs"][args.config]
+               if r["seed"] == args.seed)
     print(f"fine scores: port {res.fine_score.tolist()}, pinned "
           f"{row['fine_score']}")
     return 0
