@@ -23,7 +23,9 @@ result:
      different sweeps, so the kernel drops a pair at its fixpoint from
      the later sweeps); labels must be equal. Then
      the main path's own pass-1 inputs (seed 0's target cloud at office
-     and heritage): one sweep and its plain version timed, with the
+     and heritage, and heritage's through measure_content at V=16384,
+     the largest V of any path): one sweep and its plain version timed,
+     with the
      bound and the roofline share; one propagation through the kernel
      and through the host loop, in device time and wall time, the
      sweeps it ran, the device time outside its sweep phase, and its
@@ -33,12 +35,12 @@ result:
      (8, 9216) included; outputs must be equal; times beside plain and
      beside torch.gather alone (the library call, never called by the
      port);
-  5. the main path at the full eth-office preset: bench.CONFIGS["office"]
+  5. the main path at the full eth-office preset: configs.CONFIGS["office"]
      scenes for seeds 0-3 -> one batched pre_downsample a side -> the
      batched program (make_register_fn(batched=True), one program for
      the batch) on the card, held to the office rows of
      tests/golden/pipeline.json (transform within 0.1 deg / 0.02 m,
-     status and kept mask equal) and to bench.GATES["office"] against
+     status and kept mask equal) and to configs.GATES["office"] against
      ground truth; the propagation kernel's launch count must grow and
      the one-sweep and gather kernels' must not (the main path launches
      neither); each pair registered alone (P = 1) must match its batch
@@ -57,7 +59,7 @@ result:
      0.2 --caps heritage --device cuda --json` on the heritage seed-0
      pair written as PLY, held to its golden row; and a `--batch --out
      --caps auto` sweep of the resso seed-0 pair, held to
-     bench.GATES["resso"];
+     configs.GATES["resso"];
   8. steady-state step time at batch 8 (build excluded), office and
      heritage, in pairs/s, each kernel's launches per step and the
      sweeps the propagation kernel ran (at most 4 propagation launches a
@@ -77,7 +79,31 @@ result:
  11. one heritage batch-8 step under utils/profiling.py's trace (its
      Chrome trace must name label_prop_propagate) and a StageTimer: host
      time per stage (register.py's record_function scopes), the device's
-     busy share of the step, and the kernels with the most device time.
+     busy share of the step, and the kernels with the most device time;
+ 12. the accuracy sweep (evaluation/evaluate.py): every non-sequence
+     config, 16 seeds at batch 8 with escalate_caps="auto", 100% success,
+     seeds 0-3 within their golden rows' bands; summary and pairs/s;
+ 13. escalation: office scenes at 3 cm noise on the office preset flag
+     their residual bound; escalated rows (two-key wide_extent
+     voxelization at V=1536) bitwise equal to a direct batch at the
+     escalation caps, and run_sweep's escalated records too;
+ 14. the overlap curve (evaluation/overlap_eval.py) at 8 seeds a point,
+     its CURVE lines; the rows at overlap 1.0 equal phase 12's;
+ 15. the production twin check (evaluation/twin_production.py): all 24
+     fixture pairs inside their bands, the worst printed;
+ 16. content measurement (evaluation/measure_content.py): office seed 0
+     equal on the card and on the CPU at max_voxels 4096; heritage seeds
+     0-1 at V=16384, each count at or under the heritage preset's bound;
+ 17. --native-io: make -C csrc, the library loads, and the CLI's --json
+     record of the resso seed-0 pair with --native-io equals the Python
+     reader's, at the resso preset and at tiny caps, where both scans are
+     subsampled at load.
+
+Phases 5-6 are the main path: their launch counts are the kernels'
+"launches". Every later in-process path (12-16) is driven with the
+counts set to 0 just before it and read just after (drive_path): each
+must launch the propagation kernel, and neither the one-sweep nor the
+gather kernel.
 
 Then one JSON line describing the kernels, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
@@ -128,7 +154,33 @@ _BIG = 2**30
 # K1 against plain: (V, per-pair bounds) of batch-2 comparisons, and the
 # main path's pass-1 shapes it is timed at: (name, reps).
 K1_CASES = ((1536, (1019, 97)), (1000, (1000, 61)), (9216, (8526, 100)))
-K1_TIMED = (("office", 20), ("heritage", 5))
+# MEASURE_K1: heritage seed 0 through measure_content at its capacities
+# (V = 16384, the largest V of any path).
+MEASURE_K1 = "heritage-measure"
+K1_TIMED = (("office", 20), ("heritage", 5), (MEASURE_K1, 3))
+# The accuracy sweep's seeds a config (batch 8) and the overlap curve's
+# seeds a (config, overlap) point.
+EVAL_SEEDS = 16
+OVERLAP_SEEDS = 8
+# The escalation cell: the office preset on office scenes with 3 cm of
+# sensor noise and 10000 points a plane. Their residual clouds (36-39k
+# points, CPU measure_content, seeds 0-7) exceed the preset's 28672 and
+# their fine voxels (2.4-2.8k) its 2048, both bounds that
+# auto_escalation_caps doubles; down-sampled points (~58k), voxels
+# (~1.0k) and raw points (104k) stay inside the bounds it keeps.
+ESCALATING = dict(
+    model="eth-office",
+    scene=dict(points_per_plane=10000, clutter_points=4000, noise=0.03),
+    pair=dict(),
+)
+# measure_content's counts and the Capacities field each must fit in.
+CONTENT_CAPS = {
+    "raw": "raw_points", "down": "max_points", "voxels": "max_voxels",
+    "faces": "max_faces", "matches": "max_matches",
+    "per_match_hits": "per_match_hits", "hypotheses": "max_hypotheses",
+    "seeds": "max_clusters", "residual": "max_residual",
+    "fine_voxels": "max_fine_voxels",
+}
 # P1 against plain: (P, V) label rows (after the TPU probe's own inputs).
 P1_SHAPES = ((1, 1536), (1, 9216), (8, 9216))
 # Peak rates of an H100 SXM at 700 W (NVIDIA's data sheet): float32
@@ -326,18 +378,28 @@ def k1_against_plain(lp, dev, normal, centroid, valid, bounds, what,
 
 
 def main_path_k1_inputs(name, dev):
-    """The main path's first label propagation (pass 1 of seed 0's target
-    cloud at the ``name`` preset): (normal, centroid, valid) with a pair
-    axis of 1, angle, l, k and the (1,) int32 bound."""
+    """The first label propagation of a path: pass 1 of seed 0's target
+    cloud through the batched main path at the ``name`` preset, or, for
+    MEASURE_K1, through measure_content.measure_pair of heritage seed 0 at
+    the measurement capacities (V = 16384): (normal, centroid, valid) with
+    a pair axis of 1, angle, l, k and the (1,) int32 bound."""
     import torch
 
-    import bench
     from fccf_pcr_torch import make_register_fn
+    from fccf_pcr_torch.evaluation import configs, measure_content
     from fccf_pcr_torch.features import faces
     from fccf_pcr_torch.models.fccf import get_model
 
-    model = get_model(bench.CONFIGS[name]["model"])
-    args, _ = config_batch(name, [0], model.params, model.caps, dev)
+    if name == MEASURE_K1:
+        def drive():
+            measure("heritage", 0, measure_content.measurement_caps(), dev)
+    else:
+        model = get_model(configs.CONFIGS[name]["model"])
+        args, _ = config_batch(name, [0], model.params, model.caps, dev)
+
+        def drive():
+            make_register_fn(model.params, model.caps, batched=True,
+                             device=dev)(*args)
     calls = []
     propagate = faces.label_propagate
 
@@ -347,15 +409,26 @@ def main_path_k1_inputs(name, dev):
 
     faces.label_propagate = record
     try:
-        make_register_fn(model.params, model.caps, batched=True,
-                         device=dev)(*args)
+        drive()
     finally:
         faces.label_propagate = propagate
-    # The first call is pass 1 of the batch's 2P clouds, targets first.
+    # The first call is pass 1 of the stacked clouds, targets first.
     (normal, centroid, valid, angle, l, k), kw = calls[0]
     bound = torch.as_tensor(kw["bound"], device=dev).reshape(-1)[:1]
     return (normal[:1], centroid[:1], valid[:1], angle, l, k,
             bound.to(torch.int32))
+
+
+def measure(name, seed, caps, device):
+    """measure_content.measure_pair of one seed of configs.CONFIGS[name]
+    at its preset's params and the capacities ``caps``."""
+    from fccf_pcr_torch.evaluation import configs
+    from fccf_pcr_torch.evaluation.measure_content import measure_pair
+    from fccf_pcr_torch.models.fccf import get_model
+
+    src, tar, _ = scene(name, seed)
+    params = get_model(configs.CONFIGS[name]["model"]).params
+    return measure_pair(src, tar, params, caps, device=device)
 
 
 def capture(fn, only="", reset=None):
@@ -692,15 +765,11 @@ def halving_bound(P, V):
 
 @functools.lru_cache(maxsize=None)
 def scene(name, seed):
-    """(src, tar, T_gt) of bench.CONFIGS[name] for one seed, as
-    bench.pairs_for_config makes it."""
-    import bench
-    from fccf_pcr_torch.io import synthetic
+    """(src, tar, T_gt) of configs.CONFIGS[name] for one seed, as
+    configs.pairs_for_config makes it (the evaluation's assignment)."""
+    from fccf_pcr_torch.evaluation import configs
 
-    cfg = bench.CONFIGS[name]
-    fams = cfg.get("scenes")  # mixed-family configs: round-robin by seed
-    kw = fams[seed % len(fams)] if fams else cfg["scene"]
-    return synthetic.make_pair(seed=seed, **kw, **cfg["pair"])
+    return configs.pairs_for_config(configs.CONFIGS[name], [seed])[0]
 
 
 def config_batch(name, seeds, params, caps, dev):
@@ -779,12 +848,12 @@ def phase_path(name, counters, dev):
     repeated step (which must give bitwise-equal transforms)."""
     import torch
 
-    import bench
+    from fccf_pcr_torch.evaluation import configs
     from fccf_pcr_torch import make_register_fn
     from fccf_pcr_torch.models.fccf import get_model
     from fccf_pcr_torch.twin.families import TWIN_BANDS
 
-    model = get_model(bench.CONFIGS[name]["model"])
+    model = get_model(configs.CONFIGS[name]["model"])
     rows = json.loads(GOLDEN.read_text())["configs"][name]
     seeds = [r["seed"] for r in rows]
     args, T_gt = config_batch(name, seeds, model.params, model.caps, dev)
@@ -804,7 +873,7 @@ def phase_path(name, counters, dev):
     check(T.shape == (len(seeds), 4, 4) and bool(torch.isfinite(T).all()),
           f"{name}: transforms not finite / wrong shape")
     T64 = T.double().cpu()
-    gate = bench.GATES[name]
+    gate = configs.GATES[name]
     for k, row in enumerate(rows):
         d_rre, d_rte = drift(T64[k], row["T"])
         g_rre, g_rte = drift(T64[k], T_gt[k])
@@ -894,11 +963,11 @@ def phase_unequal(dev):
     the source's): every field bitwise equal to the equal-N run."""
     import torch
 
-    import bench
+    from fccf_pcr_torch.evaluation import configs
     from fccf_pcr_torch import make_register_fn
     from fccf_pcr_torch.models.fccf import get_model
 
-    model = get_model(bench.CONFIGS["office"]["model"])
+    model = get_model(configs.CONFIGS["office"]["model"])
     (sp, sm, tp, tm), _ = config_batch("office", [0], model.params,
                                        model.caps, dev)
     n = int(tm[0].sum())
@@ -924,7 +993,7 @@ def phase_mesh(dev, counters):
     import numpy as np
     import torch
 
-    import bench
+    from fccf_pcr_torch.evaluation import configs
     from fccf_pcr_torch import make_register_fn, registration_errors
     from fccf_pcr_torch.io import synthetic
     from fccf_pcr_torch.models.fccf import get_model
@@ -932,7 +1001,7 @@ def phase_mesh(dev, counters):
         make_mesh, make_sharded_register_fn, sharded_mean_errors,
         sharded_pre_downsample)
 
-    model = get_model(bench.CONFIGS["office"]["model"])
+    model = get_model(configs.CONFIGS["office"]["model"])
     args, T_gt = config_batch("office", list(range(8)), model.params,
                               model.caps, dev)
     fns = {1: make_register_fn(model.params, model.caps, batched=True,
@@ -1051,9 +1120,10 @@ def phase_diff(lp):
     return wall
 
 
-def run_cli(args, what):
-    """``python -m fccf_pcr_torch ARGS`` from the repo root; its stdout."""
-    env = dict(os.environ, PYTHONPATH=str(ROOT))
+def run_cli(args, what, env=None):
+    """``python -m fccf_pcr_torch ARGS`` from the repo root, with ``env``
+    added to the environment: (stdout, stderr, wall s)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT), **(env or {}))
     t0 = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-m", "fccf_pcr_torch", *args], cwd=ROOT, env=env,
@@ -1061,13 +1131,13 @@ def run_cli(args, what):
     )
     check(proc.returncode == 0, f"CLI {what} exited {proc.returncode}:\n"
           f"{proc.stdout[-2000:]}{proc.stderr[-4000:]}")
-    return proc.stdout, time.perf_counter() - t0
+    return proc.stdout, proc.stderr, time.perf_counter() - t0
 
 
 def phase_cli():
     import numpy as np
 
-    import bench
+    from fccf_pcr_torch.evaluation import configs
     from fccf_pcr_torch.io import ply
     from fccf_pcr_torch.models.fccf import get_model
 
@@ -1078,7 +1148,7 @@ def phase_cli():
         for path, cloud in zip(paths, (src, tar)):
             ply.write_ply(path, cloud)
         params = get_model("heritage").params
-        out, dt = run_cli(
+        out, _, dt = run_cli(
             [*paths, f"{params.leaf_size:g}", "--caps", "heritage",
              "--set", f"face_voxel_size={params.face_voxel_size:g}",
              "--device", "cuda", "--json"], "heritage pair")
@@ -1097,7 +1167,7 @@ def phase_cli():
         for path, cloud in zip(paths, (src, tar)):
             ply.write_ply(path, cloud)
         jsonl = os.path.join(tmp, "sweep.jsonl")
-        out, dt = run_cli(["--batch", *paths, "--out", jsonl, "--caps", "auto",
+        out, _, dt = run_cli(["--batch", *paths, "--out", jsonl, "--caps", "auto",
                            "--device", "cuda"], "resso sweep")
         summary = json.loads(out.strip().splitlines()[-1])
         with open(jsonl) as f:
@@ -1109,7 +1179,7 @@ def phase_cli():
               "CLI sweep: records / summary missing from the JSONL")
         rec = lines[0]
         g_rre, g_rte = drift(rec["transform"], T_gt)
-        gate = bench.GATES["resso"]
+        gate = configs.GATES["resso"]
         print(f"[cli] resso seed 0 sweep (--caps auto): {dt:.1f} s, GT "
               f"{g_rre:.4f} deg {g_rte:.4f} m, status {rec['status']}, "
               f"escalated {rec.get('escalated', False)}, summary "
@@ -1156,11 +1226,11 @@ def phase_timing(name, dev, counters, batch=8, reps=2):
     launched."""
     import torch
 
-    import bench
+    from fccf_pcr_torch.evaluation import configs
     from fccf_pcr_torch import make_register_fn
     from fccf_pcr_torch.models.fccf import get_model
 
-    model = get_model(bench.CONFIGS[name]["model"])
+    model = get_model(configs.CONFIGS[name]["model"])
     args, _ = config_batch(name, list(range(batch)), model.params, model.caps,
                            dev)
     fn = make_register_fn(model.params, model.caps, batched=True, device=dev)
@@ -1237,13 +1307,333 @@ def phase_profile(fn, args):
                       f"over {calls[name]} launches in the step", flush=True)
 
 
+def drive_path(what, fn, counters, dev):
+    """``fn()`` as a path of the port: every kernel's launch count set to
+    0 just before and read just after; the path must launch the
+    propagation kernel and neither the one-sweep nor the gather kernel.
+    Returns (result, counts, wall s)."""
+    import torch
+
+    zero_counts(counters, dev)
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = read_counts(counters, dev)
+    check(counts["label_prop_propagate"] > 0 and counts["sweeps"] > 0,
+          f"{what}: the propagation kernel was not launched")
+    for k in ("label_prop_sweep", "gather_rows"):
+        check(counts[k] == 0, f"{what}: the {k} kernel was launched")
+    return out, counts, secs
+
+
+def eval_line(r):
+    """One evaluate_config summary, as its table row reads. With
+    escalate_caps="auto" every seed flagged before escalation re-runs, so
+    n_escalated is that count (evaluate_config prints their bits to
+    stderr)."""
+    pps = f"{r['pairs_per_s']:.2f}" if r["pairs_per_s"] else "-"
+    return (f"success {100 * r['success']:.0f}% (fails {r['fail_seeds']}), "
+            f"RRE mean/med/p95 {r['rre_mean']:.4f} / {r['rre_med']:.4f} / "
+            f"{r['rre_p95']:.4f} deg, RTE {r['rte_mean']:.5f} / "
+            f"{r['rte_med']:.5f} / {r['rte_p95']:.5f} m, flagged before "
+            f"escalation {r['n_escalated']} (re-run), after "
+            f"{r['flagged_seeds']}, {pps} pairs/s")
+
+
+def phase_accuracy(dev, counters, smi):
+    """evaluate_config at every non-sequence config, EVAL_SEEDS seeds at
+    batch 8 with escalate_caps="auto": 100% success; seeds 0-3 within
+    tests/golden/pipeline.json's bands of their golden rows (the golden
+    transform's errors against ground truth, 0.1 deg / 0.02 m, status
+    equal). Returns the results by config and the path's launch counts."""
+    from fccf_pcr_torch.evaluation import configs
+    from fccf_pcr_torch.evaluation.evaluate import evaluate_config
+
+    golden = json.loads(GOLDEN.read_text())["configs"]
+    results, launches = {}, collections.Counter()
+    for name in PATH_CONFIGS:
+        r, counts, secs = drive_path(
+            f"evaluate {name}", lambda: evaluate_config(
+                name, configs.CONFIGS[name], EVAL_SEEDS, 8,
+                escalate_caps="auto", device=dev), counters, dev)
+        launches.update(counts)
+        results[name] = r
+        print(f"[accuracy] {name}, {EVAL_SEEDS} seeds at batch 8, "
+              f"--escalate-caps auto: {eval_line(r)}; {secs:.1f} s wall; "
+              f"launches {counts} | {smi}", flush=True)
+        check(r["success"] == 1.0, f"evaluate {name}: success "
+              f"{r['success']} (fails {r['fail_seeds']})")
+        for row in golden[name]:
+            got = r["seed_rows"][row["seed"]]
+            d = (abs(got["rre"] - row["rre_gt"]), abs(got["rte"] - row["rte_gt"]))
+            check(d[0] < 0.1 and d[1] < 0.02 and got["status"] == row["status"],
+                  f"evaluate {name} seed {row['seed']}: {got} against the "
+                  f"golden row's {row['rre_gt']} deg / {row['rte_gt']} m, "
+                  f"status {row['status']}")
+        print(f"[accuracy] {name} seeds 0-3 within the golden bands of their "
+              f"rows (errors against ground truth within 0.1 deg / 0.02 m, "
+              f"status equal)", flush=True)
+    return results, launches
+
+
+def phase_escalation(dev, counters, smi):
+    """An office-preset evaluation whose scenes hold more content than the
+    preset's residual and fine-voxel bounds (ESCALATING: the office
+    scenes with 3 cm noise): plain, every flagged seed's bits printed;
+    then with escalate_caps="auto" (n_escalated >= 1; the re-run takes
+    the two-key wide_extent voxelization at V = 1536), its escalated rows
+    bitwise equal to the same seeds registered as a direct batch at the
+    escalation capacities; then run_sweep(escalate_caps=...), whose
+    escalated records carry the direct batch's transforms bit for bit.
+    Returns the path's launch counts."""
+    import numpy as np
+    import torch
+
+    from fccf_pcr_torch import make_register_fn, registration_errors
+    from fccf_pcr_torch import pre_downsample
+    from fccf_pcr_torch.evaluation import configs
+    from fccf_pcr_torch.evaluation.evaluate import evaluate_config
+    from fccf_pcr_torch.io import synthetic
+    from fccf_pcr_torch.models.auto import auto_escalation_caps
+    from fccf_pcr_torch.models.fccf import get_model
+    from fccf_pcr_torch.pipeline.sweep import (ESCALATION_STATUS_MASK,
+                                               run_sweep)
+
+    launches = collections.Counter()
+    seeds = list(range(8))
+    tight, counts, secs = drive_path("escalation (tight)", lambda: evaluate_config(
+        "office-noisy", ESCALATING, len(seeds), 8, device=dev), counters, dev)
+    launches.update(counts)
+    flagged = {s: st for s, st in tight["flagged_seeds"].items()
+               if st & ESCALATION_STATUS_MASK}
+    print(f"[escalation] office preset, office scenes at 3 cm noise, "
+          f"{len(seeds)} seeds, tight: {len(flagged)} flagged, status bits "
+          f"by seed {flagged}; {secs:.1f} s wall", flush=True)
+    check(flagged, "escalation: no seed flagged at the office preset")
+    esc, counts, secs = drive_path("escalation", lambda: evaluate_config(
+        "office-noisy", ESCALATING, len(seeds), 8, escalate_caps="auto",
+        device=dev), counters, dev)
+    launches.update(counts)
+    print(f"[escalation] --escalate-caps auto: {eval_line(esc)}; "
+          f"{secs:.1f} s wall; launches {counts} | {smi}", flush=True)
+    check(esc["n_escalated"] == len(flagged) >= 1,
+          f"escalation: n_escalated {esc['n_escalated']}, flagged "
+          f"{len(flagged)}")
+
+    # The flagged seeds as one direct batch at the escalation capacities,
+    # padded with copies of the last seed, as evaluate_config's chunk.
+    model = get_model(ESCALATING["model"])
+    caps = auto_escalation_caps(model.caps)
+    check(caps.wide_extent and caps.max_voxels == 1536,
+          f"escalation caps {caps}: not the two-key path at V = 1536")
+    chunk = sorted(flagged)
+    chunk += [chunk[-1]] * (8 - len(chunk))
+    pairs = configs.pairs_for_config(ESCALATING, chunk)
+    raw = caps.raw_points
+    pre_ovf = np.array([len(s) > raw or len(t) > raw for s, t, _ in pairs])
+    sides = []
+    for side in range(2):
+        p, m = zip(*(synthetic.pad_points(pair[side], raw) for pair in pairs))
+        pts, mask, ovf = pre_downsample(np.stack(p), np.stack(m), model.params,
+                                        caps, device=dev)
+        pre_ovf |= ovf.cpu().numpy()
+        sides += [pts, mask]
+    direct = make_register_fn(model.params, caps, batched=True,
+                              device=dev)(*sides)
+    T_gt = np.stack([p[2] for p in pairs]).astype(np.float32)
+    rre, rte = registration_errors(direct.transform,
+                                   torch.from_numpy(T_gt).to(dev))
+    for k, s in enumerate(sorted(flagged)):
+        # evaluate_config folds preprocess truncation into bit 1
+        want = {"rre": float(rre[k]), "rte": float(rte[k]),
+                "status": int(direct.status[k]) | int(pre_ovf[k])}
+        check(esc["seed_rows"][s] == want, f"escalation seed {s}: row "
+              f"{esc['seed_rows'][s]} differs from the direct batch's {want}")
+    print(f"[escalation] the {len(flagged)} escalated rows bitwise equal to a "
+          f"direct batch at the escalation caps (max_residual "
+          f"{caps.max_residual}, max_fine_voxels {caps.max_fine_voxels}, "
+          f"wide_extent {caps.wide_extent}, V {caps.max_voxels})", flush=True)
+
+    all_pairs = configs.pairs_for_config(ESCALATING, seeds)
+    (records, summary), counts, secs = drive_path("escalation sweep", lambda: (
+        run_sweep([p[:2] for p in all_pairs], model.params, model.caps,
+                  batch_size=8, ground_truth=[p[2] for p in all_pairs],
+                  escalate_caps=caps, device=dev)), counters, dev)
+    launches.update(counts)
+    check(summary["n_escalated"] == len(flagged), f"run_sweep: {summary}")
+    T = direct.transform.cpu()
+    for k, s in enumerate(sorted(flagged)):
+        rec = records[s]
+        tight_bits = rec["status_tight"] | int(rec["preprocess_overflow"])
+        check(rec.get("escalated") and tight_bits == flagged[s]
+              and rec["transform"] == T[k].tolist()
+              and rec["status"] == int(direct.status[k]),
+              f"run_sweep pair {s}: escalated record {rec} differs from the "
+              "direct batch")
+    print(f"[escalation] run_sweep(escalate_caps=auto_escalation_caps): "
+          f"{summary['n_escalated']} records marked escalated, status_tight "
+          f"as evaluated, transforms bitwise equal to the direct batch; "
+          f"{secs:.1f} s wall; launches {counts}", flush=True)
+    return launches
+
+
+def phase_overlap(dev, counters, smi, accuracy):
+    """overlap_eval.overlap_curve at OVERLAP_SEEDS seeds a point; its
+    CURVE lines. The rows at overlap 1.0 equal the accuracy sweep's rows
+    of the same seeds bit for bit (make_pair at overlap 1.0 is the
+    default scene). Returns the path's launch counts."""
+    from fccf_pcr_torch.evaluation import configs, overlap_eval
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "overlap.jsonl")
+        rows, counts, secs = drive_path("overlap", lambda: (
+            overlap_eval.overlap_curve(
+                {n: configs.CONFIGS[n] for n in overlap_eval.CONFIGS},
+                overlap_eval.OVERLAPS, OVERLAP_SEEDS, out, device=dev)),
+            counters, dev)
+        with open(out) as f:
+            check(len(f.readlines()) == len(rows), "overlap: records missing")
+    for r in rows:
+        print(f"[overlap] {r['config']} overlap {r['overlap']}: "
+              f"{eval_line(r)}; {r['elapsed_s']} s", flush=True)
+        if r["overlap"] == 1.0:
+            for s, row in r["seed_rows"].items():
+                check(row == accuracy[r["config"]]["seed_rows"][s],
+                      f"overlap 1.0 {r['config']} seed {s}: {row} differs "
+                      "from the accuracy sweep's row")
+    for line in overlap_eval.curve_lines(rows):
+        print(f"[overlap] {line}", flush=True)
+    print(f"[overlap] {len(rows)} points of {OVERLAP_SEEDS} seeds: "
+          f"{secs:.1f} s wall; rows at overlap 1.0 equal the accuracy "
+          f"sweep's; launches {counts} | {smi}", flush=True)
+    return counts
+
+
+def phase_twin_check(dev, counters, smi):
+    """twin_production.check over the fixture's 24 pairs, one batch per
+    config: every pair inside its band. Returns the path's launch
+    counts."""
+    from fccf_pcr_torch.evaluation import twin_production
+
+    (rows, worst), counts, secs = drive_path(
+        "twin check", lambda: twin_production.check(
+            device=dev, log=lambda *a: None), counters, dev)
+    check(len(rows) == 24, f"twin check: {len(rows)} pairs, not 24")
+    out = [r for r in rows if not r["in_band"]]
+    check(not out, f"twin check: out of band {out}")
+    top = max(rows, key=lambda r: r["pipe_vs_twin"][0])
+    print(f"[twin] twin_production.check: 24 pairs (office 8, structured 8, "
+          f"resso 4, heritage 4) inside their bands; worst {worst[0]:.4f} deg "
+          f"/ {worst[1]:.5f} m; worst rotation {json.dumps(top)}; "
+          f"{secs:.1f} s wall; launches {counts} | {smi}", flush=True)
+    return counts
+
+
+def phase_measure(dev, counters, smi):
+    """measure_pair of office seed 0 at max_voxels 4096 on the card and on
+    the CPU: equal dicts; heritage seeds 0-1 at the full measurement
+    capacities (V = 16384) on the card, each count at or under the
+    heritage preset's capacity for it. Returns the path's launch counts
+    (the card's runs)."""
+    from fccf_pcr_torch.evaluation.measure_content import measurement_caps
+    from fccf_pcr_torch.models.fccf import get_model
+
+    caps = measurement_caps(4096)
+    on_card, counts, secs = drive_path(
+        "measure office", lambda: measure("office", 0, caps, dev), counters, dev)
+    t0 = time.perf_counter()
+    on_cpu = measure("office", 0, caps, "cpu")
+    cpu_secs = time.perf_counter() - t0
+    check(on_card == on_cpu, f"measure office seed 0: card {on_card} != "
+          f"CPU {on_cpu}")
+    print(f"[measure] office seed 0 at max_voxels 4096: card == CPU {on_card}; "
+          f"{secs:.1f} s on the card, {cpu_secs:.1f} s on the CPU", flush=True)
+    launches = collections.Counter(counts)
+    her = get_model("heritage").caps
+    limits = {k: getattr(her, attr) for k, attr in CONTENT_CAPS.items()}
+    limits["fine_span_cells"] = 1023
+    for seed in (0, 1):
+        got, counts, secs = drive_path(
+            f"measure heritage {seed}",
+            lambda: measure("heritage", seed, measurement_caps(), dev),
+            counters, dev)
+        launches.update(counts)
+        print(f"[measure] heritage seed {seed} at V = 16384 (count / heritage "
+              f"capacity): " + ", ".join(
+                  f"{k} {v} / {limits.get(k, '-')}" for k, v in got.items())
+              + f"; {secs:.1f} s wall; launches {counts} | {smi}", flush=True)
+        over = {k: v for k, v in got.items() if k in limits and v > limits[k]}
+        check(not over, f"measure heritage seed {seed}: over the preset {over}")
+    return launches
+
+
+def phase_native_io():
+    """make -C csrc, then the native library loads; then the CLI's --json
+    record of the resso seed-0 pair written as PLY (``--batch S T``, no
+    --out), with --native-io, equal (load and register times aside) to
+    the same run with FCCF_IO_LIB naming no library, which warns and
+    reads with the Python reader. Once at the resso preset, and once at
+    tiny caps, whose raw capacity of 8192 makes the loader subsample
+    both scans at load, warn and flag them."""
+    from fccf_pcr_torch.io import native, ply
+
+    t0 = time.perf_counter()
+    proc = subprocess.run(["make", "-C", str(ROOT / "csrc")],
+                          capture_output=True, text=True, timeout=300)
+    check(proc.returncode == 0, f"make -C csrc failed:\n{proc.stdout}"
+          f"{proc.stderr}")
+    native._LIB, native._TRIED = None, False
+    check(native.load_library() is not None,
+          f"native library {native._lib_path()} built but not loaded")
+    build_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as tmp:
+        src, tar, _ = scene("resso", 0)
+        paths = [os.path.join(tmp, f"resso_{k}.ply") for k in "st"]
+        for path, cloud in zip(paths, (src, tar)):
+            ply.write_ply(path, cloud)
+        none = {"FCCF_IO_LIB": os.path.join(tmp, "none.so")}
+        for caps, over in (("resso", []), ("tiny", [0, 1])):
+            runs = {}
+            for how, env in (("native", {}), ("python", none)):
+                out, err, dt = run_cli(
+                    ["--batch", *paths, "--caps", caps, "--device", "cuda",
+                     "--json", "--native-io"], f"{how} --caps {caps}", env)
+                warned = "--native-io: the native loader is not built" in err
+                check(warned == (how == "python"),
+                      f"{how} --caps {caps}: fallback warning {warned}: {err}")
+                rec = json.loads(out.strip().splitlines()[-1])
+                runs[how] = (rec, rec.pop("time_load_s"),
+                             rec.pop("time_register_s"), dt, err)
+            rec, err = runs["native"][0], runs["native"][4]
+            check(rec == runs["python"][0],
+                  f"--native-io --caps {caps}: record differs from the "
+                  f"Python reader's:\n{rec}\n{runs['python'][0]}")
+            check(rec["device"] == "cuda", "--native-io record not from the card")
+            check(rec["preprocess_overflow"] == over,
+                  f"--caps {caps}: preprocess_overflow "
+                  f"{rec['preprocess_overflow']}, expected {over}")
+            for k in over:
+                check(f"scan {paths[k]} has " in err
+                      and "subsampled at load to 8192" in err,
+                      f"--caps {caps}: no load subsampling warning: {err}")
+            print(f"[native] --batch --json --caps {caps} on the resso "
+                  f"seed-0 PLY pair: load --native-io {runs['native'][1]:.4f} "
+                  f"s vs Python reader {runs['python'][1]:.4f} s, wall "
+                  f"{runs['native'][3]:.1f} / {runs['python'][3]:.1f} s, "
+                  f"records equal (status {rec['status']}, n_hyp "
+                  f"{rec['n_hypotheses']}, preprocess_overflow "
+                  f"{rec['preprocess_overflow']})", flush=True)
+    print(f"[native] make -C csrc and load: {build_s:.1f} s", flush=True)
+
+
 def main():
     sys.path.insert(0, str(ROOT))
     try:
         import numpy  # noqa: F401
         import torch
 
-        import bench  # noqa: F401
+        from fccf_pcr_torch.evaluation import configs  # noqa: F401
         from fccf_pcr_torch.ops import cuda_build
         from fccf_pcr_torch.ops import gather as gt
         from fccf_pcr_torch.ops import label_prop as lp
@@ -1282,8 +1672,9 @@ def main():
         lp_err, k1 = phase_kernel_vs_plain(lp, dev)
         print("[kernel] labels of the propagation kernel and of the host loop "
               "(K1 + P1 launches) equal to plain at V=1536, V=1000 and V=9216 "
-              "(batch 2), at every edge case and at the main path's pass-1 "
-              "inputs", flush=True)
+              "(batch 2), at every edge case, at the main path's pass-1 "
+              "inputs and at heritage seed 0's through measure_content "
+              "(V=16384)", flush=True)
         for name, t in k1.items():
             print(f"[kernel] K1 {name} pass-1 inputs (seed 0 target, V={t['V']}, "
                   f"bound {t['bound']}): one sweep {t['sweep_ms']:.4f} ms of "
@@ -1331,6 +1722,7 @@ def main():
                   f"{b_ms * 1e3:.3f} us (bytes) | {smi}", flush=True)
 
         launches = collections.Counter()
+        paths = {}  # each later path's launch counts, read just after it
         path_ms = {}
         for name in PATH_CONFIGS:
             counts, path_ms[name] = phase_path(name, counters, dev)
@@ -1369,6 +1761,25 @@ def main():
         phase_diff(lp)
         print(f"[diff] {smi}", flush=True)
         phase_profile(*step)
+        t0 = time.perf_counter()
+        accuracy, paths["accuracy sweep"] = phase_accuracy(dev, counters, smi)
+        print(f"[accuracy] phase {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        paths["escalation"] = phase_escalation(dev, counters, smi)
+        print(f"[escalation] phase {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        t0 = time.perf_counter()
+        paths["overlap curve"] = phase_overlap(dev, counters, smi, accuracy)
+        print(f"[overlap] phase {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        paths["twin check"] = phase_twin_check(dev, counters, smi)
+        print(f"[twin] phase {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        paths["content measurement"] = phase_measure(dev, counters, smi)
+        print(f"[measure] phase {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        phase_native_io()
+        print(f"[native] phase {time.perf_counter() - t0:.1f} s", flush=True)
         print(f"[done] {time.perf_counter() - t_start:.1f} s after the build "
               f"started; torch.profiler captures taken again for dropped "
               f"records: {dict(RETAKEN)}", flush=True)
@@ -1378,6 +1789,7 @@ def main():
         return 1
 
     her = k1["heritage"]
+    big = k1[MEASURE_K1]
     g = p1[(1, 9216)]
     p1_bound_ms, p1_bound_by = p1_bound(1, 9216)
 
@@ -1403,6 +1815,16 @@ def main():
              sweep_phase_share=her["sweep_share"],
              halving_bound_us=her["halving_bound_ms"] * 1e3,
              plain_wall_ms=her["plain_wall_ms"],
+             launches_by_path={k: {n: v[n] for n in (
+                 "label_prop_propagate", "sweeps")} for k, v in paths.items()},
+             at_v16384=dict(
+                 V=big["V"], bound=big["bound"], ms=big["propagate_ms"],
+                 plain_ms=big["plain_ms"], bound_ms=big["propagate_bound_ms"],
+                 bound_by=big["propagate_bound_by"], sweeps=big["sweeps"],
+                 wall_ms=big["propagate_wall_ms"],
+                 sweep_ms=big["sweep_ms"], sweep_bound_ms=big["bound_ms"],
+                 shape="one propagation, heritage seed 0 pass 1 through "
+                       "measure_content at V = 16384"),
              ptxas=ptxas["label_prop_propagate"],
              shape=f"one propagation, heritage seed 0 pass 1 (V={her['V']}, "
                    f"bound {her['bound']}); ms device time of the kernel, "

@@ -90,7 +90,8 @@ def main(argv=None):
                          "under this larger preset")
     ap.add_argument("--native-io", action="store_true",
                     help="load the scan list with the threaded C++ batch "
-                         "loader (csrc/, falls back to python)")
+                         "loader (built by make -C csrc; without it, a "
+                         "warning and the Python reader)")
     args = ap.parse_args(argv)
 
     import torch
@@ -170,6 +171,10 @@ def main(argv=None):
             if escalate_caps is not None:
                 raw_cap = max(raw_cap, escalate_caps.raw_points)
         loaded = native_read_ply_batch(scans, raw_cap)
+        if loaded is None:
+            print("# WARNING: --native-io: the native loader is not built "
+                  "(make -C csrc) or a scan needs the Python reader; reading "
+                  "with the Python reader", file=sys.stderr)
     if loaded is not None:
         pts_arr, mask_arr, counts = loaded
         clouds = [pts_arr[i][mask_arr[i]] for i in range(len(scans))]

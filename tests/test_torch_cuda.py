@@ -8,8 +8,10 @@ port on the CPU, each row of a batch against its pair registered alone,
 the host syncs of a batched step, the entry points' default device, a
 batch split over one card listed twice against the unsplit batch, launch
 counts kept across host threads, StageTimer's wait for the card, the
-face-membership diff on the card against the CPU, and the non-fused face
-path on the card against the CPU.
+face-membership diff on the card against the CPU, the non-fused face
+path on the card against the CPU, the kernel at measure_content's
+V = 16384, and evaluate_config with escalation on the card against the
+CPU.
 
 This file imports no jax, so it runs on a machine without it (the
 repository's conftest.py imports jax, hence --noconftest):
@@ -98,6 +100,25 @@ def test_kernel_matches_plain_at_building_scale(cuda):
     )
     torch.cuda.synchronize()
     assert (lp.LAUNCHES, gt.LAUNCHES, lp.PROPAGATIONS) == (k1, g, prop + 1)
+    want = lp.label_propagate_plain(normal, centroid, valid, 5.0, 0.5, 5.0)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+
+
+def test_kernel_matches_plain_at_measurement_scale(cuda):
+    """The propagation kernel at measure_content's V=16384 (a grid of 256
+    row tiles), one pair with a pass-1 sized bound, against the plain
+    version on the card."""
+    rng = np.random.default_rng(16384)
+    normal, centroid, valid = (
+        torch.from_numpy(a[None]).to(cuda)
+        for a in _clustered(rng, 16384, 15000, n_groups=16))
+    before = lp.PROPAGATIONS
+    got = lp.label_propagate(
+        normal, centroid, valid, 5.0, 0.5, 5.0,
+        bound=torch.tensor([15000], dtype=torch.int32, device=cuda),
+    )
+    torch.cuda.synchronize()
+    assert lp.PROPAGATIONS == before + 1
     want = lp.label_propagate_plain(normal, centroid, valid, 5.0, 0.5, 5.0)
     np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
 
@@ -541,3 +562,31 @@ def test_non_fused_path_on_card_matches_cpu(cuda):
     for f in ("status", "n_faces", "n_hypotheses", "kept"):
         np.testing.assert_array_equal(getattr(gpu, f).cpu().numpy(),
                                       getattr(cpu, f).numpy(), err_msg=f)
+
+
+def test_evaluate_config_on_card_matches_cpu(cuda):
+    """evaluate_config with escalate_caps="auto" on the card against the
+    CPU at TEST_CAPS, on a cluttered room whose residual overflows at
+    seeds 1 and 2: status, flagged and failed seeds and n_escalated
+    equal; RRE within 5e-3 deg (registration_errors runs in float32) and
+    RTE within 1e-4 m."""
+    from fccf_pcr_torch.evaluation.evaluate import evaluate_config
+
+    cfg = dict(model="tiny",
+               scene=dict(points_per_plane=550, clutter_points=2000,
+                          noise=0.01, room=(10.0, 8.0, 3.0)),
+               pair=dict())
+    before = lp.PROPAGATIONS
+    card = evaluate_config("room", cfg, 3, 2, escalate_caps="auto",
+                           device=cuda)
+    assert lp.PROPAGATIONS > before
+    cpu = evaluate_config("room", cfg, 3, 2, escalate_caps="auto",
+                          device="cpu")
+    assert card["n_escalated"] >= 1
+    for k in ("success", "fail_seeds", "flagged_seeds", "n_escalated"):
+        assert card[k] == cpu[k], k
+    for s, want in cpu["seed_rows"].items():
+        got = card["seed_rows"][s]
+        assert got["status"] == want["status"]
+        assert abs(got["rre"] - want["rre"]) <= 5e-3
+        assert abs(got["rte"] - want["rte"]) <= 1e-4
