@@ -64,9 +64,14 @@ result:
      heritage, in pairs/s, each kernel's launches per step and the
      sweeps the propagation kernel ran (at most 4 propagation launches a
      step, no one-sweep or gather launch), and per step: every kernel
-     launched (torch.profiler), the host syncs (counted under
+     launched, as host launches (the CUDA runtime's launch calls,
+     cudaGraphLaunch included) and as device kernels (the kernels CUPTI
+     saw run, those inside a graph replay included), both from
+     torch.profiler, the LM graph's captures and replays (refine/graph.py:
+     0 and 1 a warm step), the host syncs (counted under
      torch.cuda.set_sync_debug_mode("warn")) and the peak device memory
-     (torch.cuda.max_memory_allocated);
+     (torch.cuda.max_memory_allocated, which counts the graphs' private
+     pools; their size is printed apart);
   9. the mesh dry run: the office batch of 8 split over one card listed
      k times (parallel/mesh.py, make_mesh([cuda:0] * k), k = 2 and 4) and
      over make_mesh() (every card), every field bitwise equal to the
@@ -97,13 +102,26 @@ result:
  17. --native-io: make -C csrc, the library loads, and the CLI's --json
      record of the resso seed-0 pair with --native-io equals the Python
      reader's, at the resso preset and at tiny caps, where both scans are
-     subsampled at load.
+     subsampled at load;
+ 18. (run after phase 8) the LM loop as a CUDA graph against the
+     eager loop: the batch-8 step of phase 8 at office and heritage with
+     refine_pairs (the loop to its cap, replayed as a graph, the main
+     path) and with the eager loop and its early exit
+     (gauss_newton.lm_loop, as the parent ran it) put in its place: every field bitwise equal, and so for the
+     office batch split over make_mesh([cuda:0] * 2); per step for each
+     arm the host syncs, host launches and device kernels, graph
+     captures and replays, peak memory and the graphs' pool, and step
+     wall times in turns (graph, eager, eager, graph, graph, eager); the
+     LM alone on that step's own inputs: the replay against the eager
+     loop with and without its early exit, bitwise equal, in wall ms and
+     in CUDA-event ms, and the device kernels of one replay.
 
 Phases 5-6 are the main path: their launch counts are the kernels'
 "launches". Every later in-process path (12-16) is driven with the
 counts set to 0 just before it and read just after (drive_path): each
 must launch the propagation kernel, and neither the one-sweep nor the
-gather kernel.
+gather kernel, and each but the content measurement (which stops before
+the LM) must replay the LM graph.
 
 Then one JSON line describing the kernels, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
@@ -111,6 +129,7 @@ Then one JSON line describing the kernels, the nvidia-smi line, and last
 
 
 import collections
+import contextlib
 import functools
 import json
 import math
@@ -194,6 +213,10 @@ PEAK_BYTES = 3.35e12
 # each, 3 compares).
 K1_NORMAL_OPS = 6
 K1_PLANE_OPS = 29
+# register.py's record_function scopes; their ranges also appear on the
+# device timeline and are not kernels.
+STAGES = ("downsample", "faces", "hypotheses", "cluster", "quick_verify",
+          "refine", "fine_verify")
 # torch.profiler captures taken again because CUPTI had dropped records
 # (kernel_times), by the kernel name they were taken for.
 RETAKEN = collections.Counter()
@@ -472,8 +495,11 @@ def kernel_times(fn, only="", reset=None, launched=None, records=None,
     of the host loop held none of its sweep kernels, and three captures of
     a gather in a row held no kernel at all): a capture with another count
     is taken again after a pause that grows with each try, up to ``tries``
-    times, and then the phase fails. RETAKEN counts the captures taken
-    again."""
+    times, and then the phase fails. A capture that holds more than
+    ``records`` is taken as it is: a capture never holds a record the call
+    did not make, so the captures ``records`` was counted from had lost
+    some (a chip run counted 43 of a plain sweep's 46 in each of its first
+    three captures). RETAKEN counts the captures taken again."""
     got = []
     for attempt in range(tries):
         if attempt:
@@ -483,7 +509,7 @@ def kernel_times(fn, only="", reset=None, launched=None, records=None,
         times = capture(fn, only, reset)
         want = launched() - before if launched else records
         check(want > 0, f"the call launched no kernel named {only!r}")
-        if len(times) == want:
+        if len(times) == want or (not launched and len(times) > want):
             return times
         got.append(len(times))
     raise SmokeFailure(f"torch.profiler captured {got} records named "
@@ -505,8 +531,12 @@ def device_ms(fn, reps, reset=None, only="", launched=None):
     fn()  # warm up
     torch.cuda.synchronize()
     records = None if launched else record_count(fn, only, reset)
-    return sum(sum(kernel_times(fn, only, reset, launched, records))
-               for _ in range(reps)) / reps
+    total = 0.0
+    for _ in range(reps):
+        times = kernel_times(fn, only, reset, launched, records)
+        records = records and max(records, len(times))
+        total += sum(times)
+    return total / reps
 
 
 def wall_ms(fn, reps):
@@ -868,6 +898,8 @@ def phase_path(name, counters, dev):
     for k in ("label_prop_sweep", "gather_rows"):
         check(launches[k] == 0, f"the {name} path launched the {k} kernel "
               f"{launches[k]} times (it runs inside the propagation kernel)")
+    check(launches["lm_graph_replays"] > 0,
+          f"the {name} path replayed no LM graph")
 
     T = res.transform
     check(T.shape == (len(seeds), 4, 4) and bool(torch.isfinite(T).all()),
@@ -1212,23 +1244,60 @@ def count_syncs(fn, *args):
         if "called a synchronizing" in str(w.message))
 
 
-def count_kernels(fn, *args):
-    """Kernels launched on the card by one call of ``fn`` (torch.profiler,
-    CUDA activity only; ``record_count``)."""
-    return record_count(lambda: fn(*args))
+def launch_capture(fn):
+    """One torch.profiler capture (CPU and CUDA activity) of ``fn()``:
+    the host's launch calls by the name of the CUDA call (cudaLaunchKernel,
+    cuLaunchKernel, cudaGraphLaunch, ...), the device kernels (CUDA records that are
+    neither copies, fills nor register.py's stage ranges) and the device
+    copies and fills. Read from the raw kineto records (building the
+    profiler's event tree of an eager step takes seconds)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    host = collections.Counter()
+    kernels = copies = 0
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            if name.startswith(("Memcpy", "Memset")):
+                copies += 1
+            elif name not in STAGES:
+                kernels += 1
+        elif name.startswith(("cudaLaunch", "cuLaunch", "cudaGraphLaunch")):
+            host[name] += 1
+    return host, kernels, copies
+
+
+def count_launches(fn, *args, n=3):
+    """Launches of one call of ``fn``: host launch calls (by API) and
+    device kernels, from the capture of ``n`` that holds the most device
+    records (CUPTI drops records and never adds one)."""
+    best = max((launch_capture(lambda: fn(*args)) for _ in range(n)),
+               key=lambda c: c[1] + c[2])
+    check(best[1] > 0, "torch.profiler captured no device kernel")
+    return dict(host_launches=sum(best[0].values()),
+                host_by_api=dict(best[0]), device_kernels=best[1],
+                device_copies=best[2])
 
 
 def phase_timing(name, dev, counters, batch=8, reps=2):
     """Steady-state step time at ``batch`` pairs, each kernel's launches
-    per step and the propagation kernel's sweeps per step (the counts of
-    the timed steps over ``reps``), the peak device memory of those
-    steps, and, in one more step each, the host syncs and every kernel
-    launched."""
+    per step, the propagation kernel's sweeps and the LM graph's
+    captures and replays per step (the counts of the timed steps over
+    ``reps``), the peak device memory of those steps and the graphs'
+    pools, and, in one more step each, the host syncs and the host
+    launches and device kernels (``count_launches``)."""
     import torch
 
     from fccf_pcr_torch.evaluation import configs
     from fccf_pcr_torch import make_register_fn
     from fccf_pcr_torch.models.fccf import get_model
+    from fccf_pcr_torch.refine import graph
 
     model = get_model(configs.CONFIGS[name]["model"])
     args, _ = config_batch(name, list(range(batch)), model.params, model.caps,
@@ -1249,10 +1318,165 @@ def phase_timing(name, dev, counters, batch=8, reps=2):
     per_step = {k: n / reps for k, n in read_counts(counters, dev).items()}
     per_step["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
     per_step["peak_bytes_over_inputs"] = per_step["peak_bytes"] - base
+    per_step["graph_pool_bytes"] = graph.pool_bytes(dev)
+    check(per_step["lm_graph_replays"] == 1 and
+          per_step["lm_graph_captures"] == 0,
+          f"{name} timing: {per_step['lm_graph_captures']} LM graph "
+          f"captures and {per_step['lm_graph_replays']} replays a warm step "
+          "(want 0 and 1)")
     per_step["host_sync_lines"] = count_syncs(fn, *args)
     per_step["host_syncs"] = sum(per_step["host_sync_lines"].values())
-    per_step["kernel_launches"] = count_kernels(fn, *args)
+    per_step.update(count_launches(fn, *args))
     return batch / dt, dt, per_step, (fn, args)
+
+
+@contextlib.contextmanager
+def lm_impl(impl):
+    """verify/quick.py's refine_pairs replaced by ``impl`` for the
+    duration (the step looks the name up at each call)."""
+    from fccf_pcr_torch.verify import quick
+
+    old = quick.refine_pairs
+    quick.refine_pairs = impl
+    try:
+        yield
+    finally:
+        quick.refine_pairs = old
+
+
+def event_ms(fn):
+    """CUDA-event ms from before to after ``fn()`` on the current stream
+    (the card's time for the call, idle gaps included)."""
+    import torch
+
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda.synchronize()
+    start.record()
+    fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end)
+
+
+def phase_graph(name, step, counters, dev):
+    """Phase 18 at one preset: the batch-8 step with the LM loop replayed
+    as a CUDA graph (the main path) against the same step with the eager
+    loop and its early exit (``lm_loop``, the parent's form). Every
+    field must be bitwise equal; per step and arm: host syncs, host
+    launches and device kernels, graph captures and replays, peak
+    memory; wall times in turns; the LM alone on the step's own inputs.
+    Returns the numbers."""
+    import torch
+
+    from fccf_pcr_torch.refine import gauss_newton as gn
+    from fccf_pcr_torch.refine import graph
+
+    fn, args = step
+    arms = {"graph": gn.refine_pairs, "eager": gn.lm_loop}
+    secs = {}
+    ts = time.perf_counter()
+    res = {}
+    for arm, impl in arms.items():
+        with lm_impl(impl):
+            res[arm] = fn(*args)
+    torch.cuda.synchronize()
+    for f, a, b in zip(res["graph"]._fields, res["graph"], res["eager"]):
+        check(torch.equal(a, b), f"{name}: {f} of the graph step differs "
+              "from the eager loop's")
+    out = {"turns_ms": collections.defaultdict(list), "secs": secs}
+    secs["equal"] = time.perf_counter() - ts
+    ts = time.perf_counter()
+    for arm in ("graph", "eager", "eager", "graph", "graph", "eager"):
+        with lm_impl(arms[arm]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(*args)
+            torch.cuda.synchronize()
+            out["turns_ms"][arm].append((time.perf_counter() - t0) * 1e3)
+    secs["turns"] = time.perf_counter() - ts
+    ts = time.perf_counter()
+    for arm, impl in arms.items():
+        with lm_impl(impl):
+            lines = count_syncs(fn, *args)
+            zero_counts(counters, dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            fn(*args)
+            torch.cuda.synchronize()
+            counts = read_counts(counters, dev)
+            out[arm] = dict(
+                host_syncs=sum(lines.values()),
+                host_sync_lines=dict(lines.most_common()),
+                captures=counts["lm_graph_captures"],
+                replays=counts["lm_graph_replays"],
+                peak_bytes=torch.cuda.max_memory_allocated(dev),
+                **count_launches(fn, *args, n=1 if arm == "eager" else 3))
+    check(out["graph"]["replays"] == 1 and out["graph"]["captures"] == 0
+          and out["eager"]["replays"] == 0,
+          f"{name}: graph replays / captures a step {out['graph']}, eager "
+          f"{out['eager']}")
+    out["graph_pool_bytes"] = graph.pool_bytes(dev)
+    out["graphs_kept"] = graph.cached(dev)
+    secs["counts"] = time.perf_counter() - ts
+    ts = time.perf_counter()
+
+    # The LM alone, on the inputs the step gave it.
+    seen = []
+
+    def record(**kw):
+        seen.append({k: v.clone() if torch.is_tensor(v) else v
+                     for k, v in kw.items()})
+        return gn.refine_pairs(**kw)
+
+    with lm_impl(record):
+        fn(*args)
+    check(len(seen) == 1, f"{name}: {len(seen)} LM calls in a step")
+    kw = seen[0]
+    lm = {"lanes": int(kw["n1"].shape[0]), "planes": int(kw["n1"].shape[1])}
+    got = gn.refine_pairs(**kw)
+    for early_exit in (True, False):
+        check(torch.equal(got, gn.lm_loop(**kw, early_exit=early_exit)),
+              f"{name}: the LM replay differs from the eager loop "
+              f"(early_exit={early_exit})")
+    forms = {"graph": lambda: gn.refine_pairs(**kw),
+             "eager": lambda: gn.lm_loop(**kw),
+             "eager_to_cap": lambda: gn.lm_loop(**kw, early_exit=False)}
+    for form, call in forms.items():
+        lm[form + "_wall_ms"] = wall_ms(call, 5 if form == "graph" else 2)
+        lm[form + "_event_ms"] = min(
+            event_ms(call) for _ in range(3 if form == "graph" else 1))
+    lm["replay"] = count_launches(forms["graph"])
+    lm["eager_launches"] = count_launches(forms["eager"], n=1)
+    out["lm"] = lm
+    secs["lm"] = time.perf_counter() - ts
+    return out
+
+
+def phase_graph_mesh(dev):
+    """The office batch 8 split over make_mesh([dev] * 2) with the LM
+    graph against the same split with the eager loop: every field
+    bitwise equal."""
+    import torch
+
+    from fccf_pcr_torch.evaluation import configs
+    from fccf_pcr_torch.models.fccf import get_model
+    from fccf_pcr_torch.parallel.mesh import make_mesh, make_sharded_register_fn
+    from fccf_pcr_torch.refine import gauss_newton as gn
+
+    model = get_model(configs.CONFIGS["office"]["model"])
+    args, _ = config_batch("office", list(range(8)), model.params,
+                           model.caps, dev)
+    fn = make_sharded_register_fn(model.params, model.caps,
+                                  make_mesh([dev] * 2))
+    split = fn(*args)
+    with lm_impl(gn.lm_loop):
+        eager = fn(*args)
+    torch.cuda.synchronize()
+    for f, a, b in zip(split._fields, split, eager):
+        check(torch.equal(a, b), f"mesh [{dev}] * 2: {f} of the graph "
+              "split differs from the eager loop's")
+    print(f"[graph] office batch 8 over make_mesh([{dev}] * 2): every field "
+          "of the split with the LM graph bitwise equal to the split with "
+          "the eager loop", flush=True)
 
 
 def phase_profile(fn, args):
@@ -1276,8 +1500,7 @@ def phase_profile(fn, args):
               f"{os.path.basename(prof.trace_path)}, {len(text)} bytes, "
               f"names label_prop_propagate", flush=True)
     print(f"[profile] StageTimer report:\n{timer.report()}", flush=True)
-    stages = ("downsample", "faces", "hypotheses", "cluster", "quick_verify",
-              "refine", "fine_verify")
+    stages = STAGES
     # Device work = the kernels' own time (one stream, so no overlap);
     # the stage ranges also appear on the device timeline and are skipped.
     kernels = [e for e in prof.events()
@@ -1307,11 +1530,13 @@ def phase_profile(fn, args):
                       f"over {calls[name]} launches in the step", flush=True)
 
 
-def drive_path(what, fn, counters, dev):
+def drive_path(what, fn, counters, dev, refines=True):
     """``fn()`` as a path of the port: every kernel's launch count set to
     0 just before and read just after; the path must launch the
-    propagation kernel and neither the one-sweep nor the gather kernel.
-    Returns (result, counts, wall s)."""
+    propagation kernel and neither the one-sweep nor the gather kernel,
+    and, where it ``refines`` (every path but measure_content, which
+    stops before the LM), replay the LM graph. Returns (result, counts,
+    wall s)."""
     import torch
 
     zero_counts(counters, dev)
@@ -1324,6 +1549,8 @@ def drive_path(what, fn, counters, dev):
           f"{what}: the propagation kernel was not launched")
     for k in ("label_prop_sweep", "gather_rows"):
         check(counts[k] == 0, f"{what}: the {k} kernel was launched")
+    check(counts["lm_graph_replays"] > 0 or not refines,
+          f"{what}: no LM graph replayed")
     return out, counts, secs
 
 
@@ -1541,7 +1768,8 @@ def phase_measure(dev, counters, smi):
 
     caps = measurement_caps(4096)
     on_card, counts, secs = drive_path(
-        "measure office", lambda: measure("office", 0, caps, dev), counters, dev)
+        "measure office", lambda: measure("office", 0, caps, dev), counters,
+        dev, refines=False)
     t0 = time.perf_counter()
     on_cpu = measure("office", 0, caps, "cpu")
     cpu_secs = time.perf_counter() - t0
@@ -1557,7 +1785,7 @@ def phase_measure(dev, counters, smi):
         got, counts, secs = drive_path(
             f"measure heritage {seed}",
             lambda: measure("heritage", seed, measurement_caps(), dev),
-            counters, dev)
+            counters, dev, refines=False)
         launches.update(counts)
         print(f"[measure] heritage seed {seed} at V = 16384 (count / heritage "
               f"capacity): " + ", ".join(
@@ -1637,6 +1865,7 @@ def main():
         from fccf_pcr_torch.ops import cuda_build
         from fccf_pcr_torch.ops import gather as gt
         from fccf_pcr_torch.ops import label_prop as lp
+        from fccf_pcr_torch.refine import graph
     except ImportError as e:
         print(f"FAIL: cannot import the port from {ROOT}: {e}", file=sys.stderr)
         return 1
@@ -1647,7 +1876,9 @@ def main():
 
     counters = {"label_prop_propagate": (lp, "PROPAGATIONS"),
                 "label_prop_sweep": (lp, "LAUNCHES"),
-                "gather_rows": (gt, "LAUNCHES")}
+                "gather_rows": (gt, "LAUNCHES"),
+                "lm_graph_captures": (graph, "CAPTURES"),
+                "lm_graph_replays": (graph, "REPLAYS")}
     try:
         dev = torch.device("cuda:0")
         smi = run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1733,10 +1964,11 @@ def main():
 
         phase_cli()
 
-        step = None
+        steps = {}
         per_step = {}
         for name in ("office", "heritage"):
-            pps, dt, per_step[name], step = phase_timing(name, dev, counters)
+            pps, dt, per_step[name], steps[name] = phase_timing(
+                name, dev, counters)
             t = per_step[name]
             check(t["label_prop_sweep"] == 0 and t["gather_rows"] == 0,
                   f"{name} timing: one-sweep or gather kernel launched")
@@ -1744,23 +1976,71 @@ def main():
                   f"{name} timing: {t['label_prop_propagate']} propagation "
                   "launches a step (at most 4)")
             print(f"[timing] {name} batch 8: {dt * 1e3:.1f} ms/step, "
-                  f"{pps:.2f} pairs/s; per step: {t['kernel_launches']} "
-                  f"kernel launches, {t['label_prop_propagate']:g} "
+                  f"{pps:.2f} pairs/s; per step: "
+                  f"{t['label_prop_propagate']:g} "
                   f"propagation launches ({t['sweeps']:g} sweeps), "
                   f"{t['label_prop_sweep']:g} one-sweep and "
                   f"{t['gather_rows']:g} gather launches, "
+                  f"{t['lm_graph_replays']:g} LM graph replays and "
+                  f"{t['lm_graph_captures']:g} captures, "
+                  f"{t['host_launches']} host launches "
+                  f"({t['host_by_api']}), {t['device_kernels']} device "
+                  f"kernels and {t['device_copies']} device copies/fills, "
                   f"{t['host_syncs']} host syncs "
                   f"({dict(t['host_sync_lines'].most_common())}), peak "
                   "device memory "
                   f"{t['peak_bytes'] / 2**30:.3f} GiB "
                   f"({t['peak_bytes_over_inputs'] / 2**30:.3f} GiB over the "
-                  f"step's inputs) | {smi} | torch {torch.__version__} "
-                  f"cuda {torch.version.cuda}", flush=True)
+                  f"step's inputs; the graphs' private pools "
+                  f"{t['graph_pool_bytes'] / 2**20:.2f} MiB of it) | {smi} | "
+                  f"torch {torch.__version__} cuda {torch.version.cuda}",
+                  flush=True)
+        t0 = time.perf_counter()
+        graph_ab = {}
+        for name in ("office", "heritage"):
+            g = graph_ab[name] = phase_graph(name, steps[name], counters, dev)
+            turns = {k: [round(x, 1) for x in v]
+                     for k, v in g["turns_ms"].items()}
+            print(f"[graph] {name} batch 8: every field of the step with the "
+                  f"LM graph bitwise equal to the step with the eager loop; "
+                  f"step wall ms in turns {turns} | {smi}", flush=True)
+            for arm in ("graph", "eager"):
+                a = g[arm]
+                print(f"[graph] {name} {arm} step: {a['host_syncs']} host "
+                      f"syncs ({a['host_sync_lines']}), {a['host_launches']} "
+                      f"host launches ({a['host_by_api']}), "
+                      f"{a['device_kernels']} device kernels, "
+                      f"{a['device_copies']} device copies/fills, "
+                      f"{a['captures']} graph captures and {a['replays']} "
+                      f"replays, peak {a['peak_bytes'] / 2**30:.3f} GiB",
+                      flush=True)
+            lm = g["lm"]
+            print(f"[graph] {name} LM alone ({lm['lanes']} lanes x "
+                  f"{lm['planes']} planes, 50 iterations): replay "
+                  f"{lm['graph_wall_ms'][0]:.3f} ms wall (least "
+                  f"{lm['graph_wall_ms'][1]:.3f}), "
+                  f"{lm['graph_event_ms']:.3f} ms by CUDA events, "
+                  f"{lm['replay']['host_launches']} host launches "
+                  f"({lm['replay']['host_by_api']}), "
+                  f"{lm['replay']['device_kernels']} device kernels; eager "
+                  f"loop with its early exit {lm['eager_wall_ms'][0]:.1f} ms "
+                  f"wall, {lm['eager_event_ms']:.1f} ms by events, "
+                  f"{lm['eager_launches']['host_launches']} host launches; "
+                  f"eager loop to the cap {lm['eager_to_cap_wall_ms'][0]:.1f}"
+                  f" ms wall; all three bitwise equal; graphs kept "
+                  f"{g['graphs_kept']}, their pools "
+                  f"{g['graph_pool_bytes'] / 2**20:.2f} MiB | {smi}",
+                  flush=True)
+            print(f"[graph] {name} seconds by part: "
+                  f"{ {k: round(v, 1) for k, v in g['secs'].items()} }",
+                  flush=True)
+        phase_graph_mesh(dev)
+        print(f"[graph] phase {time.perf_counter() - t0:.1f} s", flush=True)
         phase_mesh(dev, counters)
         print(f"[mesh] {smi}", flush=True)
         phase_diff(lp)
         print(f"[diff] {smi}", flush=True)
-        phase_profile(*step)
+        phase_profile(*steps["heritage"])
         t0 = time.perf_counter()
         accuracy, paths["accuracy sweep"] = phase_accuracy(dev, counters, smi)
         print(f"[accuracy] phase {time.perf_counter() - t0:.1f} s", flush=True)
@@ -1805,7 +2085,9 @@ def main():
              sweeps=her["sweeps"], sweeps_on_main_path=launches["sweeps"],
              launches_per_step=per_step_of("label_prop_propagate"),
              sweeps_per_step=per_step_of("sweeps"),
-             step_kernel_launches=per_step_of("kernel_launches"),
+             step_device_kernels=per_step_of("device_kernels"),
+             step_host_launches=per_step_of("host_launches"),
+             step_lm_graph_replays=per_step_of("lm_graph_replays"),
              step_host_syncs=per_step_of("host_syncs"),
              step_peak_bytes=per_step_of("peak_bytes"),
              wall_ms=her["propagate_wall_ms"],

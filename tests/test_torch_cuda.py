@@ -11,7 +11,9 @@ counts kept across host threads, StageTimer's wait for the card, the
 face-membership diff on the card against the CPU, the non-fused face
 path on the card against the CPU, the kernel at measure_content's
 V = 16384, and evaluate_config with escalation on the card against the
-CPU.
+CPU; the LM refine replayed as a CUDA graph (refine/graph.py) against
+the eager loop bit for bit, one capture a shape, LRU eviction, captures
+from two host threads, no host sync.
 
 This file imports no jax, so it runs on a machine without it (the
 repository's conftest.py imports jax, hence --noconftest):
@@ -427,12 +429,11 @@ def test_batch_rows_match_single_runs_on_card(cuda):
 
 
 def test_batched_step_host_syncs_are_bounded(cuda):
-    """A batched step waits for the card at most refine_iters + 30 times,
-    whatever the batch size: the LM loop's all-done test once an
-    iteration for every lane of the batch, the cluster scan's block count
-    and fixpoint tests, the floor walk's two transfers and the inputs'
-    copies; label propagation none. Counted under CUDA's sync debug
-    mode, which warns at each synchronizing call."""
+    """A batched step waits for the card at most 30 times, whatever the
+    batch size: the cluster scan's block count and fixpoint tests, the
+    floor walk's two transfers and the inputs' copies; label propagation
+    and the LM loop (a CUDA graph replay) none. Counted under CUDA's sync
+    debug mode, which warns at each synchronizing call."""
     import warnings
 
     caps = TEST_CAPS
@@ -453,7 +454,7 @@ def test_batched_step_host_syncs_are_bounded(cuda):
                 torch.cuda.set_sync_debug_mode("default")
         counts.append(sum("called a synchronizing" in str(w.message)
                           for w in caught))
-    assert 0 < counts[0] and max(counts) <= params.refine_iters + 30, counts
+    assert 0 < counts[0] and max(counts) <= 30, counts
 
 
 def test_mesh_split_on_one_card_is_bitwise_equal(cuda):
@@ -590,3 +591,172 @@ def test_evaluate_config_on_card_matches_cpu(cuda):
         assert got["status"] == want["status"]
         assert abs(got["rre"] - want["rre"]) <= 5e-3
         assert abs(got["rte"] - want["rte"]) <= 1e-4
+
+
+def _lm_lanes(seed, B, P=16):
+    """Plane pairs under a small per-lane pose error with 2 cm of noise on
+    the points (tests/test_torch_refine.py's candidates, noisy), 4 of P
+    masked; then a lane of zero weights, a lane at exactly zero cost and
+    a lane with a NaN point."""
+    rng = np.random.default_rng(seed)
+    n1 = rng.normal(size=(B, P, 3))
+    n1 /= np.linalg.norm(n1, axis=-1, keepdims=True)
+    p1 = rng.uniform(-5, 5, (B, P, 3))
+    ang = rng.normal(0, 0.03, (B, 3))
+    c, s = np.cos(ang[:, 2]), np.sin(ang[:, 2])
+    R = np.zeros((B, 3, 3))
+    R[:, 0, 0], R[:, 0, 1], R[:, 1, 0], R[:, 1, 1] = c, -s, s, c
+    R[:, 2, 2] = 1.0
+    n2 = np.einsum("bij,bpj->bpi", R, n1)
+    p2 = (np.einsum("bij,bpj->bpi", R, p1) + rng.normal(0, 0.05, (B, 1, 3))
+          + rng.normal(0, 0.02, (B, P, 3)))
+    w = rng.uniform(0.05, 0.2, (B, P))
+    w[:, P - 4:] = 0.0
+    w[B - 3] = 0.0
+    n2[B - 2], p2[B - 2] = n1[B - 2], p1[B - 2]
+    p1[B - 1, 5, 1] = np.nan
+    return [a.astype(np.float32) for a in (n1, p1, n2, p2, w)]
+
+
+def _on_card(arrays, dev):
+    return [torch.from_numpy(a).to(dev) for a in arrays]
+
+
+@pytest.mark.parametrize("B", [12, 96])
+def test_lm_graph_equals_eager_loop(cuda, B):
+    """refine_pairs on the card (the loop to its cap, replayed as a CUDA
+    graph) against the eager loop, with and without its early exit, on
+    the same inputs: bit for bit (the same kernels in the same order).
+    The replay's inputs are copies: changing the caller's tensors after
+    the call changes nothing."""
+    from fccf_pcr_torch.refine import gauss_newton as gn
+
+    args = _on_card(_lm_lanes(B, B), cuda)
+    got = gn.refine_pairs(*args)
+    again = gn.refine_pairs(*args)
+    for early_exit in (False, True):
+        assert torch.equal(got, gn.lm_loop(*args, early_exit=early_exit))
+    assert torch.equal(got, again)
+    assert torch.equal(got[-3:].cpu(), torch.eye(4).expand(3, 4, 4))
+    assert bool(torch.isfinite(got).all())
+
+
+def test_lm_graph_one_capture_a_shape(cuda):
+    """One capture per (shape, dtype, iters) on a device, every call a
+    replay; a view of an expanded tensor (quick.py's inputs) replays the
+    graph of its shape."""
+    from fccf_pcr_torch.refine import gauss_newton as gn
+    from fccf_pcr_torch.refine import graph
+
+    graph.clear()
+    a = _on_card(_lm_lanes(1, 24), cuda)
+    b = _on_card(_lm_lanes(2, 48), cuda)
+    c0, r0 = graph.CAPTURES, graph.REPLAYS
+    gn.refine_pairs(*a)
+    gn.refine_pairs(*a)
+    gn.refine_pairs(*b)
+    gn.refine_pairs(*a, iters=10)
+    view = [x[:1].expand((24,) + x.shape[1:]) for x in a]
+    got = gn.refine_pairs(*view)
+    assert graph.CAPTURES - c0 == 3 and graph.REPLAYS - r0 == 5
+    assert graph.cached(cuda) == 3
+    assert torch.equal(got, gn.lm_loop(*(x.contiguous() for x in view),
+                                       early_exit=False))
+
+
+def test_lm_graph_cache_evicts_least_recent(cuda, monkeypatch):
+    """With room for two graphs, a third shape evicts the least recently
+    used one, whose next call captures again; clear() gives back the
+    graphs' memory pools."""
+    from fccf_pcr_torch.refine import gauss_newton as gn
+    from fccf_pcr_torch.refine import graph
+
+    graph.clear()
+    monkeypatch.setattr(graph, "MAX_GRAPHS", 2)
+    shapes = {B: _on_card(_lm_lanes(B, B), cuda) for B in (6, 9, 12)}
+    c0 = graph.CAPTURES
+    gn.refine_pairs(*shapes[6])
+    gn.refine_pairs(*shapes[9])
+    gn.refine_pairs(*shapes[6])       # 6 is now the most recent
+    gn.refine_pairs(*shapes[12])      # evicts 9
+    assert graph.cached(cuda) == 2 and graph.CAPTURES - c0 == 3
+    gn.refine_pairs(*shapes[6])       # still kept
+    assert graph.CAPTURES - c0 == 3
+    gn.refine_pairs(*shapes[9])       # captured again, evicts 12
+    assert graph.CAPTURES - c0 == 4 and graph.cached(cuda) == 2
+    torch.cuda.synchronize()
+    held = graph.pool_bytes(cuda)
+    graph.clear()
+    torch.cuda.empty_cache()
+    assert held > 0 and graph.pool_bytes(cuda) < held
+    assert graph.cached() == 0
+
+
+def test_lm_graph_captures_from_many_host_threads(cuda):
+    """As parallel/mesh.py runs devices, under stress: more host threads
+    than cores capturing and replaying four shapes at once, with a short
+    switch interval, while one more thread runs the eager loop with its
+    host syncs (capture_error_mode="thread_local"). Every result equals
+    the eager loop's, and the counts lose nothing: one capture a shape,
+    one replay a call (kept under locks)."""
+    import os
+    import sys
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    from fccf_pcr_torch.refine import gauss_newton as gn
+    from fccf_pcr_torch.refine import graph
+
+    graph.clear()
+    shapes = (15, 18, 21, 27)
+    inputs = {B: _on_card(_lm_lanes(B, B), cuda) for B in shapes}
+    want = {B: gn.lm_loop(*a, early_exit=False) for B, a in inputs.items()}
+    n, reps = 2 * (os.cpu_count() or 4), 3
+    start = threading.Barrier(n + 1)
+
+    def replays(i):
+        start.wait()
+        B = shapes[i % len(shapes)]
+        got = [gn.refine_pairs(*inputs[B]) for _ in range(reps)]
+        torch.cuda.synchronize()
+        return B, got
+
+    def eager():
+        start.wait()
+        return {B: gn.lm_loop(*inputs[B]) for B in (15, 27)}
+
+    c0, r0 = graph.CAPTURES, graph.REPLAYS
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        with ThreadPoolExecutor(n + 1) as ex:
+            jobs = [ex.submit(replays, i) for i in range(n)]
+            side = ex.submit(eager)
+            results = [j.result(timeout=300) for j in jobs]
+            eager_res = side.result(timeout=300)
+    finally:
+        sys.setswitchinterval(interval)
+    for B, got in results:
+        for g in got:
+            assert torch.equal(g, want[B]), B
+    for B, got in eager_res.items():
+        assert torch.equal(got, want[B]), B
+    assert graph.CAPTURES - c0 == len(shapes)
+    assert graph.REPLAYS - r0 == n * reps
+    assert graph.cached(cuda) == len(shapes)
+
+
+def test_refine_pairs_makes_no_host_sync(cuda):
+    """Once captured, refine_pairs never waits for the card: CUDA's sync
+    debug mode raises on any synchronizing call."""
+    from fccf_pcr_torch.refine import gauss_newton as gn
+
+    args = _on_card(_lm_lanes(5, 30), cuda)
+    gn.refine_pairs(*args)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = gn.refine_pairs(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(got, gn.lm_loop(*args))

@@ -13,7 +13,12 @@ each product, and which pairs it contracts depends on how the program is
 compiled (the reference's vmapped and per-lane compilations differ from
 each other by as much). ``refine_pairs`` on well-conditioned candidates
 (12 pairs of planes in general position) agrees within 2e-6. The ops of
-one LM iteration are counted too (each a kernel launch on the card)."""
+one LM iteration are counted too (each a kernel launch on the card).
+
+The loop's two forms (``lm_loop``): run to the cap with no host read (the
+form captured as a CUDA graph on the card) and with the early exit (the
+CPU's) are bit-equal, also with zero-weight lanes, a lane at zero cost
+and a NaN lane, and the first reads nothing back to the host."""
 
 import jax
 import jax.numpy as jnp
@@ -151,3 +156,81 @@ def test_lm_iteration_launches():
     per_iteration = counts[2] - counts[1]
     assert per_iteration == counts[1] - counts[0]  # every lane still runs
     assert per_iteration == 422
+
+
+def _edge_lanes(seed, B=6, P=16, noisy=True):
+    """_candidates' lanes, ``noisy`` with 5 cm of noise on the points and
+    about 1 deg on the normals (so a lane can meet the 1e-6 tolerance and
+    stop), the last three replaced by a lane of zero weights, a lane at
+    exactly zero cost (each plane its own match, so the identity is
+    exact) and a lane with a NaN point."""
+    n1, p1, n2, p2, w = _candidates(seed, B=B, P=P)
+    if noisy:
+        rng = np.random.default_rng(100 + seed)
+        p2 = (p2 + rng.normal(0, 0.05, p2.shape)).astype(np.float32)
+        n2 = n2 + rng.normal(0, 0.02, n2.shape)
+        n2 = (n2 / np.linalg.norm(n2, axis=-1, keepdims=True)).astype(
+            np.float32)
+    w[B - 3] = 0.0
+    n2[B - 2], p2[B - 2] = n1[B - 2], p1[B - 2]
+    p1[B - 1, 5, 1] = np.nan
+    return [n1, p1, n2, p2, w]
+
+
+class _NoHostRead(TorchDispatchMode):
+    """Fails on any op that reads a tensor back as a Python value (on the
+    card, a host sync); counts the ops that compute."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func in (torch.ops.aten._local_scalar_dense.default,
+                    torch.ops.aten.is_nonzero.default):
+            raise AssertionError(f"host read: {func}")
+        if not func.is_view:
+            self.n += 1
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("seed,exits_early", [
+    (0, False), (3, True), (4, True), (6, True)])
+def test_loop_to_the_cap_equals_early_exit(seed, exits_early):
+    """Run to the cap, the loop returns the early exit's bits, whether
+    the early exit stops before the cap (seeds 3, 4, 6: every live lane
+    met its tolerance) or not (seed 0)."""
+    args = [torch.from_numpy(a) for a in _edge_lanes(seed)]
+    with _CountLaunches() as early_ops:
+        early = tgn.lm_loop(*args)
+    with _CountLaunches() as cap_ops:
+        cap = tgn.lm_loop(*args, early_exit=False)
+    assert torch.equal(early, cap)
+    assert (early_ops.n < cap_ops.n - 1000) == exits_early
+    # the zero-weight, zero-cost and NaN lanes keep the identity
+    assert torch.equal(cap[-3:], torch.eye(4).expand(3, 4, 4))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_loop_to_the_cap_matches_reference(seed):
+    """As test_refine_pairs_matches_reference, with the three edge lanes
+    in the batch."""
+    args = _edge_lanes(seed, B=9, noisy=False)
+    j = np.asarray(jax.jit(jax.vmap(lambda *a: jgn.refine_pairs(*a)))(*args))
+    t = tgn.lm_loop(*(torch.from_numpy(a) for a in args),
+                    early_exit=False).numpy()
+    np.testing.assert_allclose(t, j, rtol=0, atol=2e-6)
+    assert not np.allclose(j[:-3], np.eye(4), atol=1e-3)  # the LM moved
+
+
+def test_loop_to_the_cap_reads_nothing_back():
+    """No op of the loop run to its cap reads a value back to the host
+    (on the card: no host sync, so it can be captured); the early exit
+    does, once an iteration."""
+    args = [torch.from_numpy(a) for a in _edge_lanes(4)]
+    with _NoHostRead() as mode:
+        tgn.lm_loop(*args, early_exit=False)
+    assert mode.n > 50 * 400
+    with pytest.raises(AssertionError, match="host read"):
+        with _NoHostRead():
+            tgn.lm_loop(*args)
