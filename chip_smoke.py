@@ -8,11 +8,12 @@ result:
 
   1. environment: torch / CUDA / nvcc versions and the card's name and
      power limit (nvidia-smi); no card -> fail (never a CPU fallback);
-  2. build both sources with nvcc, in parallel: csrc/label_prop.cu
+  2. build the three sources with nvcc, in parallel: csrc/label_prop.cu
      (the label-propagation kernels: the propagation entry, one
-     cooperative launch a propagation, and the one-sweep entry K1) and
-     csrc/gather.cu (the per-row gather P1); ptxas's registers, shared
-     memory and spills of each kernel;
+     cooperative launch a propagation, and the one-sweep entry K1),
+     csrc/gather.cu (the per-row gather P1) and csrc/cluster.cu (the
+     cluster stage's block seeds C1 and floor walk C2); ptxas's
+     registers, shared memory and spills of each kernel;
   3. label propagation vs its plain PyTorch version on the card, through
      the propagation kernel and through the per-sweep host loop (K1 +
      P1 launches): clustered voxel stats at V=1536 (office), V=1000 (a
@@ -63,15 +64,18 @@ result:
   8. steady-state step time at batch 8 (build excluded), office and
      heritage, in pairs/s, each kernel's launches per step and the
      sweeps the propagation kernel ran (at most 4 propagation launches a
-     step, no one-sweep or gather launch), and per step: every kernel
-     launched, as host launches (the CUDA runtime's launch calls,
-     cudaGraphLaunch included) and as device kernels (the kernels CUPTI
-     saw run, those inside a graph replay included), both from
-     torch.profiler, the LM graph's captures and replays (refine/graph.py:
-     0 and 1 a warm step), the host syncs (counted under
-     torch.cuda.set_sync_debug_mode("warn")) and the peak device memory
-     (torch.cuda.max_memory_allocated, which counts the graphs' private
-     pools; their size is printed apart);
+     step, no one-sweep or gather launch; H / 512 block-seed launches
+     and one floor walk), and per step: every kernel launched, as host
+     launches (the CUDA runtime's launch calls, cudaGraphLaunch
+     included) and as device kernels (the kernels CUPTI saw run, those
+     inside a graph replay included), both from torch.profiler, the step
+     graph's captures and replays (pipeline/register.py's STEP: a warm
+     step is 1 step graph replay and nothing else), the host syncs
+     (counted under torch.cuda.set_sync_debug_mode("warn"); there must
+     be none), the peak device memory (torch.cuda.max_memory_allocated:
+     a replay allocates only its outputs' clones) and beside it the
+     private pool the step's capture made (the step graph holds about
+     the eager step's peak there), and all graphs' pools;
   9. the mesh dry run: the office batch of 8 split over one card listed
      k times (parallel/mesh.py, make_mesh([cuda:0] * k), k = 2 and 4) and
      over make_mesh() (every card), every field bitwise equal to the
@@ -81,10 +85,13 @@ result:
      families' seed-30 targets at TEST_CAPS: the pipeline membership on
      the card equal to the CPU run's, the propagation kernel launched,
      pair_agreement > 0.98 and matched_fraction > 0.95;
- 11. one heritage batch-8 step under utils/profiling.py's trace (its
-     Chrome trace must name label_prop_propagate) and a StageTimer: host
-     time per stage (register.py's record_function scopes), the device's
-     busy share of the step, and the kernels with the most device time;
+ 11. one heritage batch-8 step through the step graph under
+     utils/profiling.py's trace (its Chrome trace must name
+     label_prop_propagate and both cluster kernels): the device's busy
+     share and the kernels with the most device time; then one eager
+     step under the trace and a StageTimer: host time per stage
+     (register.py's record_function scopes, which a replay does not
+     run), its busy share and kernels;
  12. the accuracy sweep (evaluation/evaluate.py): every non-sequence
      config, 16 seeds at batch 8 with escalate_caps="auto", 100% success,
      seeds 0-3 within their golden rows' bands; summary and pairs/s;
@@ -103,25 +110,42 @@ result:
      record of the resso seed-0 pair with --native-io equals the Python
      reader's, at the resso preset and at tiny caps, where both scans are
      subsampled at load;
- 18. (run after phase 8) the LM loop as a CUDA graph against the
-     eager loop: the batch-8 step of phase 8 at office and heritage with
-     refine_pairs (the loop to its cap, replayed as a graph, the main
-     path) and with the eager loop and its early exit
-     (gauss_newton.lm_loop, as the parent ran it) put in its place: every field bitwise equal, and so for the
-     office batch split over make_mesh([cuda:0] * 2); per step for each
-     arm the host syncs, host launches and device kernels, graph
-     captures and replays, peak memory and the graphs' pool, and step
-     wall times in turns (graph, eager, eager, graph, graph, eager); the
-     LM alone on that step's own inputs: the replay against the eager
-     loop with and without its early exit, bitwise equal, in wall ms and
-     in CUDA-event ms, and the device kernels of one replay.
+ 18. (run after phase 8) the register step as one CUDA graph against
+     the eager step: the batch-8 step of phase 8 at office and heritage
+     replayed as a graph (make_register_fn, the main path), run eagerly
+     (_register_batch, the LM loop run to its cap) and run eagerly with
+     the LM loop's early exit (gauss_newton.lm_loop put into the step):
+     every field bitwise equal; per step for each arm the host syncs,
+     host launches and device kernels, step graph captures and replays
+     (the eager arms capture and replay none), peak memory and the
+     graphs' pools, and step wall times in turns (graph, eager, eager,
+     graph, graph, eager); the LM alone on that step's own inputs: the
+     loop to its cap captured as a graph of its own and replayed,
+     against the eager loop with and without its early exit, bitwise
+     equal, in wall ms and in CUDA-event ms, and the device kernels of
+     one replay. Then every
+     golden config's seeds as one batch, and the office batch of 8 over
+     make_mesh([cuda:0] * 2), through the step graph and the eager step
+     in turns (graph, eager, eager, graph), every field bitwise equal;
+ 19. (run after phase 4) C1 and C2 against their plain versions (the
+     fixpoint; the host walk) on the card: every block's and the walk's
+     inputs of the eager step at seed 0 of office, heritage and
+     structured and of the batch-8 steps at office and heritage, and
+     the edge cases (an empty mask, all eligible, a chain, one ball, a
+     full mask, no eligible row, B = 200; cluster_num 0, 1 and large,
+     all sizes equal, a floor that drops below 2, an empty tail, no
+     seed, one slot); outputs equal; their device times at the heritage
+     batch-8 step's inputs beside the plain versions' and the bounds.
 
 Phases 5-6 are the main path: their launch counts are the kernels'
 "launches". Every later in-process path (12-16) is driven with the
 counts set to 0 just before it and read just after (drive_path): each
-must launch the propagation kernel, and neither the one-sweep nor the
-gather kernel, and each but the content measurement (which stops before
-the LM) must replay the LM graph.
+must launch the propagation kernel and C1, and neither the one-sweep
+nor the gather kernel, and each but the content measurement (which
+stops at the seeds) must replay a step graph and launch C2. A path's
+kernels launched inside a captured step graph count at each replay
+(ops/graph.py's count_launch); the hooks that record a kernel's inputs
+(phases 3, 18, 19) drive the eager step, where Python runs.
 
 Then one JSON line describing the kernels, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
@@ -167,6 +191,20 @@ KERNELS = {
         route="cuda",
         source="fccf_pcr_torch/csrc/gather.cu",
         replaces="tools/probe_gather.py:23",
+    ),
+    # The cluster stage's device loops: no Pallas kernel, the lax loops of
+    # the JAX package's compiled program.
+    "cluster_block_seeds": dict(
+        name="cluster_block_seeds",
+        route="cuda",
+        source="fccf_pcr_torch/csrc/cluster.cu",
+        replaces="fccf_pcr_tpu/cluster/cluster.py:157",
+    ),
+    "cluster_floor_walk": dict(
+        name="cluster_floor_walk",
+        route="cuda",
+        source="fccf_pcr_torch/csrc/cluster.cu",
+        replaces="fccf_pcr_tpu/cluster/cluster.py:260",
     ),
 }
 _BIG = 2**30
@@ -217,6 +255,8 @@ K1_PLANE_OPS = 29
 # device timeline and are not kernels.
 STAGES = ("downsample", "faces", "hypotheses", "cluster", "quick_verify",
           "refine", "fine_verify")
+# The graph counts read around a step (pipeline/register.py's STEP).
+GRAPH_COUNTS = ("step_graph_captures", "step_graph_replays")
 # torch.profiler captures taken again because CUPTI had dropped records
 # (kernel_times), by the kernel name they were taken for.
 RETAKEN = collections.Counter()
@@ -402,13 +442,13 @@ def k1_against_plain(lp, dev, normal, centroid, valid, bounds, what,
 
 def main_path_k1_inputs(name, dev):
     """The first label propagation of a path: pass 1 of seed 0's target
-    cloud through the batched main path at the ``name`` preset, or, for
+    cloud through the batched main path's eager step at the ``name``
+    preset, or, for
     MEASURE_K1, through measure_content.measure_pair of heritage seed 0 at
     the measurement capacities (V = 16384): (normal, centroid, valid) with
     a pair axis of 1, angle, l, k and the (1,) int32 bound."""
     import torch
 
-    from fccf_pcr_torch import make_register_fn
     from fccf_pcr_torch.evaluation import configs, measure_content
     from fccf_pcr_torch.features import faces
     from fccf_pcr_torch.models.fccf import get_model
@@ -417,12 +457,13 @@ def main_path_k1_inputs(name, dev):
         def drive():
             measure("heritage", 0, measure_content.measurement_caps(), dev)
     else:
+        # The eager step: a replay of the step graph runs no Python, so
+        # the hook would see nothing.
         model = get_model(configs.CONFIGS[name]["model"])
         args, _ = config_batch(name, [0], model.params, model.caps, dev)
 
         def drive():
-            make_register_fn(model.params, model.caps, batched=True,
-                             device=dev)(*args)
+            eager_step(model.params, model.caps)(*args)
     calls = []
     propagate = faces.label_propagate
 
@@ -452,6 +493,266 @@ def measure(name, seed, caps, device):
     src, tar, _ = scene(name, seed)
     params = get_model(configs.CONFIGS[name]["model"]).params
     return measure_pair(src, tar, params, caps, device=device)
+
+
+def eager_step(params, caps):
+    """The eager form of the batched step (``_register_batch``, which
+    make_register_fn runs on the CPU): no step graph is captured or
+    replayed, so a hook put into a module the step looks names up in
+    sees every call."""
+    from fccf_pcr_torch.pipeline.register import _register_batch, set_precision
+
+    def step(*args):
+        set_precision()
+        return _register_batch(*args, params, caps)
+
+    return step
+
+
+def cluster_inputs(name, seeds, dev):
+    """C1's (sub_lower, elig) of every block and C2's (s_size,
+    cluster_num), cloned, as the eager batched step of
+    configs.CONFIGS[name]'s ``seeds`` gives them to the kernels (every
+    block: on a card the scan runs all H // 512); and the preset's
+    capacities."""
+    from fccf_pcr_torch.cluster import cluster as cl
+    from fccf_pcr_torch.evaluation import configs
+    from fccf_pcr_torch.models.fccf import get_model
+
+    model = get_model(configs.CONFIGS[name]["model"])
+    args, _ = config_batch(name, seeds, model.params, model.caps, dev)
+    calls = {"block_seeds": [], "floor_walk": []}
+    kept = {k: getattr(cl, k) for k in calls}
+
+    def recorder(k):
+        def record(*a):
+            calls[k].append(tuple(x.clone() for x in a))
+            return kept[k](*a)
+        return record
+
+    for k in calls:
+        setattr(cl, k, recorder(k))
+    try:
+        eager_step(model.params, model.caps)(*args)
+    finally:
+        for k, fn in kept.items():
+            setattr(cl, k, fn)
+    return calls["block_seeds"], calls["floor_walk"], model.caps
+
+
+def cluster_edge_cases(dev):
+    """C1's and C2's edge cases: (what, inputs) each."""
+    import numpy as np
+    import torch
+
+    B = 512
+    rng = np.random.default_rng(512)
+    tri = torch.ones((B, B), dtype=torch.bool, device=dev).triu(1)
+    ones = torch.ones((3, B), dtype=torch.bool, device=dev)
+    chain = torch.zeros((3, B, B), dtype=torch.bool, device=dev)
+    ar = torch.arange(B - 1, device=dev)
+    chain[:, ar, ar + 1] = True
+    ball = torch.zeros_like(chain)
+    ball[:, 0, 1:] = True
+    rand = torch.from_numpy(rng.uniform(size=(3, B, B)) < 0.05).to(dev) & tri
+    seeds = [
+        ("empty mask", (torch.zeros_like(chain), ones)),
+        ("all eligible, random balls", (rand, ones)),
+        ("chain", (chain, ones)),
+        ("one ball", (ball, ones)),
+        ("full mask", (tri.expand(3, B, B).contiguous(), ones)),
+        ("no row eligible", (rand, torch.zeros_like(ones))),
+        ("B = 200", (rand[:, :200, :200].contiguous(), ones[:, :200])),
+    ]
+    W = 2048
+    sizes = np.sort(rng.integers(1, 40, (8, W)), axis=-1)[:, ::-1]
+    sizes = sizes.astype(np.float32).copy()
+    cn = np.full(8, 20.0, np.float32)
+    cn[0], cn[1] = 0.0, 1.0
+    sizes[2] = 7.0
+    cn[2] = 4000.0  # all equal, every slot emitted
+    sizes[3, :8] = (9, 3, 3, 3, 2, 2, 1, 1)
+    sizes[3, 8:] = 1.0
+    cn[3] = 40.0  # the floor drops below 2
+    sizes[4, W // 7:] = 0.0  # an empty tail
+    sizes[5] = 0.0  # no seed
+    walks = [("cluster_num 0, 1, large; all equal; floor below 2; empty "
+              "tail; no seed", (torch.from_numpy(sizes).to(dev),
+                                torch.from_numpy(cn).to(dev))),
+             ("one slot", (torch.from_numpy(sizes[:, :1].copy()).to(dev),
+                           torch.from_numpy(cn).to(dev)))]
+    return seeds, walks
+
+
+def c1_bound(sub_lower, elig, seeds):
+    """(bound ms, bound_by) of one C1 launch: the bytes its data needs
+    (elig read and the seeds written once, and only the row of each seed:
+    no other row changes the result) against its operations (a 16-bit OR
+    a row chunk of each seed), which are far fewer."""
+    B = elig.shape[-1]
+    n_seeds = int(seeds.sum())
+    bytes_s = (2 * elig.numel() + n_seeds * B) / PEAK_BYTES
+    ops_s = n_seeds * -(-B // 16) / PEAK_F32
+    return max(bytes_s, ops_s) * 1e3, "bytes" if bytes_s >= ops_s else \
+        "operations"
+
+
+def c2_bound(s_size, cluster_num):
+    """(bound ms, bound_by, slots walked) of one C2 launch: each slot a
+    lane walks before it stops read once, the budgets read and the mask
+    written once; a few comparisons a slot."""
+    from fccf_pcr_torch.ops import cluster_kernels as ck
+
+    W = s_size.shape[-1]
+    rows = s_size.reshape(-1, W).cpu().tolist()
+    walked = sum(ck._walk_lane(r, c)[1] for r, c in zip(
+        rows, cluster_num.reshape(-1).cpu().tolist()))
+    bytes_s = (4 * walked + 4 * len(rows) + s_size.numel()) / PEAK_BYTES
+    ops_s = 6 * walked / PEAK_F32
+    return (max(bytes_s, ops_s) * 1e3,
+            "bytes" if bytes_s >= ops_s else "operations", walked)
+
+
+def phase_cluster_vs_plain(ck, dev):
+    """C1 and C2 against their plain versions on the card: every block's
+    and the walk's inputs of the eager step at seed 0 of the office,
+    heritage and structured presets and of the batch-8 steps of phase 8
+    (office, heritage), and the edge cases; outputs equal. Times at the
+    heritage batch-8 step's inputs (device time, CUPTI), beside the plain
+    versions' (CUDA events: they wait for the host) and the bounds.
+    Returns the largest count of differing outputs and the times."""
+    import torch
+
+    cases = []
+    for name, seeds in (("office", [0]), ("heritage", [0]),
+                        ("structured", [0]), ("office", list(range(8))),
+                        ("heritage", list(range(8)))):
+        blocks, walks, caps = cluster_inputs(name, seeds, dev)
+        check(len(blocks) == caps.max_hypotheses // 512 and len(walks) == 1,
+              f"{name}: {len(blocks)} block-seed and {len(walks)} floor-walk "
+              f"calls a step (want {caps.max_hypotheses // 512} and 1)")
+        what = f"{name} seeds {seeds[0]}-{seeds[-1]}"
+        cases += [(f"{what} block {k}", "seeds", a)
+                  for k, a in enumerate(blocks)]
+        cases.append((f"{what} walk", "walk", walks[0]))
+        if name == "heritage" and len(seeds) == 8:
+            timed = (blocks, walks[0])
+    seeds_edge, walks_edge = cluster_edge_cases(dev)
+    cases += [(w, "seeds", a) for w, a in seeds_edge]
+    cases += [(w, "walk", a) for w, a in walks_edge]
+    errs = {"seeds": [0], "walk": [0]}
+    for what, kind, a in cases:
+        if kind == "seeds":
+            counter, kernel, plain = "SEEDS", ck.block_seeds, ck.block_seeds_plain
+        else:
+            counter, kernel, plain = "WALKS", ck.floor_walk, ck.floor_walk_plain
+        before = getattr(ck, counter)
+        got = kernel(*a)
+        torch.cuda.synchronize()
+        check(getattr(ck, counter) == before + 1,
+              f"{what}: the {kind} kernel was not launched")
+        want = plain(*a)
+        err = int((got != want).sum())
+        errs[kind].append(err)
+        check(err == 0, f"{what}: {err} outputs of the {kind} kernel differ "
+              "from plain")
+        print(f"[cluster] {kind} kernel equal to plain: {what} "
+              f"{tuple(a[0].shape)}, {int(got.sum())} true", flush=True)
+
+    blocks, walk = timed
+    t = {"blocks": []}
+    for sub, elig in blocks:
+        seeds = ck.block_seeds(sub, elig)
+        b_ms, b_by = c1_bound(sub, elig, seeds)
+        t["blocks"].append(dict(
+            seeds=int(seeds.sum()), eligible=int(elig.sum()),
+            ms=device_ms(lambda: ck.block_seeds(sub, elig), 10,
+                         only="cluster_block_seeds_kernel",
+                         launched=lambda: ck.SEEDS),
+            plain_ms=cuda_ms(lambda: ck.block_seeds_plain(sub, elig), 3),
+            bound_ms=b_ms, bound_by=b_by))
+    t["shape"] = tuple(blocks[0][0].shape)
+    for k in ("ms", "plain_ms", "bound_ms"):
+        t[k] = sum(b[k] for b in t["blocks"]) / len(t["blocks"])
+    t["bound_by"] = t["blocks"][0]["bound_by"]
+    w_ms, w_by, walked = c2_bound(*walk)
+    t["walk"] = dict(
+        shape=tuple(walk[0].shape), walked=walked,
+        emitted=int(ck.floor_walk(*walk).sum()),
+        ms=device_ms(lambda: ck.floor_walk(*walk), 10,
+                     only="cluster_floor_walk_kernel",
+                     launched=lambda: ck.WALKS),
+        plain_ms=cuda_ms(lambda: ck.floor_walk_plain(*walk), 3),
+        bound_ms=w_ms, bound_by=w_by)
+    return {k: max(v) for k, v in errs.items()}, t
+
+
+def cluster_stage_ms(name, dev):
+    """The price of the card's fixed trip count: the cluster stage
+    (cluster_hypotheses) on the hypotheses of the eager batch-8 step of
+    configs.CONFIGS[name], run eagerly with the block scan stopped at the
+    batch's last occupied block (the CPU's count, one host read), and
+    captured as a graph of its own, all H // 512 blocks, as inside the
+    step graph. Every output equal; each form's device time (the sum of
+    the device times of its kernels and copies, the most of three CUPTI
+    captures: CUPTI drops records and never adds one) and blocks
+    scanned."""
+    import torch
+
+    from fccf_pcr_torch.cluster import cluster as cl
+    from fccf_pcr_torch.evaluation import configs
+    from fccf_pcr_torch.hypotheses.transforms import Hypotheses
+    from fccf_pcr_torch.models.fccf import get_model
+    from fccf_pcr_torch.ops import graph
+    from fccf_pcr_torch.pipeline import register
+
+    model = get_model(configs.CONFIGS[name]["model"])
+    args, _ = config_batch(name, list(range(8)), model.params, model.caps,
+                           dev)
+    seen = []
+    kept = register.cluster_hypotheses
+
+    def record(hyp, params, caps):
+        seen.append(tuple(f.clone() for f in hyp))
+        return kept(hyp, params, caps)
+
+    register.cluster_hypotheses = record
+    try:
+        eager_step(model.params, model.caps)(*args)
+    finally:
+        register.cluster_hypotheses = kept
+    check(len(seen) == 1, f"{name}: {len(seen)} cluster stages in a step")
+    hyp = seen[0]
+
+    def stage(*fields):
+        return cl.cluster_hypotheses(Hypotheses(*fields), model.params,
+                                     model.caps)
+
+    def to_last_block():
+        fixed = cl._block_count
+        cl._block_count = lambda last_idx, H, B: (
+            int(torch.amax(last_idx)) + B) // B
+        try:
+            return stage(*hyp)
+        finally:
+            cl._block_count = fixed
+
+    graphs = graph.Graphs(max_graphs=1)
+    forms = {"eager": to_last_block,
+             "graph": lambda: graphs.replay(stage, hyp)}
+    want, got = forms["eager"](), forms["graph"]()
+    torch.cuda.synchronize()
+    for f, a, b in zip(want._fields, want, got):
+        check(torch.equal(a, b), f"{name}: the cluster stage's {f} differs "
+              "between the scan to the last occupied block and all blocks")
+    out = {form: max(sum(capture(call)) for _ in range(3))
+           for form, call in forms.items()}
+    graphs.clear()
+    H = model.caps.max_hypotheses
+    valid = Hypotheses(*hyp).valid
+    last = int(torch.nonzero(valid)[:, -1].max()) if bool(valid.any()) else -1
+    out["blocks"] = {"eager": (last + 512) // 512, "graph": H // 512}
+    return out
 
 
 def capture(fn, only="", reset=None):
@@ -898,8 +1199,9 @@ def phase_path(name, counters, dev):
     for k in ("label_prop_sweep", "gather_rows"):
         check(launches[k] == 0, f"the {name} path launched the {k} kernel "
               f"{launches[k]} times (it runs inside the propagation kernel)")
-    check(launches["lm_graph_replays"] > 0,
-          f"the {name} path replayed no LM graph")
+    for k in ("cluster_block_seeds", "cluster_floor_walk",
+              "step_graph_replays"):
+        check(launches[k] > 0, f"the {name} path made no {k}")
 
     T = res.transform
     check(T.shape == (len(seeds), 4, 4) and bool(torch.isfinite(T).all()),
@@ -1048,19 +1350,23 @@ def phase_mesh(dev, counters):
             "all": (make_sharded_register_fn(model.params, model.caps, every),
                     f"make_mesh() = {[str(d) for d in every]}")}
     for k, (fn, what) in runs.items():
+        fn(*args)  # captures the chunks' step graph
         zero_counts(counters, dev)
         split = fn(*args)
         torch.cuda.synchronize()
-        props = read_counts(counters, dev)["label_prop_propagate"]
+        counts = read_counts(counters, dev)
+        props = counts["label_prop_propagate"]
         for f, a, b in zip(whole._fields, split, whole):
             check(torch.equal(a, b), f"mesh {what}: {f} differs from the "
                   "unsplit batch")
         n_chunks = len(every) if k == "all" else k
-        check(props == 2 * n_chunks, f"mesh {what}: {props} propagation "
-              f"launches (want 2 a chunk, {2 * n_chunks})")
+        check(props == 2 * n_chunks and counts["step_graph_captures"] == 0
+              and counts["step_graph_replays"] == n_chunks,
+              f"mesh {what}: {props} propagation launches (want 2 a chunk, "
+              f"{2 * n_chunks}), step graph captures / replays {counts}")
         print(f"[mesh] office batch 8 split over {what}: every field bitwise "
-              f"equal to the unsplit batch; {props} propagation launches",
-              flush=True)
+              f"equal to the unsplit batch; {props} propagation launches, "
+              f"{n_chunks} step graph replays", flush=True)
     # The raw clouds downsampled chunk by chunk, each on its own device,
     # and registered where they lie (run_sweep's mesh path).
     chunks = []
@@ -1287,24 +1593,33 @@ def count_launches(fn, *args, n=3):
 
 def phase_timing(name, dev, counters, batch=8, reps=2):
     """Steady-state step time at ``batch`` pairs, each kernel's launches
-    per step, the propagation kernel's sweeps and the LM graph's
-    captures and replays per step (the counts of the timed steps over
-    ``reps``), the peak device memory of those steps and the graphs'
-    pools, and, in one more step each, the host syncs and the host
-    launches and device kernels (``count_launches``)."""
+    per step, the propagation kernel's sweeps and the step graph's
+    captures and replays per step (the counts of the timed steps
+    over ``reps``), the peak device memory of those steps and the graphs'
+    pools, and, in one more step each, the host syncs (which must be 0)
+    and the host launches and device kernels (``count_launches``).
+    Returns pairs/s, s/step, the counts, (step, args) and the eager
+    step."""
     import torch
 
     from fccf_pcr_torch.evaluation import configs
     from fccf_pcr_torch import make_register_fn
     from fccf_pcr_torch.models.fccf import get_model
-    from fccf_pcr_torch.refine import graph
+    from fccf_pcr_torch.ops import graph
+    from fccf_pcr_torch.pipeline.register import STEP
 
     model = get_model(configs.CONFIGS[name]["model"])
     args, _ = config_batch(name, list(range(batch)), model.params, model.caps,
                            dev)
     fn = make_register_fn(model.params, model.caps, batched=True, device=dev)
-    res = fn(*args)  # warm up
+    # The pool the first call makes: the step graph's.
+    STEP.clear()
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    pools = graph.pool_bytes(dev)
+    res = fn(*args)  # warm up: the capture
+    torch.cuda.synchronize()
+    step_pool = graph.pool_bytes(dev) - pools
     check(bool((res.status == 0).all()), f"{name} timing batch: non-zero status")
     del res
     zero_counts(counters, dev)
@@ -1319,15 +1634,19 @@ def phase_timing(name, dev, counters, batch=8, reps=2):
     per_step["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
     per_step["peak_bytes_over_inputs"] = per_step["peak_bytes"] - base
     per_step["graph_pool_bytes"] = graph.pool_bytes(dev)
-    check(per_step["lm_graph_replays"] == 1 and
-          per_step["lm_graph_captures"] == 0,
-          f"{name} timing: {per_step['lm_graph_captures']} LM graph "
-          f"captures and {per_step['lm_graph_replays']} replays a warm step "
-          "(want 0 and 1)")
+    per_step["step_pool_bytes"] = step_pool
+    want = dict(step_graph_replays=1, step_graph_captures=0)
+    check(all(per_step[k] == v for k, v in want.items()),
+          f"{name} timing: graph captures and replays a warm step "
+          f"{ {k: per_step[k] for k in want} } (want {want})")
     per_step["host_sync_lines"] = count_syncs(fn, *args)
     per_step["host_syncs"] = sum(per_step["host_sync_lines"].values())
+    check(per_step["host_syncs"] == 0, f"{name} timing: a warm step made "
+          f"{per_step['host_syncs']} host syncs "
+          f"({dict(per_step['host_sync_lines'])}; want 0)")
     per_step.update(count_launches(fn, *args))
-    return batch / dt, dt, per_step, (fn, args)
+    return (batch / dt, dt, per_step, (fn, args),
+            eager_step(model.params, model.caps))
 
 
 @contextlib.contextmanager
@@ -1358,68 +1677,73 @@ def event_ms(fn):
     return start.elapsed_time(end)
 
 
-def phase_graph(name, step, counters, dev):
-    """Phase 18 at one preset: the batch-8 step with the LM loop replayed
-    as a CUDA graph (the main path) against the same step with the eager
-    loop and its early exit (``lm_loop``, the parent's form). Every
-    field must be bitwise equal; per step and arm: host syncs, host
-    launches and device kernels, graph captures and replays, peak
-    memory; wall times in turns; the LM alone on the step's own inputs.
-    Returns the numbers."""
+def phase_graph(name, step, eager, counters, dev):
+    """Phase 18 at one preset: the batch-8 step replayed as one CUDA graph
+    (make_register_fn, the main path) against the eager step
+    (_register_batch, the LM loop run to its cap) and the eager step with
+    the LM loop's early exit (``lm_loop`` put into the step). Every field
+    must be bitwise equal; per step and arm: host syncs, host launches
+    and device kernels, step graph captures and replays (the eager arms
+    must capture and replay none), peak memory; wall times in turns; the
+    LM alone on the step's own inputs. Returns the numbers."""
     import torch
 
+    from fccf_pcr_torch.ops import graph
+    from fccf_pcr_torch.pipeline.register import STEP
     from fccf_pcr_torch.refine import gauss_newton as gn
-    from fccf_pcr_torch.refine import graph
 
     fn, args = step
-    arms = {"graph": gn.refine_pairs, "eager": gn.lm_loop}
+
+    def eager_lm(*a):
+        with lm_impl(gn.lm_loop):
+            return eager(*a)
+
+    arms = {"graph": fn, "eager": eager, "eager_lm": eager_lm}
     secs = {}
     ts = time.perf_counter()
-    res = {}
-    for arm, impl in arms.items():
-        with lm_impl(impl):
-            res[arm] = fn(*args)
+    res = {arm: call(*args) for arm, call in arms.items()}
     torch.cuda.synchronize()
-    for f, a, b in zip(res["graph"]._fields, res["graph"], res["eager"]):
-        check(torch.equal(a, b), f"{name}: {f} of the graph step differs "
-              "from the eager loop's")
+    for arm in ("eager", "eager_lm"):
+        for f, a, b in zip(res["graph"]._fields, res["graph"], res[arm]):
+            check(torch.equal(a, b), f"{name}: {f} of the graph step differs "
+                  f"from the {arm} step's")
     out = {"turns_ms": collections.defaultdict(list), "secs": secs}
     secs["equal"] = time.perf_counter() - ts
     ts = time.perf_counter()
     for arm in ("graph", "eager", "eager", "graph", "graph", "eager"):
-        with lm_impl(arms[arm]):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn(*args)
-            torch.cuda.synchronize()
-            out["turns_ms"][arm].append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        arms[arm](*args)
+        torch.cuda.synchronize()
+        out["turns_ms"][arm].append((time.perf_counter() - t0) * 1e3)
     secs["turns"] = time.perf_counter() - ts
     ts = time.perf_counter()
-    for arm, impl in arms.items():
-        with lm_impl(impl):
-            lines = count_syncs(fn, *args)
-            zero_counts(counters, dev)
-            torch.cuda.reset_peak_memory_stats(dev)
-            fn(*args)
-            torch.cuda.synchronize()
-            counts = read_counts(counters, dev)
-            out[arm] = dict(
-                host_syncs=sum(lines.values()),
-                host_sync_lines=dict(lines.most_common()),
-                captures=counts["lm_graph_captures"],
-                replays=counts["lm_graph_replays"],
-                peak_bytes=torch.cuda.max_memory_allocated(dev),
-                **count_launches(fn, *args, n=1 if arm == "eager" else 3))
-    check(out["graph"]["replays"] == 1 and out["graph"]["captures"] == 0
-          and out["eager"]["replays"] == 0,
-          f"{name}: graph replays / captures a step {out['graph']}, eager "
-          f"{out['eager']}")
+    for arm, call in arms.items():
+        lines = count_syncs(call, *args)
+        zero_counts(counters, dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        call(*args)
+        torch.cuda.synchronize()
+        counts = read_counts(counters, dev)
+        out[arm] = dict(
+            host_syncs=sum(lines.values()),
+            host_sync_lines=dict(lines.most_common()),
+            peak_bytes=torch.cuda.max_memory_allocated(dev),
+            **{k: counts[k] for k in GRAPH_COUNTS},
+            **count_launches(call, *args, n=3 if arm == "graph" else 1))
+    g, e, el = out["graph"], out["eager"], out["eager_lm"]
+    check(g["step_graph_replays"] == 1 and g["step_graph_captures"] == 0
+          and g["host_syncs"] == 0, f"{name}: the graph step {g}")
+    check(e["step_graph_replays"] == e["step_graph_captures"] == 0
+          and el["step_graph_replays"] == el["step_graph_captures"] == 0,
+          f"{name}: an eager arm captured or replayed a step graph: {e}, "
+          f"{el}")
     out["graph_pool_bytes"] = graph.pool_bytes(dev)
-    out["graphs_kept"] = graph.cached(dev)
+    out["graphs_kept"] = STEP.cached(dev)
     secs["counts"] = time.perf_counter() - ts
     ts = time.perf_counter()
 
-    # The LM alone, on the inputs the step gave it.
+    # The LM alone, on the inputs the (eager) step gave it.
     seen = []
 
     def record(**kw):
@@ -1428,16 +1752,23 @@ def phase_graph(name, step, counters, dev):
         return gn.refine_pairs(**kw)
 
     with lm_impl(record):
-        fn(*args)
+        eager(*args)
     check(len(seen) == 1, f"{name}: {len(seen)} LM calls in a step")
     kw = seen[0]
     lm = {"lanes": int(kw["n1"].shape[0]), "planes": int(kw["n1"].shape[1])}
-    got = gn.refine_pairs(**kw)
+    # The loop to its cap, captured as a graph of its own.
+    lm_graph = graph.Graphs(max_graphs=1)
+    planes = tuple(kw[k] for k in ("n1", "p1", "n2", "p2", "w"))
+
+    def replay():
+        return lm_graph.replay(gn.lm_loop, planes, (kw["iters"], False))
+
+    got = replay()
     for early_exit in (True, False):
         check(torch.equal(got, gn.lm_loop(**kw, early_exit=early_exit)),
               f"{name}: the LM replay differs from the eager loop "
               f"(early_exit={early_exit})")
-    forms = {"graph": lambda: gn.refine_pairs(**kw),
+    forms = {"graph": replay,
              "eager": lambda: gn.lm_loop(**kw),
              "eager_to_cap": lambda: gn.lm_loop(**kw, early_exit=False)}
     for form, call in forms.items():
@@ -1446,97 +1777,164 @@ def phase_graph(name, step, counters, dev):
             event_ms(call) for _ in range(3 if form == "graph" else 1))
     lm["replay"] = count_launches(forms["graph"])
     lm["eager_launches"] = count_launches(forms["eager"], n=1)
+    lm_graph.clear()
     out["lm"] = lm
     secs["lm"] = time.perf_counter() - ts
     return out
 
 
-def phase_graph_mesh(dev):
-    """The office batch 8 split over make_mesh([dev] * 2) with the LM
-    graph against the same split with the eager loop: every field
-    bitwise equal."""
+def graph_turns(what, graph_fn, eager_fn, args):
+    """``graph_fn`` and ``eager_fn`` on ``args`` in turns (graph, eager,
+    eager, graph) after one untimed run of each (the graph's capture),
+    every result's fields bitwise equal to that graph run's. Returns the
+    wall ms of each arm."""
     import torch
 
+    turns = collections.defaultdict(list)
+    first = graph_fn(*args)  # captures the step graph; untimed
+    eager_fn(*args)
+    for arm in ("graph", "eager", "eager", "graph"):
+        fn = graph_fn if arm == "graph" else eager_fn
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = fn(*args)
+        torch.cuda.synchronize()
+        turns[arm].append(round((time.perf_counter() - t0) * 1e3, 1))
+        for f, a, b in zip(first._fields, first, res):
+            check(torch.equal(a, b), f"{what}: {f} of the {arm} step "
+                  "differs from the graph step's")
+    return dict(turns)
+
+
+def phase_graph_configs(dev, counters):
+    """Every golden config's seeds as one batch through the step graph
+    (make_register_fn) and the eager step in turns, every field bitwise
+    equal; then the office batch of 8 over make_mesh([dev] * 2), each
+    chunk a replay of its step graph, against each chunk's eager step."""
+    import torch
+
+    from fccf_pcr_torch import make_register_fn
     from fccf_pcr_torch.evaluation import configs
     from fccf_pcr_torch.models.fccf import get_model
-    from fccf_pcr_torch.parallel.mesh import make_mesh, make_sharded_register_fn
-    from fccf_pcr_torch.refine import gauss_newton as gn
+    from fccf_pcr_torch.parallel import mesh
+    from fccf_pcr_torch.pipeline.register import RegistrationResult
+
+    for name in PATH_CONFIGS:
+        model = get_model(configs.CONFIGS[name]["model"])
+        seeds = [r["seed"] for r in json.loads(GOLDEN.read_text())[
+            "configs"][name]]
+        args, _ = config_batch(name, seeds, model.params, model.caps, dev)
+        fn = make_register_fn(model.params, model.caps, batched=True,
+                              device=dev)
+        turns = graph_turns(name, fn, eager_step(model.params, model.caps),
+                            args)
+        print(f"[graph] {name} seeds {seeds}: the step graph's every field "
+              f"bitwise equal to the eager step's; wall ms in turns {turns}",
+              flush=True)
 
     model = get_model(configs.CONFIGS["office"]["model"])
     args, _ = config_batch("office", list(range(8)), model.params,
                            model.caps, dev)
-    fn = make_sharded_register_fn(model.params, model.caps,
-                                  make_mesh([dev] * 2))
-    split = fn(*args)
-    with lm_impl(gn.lm_loop):
-        eager = fn(*args)
-    torch.cuda.synchronize()
-    for f, a, b in zip(split._fields, split, eager):
-        check(torch.equal(a, b), f"mesh [{dev}] * 2: {f} of the graph "
-              "split differs from the eager loop's")
+    grid = mesh.make_mesh([dev] * 2)
+    split = mesh.make_sharded_register_fn(model.params, model.caps, grid)
+    eager = eager_step(model.params, model.caps)
+
+    def eager_split(*a):
+        chunks = [x if isinstance(x, list) else mesh._split(x, grid)
+                  for x in a]
+        res = mesh._run_split(grid, lambda i: eager(*(c[i] for c in chunks)))
+        return RegistrationResult(*(torch.cat(f) for f in zip(*res)))
+
+    split(*args)  # captures the chunks' step graph
+    zero_counts(counters, dev)
+    turns = graph_turns(f"mesh [{dev}] * 2", split, eager_split, args)
+    counts = read_counts(counters, dev)
+    # three splits through the graph (graph_turns' first run and two
+    # turns), a replay a chunk
+    check(counts["step_graph_replays"] == 3 * 2 and counts[
+        "step_graph_captures"] == 0, f"mesh [{dev}] * 2: {counts}")
     print(f"[graph] office batch 8 over make_mesh([{dev}] * 2): every field "
-          "of the split with the LM graph bitwise equal to the split with "
-          "the eager loop", flush=True)
+          f"of the split through the step graph (2 replays a split) bitwise "
+          f"equal to the eager step of each chunk; wall ms in turns {turns}",
+          flush=True)
 
 
-def phase_profile(fn, args):
-    """One heritage step under utils.profiling.trace (its Chrome trace
-    must name the propagation kernel) and a StageTimer."""
+def phase_profile(fn, args, eager):
+    """One heritage batch-8 step through the step graph under
+    utils.profiling.trace (its Chrome trace must name the propagation
+    kernel and both cluster kernels): the device kernels of the replay
+    and the device's busy share; then one eager step under the trace and
+    a StageTimer: host time per stage (register.py's record_function
+    ranges, which exist only in the eager step) and its busy share."""
     import torch
 
     from fccf_pcr_torch.utils.profiling import StageTimer, trace
 
-    timer = StageTimer()
-    with tempfile.TemporaryDirectory() as logdir:
-        with trace(logdir) as prof:
-            t0 = time.perf_counter()
-            with timer.stage("heritage batch-8 step") as live:
-                live.append(fn(*args))
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        text = pathlib.Path(prof.trace_path).read_text()
-        check("label_prop_propagate" in text,
-              "the exported trace does not name label_prop_propagate")
-        print(f"[profile] trace exported by utils.profiling.trace: "
-              f"{os.path.basename(prof.trace_path)}, {len(text)} bytes, "
-              f"names label_prop_propagate", flush=True)
-    print(f"[profile] StageTimer report:\n{timer.report()}", flush=True)
     stages = STAGES
-    # Device work = the kernels' own time (one stream, so no overlap);
-    # the stage ranges also appear on the device timeline and are skipped.
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.name not in stages]
-    busy_ms = sum(e.device_time for e in kernels) / 1e3
-    print(f"[profile] heritage step {wall_ms:.1f} ms wall, {len(kernels)} "
-          f"kernels, device busy {busy_ms:.1f} ms "
-          f"({100 * busy_ms / wall_ms:.1f}%)", flush=True)
-    for e in prof.key_averages():
-        if e.key in stages and e.cpu_time_total > 0:
-            print(f"[profile] stage {e.key}: {e.cpu_time_total / 1e3:.1f} ms "
-                  f"host-inclusive over {e.count} calls", flush=True)
-    by_name = collections.Counter()
-    calls = collections.Counter()
-    for e in kernels:
-        by_name[e.name] += e.device_time
-        calls[e.name] += 1
-    for name, us in by_name.most_common(8):
-        print(f"[profile] kernel {us / 1e3:.1f} ms over {calls[name]} "
-              f"launches: {name[:90]}", flush=True)
-    for ours in ("label_prop_propagate_kernel", "label_prop_sweep_kernel",
-                 "gather_rows"):
-        for name, us in by_name.items():
-            if ours in name:
-                print(f"[profile] {ours}: {us / 1e3:.2f} ms of device time "
-                      f"over {calls[name]} launches in the step", flush=True)
+    for form, call in (("graph", fn), ("eager", eager)):
+        call(*args)  # the step graph may have been evicted: capture it first
+        torch.cuda.synchronize()
+        timer = StageTimer()
+        with tempfile.TemporaryDirectory() as logdir:
+            with trace(logdir) as prof:
+                t0 = time.perf_counter()
+                with timer.stage(f"heritage batch-8 {form} step") as live:
+                    live.append(call(*args))
+                wall_ms = (time.perf_counter() - t0) * 1e3
+            text = pathlib.Path(prof.trace_path).read_text()
+            for ours in ("label_prop_propagate", "cluster_block_seeds",
+                         "cluster_floor_walk"):
+                check(ours in text, f"the {form} step's exported trace does "
+                      f"not name {ours}")
+            print(f"[profile] {form} step trace exported by "
+                  f"utils.profiling.trace: "
+                  f"{os.path.basename(prof.trace_path)}, {len(text)} bytes, "
+                  f"names label_prop_propagate, cluster_block_seeds and "
+                  f"cluster_floor_walk", flush=True)
+        if form == "eager":
+            print(f"[profile] StageTimer report:\n{timer.report()}",
+                  flush=True)
+        # Device work = the kernels' own time (one stream, so no
+        # overlap); the stage ranges also appear on the device timeline
+        # and are skipped.
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.name not in stages]
+        busy_ms = sum(e.device_time for e in kernels) / 1e3
+        print(f"[profile] heritage {form} step {wall_ms:.1f} ms wall, "
+              f"{len(kernels)} kernels, device busy {busy_ms:.1f} ms "
+              f"({100 * busy_ms / wall_ms:.1f}%)", flush=True)
+        if form == "eager":
+            for e in prof.key_averages():
+                if e.key in stages and e.cpu_time_total > 0:
+                    print(f"[profile] eager stage {e.key}: "
+                          f"{e.cpu_time_total / 1e3:.1f} ms host-inclusive "
+                          f"over {e.count} calls", flush=True)
+        by_name = collections.Counter()
+        calls = collections.Counter()
+        for e in kernels:
+            by_name[e.name] += e.device_time
+            calls[e.name] += 1
+        for name, us in by_name.most_common(8):
+            print(f"[profile] {form} kernel {us / 1e3:.1f} ms over "
+                  f"{calls[name]} launches: {name[:90]}", flush=True)
+        for ours in ("label_prop_propagate_kernel", "label_prop_sweep_kernel",
+                     "gather_rows", "cluster_block_seeds_kernel",
+                     "cluster_floor_walk_kernel"):
+            for name, us in by_name.items():
+                if ours in name:
+                    print(f"[profile] {form} {ours}: {us / 1e3:.3f} ms of "
+                          f"device time over {calls[name]} launches in the "
+                          "step", flush=True)
 
 
-def drive_path(what, fn, counters, dev, refines=True):
+def drive_path(what, fn, counters, dev, registers=True):
     """``fn()`` as a path of the port: every kernel's launch count set to
     0 just before and read just after; the path must launch the
-    propagation kernel and neither the one-sweep nor the gather kernel,
-    and, where it ``refines`` (every path but measure_content, which
-    stops before the LM), replay the LM graph. Returns (result, counts,
-    wall s)."""
+    propagation kernel and C1 (block seeds), and neither the one-sweep
+    nor the gather kernel, and, where it ``registers`` (every path but
+    measure_content, which stops at the seeds), replay a step graph and
+    launch C2 (the floor walk). Returns (result, counts, wall s)."""
     import torch
 
     zero_counts(counters, dev)
@@ -1549,8 +1947,10 @@ def drive_path(what, fn, counters, dev, refines=True):
           f"{what}: the propagation kernel was not launched")
     for k in ("label_prop_sweep", "gather_rows"):
         check(counts[k] == 0, f"{what}: the {k} kernel was launched")
-    check(counts["lm_graph_replays"] > 0 or not refines,
-          f"{what}: no LM graph replayed")
+    check(counts["cluster_block_seeds"] > 0,
+          f"{what}: the block-seed kernel was not launched")
+    for k in ("step_graph_replays", "cluster_floor_walk"):
+        check(counts[k] > 0 or not registers, f"{what}: no {k}")
     return out, counts, secs
 
 
@@ -1769,7 +2169,7 @@ def phase_measure(dev, counters, smi):
     caps = measurement_caps(4096)
     on_card, counts, secs = drive_path(
         "measure office", lambda: measure("office", 0, caps, dev), counters,
-        dev, refines=False)
+        dev, registers=False)
     t0 = time.perf_counter()
     on_cpu = measure("office", 0, caps, "cpu")
     cpu_secs = time.perf_counter() - t0
@@ -1785,7 +2185,7 @@ def phase_measure(dev, counters, smi):
         got, counts, secs = drive_path(
             f"measure heritage {seed}",
             lambda: measure("heritage", seed, measurement_caps(), dev),
-            counters, dev, refines=False)
+            counters, dev, registers=False)
         launches.update(counts)
         print(f"[measure] heritage seed {seed} at V = 16384 (count / heritage "
               f"capacity): " + ", ".join(
@@ -1862,10 +2262,11 @@ def main():
         import torch
 
         from fccf_pcr_torch.evaluation import configs  # noqa: F401
+        from fccf_pcr_torch.ops import cluster_kernels as ck
         from fccf_pcr_torch.ops import cuda_build
         from fccf_pcr_torch.ops import gather as gt
         from fccf_pcr_torch.ops import label_prop as lp
-        from fccf_pcr_torch.refine import graph
+        from fccf_pcr_torch.pipeline.register import STEP
     except ImportError as e:
         print(f"FAIL: cannot import the port from {ROOT}: {e}", file=sys.stderr)
         return 1
@@ -1877,8 +2278,10 @@ def main():
     counters = {"label_prop_propagate": (lp, "PROPAGATIONS"),
                 "label_prop_sweep": (lp, "LAUNCHES"),
                 "gather_rows": (gt, "LAUNCHES"),
-                "lm_graph_captures": (graph, "CAPTURES"),
-                "lm_graph_replays": (graph, "REPLAYS")}
+                "cluster_block_seeds": (ck, "SEEDS"),
+                "cluster_floor_walk": (ck, "WALKS"),
+                "step_graph_captures": (STEP, "captures"),
+                "step_graph_replays": (STEP, "replays")}
     try:
         dev = torch.device("cuda:0")
         smi = run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1890,12 +2293,15 @@ def main():
               f"(count {torch.cuda.device_count()}) | {smi}", flush=True)
 
         t_start = time.perf_counter()
-        secs = phase_build([lp, gt])
-        print(f"[build] label_prop.cu {secs[0]:.2f} s, gather.cu {secs[1]:.2f} s "
-              f"(in parallel, {time.perf_counter() - t_start:.2f} s)", flush=True)
+        secs = phase_build([lp, gt, ck])
+        print(f"[build] label_prop.cu {secs[0]:.2f} s, gather.cu {secs[1]:.2f} s, "
+              f"cluster.cu {secs[2]:.2f} s (in parallel, "
+              f"{time.perf_counter() - t_start:.2f} s)", flush=True)
         ptxas = {"label_prop_propagate": ptxas_summary(lp, "propagate_kernel"),
                  "label_prop_sweep": ptxas_summary(lp, "sweep_kernel"),
-                 "gather_rows": ptxas_summary(gt)}
+                 "gather_rows": ptxas_summary(gt),
+                 "cluster_block_seeds": ptxas_summary(ck, "block_seeds"),
+                 "cluster_floor_walk": ptxas_summary(ck, "floor_walk")}
         for name, info in ptxas.items():
             check(info, f"no ptxas lines for {name}")
             print(f"[build] ptxas {name}: {info}", flush=True)
@@ -1952,6 +2358,34 @@ def main():
                   f"{t['library_call_ms'] * 1e3:.2f} us; bound "
                   f"{b_ms * 1e3:.3f} us (bytes) | {smi}", flush=True)
 
+        t0 = time.perf_counter()
+        cl_err, cl = phase_cluster_vs_plain(ck, dev)
+        for b in cl["blocks"]:
+            print(f"[cluster] C1 heritage batch 8 {cl['shape']}: "
+                  f"{b['eligible']} eligible, {b['seeds']} seeds; "
+                  f"{b['ms'] * 1e3:.2f} us device vs plain (the fixpoint, "
+                  f"CUDA events) {b['plain_ms'] * 1e3:.1f} us; bound "
+                  f"{b['bound_ms'] * 1e3:.4f} us ({b['bound_by']}) | {smi}",
+                  flush=True)
+        w = cl["walk"]
+        print(f"[cluster] C2 heritage batch 8 {w['shape']}: {w['walked']} "
+              f"slots walked, {w['emitted']} emitted; {w['ms'] * 1e3:.2f} us "
+              f"device vs plain (host walk, CUDA events) "
+              f"{w['plain_ms'] * 1e3:.1f} us; bound "
+              f"{w['bound_ms'] * 1e3:.4f} us ({w['bound_by']}) | ptxas C1 "
+              f"{ptxas['cluster_block_seeds']} | C2 "
+              f"{ptxas['cluster_floor_walk']} | {smi}", flush=True)
+        for name in ("office", "heritage", "structured"):
+            st = cluster_stage_ms(name, dev)
+            print(f"[cluster] {name} batch 8 cluster stage, device time: "
+                  f"eager {st['eager']:.3f} ms ({st['blocks']['eager']} "
+                  f"blocks: to the last occupied one, the CPU's count), "
+                  f"captured "
+                  f"{st['graph']:.3f} ms ({st['blocks']['graph']} blocks: "
+                  f"all, as in the step graph); outputs equal | {smi}",
+                  flush=True)
+        print(f"[cluster] phase {time.perf_counter() - t0:.1f} s", flush=True)
+
         launches = collections.Counter()
         paths = {}  # each later path's launch counts, read just after it
         path_ms = {}
@@ -1966,8 +2400,9 @@ def main():
 
         steps = {}
         per_step = {}
+        eager = {}
         for name in ("office", "heritage"):
-            pps, dt, per_step[name], steps[name] = phase_timing(
+            pps, dt, per_step[name], steps[name], eager[name] = phase_timing(
                 name, dev, counters)
             t = per_step[name]
             check(t["label_prop_sweep"] == 0 and t["gather_rows"] == 0,
@@ -1981,39 +2416,47 @@ def main():
                   f"propagation launches ({t['sweeps']:g} sweeps), "
                   f"{t['label_prop_sweep']:g} one-sweep and "
                   f"{t['gather_rows']:g} gather launches, "
-                  f"{t['lm_graph_replays']:g} LM graph replays and "
-                  f"{t['lm_graph_captures']:g} captures, "
+                  f"{t['cluster_block_seeds']:g} block-seed and "
+                  f"{t['cluster_floor_walk']:g} floor-walk launches, "
+                  f"{t['step_graph_replays']:g} step graph replays and "
+                  f"{t['step_graph_captures']:g} captures, "
                   f"{t['host_launches']} host launches "
                   f"({t['host_by_api']}), {t['device_kernels']} device "
                   f"kernels and {t['device_copies']} device copies/fills, "
                   f"{t['host_syncs']} host syncs "
                   f"({dict(t['host_sync_lines'].most_common())}), peak "
-                  "device memory "
+                  "device memory allocated "
                   f"{t['peak_bytes'] / 2**30:.3f} GiB "
-                  f"({t['peak_bytes_over_inputs'] / 2**30:.3f} GiB over the "
-                  f"step's inputs; the graphs' private pools "
-                  f"{t['graph_pool_bytes'] / 2**20:.2f} MiB of it) | {smi} | "
+                  f"({t['peak_bytes_over_inputs'] / 2**30:.3f} GiB over what "
+                  f"was allocated before the step: a replay allocates only "
+                  f"its outputs' clones), besides the step graph's private "
+                  f"pool {t['step_pool_bytes'] / 2**30:.3f} GiB (all graphs' "
+                  f"pools "
+                  f"{t['graph_pool_bytes'] / 2**30:.3f} GiB) | {smi} | "
                   f"torch {torch.__version__} cuda {torch.version.cuda}",
                   flush=True)
         t0 = time.perf_counter()
         graph_ab = {}
         for name in ("office", "heritage"):
-            g = graph_ab[name] = phase_graph(name, steps[name], counters, dev)
+            g = graph_ab[name] = phase_graph(name, steps[name], eager[name],
+                                             counters, dev)
             turns = {k: [round(x, 1) for x in v]
                      for k, v in g["turns_ms"].items()}
-            print(f"[graph] {name} batch 8: every field of the step with the "
-                  f"LM graph bitwise equal to the step with the eager loop; "
-                  f"step wall ms in turns {turns} | {smi}", flush=True)
-            for arm in ("graph", "eager"):
+            print(f"[graph] {name} batch 8: every field of the step graph "
+                  f"bitwise equal to the eager step's (LM loop to its cap) "
+                  f"and to the eager step with the LM loop's early exit; "
+                  f"step wall "
+                  f"ms in turns {turns} | {smi}", flush=True)
+            for arm in ("graph", "eager", "eager_lm"):
                 a = g[arm]
                 print(f"[graph] {name} {arm} step: {a['host_syncs']} host "
                       f"syncs ({a['host_sync_lines']}), {a['host_launches']} "
                       f"host launches ({a['host_by_api']}), "
                       f"{a['device_kernels']} device kernels, "
-                      f"{a['device_copies']} device copies/fills, "
-                      f"{a['captures']} graph captures and {a['replays']} "
-                      f"replays, peak {a['peak_bytes'] / 2**30:.3f} GiB",
-                      flush=True)
+                      f"{a['device_copies']} device copies/fills, step graph "
+                      f"{a['step_graph_captures']} captures and "
+                      f"{a['step_graph_replays']} replays, peak "
+                      f"{a['peak_bytes'] / 2**30:.3f} GiB", flush=True)
             lm = g["lm"]
             print(f"[graph] {name} LM alone ({lm['lanes']} lanes x "
                   f"{lm['planes']} planes, 50 iterations): replay "
@@ -2027,20 +2470,20 @@ def main():
                   f"wall, {lm['eager_event_ms']:.1f} ms by events, "
                   f"{lm['eager_launches']['host_launches']} host launches; "
                   f"eager loop to the cap {lm['eager_to_cap_wall_ms'][0]:.1f}"
-                  f" ms wall; all three bitwise equal; graphs kept "
-                  f"{g['graphs_kept']}, their pools "
+                  f" ms wall; all three bitwise equal; step graphs kept "
+                  f"{g['graphs_kept']}, all graphs' pools "
                   f"{g['graph_pool_bytes'] / 2**20:.2f} MiB | {smi}",
                   flush=True)
             print(f"[graph] {name} seconds by part: "
                   f"{ {k: round(v, 1) for k, v in g['secs'].items()} }",
                   flush=True)
-        phase_graph_mesh(dev)
+        phase_graph_configs(dev, counters)
         print(f"[graph] phase {time.perf_counter() - t0:.1f} s", flush=True)
         phase_mesh(dev, counters)
         print(f"[mesh] {smi}", flush=True)
         phase_diff(lp)
         print(f"[diff] {smi}", flush=True)
-        phase_profile(*steps["heritage"])
+        phase_profile(*steps["heritage"], eager["heritage"])
         t0 = time.perf_counter()
         accuracy, paths["accuracy sweep"] = phase_accuracy(dev, counters, smi)
         print(f"[accuracy] phase {time.perf_counter() - t0:.1f} s", flush=True)
@@ -2087,9 +2530,10 @@ def main():
              sweeps_per_step=per_step_of("sweeps"),
              step_device_kernels=per_step_of("device_kernels"),
              step_host_launches=per_step_of("host_launches"),
-             step_lm_graph_replays=per_step_of("lm_graph_replays"),
+             step_graph_replays=per_step_of("step_graph_replays"),
              step_host_syncs=per_step_of("host_syncs"),
              step_peak_bytes=per_step_of("peak_bytes"),
+             step_graph_pool_bytes=per_step_of("step_pool_bytes"),
              wall_ms=her["propagate_wall_ms"],
              host_loop_wall_ms=her["host_loop_wall_ms"],
              host_loop_ms=her["host_loop_ms"],
@@ -2130,6 +2574,36 @@ def main():
              launches_per_step=per_step_of("gather_rows"),
              ptxas=ptxas["gather_rows"],
              shape="(1, 9216) int32; ms device time; off the main path"),
+        dict(KERNELS["cluster_block_seeds"],
+             launches=launches["cluster_block_seeds"],
+             max_abs_err=cl_err["seeds"], ms=cl["ms"],
+             plain_ms=cl["plain_ms"], bound_ms=cl["bound_ms"],
+             bound_by=cl["bound_by"], library_ms=None,
+             launches_per_step=per_step_of("cluster_block_seeds"),
+             blocks=cl["blocks"],
+             launches_by_path={k: v["cluster_block_seeds"]
+                               for k, v in paths.items()},
+             ptxas=ptxas["cluster_block_seeds"],
+             shape=f"one block {cl['shape']} bool of the heritage batch-8 "
+                   "step, the mean over its blocks; ms device time, "
+                   "plain_ms the fixpoint's time by CUDA events (it reads "
+                   "back each round); max_abs_err the most outputs that "
+                   "differ"),
+        dict(KERNELS["cluster_floor_walk"],
+             launches=launches["cluster_floor_walk"],
+             max_abs_err=cl_err["walk"], ms=cl["walk"]["ms"],
+             plain_ms=cl["walk"]["plain_ms"],
+             bound_ms=cl["walk"]["bound_ms"],
+             bound_by=cl["walk"]["bound_by"], library_ms=None,
+             launches_per_step=per_step_of("cluster_floor_walk"),
+             walked=cl["walk"]["walked"], emitted=cl["walk"]["emitted"],
+             launches_by_path={k: v["cluster_floor_walk"]
+                               for k, v in paths.items()},
+             ptxas=ptxas["cluster_floor_walk"],
+             shape=f"the walk {cl['walk']['shape']} float32 of the heritage "
+                   "batch-8 step; ms device time, plain_ms the host walk's "
+                   "time by CUDA events; max_abs_err the most outputs that "
+                   "differ"),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

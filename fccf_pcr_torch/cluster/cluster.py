@@ -18,28 +18,34 @@ Reference semantics are kept exactly, as in the JAX package:
     translation and the axis-averaged rotation of its members.
 
 Every function takes leading batch dims (a pair axis), and the three
-types are one more lane axis: the block scan runs to the longest lane of
-the batch (blocks past a lane's last hypothesis hold nothing of it), the
-intra-block fixpoint runs until no (pair, type) lane changes, and both
-branches of the <= 10 test are computed and selected per lane, as under
-the JAX package's ``jax.vmap``.
+types are one more lane axis, and both branches of the <= 10 test are
+computed and selected per lane, as under the JAX package's ``jax.vmap``.
+On the CPU the block scan stops at the batch's last occupied block, as
+the JAX package's does (one host read). On a card it runs all
+``H // 512`` blocks, as the register step's CUDA graph needs (a fixed
+trip count, and the eager warm-up before a capture must run the same
+operations as the capture). A block past every lane's last hypothesis
+has no valid row or column, so it changes no seed and adds only zeros
+to the member sums, whose running total (``0.0 +`` the first tile) is
+never -0.0: both trip counts give the same bits.
 
-Host syncs, once per batch: the block count, one per fixpoint iteration,
-and the floor walk (a short sequential scalar loop), which runs on the
-host over every lane with one transfer each way.
+Host syncs: none on a card, where the intra-block fixpoint and the floor
+walk are ``ops.cluster_kernels``' kernels C1 and C2; on the CPU their
+plain versions read back to the host (one read a fixpoint round, and the
+walk over every lane with one transfer each way).
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
 from ..config import Capacities, FCCFParams
 from ..hypotheses.transforms import Hypotheses
 from ..ops import geometry
 from ..ops.batch import constant, fold_sum, small_matmul, take
+from ..ops.cluster_kernels import block_seeds, floor_walk
 from ..ops.voxelize import compact
 
 _SEED_BLOCK = 512
@@ -68,6 +74,15 @@ def _ball_rows(t_rows, px_rows, t, px, params):
     )
     cosm = torch.clamp(small_matmul(px_rows, px.mT), -1.0, 1.0)
     return (d2 <= r2) & (cosm >= cos_gate)
+
+
+def _block_count(last_idx, H, B):
+    """The blocks the scan visits: all ``H // B`` on a card, up to the
+    batch's last occupied one on the CPU (one host read; module doc: the
+    same bits)."""
+    if last_idx.is_cuda:
+        return H // B
+    return (int(torch.amax(last_idx)) + 1 + B - 1) // B
 
 
 def _greedy_seeds_all_types(masks, t, px, py, params):
@@ -99,9 +114,7 @@ def _greedy_seeds_all_types(masks, t, px, py, params):
     size = torch.zeros(masks.shape, dtype=dt, device=dev)
     sums = torch.zeros(masks.shape + (9,), dtype=dt, device=dev)
 
-    # Blocks past the batch's last valid index hold no valid rows or
-    # columns of any lane (one host sync).
-    n_blocks = (int(torch.amax(last_idx)) + 1 + B - 1) // B
+    n_blocks = _block_count(last_idx, H, B)
     for i in range(n_blocks):
         sl = slice(i * B, (i + 1) * B)
         t_rows = t[..., sl, :]
@@ -115,14 +128,7 @@ def _greedy_seeds_all_types(masks, t, px, py, params):
                & mask_rows[..., None, :])
         sub_lower = sub & lower
 
-        s = elig_b
-        for _ in range(B):
-            cov_in = torch.any(sub_lower & s[..., :, None], dim=-2)
-            new = elig_b & ~cov_in
-            changed = bool(torch.any(new != s))
-            s = new
-            if not changed:
-                break
+        s = block_seeds(sub_lower, elig_b)
 
         s_eff = (s & mask_rows).to(dt)  # (..., 3, B)
         # (..., 3, H) seed-ball hit counts: small integers, exact in any
@@ -130,8 +136,9 @@ def _greedy_seeds_all_types(masks, t, px, py, params):
         cov_hits = s_eff @ geo_f
         covered = covered | ((cov_hits > 0.5) & masks)
         # (..., B, 3*10) member sums: a fixed pairwise tree inside each
-        # column tile of B, the tiles added in order, up to the batch's
-        # last occupied column (past it every column is zero).
+        # column tile of B, the tiles added in order, up to the last
+        # block scanned (past the batch's last occupied column every
+        # column is zero).
         ss = 0.0
         for j in range(n_blocks):
             cl = slice(j * B, (j + 1) * B)
@@ -145,38 +152,6 @@ def _greedy_seeds_all_types(masks, t, px, py, params):
     return seeds, size, sums
 
 
-def _floor_walk(s_size, cluster_num):
-    """The adaptive floor walk over clusters sorted by size (:1126-1229)
-    of every lane: s_size (..., W) (a slot is a seed cluster iff its size
-    is > 0), cluster_num (...). Runs on the host, with one transfer each
-    way for the whole batch; sizes are integer counts, so float32 and
-    Python floats compare alike. Returns the emit mask."""
-    W = s_size.shape[-1]
-    host = torch.cat([s_size, cluster_num[..., None].to(s_size.dtype)],
-                     dim=-1).reshape(-1, W + 1).cpu().tolist()
-    emit = np.zeros((len(host), W), bool)
-    for lane, row in enumerate(host):
-        cn = row[W]
-        emitted = 0
-        floor = max(row[0], 0.0)
-        for i in range(W):
-            size = row[i]
-            if not size > 0.0:
-                continue
-            if size >= floor:
-                emit[lane, i] = True
-                emitted += 1
-                if emitted > cn:  # break after push (:1208-1211)
-                    break
-            elif emitted < cn / 2.0:
-                floor -= 1.0
-                if floor < 2.0:
-                    break
-            else:
-                break
-    return torch.from_numpy(emit).to(s_size.device).reshape(s_size.shape)
-
-
 def _emit_representatives(seed_valid, size, sums, cluster_num, caps):
     """Sorted emission with the floor walk over the selected seed
     clusters (size desc, index asc) of every lane, then
@@ -185,7 +160,7 @@ def _emit_representatives(seed_valid, size, sums, cluster_num, caps):
     order = torch.sort(-key, dim=-1, stable=True).indices
     s_size = take(size, order)
     s_sums = take(sums, order)
-    emit = _floor_walk(s_size, cluster_num)
+    emit = floor_walk(s_size, cluster_num)
 
     C = caps.max_reps
     _, overflow, r_valid, r_size, r_sums = compact(

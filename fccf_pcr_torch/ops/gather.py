@@ -20,16 +20,16 @@ kernel launches.
 from __future__ import annotations
 
 import ctypes
-import threading
+import sys
 
 import torch
 
+from . import graph
 from .cuda_build import CudaLibrary
 
-# Number of kernel launches made by gather_rows, kept under the lock (host
-# threads may launch on several cards).
+# Number of kernel launches made by gather_rows (ops.graph.count_launch).
 LAUNCHES = 0
-_COUNT_LOCK = threading.Lock()
+_THIS = sys.modules[__name__]
 
 
 def _bind(lib):
@@ -58,7 +58,6 @@ def gather_rows_plain(tbl, idx):
 
 def _launch(tbl, idx):
     """Launch the kernel on the current stream, asynchronously."""
-    global LAUNCHES
     if tbl.dtype != torch.int32 or idx.dtype != torch.int32:
         raise ValueError(f"gather kernel: want int32, got {tbl.dtype}/{idx.dtype}")
     if tbl.shape != idx.shape or tbl.dim() == 0 or tbl.numel() == 0:
@@ -75,10 +74,9 @@ def _launch(tbl, idx):
         rc = lib.fccf_gather_rows(
             tbl.data_ptr(), idx.data_ptr(), out.data_ptr(), P, V, stream
         )
-    with _COUNT_LOCK:
-        LAUNCHES += 1
     if rc != 0:
         raise RuntimeError(f"gather kernel launch failed: CUDA error {rc}")
+    graph.count_launch(_THIS, "LAUNCHES")
     return out
 
 

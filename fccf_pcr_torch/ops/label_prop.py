@@ -27,19 +27,23 @@ design before the single launch, kept for A/B timing
 The kernels are built with nvcc into ``fccf_pcr_torch/build/`` at first
 use and bound with ctypes (``ops.cuda_build``). ``PROPAGATIONS`` counts
 launches of the propagation kernel, ``LAUNCHES`` launches of the
-one-sweep kernel; ``sweep_counter(device)`` holds the sweeps the
-propagation kernel has run on that device. The counts are kept under a
-lock, so that host threads launching on several cards lose no launch.
+one-sweep kernel (``ops.graph.count_launch``: under a lock, so that host
+threads launching on several cards lose no launch, and a launch captured
+into a CUDA graph counts at each replay); ``sweep_counter(device)`` holds
+the sweeps the propagation kernel has run on that device, which the
+kernel itself adds to on the card.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import sys
 import threading
 
 import torch
 
+from . import graph
 from .cuda_build import CudaLibrary
 from .gather import gather_rows, gather_rows_plain
 from .geometry import cos_deg, normalize
@@ -53,11 +57,12 @@ _JUMP_ROUNDS = 1
 LAUNCHES = 0
 # Launches of the propagation kernel (_launch_propagate).
 PROPAGATIONS = 0
+_THIS = sys.modules[__name__]
 # device -> (1,) int64 count of the sweeps the propagation kernel ran.
 _SWEEPS = {}
-# Guards the counts and _SWEEPS: a split over devices launches from one
-# host thread a device (parallel/mesh.py).
-_COUNT_LOCK = threading.Lock()
+# Guards _SWEEPS: a split over devices launches from one host thread a
+# device (parallel/mesh.py).
+_SWEEPS_LOCK = threading.Lock()
 
 
 def _bind(lib):
@@ -208,7 +213,6 @@ def _check(t, name, dtype, shape, device):
 def _launch_sweep(stats, bound, labels, changed, cos_gate, l, k):
     """One sweep for every pair: launches the kernel on the current
     stream, asynchronously. Raises if the launch is refused."""
-    global LAUNCHES
     P, V = labels.shape
     dev = labels.device
     if dev.type != "cuda":
@@ -228,8 +232,7 @@ def _launch_sweep(stats, bound, labels, changed, cos_gate, l, k):
         )
     if rc != 0:
         raise RuntimeError(f"label-prop kernel launch failed: CUDA error {rc}")
-    with _COUNT_LOCK:
-        LAUNCHES += 1
+    graph.count_launch(_THIS, "LAUNCHES")
 
 
 def sweep_counter(device) -> torch.Tensor:
@@ -239,7 +242,7 @@ def sweep_counter(device) -> torch.Tensor:
     device = torch.device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
-    with _COUNT_LOCK:
+    with _SWEEPS_LOCK:
         if device not in _SWEEPS:
             _SWEEPS[device] = torch.zeros((1,), dtype=torch.int64,
                                           device=device)
@@ -254,7 +257,6 @@ def _launch_propagate(stats, bound, labels, flags, sweeps, cos_gate, l, k,
     per-pair flags and tile counter); the number of sweeps run is added
     to ``sweeps`` ((1,) int64). Raises if the card has no cooperative
     launch or the launch is refused."""
-    global PROPAGATIONS
     P, V = labels.shape
     dev = labels.device
     if dev.type != "cuda":
@@ -278,8 +280,7 @@ def _launch_propagate(stats, bound, labels, flags, sweeps, cos_gate, l, k,
     if rc != 0:
         raise RuntimeError(
             f"label-prop propagation kernel launch failed: CUDA error {rc}")
-    with _COUNT_LOCK:
-        PROPAGATIONS += 1
+    graph.count_launch(_THIS, "PROPAGATIONS")
 
 
 def _kernel_inputs(normal, centroid, valid, bound):

@@ -24,6 +24,15 @@ P x 3K candidates). Both clouds of every pair go through the
 voxelization, the faces and the bases as one stack of 2P clouds, so the
 two label-propagation passes are two kernel launches a batch. Python
 loops over pairs are gone; ``register_pair`` is the batch at P = 1.
+
+On a card the step reads nothing back to the host (label propagation,
+the cluster stage's loops and the LM loop all run on the device), so
+``make_register_fn`` captures it once per (params, caps, input shapes
+and dtypes) as one CUDA graph and replays it (``STEP``), as the JAX
+package's ``jax.jit`` compiles it once.
+``_register_batch`` is the eager form of the same step: the CPU runs it,
+and on a card tests and ``chip_smoke.py`` hold the graph to it bit for
+bit. A capture or replay that fails raises; nothing falls back to it.
 """
 
 from __future__ import annotations
@@ -40,7 +49,7 @@ from ..features.faces import extract_faces, faces_from_voxels
 from ..fuse.fuse import fuse_transforms
 from ..hypotheses.bases import select_bases
 from ..hypotheses.transforms import generate_hypotheses
-from ..ops import geometry
+from ..ops import geometry, graph
 from ..ops.batch import take
 from ..ops.voxelize import compact, downsample_and_voxelize, voxel_grid_downsample
 from ..verify.fine import build_source_table, fine_verify
@@ -117,11 +126,10 @@ def register_pair(src_pts, src_mask, tar_pts, tar_mask, params: FCCFParams,
     numpy arrays or tensors, already voxel-grid downsampled once by the
     caller (``pre_downsample``). Runs on ``device`` (``resolve_device``:
     the card by default, the points' own device with ``None``) as the
-    batched program at P = 1."""
-    set_precision()
-    args = _inputs(src_pts, src_mask, tar_pts, tar_mask, device)
-    res = _register_batch(*(a[None] for a in args), params, caps)
-    return RegistrationResult(*(f[0] for f in res))
+    batched program at P = 1 (``make_register_fn``: on a card, its step
+    graph)."""
+    return make_register_fn(params, caps, device=device)(
+        src_pts, src_mask, tar_pts, tar_mask)
 
 
 def _split(nt, P):
@@ -291,6 +299,14 @@ def pre_downsample(points, mask, params: FCCFParams, caps: Capacities,
     return out_pts, out_valid, ovf | ovf2
 
 
+# The step graphs, at most 4 a device: a step graph's private pool holds
+# about the eager step's peak memory, 2.080 GiB at the heritage preset
+# and 0.859 GiB at office, batch 8 (chip_smoke.py phase 8 on an NVIDIA
+# H100 80GB HBM3 at 700.00 W), and the accuracy sweep captures one per
+# config and capacities.
+STEP = graph.Graphs(max_graphs=4)
+
+
 def make_register_fn(params: FCCFParams, caps: Capacities,
                      batched: bool = False, device="cuda"):
     """Registration function with fixed params/capacities on ``device``
@@ -300,20 +316,28 @@ def make_register_fn(params: FCCFParams, caps: Capacities,
     batched=False: (src (N,3), src_mask, tar (N,3), tar_mask) -> result
     batched=True:  a leading pair axis on every argument and result; the
     batch is one program (no loop over pairs).
+
+    On a card each call replays the step's CUDA graph for its shapes
+    (captured at the first call that has them: an eager warm-up and the
+    capture, which synchronizes); on the CPU it runs ``_register_batch``.
     """
     if device is not None:
         device = resolve_device(device)
 
+    def step(*args):
+        set_precision()
+        if args[0].is_cuda:
+            return STEP.replay(_register_batch, args, (params, caps))
+        return _register_batch(*args, params, caps)
+
     if not batched:
         def fn(src, src_mask, tar, tar_mask):
-            return register_pair(
-                src, src_mask, tar, tar_mask, params, caps, device=device
-            )
+            args = _inputs(src, src_mask, tar, tar_mask, device)
+            res = step(*(a[None] for a in args))
+            return RegistrationResult(*(f[0] for f in res))
         return fn
 
     def fn_batched(src, src_mask, tar, tar_mask):
-        set_precision()
-        return _register_batch(
-            *_inputs(src, src_mask, tar, tar_mask, device), params, caps)
+        return step(*_inputs(src, src_mask, tar, tar_mask, device))
 
     return fn_batched

@@ -8,10 +8,11 @@ batch dimension and every lane follows the batched while-loop semantics
 exactly: a lane iterates until it is done or at its iteration cap, and a
 finished lane's q, t, lam and iteration count stay frozen.
 
-On a card ``refine_pairs`` runs the loop to its cap with no host read
-and replays it as one CUDA graph (``refine/graph.py``), as the JAX
-package's loop test runs on the device; on the CPU the eager loop
-(``lm_loop``) stops once no lane can move. Both give the same bits.
+On a card ``refine_pairs`` runs the loop to its cap with no host read,
+as the JAX package's loop test runs on the device, so the register
+step's CUDA graph (``pipeline/register.py``) captures it. On the CPU the
+loop stops once no lane can move (one host read an iteration). Both
+give the same bits.
 """
 
 from __future__ import annotations
@@ -21,7 +22,6 @@ import torch
 from ..ops import geometry
 from ..ops.batch import constant, fold_sum
 from ..ops.linalg6 import solve_spd6
-from . import graph
 
 
 def _exp_quat(v):
@@ -118,12 +118,10 @@ def refine_pairs(n1, p1, n2, p2, w, iters: int = 50):
     n1, p1, n2, p2: (Bt, P, 3) plane normals/points of matched pairs;
     w: (Bt, P) per-pair weights (0 for masked slots). Returns (Bt, 4, 4)
     corrections, to be composed T <- DeltaT @ T (FCCF.cpp:775). CUDA
-    tensors replay the loop run to its cap as a CUDA graph captured once
-    per shape; CPU tensors run ``lm_loop`` with its early exit.
+    tensors run the loop to its cap, which reads nothing back and so can
+    be captured; CPU tensors run it with its early exit.
     """
-    if n1.is_cuda:  # lm_loop(n1, p1, n2, p2, w, iters, early_exit=False)
-        return graph.replay(lm_loop, (n1, p1, n2, p2, w), (iters, False))
-    return lm_loop(n1, p1, n2, p2, w, iters)
+    return lm_loop(n1, p1, n2, p2, w, iters, early_exit=not n1.is_cuda)
 
 
 def lm_loop(n1, p1, n2, p2, w, iters: int = 50, early_exit: bool = True):

@@ -11,9 +11,14 @@ counts kept across host threads, StageTimer's wait for the card, the
 face-membership diff on the card against the CPU, the non-fused face
 path on the card against the CPU, the kernel at measure_content's
 V = 16384, and evaluate_config with escalation on the card against the
-CPU; the LM refine replayed as a CUDA graph (refine/graph.py) against
-the eager loop bit for bit, one capture a shape, LRU eviction, captures
-from two host threads, no host sync.
+CPU; the LM loop run to its cap and replayed as a CUDA graph
+(ops/graph.py's Graphs, the register step graph's machinery) against the
+eager loop bit for bit, one capture a shape, LRU eviction, captures from
+many host threads, no host sync; the cluster stage's kernels C1
+(block seeds) and C2 (floor walk) against their plain versions; the
+register step replayed as one CUDA graph against the eager step
+(_register_batch) bit for bit at the office and heritage presets and
+over [cuda:0] * 2, with no host sync in a warm step.
 
 This file imports no jax, so it runs on a machine without it (the
 repository's conftest.py imports jax, hence --noconftest):
@@ -32,8 +37,11 @@ import torch
 from fccf_pcr_torch import TEST_CAPS, FCCFParams, make_register_fn
 from fccf_pcr_torch import registration_errors
 from fccf_pcr_torch.io import synthetic
+from fccf_pcr_torch.ops import cluster_kernels as ck
 from fccf_pcr_torch.ops import gather as gt
+from fccf_pcr_torch.ops import graph
 from fccf_pcr_torch.ops import label_prop as lp
+from fccf_pcr_torch.pipeline.register import STEP
 
 pytestmark = pytest.mark.cuda
 
@@ -429,11 +437,11 @@ def test_batch_rows_match_single_runs_on_card(cuda):
 
 
 def test_batched_step_host_syncs_are_bounded(cuda):
-    """A batched step waits for the card at most 30 times, whatever the
-    batch size: the cluster scan's block count and fixpoint tests, the
-    floor walk's two transfers and the inputs' copies; label propagation
-    and the LM loop (a CUDA graph replay) none. Counted under CUDA's sync
-    debug mode, which warns at each synchronizing call."""
+    """A warm batched step waits for the card 0 times, whatever the batch
+    size: it is one CUDA graph replay with its inputs on the card (label
+    propagation, the cluster stage's loops and the LM loop all run on
+    the device). Counted under CUDA's sync debug mode, which warns at
+    each synchronizing call."""
     import warnings
 
     caps = TEST_CAPS
@@ -454,7 +462,7 @@ def test_batched_step_host_syncs_are_bounded(cuda):
                 torch.cuda.set_sync_debug_mode("default")
         counts.append(sum("called a synchronizing" in str(w.message)
                           for w in caught))
-    assert 0 < counts[0] and max(counts) <= 30, counts
+    assert counts == [0, 0], counts
 
 
 def test_mesh_split_on_one_card_is_bitwise_equal(cuda):
@@ -466,10 +474,13 @@ def test_mesh_split_on_one_card_is_bitwise_equal(cuda):
     params = FCCFParams(leaf_size=0.25)
     batch = [np.concatenate([a, a[:1]]) for a in _batch(caps)]
     whole = make_register_fn(params, caps, batched=True, device=cuda)(*batch)
-    before = lp.PROPAGATIONS
-    split = make_sharded_register_fn(params, caps,
-                                     make_mesh(["cuda:0"] * 2))(*batch)
-    assert lp.PROPAGATIONS == before + 4  # two passes a chunk
+    fn = make_sharded_register_fn(params, caps, make_mesh(["cuda:0"] * 2))
+    fn(*batch)  # captures the chunks' step graph
+    before, replays = lp.PROPAGATIONS, STEP.replays
+    split = fn(*batch)
+    # two passes a chunk, counted at each replay of its step graph
+    assert lp.PROPAGATIONS == before + 4
+    assert STEP.replays == replays + 2
     for name, a, b in zip(split._fields, split, whole):
         assert a.device == b.device and torch.equal(a, b), name
 
@@ -622,18 +633,29 @@ def _on_card(arrays, dev):
     return [torch.from_numpy(a).to(dev) for a in arrays]
 
 
-@pytest.mark.parametrize("B", [12, 96])
-def test_lm_graph_equals_eager_loop(cuda, B):
-    """refine_pairs on the card (the loop to its cap, replayed as a CUDA
-    graph) against the eager loop, with and without its early exit, on
-    the same inputs: bit for bit (the same kernels in the same order).
-    The replay's inputs are copies: changing the caller's tensors after
-    the call changes nothing."""
+def _lm_graph(graphs, *args, iters=50):
+    """The LM loop run to its cap through ``graphs``: captured once per
+    shape, then replayed."""
     from fccf_pcr_torch.refine import gauss_newton as gn
 
+    return graphs.replay(gn.lm_loop, args, (iters, False))
+
+
+@pytest.mark.parametrize("B", [12, 96])
+def test_lm_graph_equals_eager_loop(cuda, B):
+    """The LM loop to its cap replayed as a CUDA graph against the eager
+    loop, with and without its early exit, and against refine_pairs on
+    the card (the loop to its cap, eagerly), on the same inputs: bit for
+    bit (the same kernels in the same order). The replay's inputs are
+    copies: changing the caller's tensors after the call changes
+    nothing."""
+    from fccf_pcr_torch.refine import gauss_newton as gn
+
+    graphs = graph.Graphs(max_graphs=4)
     args = _on_card(_lm_lanes(B, B), cuda)
-    got = gn.refine_pairs(*args)
-    again = gn.refine_pairs(*args)
+    got = _lm_graph(graphs, *args)
+    again = _lm_graph(graphs, *args)
+    assert torch.equal(got, gn.refine_pairs(*args))
     for early_exit in (False, True):
         assert torch.equal(got, gn.lm_loop(*args, early_exit=early_exit))
     assert torch.equal(got, again)
@@ -646,50 +668,43 @@ def test_lm_graph_one_capture_a_shape(cuda):
     replay; a view of an expanded tensor (quick.py's inputs) replays the
     graph of its shape."""
     from fccf_pcr_torch.refine import gauss_newton as gn
-    from fccf_pcr_torch.refine import graph
 
-    graph.clear()
+    graphs = graph.Graphs(max_graphs=16)
     a = _on_card(_lm_lanes(1, 24), cuda)
     b = _on_card(_lm_lanes(2, 48), cuda)
-    c0, r0 = graph.CAPTURES, graph.REPLAYS
-    gn.refine_pairs(*a)
-    gn.refine_pairs(*a)
-    gn.refine_pairs(*b)
-    gn.refine_pairs(*a, iters=10)
+    _lm_graph(graphs, *a)
+    _lm_graph(graphs, *a)
+    _lm_graph(graphs, *b)
+    _lm_graph(graphs, *a, iters=10)
     view = [x[:1].expand((24,) + x.shape[1:]) for x in a]
-    got = gn.refine_pairs(*view)
-    assert graph.CAPTURES - c0 == 3 and graph.REPLAYS - r0 == 5
-    assert graph.cached(cuda) == 3
+    got = _lm_graph(graphs, *view)
+    assert graphs.captures == 3 and graphs.replays == 5
+    assert graphs.cached(cuda) == 3
     assert torch.equal(got, gn.lm_loop(*(x.contiguous() for x in view),
                                        early_exit=False))
 
 
-def test_lm_graph_cache_evicts_least_recent(cuda, monkeypatch):
+def test_lm_graph_cache_evicts_least_recent(cuda):
     """With room for two graphs, a third shape evicts the least recently
     used one, whose next call captures again; clear() gives back the
     graphs' memory pools."""
-    from fccf_pcr_torch.refine import gauss_newton as gn
-    from fccf_pcr_torch.refine import graph
-
-    graph.clear()
-    monkeypatch.setattr(graph, "MAX_GRAPHS", 2)
+    graphs = graph.Graphs(max_graphs=2)
     shapes = {B: _on_card(_lm_lanes(B, B), cuda) for B in (6, 9, 12)}
-    c0 = graph.CAPTURES
-    gn.refine_pairs(*shapes[6])
-    gn.refine_pairs(*shapes[9])
-    gn.refine_pairs(*shapes[6])       # 6 is now the most recent
-    gn.refine_pairs(*shapes[12])      # evicts 9
-    assert graph.cached(cuda) == 2 and graph.CAPTURES - c0 == 3
-    gn.refine_pairs(*shapes[6])       # still kept
-    assert graph.CAPTURES - c0 == 3
-    gn.refine_pairs(*shapes[9])       # captured again, evicts 12
-    assert graph.CAPTURES - c0 == 4 and graph.cached(cuda) == 2
+    _lm_graph(graphs, *shapes[6])
+    _lm_graph(graphs, *shapes[9])
+    _lm_graph(graphs, *shapes[6])     # 6 is now the most recent
+    _lm_graph(graphs, *shapes[12])    # evicts 9
+    assert graphs.cached(cuda) == 2 and graphs.captures == 3
+    _lm_graph(graphs, *shapes[6])     # still kept
+    assert graphs.captures == 3
+    _lm_graph(graphs, *shapes[9])     # captured again, evicts 12
+    assert graphs.captures == 4 and graphs.cached(cuda) == 2
     torch.cuda.synchronize()
     held = graph.pool_bytes(cuda)
-    graph.clear()
+    graphs.clear()
     torch.cuda.empty_cache()
     assert held > 0 and graph.pool_bytes(cuda) < held
-    assert graph.cached() == 0
+    assert graphs.cached() == 0
 
 
 def test_lm_graph_captures_from_many_host_threads(cuda):
@@ -705,9 +720,8 @@ def test_lm_graph_captures_from_many_host_threads(cuda):
     from concurrent.futures import ThreadPoolExecutor
 
     from fccf_pcr_torch.refine import gauss_newton as gn
-    from fccf_pcr_torch.refine import graph
 
-    graph.clear()
+    graphs = graph.Graphs(max_graphs=16)
     shapes = (15, 18, 21, 27)
     inputs = {B: _on_card(_lm_lanes(B, B), cuda) for B in shapes}
     want = {B: gn.lm_loop(*a, early_exit=False) for B, a in inputs.items()}
@@ -717,7 +731,7 @@ def test_lm_graph_captures_from_many_host_threads(cuda):
     def replays(i):
         start.wait()
         B = shapes[i % len(shapes)]
-        got = [gn.refine_pairs(*inputs[B]) for _ in range(reps)]
+        got = [_lm_graph(graphs, *inputs[B]) for _ in range(reps)]
         torch.cuda.synchronize()
         return B, got
 
@@ -725,7 +739,6 @@ def test_lm_graph_captures_from_many_host_threads(cuda):
         start.wait()
         return {B: gn.lm_loop(*inputs[B]) for B in (15, 27)}
 
-    c0, r0 = graph.CAPTURES, graph.REPLAYS
     interval = sys.getswitchinterval()
     sys.setswitchinterval(1e-6)
     try:
@@ -741,14 +754,15 @@ def test_lm_graph_captures_from_many_host_threads(cuda):
             assert torch.equal(g, want[B]), B
     for B, got in eager_res.items():
         assert torch.equal(got, want[B]), B
-    assert graph.CAPTURES - c0 == len(shapes)
-    assert graph.REPLAYS - r0 == n * reps
-    assert graph.cached(cuda) == len(shapes)
+    assert graphs.captures == len(shapes)
+    assert graphs.replays == n * reps
+    assert graphs.cached(cuda) == len(shapes)
 
 
 def test_refine_pairs_makes_no_host_sync(cuda):
-    """Once captured, refine_pairs never waits for the card: CUDA's sync
-    debug mode raises on any synchronizing call."""
+    """refine_pairs on the card (the loop to its cap, eagerly) never waits
+    for the card once its constants are on it, so a capture can take it:
+    CUDA's sync debug mode raises on any synchronizing call."""
     from fccf_pcr_torch.refine import gauss_newton as gn
 
     args = _on_card(_lm_lanes(5, 30), cuda)
@@ -759,4 +773,196 @@ def test_refine_pairs_makes_no_host_sync(cuda):
         got = gn.refine_pairs(*args)
     finally:
         torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(got, gn.lm_loop(*args))
+
+
+# ------------------------------------------- the cluster stage's kernels
+
+
+def _lower(rng, lanes, B, density):
+    sub = rng.uniform(size=(lanes, B, B)) < density
+    return sub & np.triu(np.ones((B, B), bool), k=1)[None]
+
+
+@pytest.mark.parametrize("lanes,B,density,elig_p", [
+    (24, 512, 0.01, 0.9), (24, 512, 0.3, 0.5), (3, 512, 0.0, 1.0),
+    (6, 200, 0.05, 0.8), (1, 1, 0.0, 1.0), (5, 16, 1.0, 1.0)])
+def test_block_seeds_kernel_matches_plain(cuda, lanes, B, density, elig_p):
+    """C1 against the plain fixpoint on the card: random strictly lower
+    triangular masks at the main path's B = 512 and batch 8 (24 lanes),
+    an empty mask, a block that is no multiple of 16, one index, and a
+    full mask."""
+    rng = np.random.default_rng(lanes * B)
+    sub = torch.from_numpy(_lower(rng, lanes, B, density)).to(cuda)
+    elig = torch.from_numpy(rng.uniform(size=(lanes, B)) < elig_p).to(cuda)
+    before = ck.SEEDS
+    got = ck.block_seeds(sub, elig)
+    torch.cuda.synchronize()
+    assert ck.SEEDS == before + 1
+    assert torch.equal(got, ck.block_seeds_plain(sub, elig))
+
+
+def test_block_seeds_kernel_chain_and_one_ball(cuda):
+    """A chain (i covers i + 1: every other index a seed) and one ball
+    (index 0 covers all: one seed), on a (2, 3) lane batch."""
+    B = 512
+    sub = torch.zeros((2, 3, B, B), dtype=torch.bool, device=cuda)
+    ar = torch.arange(B - 1, device=cuda)
+    sub[0, :, ar, ar + 1] = True
+    sub[1, :, 0, 1:] = True
+    elig = torch.ones((2, 3, B), dtype=torch.bool, device=cuda)
+    got = ck.block_seeds(sub, elig)
+    assert torch.equal(got, ck.block_seeds_plain(sub, elig))
+    assert got[0].sum(-1).tolist() == [B // 2] * 3
+    assert got[1].sum(-1).tolist() == [1] * 3
+
+
+def _walk_inputs(rng, lanes, W):
+    sizes = np.sort(rng.integers(0, 40, (lanes, W)), axis=-1)[:, ::-1]
+    sizes = sizes.astype(np.float32).copy()
+    cn = rng.integers(0, 60, lanes).astype(np.float32)
+    cn[:4] = (0.0, 1.0, 200.0, 2.0)
+    sizes[1] = 7.0  # all equal
+    sizes[2, W // 5:] = 0.0  # empty tail
+    sizes[3] = 0.0  # no seed
+    head = np.float32([9, 3, 3, 3, 2, 2, 1, 1])[:W]
+    sizes[4] = 1.0
+    sizes[4, :len(head)] = head  # the floor drops below 2
+    cn[4] = 40.0
+    return sizes, cn
+
+
+@pytest.mark.parametrize("lanes,W", [(24, 2048), (24, 6144), (6, 5000),
+                                     (5, 1)])
+def test_floor_walk_kernel_matches_plain(cuda, lanes, W):
+    """C2 against the plain walk on the card: the office / heritage and
+    structured widths at batch 8, a width that is no multiple of the
+    kernel's chunk, one slot; cluster_num 0, 1 and large, all sizes
+    equal, an empty tail, no seed, a floor that drops below 2."""
+    rng = np.random.default_rng(W)
+    sizes, cn = _walk_inputs(rng, max(lanes, 5), W)
+    s = torch.from_numpy(sizes[:lanes]).to(cuda)
+    c = torch.from_numpy(cn[:lanes]).to(cuda)
+    before = ck.WALKS
+    got = ck.floor_walk(s, c)
+    torch.cuda.synchronize()
+    assert ck.WALKS == before + 1
+    assert torch.equal(got, ck.floor_walk_plain(s, c))
+    assert torch.equal(ck.floor_walk(s.reshape(-1, 1, W)[:, 0], c), got)
+
+
+def test_cluster_kernels_reject_bad_inputs(cuda):
+    sub = torch.zeros((2, 64, 64), dtype=torch.bool, device=cuda)
+    elig = torch.zeros((2, 64), dtype=torch.bool, device=cuda)
+    before = (ck.SEEDS, ck.WALKS)
+    with pytest.raises(ValueError):  # mask not (..., B, B)
+        ck.block_seeds(sub[:, :32], elig)
+    with pytest.raises(ValueError):  # block over 512
+        ck.block_seeds(torch.zeros((1, 520, 520), dtype=torch.bool,
+                                   device=cuda),
+                       torch.zeros((1, 520), dtype=torch.bool, device=cuda))
+    with pytest.raises(ValueError):  # wrong dtype
+        ck.floor_walk(torch.zeros((2, 8), dtype=torch.float64, device=cuda),
+                      torch.zeros((2,), device=cuda))
+    with pytest.raises(ValueError):  # budgets on another device
+        ck.floor_walk(torch.zeros((2, 8), device=cuda), torch.zeros((2,)))
+    assert (ck.SEEDS, ck.WALKS) == before
+
+
+# ------------------------------------------- the register step as a graph
+
+
+def _preset_batch(name, seeds, dev):
+    """configs.CONFIGS[name]'s scenes for ``seeds`` through one batched
+    pre_downsample a side, as chip_smoke.py's config_batch."""
+    from fccf_pcr_torch import pre_downsample
+    from fccf_pcr_torch.evaluation import configs
+    from fccf_pcr_torch.models.fccf import get_model
+
+    model = get_model(configs.CONFIGS[name]["model"])
+    pairs = configs.pairs_for_config(configs.CONFIGS[name], seeds)
+    args = []
+    for side in range(2):
+        p, m = zip(*(synthetic.pad_points(pair[side], model.caps.raw_points)
+                     for pair in pairs))
+        pts, mask, _ = pre_downsample(np.stack(p), np.stack(m), model.params,
+                                      model.caps, device=dev)
+        args += [pts, mask]
+    return model, args
+
+
+def _fields_equal(a, b):
+    for f, x, y in zip(a._fields, a, b):
+        assert x.device == y.device and torch.equal(x, y), f
+
+
+@pytest.mark.parametrize("name", ["office", "heritage"])
+def test_step_graph_equals_eager_step(cuda, name):
+    """make_register_fn on the card (the step replayed as one CUDA graph)
+    against _register_batch (the eager step) on the same batch of 4:
+    every field bitwise equal; one capture, then a replay a call; C1, C2
+    and the propagation kernel counted at each replay."""
+    from fccf_pcr_torch.pipeline.register import _register_batch
+
+    model, args = _preset_batch(name, [0, 1, 2, 3], cuda)
+    fn = make_register_fn(model.params, model.caps, batched=True,
+                          device=cuda)
+    STEP.clear()
+    c0 = STEP.captures
+    first = fn(*args)
+    counts = (lp.PROPAGATIONS, ck.SEEDS, ck.WALKS, STEP.replays)
+    again = fn(*args)
+    torch.cuda.synchronize()
+    H = model.caps.max_hypotheses
+    assert (lp.PROPAGATIONS, ck.SEEDS, ck.WALKS, STEP.replays) == (
+        counts[0] + 2, counts[1] + H // 512, counts[2] + 1, counts[3] + 1)
+    assert STEP.captures == c0 + 1
+    eager = _register_batch(*args, model.params, model.caps)
+    _fields_equal(first, eager)
+    _fields_equal(again, eager)
+
+
+def test_step_graph_split_equals_eager_split(cuda):
+    """The office batch of 4 over make_mesh([cuda:0] * 2) (each chunk a
+    replay of the step graph) against the eager step of each chunk:
+    every field bitwise equal."""
+    from fccf_pcr_torch.parallel.mesh import make_mesh, make_sharded_register_fn
+    from fccf_pcr_torch.pipeline.register import (RegistrationResult,
+                                                  _register_batch)
+
+    model, args = _preset_batch("office", [0, 1, 2, 3], cuda)
+    split = make_sharded_register_fn(model.params, model.caps,
+                                     make_mesh(["cuda:0"] * 2))(*args)
+    chunks = [_register_batch(*(a[k:k + 2] for a in args), model.params,
+                              model.caps) for k in (0, 2)]
+    eager = RegistrationResult(*(torch.cat(f) for f in zip(*chunks)))
+    _fields_equal(split, eager)
+
+
+def test_warm_step_makes_no_host_sync(cuda):
+    """A warm step (its graph captured) never waits for the card: CUDA's
+    sync debug mode raises on any synchronizing call."""
+    model, args = _preset_batch("office", [0, 1], cuda)
+    fn = make_register_fn(model.params, model.caps, batched=True,
+                          device=cuda)
+    want = fn(*args)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = fn(*args)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    _fields_equal(got, want)
+
+
+def test_refine_pairs_inside_a_capture_runs_inline(cuda):
+    """refine_pairs captured as a graph (as inside the register step's)
+    runs the loop to its cap inline, and the replay equals the eager
+    call and the eager loop with its early exit."""
+    from fccf_pcr_torch.refine import gauss_newton as gn
+
+    args = _on_card(_lm_lanes(6, 18), cuda)
+    want = gn.refine_pairs(*args)
+    got = graph.Graphs(max_graphs=1).replay(gn.refine_pairs, args)
+    assert torch.equal(got, want)
     assert torch.equal(got, gn.lm_loop(*args))
