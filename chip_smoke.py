@@ -8,12 +8,13 @@ result:
 
   1. environment: torch / CUDA / nvcc versions and the card's name and
      power limit (nvidia-smi); no card -> fail (never a CPU fallback);
-  2. build the three sources with nvcc, in parallel: csrc/label_prop.cu
+  2. build the four sources with nvcc, in parallel: csrc/label_prop.cu
      (the label-propagation kernels: the propagation entry, one
      cooperative launch a propagation, and the one-sweep entry K1),
-     csrc/gather.cu (the per-row gather P1) and csrc/cluster.cu (the
-     cluster stage's block seeds C1 and floor walk C2); ptxas's
-     registers, shared memory and spills of each kernel;
+     csrc/gather.cu (the per-row gather P1), csrc/cluster.cu (the
+     cluster stage's block seeds C1 and floor walk C2) and csrc/lm.cu
+     (the LM solve L1); ptxas's registers, shared memory and spills of
+     each kernel;
   3. label propagation vs its plain PyTorch version on the card, through
      the propagation kernel and through the per-sweep host loop (K1 +
      P1 launches): clustered voxel stats at V=1536 (office), V=1000 (a
@@ -55,7 +56,7 @@ result:
      apartment, cross-season and the building-scale heritage (two-key
      voxelization, V=9216); then office seed 0 with the target cut to its
      valid rows (another length than the source's), every field bitwise
-     equal to the equal-length run;
+     equal to the equal-length run; every config's path must launch L1;
   7. the command line in subprocesses: `python -m fccf_pcr_torch SRC TAR
      0.2 --caps heritage --device cuda --json` on the heritage seed-0
      pair written as PLY, held to its golden row; and a `--batch --out
@@ -64,8 +65,9 @@ result:
   8. steady-state step time at batch 8 (build excluded), office and
      heritage, in pairs/s, each kernel's launches per step and the
      sweeps the propagation kernel ran (at most 4 propagation launches a
-     step, no one-sweep or gather launch; H / 512 block-seed launches
-     and one floor walk), and per step: every kernel launched, as host
+     step, no one-sweep or gather launch; H / 512 block-seed launches,
+     one floor walk and one L1 launch), and per step: every kernel
+     launched, as host
      launches (the CUDA runtime's launch calls, cudaGraphLaunch
      included) and as device kernels (the kernels CUPTI saw run, those
      inside a graph replay included), both from torch.profiler, the step
@@ -87,7 +89,7 @@ result:
      pair_agreement > 0.98 and matched_fraction > 0.95;
  11. one heritage batch-8 step through the step graph under
      utils/profiling.py's trace (its Chrome trace must name
-     label_prop_propagate and both cluster kernels): the device's busy
+     label_prop_propagate, both cluster kernels and L1): the device's busy
      share and the kernels with the most device time; then one eager
      step under the trace and a StageTimer: host time per stage
      (register.py's record_function scopes, which a replay does not
@@ -113,17 +115,17 @@ result:
  18. (run after phase 8) the register step as one CUDA graph against
      the eager step: the batch-8 step of phase 8 at office and heritage
      replayed as a graph (make_register_fn, the main path), run eagerly
-     (_register_batch, the LM loop run to its cap) and run eagerly with
-     the LM loop's early exit (gauss_newton.lm_loop put into the step):
+     (_register_batch, L1 launched eagerly) and run eagerly with the
+     plain LM loop and its early exit (gauss_newton.lm_loop put into the
+     step):
      every field bitwise equal; per step for each arm the host syncs,
      host launches and device kernels, step graph captures and replays
      (the eager arms capture and replay none), peak memory and the
      graphs' pools, and step wall times in turns (graph, eager, eager,
-     graph, graph, eager); the LM alone on that step's own inputs: the
-     loop to its cap captured as a graph of its own and replayed,
+     graph, graph, eager); the LM alone on that step's own inputs: L1
      against the eager loop with and without its early exit, bitwise
      equal, in wall ms and in CUDA-event ms, and the device kernels of
-     one replay. Then every
+     one call. Then every
      golden config's seeds as one batch, and the office batch of 8 over
      make_mesh([cuda:0] * 2), through the step graph and the eager step
      in turns (graph, eager, eager, graph), every field bitwise equal;
@@ -135,17 +137,26 @@ result:
      full mask, no eligible row, B = 200; cluster_num 0, 1 and large,
      all sizes equal, a floor that drops below 2, an empty tail, no
      seed, one slot); outputs equal; their device times at the heritage
-     batch-8 step's inputs beside the plain versions' and the bounds.
+     batch-8 step's inputs beside the plain versions' and the bounds;
+ 20. (run after phase 18) L1 against its plain version
+     (gauss_newton.lm_loop run to its cap) on the card, torch.equal:
+     the LM inputs of the batch-8 steps at office and heritage (phase
+     18's), of seed 0 of every golden config, and the edge cases (all
+     weights 0, a NaN plane, a lane at zero cost, iters 0, 1 and 50, Bt
+     1, 12, 96 and 192, F 4, 16 and 32); the LM steps each lane ran; L1's
+     device time at the heritage step's inputs beside the plain loop
+     captured as a graph of its own and replayed (CUDA events), the
+     eager loop and the bound.
 
 Phases 5-6 are the main path: their launch counts are the kernels'
 "launches". Every later in-process path (12-16) is driven with the
 counts set to 0 just before it and read just after (drive_path): each
 must launch the propagation kernel and C1, and neither the one-sweep
 nor the gather kernel, and each but the content measurement (which
-stops at the seeds) must replay a step graph and launch C2. A path's
+stops at the seeds) must replay a step graph and launch C2 and L1. A path's
 kernels launched inside a captured step graph count at each replay
 (ops/graph.py's count_launch); the hooks that record a kernel's inputs
-(phases 3, 18, 19) drive the eager step, where Python runs.
+(phases 3, 18, 19, 20) drive the eager step, where Python runs.
 
 Then one JSON line describing the kernels, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
@@ -206,6 +217,14 @@ KERNELS = {
         source="fccf_pcr_torch/csrc/cluster.cu",
         replaces="fccf_pcr_tpu/cluster/cluster.py:260",
     ),
+    # The LM refine's device loop: no Pallas kernel, the lax.while_loop of
+    # the JAX package's compiled program.
+    "lm_refine": dict(
+        name="lm_refine",
+        route="cuda",
+        source="fccf_pcr_torch/csrc/lm.cu",
+        replaces="fccf_pcr_tpu/refine/gauss_newton.py:100",
+    ),
 }
 _BIG = 2**30
 # K1 against plain: (V, per-pair bounds) of batch-2 comparisons, and the
@@ -251,6 +270,15 @@ PEAK_BYTES = 3.35e12
 # each, 3 compares).
 K1_NORMAL_OPS = 6
 K1_PLANE_OPS = 29
+# float32 operations of one LM step of one lane of L1 (csrc/lm.cu), sqrtf,
+# sinf, cosf, a clamp and a division counted as one each: a plane's
+# residuals and Jacobian at the pose (449), the 27 products of its 4 rows
+# (108) and its trial residuals and squares (86); a lane's adds of the
+# 27 folds and the two costs over its 4F rows, and its damping, 6 x 6
+# Cholesky solve, exponential map, quaternion product, normalization and
+# update (315).
+L1_PLANE_OPS = 643
+L1_LANE_OPS = 315
 # register.py's record_function scopes; their ranges also appear on the
 # device timeline and are not kernels.
 STAGES = ("downsample", "faces", "hypotheses", "cluster", "quick_verify",
@@ -1199,7 +1227,7 @@ def phase_path(name, counters, dev):
     for k in ("label_prop_sweep", "gather_rows"):
         check(launches[k] == 0, f"the {name} path launched the {k} kernel "
               f"{launches[k]} times (it runs inside the propagation kernel)")
-    for k in ("cluster_block_seeds", "cluster_floor_walk",
+    for k in ("cluster_block_seeds", "cluster_floor_walk", "lm_refine",
               "step_graph_replays"):
         check(launches[k] > 0, f"the {name} path made no {k}")
 
@@ -1579,12 +1607,16 @@ def launch_capture(fn):
     return host, kernels, copies
 
 
-def count_launches(fn, *args, n=3):
+def count_launches(fn, *args, n=3, tries=10):
     """Launches of one call of ``fn``: host launch calls (by API) and
     device kernels, from the capture of ``n`` that holds the most device
-    records (CUPTI drops records and never adds one)."""
-    best = max((launch_capture(lambda: fn(*args)) for _ in range(n)),
-               key=lambda c: c[1] + c[2])
+    records (CUPTI drops records and never adds one), and of up to
+    ``tries`` while every capture holds none."""
+    caps = []
+    while len(caps) < n or (not max(c[1] for c in caps)
+                            and len(caps) < tries):
+        caps.append(launch_capture(lambda: fn(*args)))
+    best = max(caps, key=lambda c: c[1] + c[2])
     check(best[1] > 0, "torch.profiler captured no device kernel")
     return dict(host_launches=sum(best[0].values()),
                 host_by_api=dict(best[0]), device_kernels=best[1],
@@ -1680,17 +1712,19 @@ def event_ms(fn):
 def phase_graph(name, step, eager, counters, dev):
     """Phase 18 at one preset: the batch-8 step replayed as one CUDA graph
     (make_register_fn, the main path) against the eager step
-    (_register_batch, the LM loop run to its cap) and the eager step with
-    the LM loop's early exit (``lm_loop`` put into the step). Every field
-    must be bitwise equal; per step and arm: host syncs, host launches
-    and device kernels, step graph captures and replays (the eager arms
-    must capture and replay none), peak memory; wall times in turns; the
-    LM alone on the step's own inputs. Returns the numbers."""
+    (_register_batch, L1 launched eagerly) and the eager step with the
+    plain LM loop and its early exit (``lm_loop`` put into the step).
+    Every field must be bitwise equal; per step and arm: host syncs, host
+    launches and device kernels, step graph captures and replays (the
+    eager arms must capture and replay none), peak memory; wall times in
+    turns; the LM alone on the step's own inputs (kept for phase 20).
+    Returns the numbers."""
     import torch
 
     from fccf_pcr_torch.ops import graph
     from fccf_pcr_torch.pipeline.register import STEP
     from fccf_pcr_torch.refine import gauss_newton as gn
+    from fccf_pcr_torch.refine import lm_kernel as lmk
 
     fn, args = step
 
@@ -1744,6 +1778,61 @@ def phase_graph(name, step, eager, counters, dev):
     ts = time.perf_counter()
 
     # The LM alone, on the inputs the (eager) step gave it.
+    kw = record_lm(name, eager, args)
+    lm = {"lanes": int(kw["n1"].shape[0]), "planes": int(kw["n1"].shape[1])}
+    forms = {"l1": lambda: lmk.refine_lm(**kw),
+             "eager": lambda: gn.lm_loop(**kw),
+             "eager_to_cap": lambda: gn.lm_loop(**kw, early_exit=False)}
+    got = forms["l1"]()
+    for form in ("eager", "eager_to_cap"):
+        check(torch.equal(got, forms[form]()),
+              f"{name}: L1 differs from the {form} LM loop")
+    for form, call in forms.items():
+        lm[form + "_wall_ms"] = wall_ms(call, 5 if form == "l1" else 2)
+        lm[form + "_event_ms"] = min(
+            event_ms(call) for _ in range(3 if form == "l1" else 1))
+    lm["l1_launches"] = count_launches(forms["l1"])
+    lm["eager_launches"] = count_launches(forms["eager"], n=1)
+    out["lm"] = lm
+    out["lm_inputs"] = kw
+    secs["lm"] = time.perf_counter() - ts
+    return out
+
+
+def lm_lanes(seed, B, P):
+    """(n1, p1, n2, p2, w) float32 numpy: plane pairs under a small
+    per-lane pose error with 2 cm of noise on the points, a quarter of P
+    masked; the last three lanes of zero weights, at exactly zero cost and
+    with a NaN point (tests/test_torch_cuda.py's LM lanes)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n1 = rng.normal(size=(B, P, 3))
+    n1 /= np.linalg.norm(n1, axis=-1, keepdims=True)
+    p1 = rng.uniform(-5, 5, (B, P, 3))
+    ang = rng.normal(0, 0.03, (B, 3))
+    c, s = np.cos(ang[:, 2]), np.sin(ang[:, 2])
+    R = np.zeros((B, 3, 3))
+    R[:, 0, 0], R[:, 0, 1], R[:, 1, 0], R[:, 1, 1] = c, -s, s, c
+    R[:, 2, 2] = 1.0
+    n2 = np.einsum("bij,bpj->bpi", R, n1)
+    p2 = (np.einsum("bij,bpj->bpi", R, p1) + rng.normal(0, 0.05, (B, 1, 3))
+          + rng.normal(0, 0.02, (B, P, 3)))
+    w = rng.uniform(0.05, 0.2, (B, P))
+    w[:, P - P // 4:] = 0.0
+    w[B - 3] = 0.0
+    n2[B - 2], p2[B - 2] = n1[B - 2], p1[B - 2]
+    p1[B - 1, min(5, P - 1), 1] = np.nan
+    return [a.astype(np.float32) for a in (n1, p1, n2, p2, w)]
+
+
+def record_lm(what, eager, args):
+    """refine_pairs' keyword inputs, cloned, as the eager step
+    ``eager(*args)`` gives them (one LM call a step)."""
+    import torch
+
+    from fccf_pcr_torch.refine import gauss_newton as gn
+
     seen = []
 
     def record(**kw):
@@ -1753,34 +1842,130 @@ def phase_graph(name, step, eager, counters, dev):
 
     with lm_impl(record):
         eager(*args)
-    check(len(seen) == 1, f"{name}: {len(seen)} LM calls in a step")
-    kw = seen[0]
-    lm = {"lanes": int(kw["n1"].shape[0]), "planes": int(kw["n1"].shape[1])}
-    # The loop to its cap, captured as a graph of its own.
-    lm_graph = graph.Graphs(max_graphs=1)
+    check(len(seen) == 1, f"{what}: {len(seen)} LM calls in a step")
+    return seen[0]
+
+
+def lm_inputs(name, seeds, dev):
+    """``record_lm`` of the eager batched step of configs.CONFIGS[name]'s
+    ``seeds``."""
+    from fccf_pcr_torch.evaluation import configs
+    from fccf_pcr_torch.models.fccf import get_model
+
+    model = get_model(configs.CONFIGS[name]["model"])
+    args, _ = config_batch(name, seeds, model.params, model.caps, dev)
+    return record_lm(name, eager_step(model.params, model.caps), args)
+
+
+def lm_cases(step_inputs, dev):
+    """L1's cases: (what, (n1, p1, n2, p2, w), iters) each: the batch-8
+    steps' LM inputs (phase 18), seed 0 of every golden config, and the
+    edge cases."""
+    import torch
+
+    planes = ("n1", "p1", "n2", "p2", "w")
+    cases = [(f"{name} batch-8 step", tuple(kw[k] for k in planes),
+              kw["iters"]) for name, kw in step_inputs.items()]
+    for name in PATH_CONFIGS:
+        kw = lm_inputs(name, [0], dev)
+        cases.append((f"{name} seed 0", tuple(kw[k] for k in planes),
+                      kw["iters"]))
+    n1, p1, n2, p2, w = (step_inputs["heritage"][k] for k in planes)
+    nan = p1.clone()
+    nan[0, 3, 1] = float("nan")
+    zero_n2, zero_p2 = n2.clone(), p2.clone()
+    zero_n2[1], zero_p2[1] = n1[1], p1[1]
+    cases += [
+        ("heritage step, all weights 0", (n1, p1, n2, p2,
+                                          torch.zeros_like(w)), 50),
+        ("heritage step, a NaN plane in lane 0", (n1, nan, n2, p2, w), 50),
+        ("heritage step, lane 1 at zero cost", (n1, p1, zero_n2, zero_p2,
+                                                w), 50),
+        ("heritage step, iters 0", (n1, p1, n2, p2, w), 0),
+        ("heritage step, iters 1", (n1, p1, n2, p2, w), 1),
+        ("heritage step, Bt 1", tuple(x[:1] for x in (n1, p1, n2, p2, w)),
+         50),
+    ]
+    for B, P in ((12, 16), (96, 16), (192, 16), (12, 4), (96, 4), (24, 32)):
+        lanes = tuple(torch.from_numpy(a).to(dev)
+                      for a in lm_lanes(B + P, B, P))
+        for iters in (1, 50):
+            cases.append((f"Bt {B}, F {P} (zero-weight, zero-cost and NaN "
+                          f"lanes), iters {iters}", lanes, iters))
+    return cases
+
+
+def l1_bound(planes, steps):
+    """(bound ms, bound_by, ops) of one L1 launch: the operations of the
+    LM steps each lane ran (L1_PLANE_OPS a plane, L1_LANE_OPS and the
+    folds' and costs' adds over the 4F rows a lane, a step) against the
+    bytes (13 floats a plane read, q, t and the step count written)."""
+    Bt, F = planes[4].shape
+    ops = int(steps.sum()) * (L1_PLANE_OPS * F + L1_LANE_OPS
+                              + 29 * (4 * F - 1))
+    ops_s = ops / PEAK_F32
+    bytes_s = 4 * (13 * Bt * F + 8 * Bt) / PEAK_BYTES
+    return max(bytes_s, ops_s) * 1e3, ("operations" if ops_s >= bytes_s
+                                       else "bytes"), ops
+
+
+def phase_lm_vs_plain(lmk, step_inputs, dev):
+    """L1 against lm_loop run to its cap on the card (``lm_cases``), every
+    transform bitwise equal; then, at the heritage batch-8 step's
+    inputs, L1's time by CUDA events (a launch, with and without the
+    transform's ops), the plain loop's as a graph of its own replayed and
+    eagerly with its early exit (CUDA events), and the bound. Returns the
+    count of differing entries (the most in any case) and the times."""
+    import torch
+
+    from fccf_pcr_torch.ops import graph
+    from fccf_pcr_torch.refine import gauss_newton as gn
+
+    worst = 0
+    for what, planes, iters in lm_cases(step_inputs, dev):
+        before = lmk.LAUNCHES
+        got = lmk.refine_lm(*planes, iters)
+        torch.cuda.synchronize()
+        check(lmk.LAUNCHES == before + 1, f"{what}: L1 was not launched")
+        want = gn.lm_loop(*planes, iters, early_exit=False)
+        same = (got == want) | (torch.isnan(got) & torch.isnan(want))
+        err = int((~same).sum())
+        worst = max(worst, err)
+        check(err == 0 and torch.equal(got, want),
+              f"{what}: {err} entries of L1's transforms differ from "
+              "lm_loop's")
+        steps = lmk.lm_solve(*planes, iters)[2]
+        print(f"[lm] L1 bitwise equal to lm_loop: {what} "
+              f"{tuple(planes[0].shape[:2])}, {iters} iterations at most, "
+              f"LM steps {int(steps.sum())} (most {int(steps.max())} a "
+              "lane)", flush=True)
+
+    kw = step_inputs["heritage"]
     planes = tuple(kw[k] for k in ("n1", "p1", "n2", "p2", "w"))
+    iters = kw["iters"]
+    steps = lmk.lm_solve(*planes, iters)[2]
+    t = {"lanes": int(planes[0].shape[0]), "planes": int(planes[0].shape[1]),
+         "steps": int(steps.sum()), "most_steps": int(steps.max())}
+    t["bound_ms"], t["bound_by"], t["ops"] = l1_bound(planes, steps)
+    # By CUDA events over launches back to back (the host enqueues one in
+    # far less time than the card runs it), not CUPTI: late in a run CUPTI
+    # lost every record of a one-kernel capture, ten captures in a row.
+    t["ms"] = cuda_ms(lambda: lmk.lm_solve(*planes, iters), 20)
+    t["one_launch_ms"] = min(
+        event_ms(lambda: lmk.lm_solve(*planes, iters)) for _ in range(3))
+    t["call_event_ms"] = cuda_ms(lambda: lmk.refine_lm(*planes, iters), 20)
+    lm_graph = graph.Graphs(max_graphs=1)
 
     def replay():
-        return lm_graph.replay(gn.lm_loop, planes, (kw["iters"], False))
+        return lm_graph.replay(gn.lm_loop, planes, (iters, False))
 
-    got = replay()
-    for early_exit in (True, False):
-        check(torch.equal(got, gn.lm_loop(**kw, early_exit=early_exit)),
-              f"{name}: the LM replay differs from the eager loop "
-              f"(early_exit={early_exit})")
-    forms = {"graph": replay,
-             "eager": lambda: gn.lm_loop(**kw),
-             "eager_to_cap": lambda: gn.lm_loop(**kw, early_exit=False)}
-    for form, call in forms.items():
-        lm[form + "_wall_ms"] = wall_ms(call, 5 if form == "graph" else 2)
-        lm[form + "_event_ms"] = min(
-            event_ms(call) for _ in range(3 if form == "graph" else 1))
-    lm["replay"] = count_launches(forms["graph"])
-    lm["eager_launches"] = count_launches(forms["eager"], n=1)
+    check(torch.equal(replay(), lmk.refine_lm(*planes, iters)),
+          "heritage: the plain loop's replay differs from L1")
+    t["plain_ms"] = min(event_ms(replay) for _ in range(3))
+    t["plain_kernels"] = count_launches(replay)["device_kernels"]
     lm_graph.clear()
-    out["lm"] = lm
-    secs["lm"] = time.perf_counter() - ts
-    return out
+    t["eager_ms"] = event_ms(lambda: gn.lm_loop(*planes, iters))
+    return worst, t
 
 
 def graph_turns(what, graph_fn, eager_fn, args):
@@ -1862,7 +2047,7 @@ def phase_graph_configs(dev, counters):
 def phase_profile(fn, args, eager):
     """One heritage batch-8 step through the step graph under
     utils.profiling.trace (its Chrome trace must name the propagation
-    kernel and both cluster kernels): the device kernels of the replay
+    kernel, both cluster kernels and L1): the device kernels of the replay
     and the device's busy share; then one eager step under the trace and
     a StageTimer: host time per stage (register.py's record_function
     ranges, which exist only in the eager step) and its busy share."""
@@ -1871,26 +2056,33 @@ def phase_profile(fn, args, eager):
     from fccf_pcr_torch.utils.profiling import StageTimer, trace
 
     stages = STAGES
+    ours = ("label_prop_propagate", "cluster_block_seeds",
+            "cluster_floor_walk", "lm_refine")
     for form, call in (("graph", fn), ("eager", eager)):
         call(*args)  # the step graph may have been evicted: capture it first
         torch.cuda.synchronize()
-        timer = StageTimer()
-        with tempfile.TemporaryDirectory() as logdir:
-            with trace(logdir) as prof:
-                t0 = time.perf_counter()
-                with timer.stage(f"heritage batch-8 {form} step") as live:
-                    live.append(call(*args))
-                wall_ms = (time.perf_counter() - t0) * 1e3
-            text = pathlib.Path(prof.trace_path).read_text()
-            for ours in ("label_prop_propagate", "cluster_block_seeds",
-                         "cluster_floor_walk"):
-                check(ours in text, f"the {form} step's exported trace does "
-                      f"not name {ours}")
-            print(f"[profile] {form} step trace exported by "
-                  f"utils.profiling.trace: "
-                  f"{os.path.basename(prof.trace_path)}, {len(text)} bytes, "
-                  f"names label_prop_propagate, cluster_block_seeds and "
-                  f"cluster_floor_walk", flush=True)
+        # CUPTI can lose records (all of a capture's, at times, after the
+        # card idled): a trace that misses one of ours is taken again.
+        for attempt in range(5):
+            timer = StageTimer()
+            with tempfile.TemporaryDirectory() as logdir:
+                with trace(logdir) as prof:
+                    t0 = time.perf_counter()
+                    with timer.stage(f"heritage batch-8 {form} step") as live:
+                        live.append(call(*args))
+                    wall_ms = (time.perf_counter() - t0) * 1e3
+                text = pathlib.Path(prof.trace_path).read_text()
+            missing = [k for k in ours if k not in text]
+            if not missing:
+                break
+            RETAKEN[f"{form} step trace"] += 1
+        check(not missing, f"the {form} step's exported trace does not name "
+              f"{missing} in 5 captures")
+        print(f"[profile] {form} step trace exported by "
+              f"utils.profiling.trace: "
+              f"{os.path.basename(prof.trace_path)}, {len(text)} bytes, "
+              f"names label_prop_propagate, cluster_block_seeds, "
+              f"cluster_floor_walk and lm_refine", flush=True)
         if form == "eager":
             print(f"[profile] StageTimer report:\n{timer.report()}",
                   flush=True)
@@ -1920,7 +2112,7 @@ def phase_profile(fn, args, eager):
                   f"{calls[name]} launches: {name[:90]}", flush=True)
         for ours in ("label_prop_propagate_kernel", "label_prop_sweep_kernel",
                      "gather_rows", "cluster_block_seeds_kernel",
-                     "cluster_floor_walk_kernel"):
+                     "cluster_floor_walk_kernel", "lm_refine_kernel"):
             for name, us in by_name.items():
                 if ours in name:
                     print(f"[profile] {form} {ours}: {us / 1e3:.3f} ms of "
@@ -1934,7 +2126,8 @@ def drive_path(what, fn, counters, dev, registers=True):
     propagation kernel and C1 (block seeds), and neither the one-sweep
     nor the gather kernel, and, where it ``registers`` (every path but
     measure_content, which stops at the seeds), replay a step graph and
-    launch C2 (the floor walk). Returns (result, counts, wall s)."""
+    launch C2 (the floor walk) and L1 (the LM). Returns (result, counts,
+    wall s)."""
     import torch
 
     zero_counts(counters, dev)
@@ -1949,7 +2142,7 @@ def drive_path(what, fn, counters, dev, registers=True):
         check(counts[k] == 0, f"{what}: the {k} kernel was launched")
     check(counts["cluster_block_seeds"] > 0,
           f"{what}: the block-seed kernel was not launched")
-    for k in ("step_graph_replays", "cluster_floor_walk"):
+    for k in ("step_graph_replays", "cluster_floor_walk", "lm_refine"):
         check(counts[k] > 0 or not registers, f"{what}: no {k}")
     return out, counts, secs
 
@@ -2267,6 +2460,7 @@ def main():
         from fccf_pcr_torch.ops import gather as gt
         from fccf_pcr_torch.ops import label_prop as lp
         from fccf_pcr_torch.pipeline.register import STEP
+        from fccf_pcr_torch.refine import lm_kernel as lmk
     except ImportError as e:
         print(f"FAIL: cannot import the port from {ROOT}: {e}", file=sys.stderr)
         return 1
@@ -2280,6 +2474,7 @@ def main():
                 "gather_rows": (gt, "LAUNCHES"),
                 "cluster_block_seeds": (ck, "SEEDS"),
                 "cluster_floor_walk": (ck, "WALKS"),
+                "lm_refine": (lmk, "LAUNCHES"),
                 "step_graph_captures": (STEP, "captures"),
                 "step_graph_replays": (STEP, "replays")}
     try:
@@ -2293,15 +2488,16 @@ def main():
               f"(count {torch.cuda.device_count()}) | {smi}", flush=True)
 
         t_start = time.perf_counter()
-        secs = phase_build([lp, gt, ck])
+        secs = phase_build([lp, gt, ck, lmk])
         print(f"[build] label_prop.cu {secs[0]:.2f} s, gather.cu {secs[1]:.2f} s, "
-              f"cluster.cu {secs[2]:.2f} s (in parallel, "
-              f"{time.perf_counter() - t_start:.2f} s)", flush=True)
+              f"cluster.cu {secs[2]:.2f} s, lm.cu {secs[3]:.2f} s (in "
+              f"parallel, {time.perf_counter() - t_start:.2f} s)", flush=True)
         ptxas = {"label_prop_propagate": ptxas_summary(lp, "propagate_kernel"),
                  "label_prop_sweep": ptxas_summary(lp, "sweep_kernel"),
                  "gather_rows": ptxas_summary(gt),
                  "cluster_block_seeds": ptxas_summary(ck, "block_seeds"),
-                 "cluster_floor_walk": ptxas_summary(ck, "floor_walk")}
+                 "cluster_floor_walk": ptxas_summary(ck, "floor_walk"),
+                 "lm_refine": ptxas_summary(lmk, "lm_refine")}
         for name, info in ptxas.items():
             check(info, f"no ptxas lines for {name}")
             print(f"[build] ptxas {name}: {info}", flush=True)
@@ -2410,6 +2606,8 @@ def main():
             check(0 < t["label_prop_propagate"] <= 4,
                   f"{name} timing: {t['label_prop_propagate']} propagation "
                   "launches a step (at most 4)")
+            check(t["lm_refine"] == 1,
+                  f"{name} timing: {t['lm_refine']} L1 launches a step")
             print(f"[timing] {name} batch 8: {dt * 1e3:.1f} ms/step, "
                   f"{pps:.2f} pairs/s; per step: "
                   f"{t['label_prop_propagate']:g} "
@@ -2418,6 +2616,7 @@ def main():
                   f"{t['gather_rows']:g} gather launches, "
                   f"{t['cluster_block_seeds']:g} block-seed and "
                   f"{t['cluster_floor_walk']:g} floor-walk launches, "
+                  f"{t['lm_refine']:g} L1 launches, "
                   f"{t['step_graph_replays']:g} step graph replays and "
                   f"{t['step_graph_captures']:g} captures, "
                   f"{t['host_launches']} host launches "
@@ -2443,8 +2642,9 @@ def main():
             turns = {k: [round(x, 1) for x in v]
                      for k, v in g["turns_ms"].items()}
             print(f"[graph] {name} batch 8: every field of the step graph "
-                  f"bitwise equal to the eager step's (LM loop to its cap) "
-                  f"and to the eager step with the LM loop's early exit; "
+                  f"bitwise equal to the eager step's (L1 launched "
+                  f"eagerly) and to the eager step with lm_loop and its "
+                  f"early exit; "
                   f"step wall "
                   f"ms in turns {turns} | {smi}", flush=True)
             for arm in ("graph", "eager", "eager_lm"):
@@ -2459,13 +2659,14 @@ def main():
                       f"{a['peak_bytes'] / 2**30:.3f} GiB", flush=True)
             lm = g["lm"]
             print(f"[graph] {name} LM alone ({lm['lanes']} lanes x "
-                  f"{lm['planes']} planes, 50 iterations): replay "
-                  f"{lm['graph_wall_ms'][0]:.3f} ms wall (least "
-                  f"{lm['graph_wall_ms'][1]:.3f}), "
-                  f"{lm['graph_event_ms']:.3f} ms by CUDA events, "
-                  f"{lm['replay']['host_launches']} host launches "
-                  f"({lm['replay']['host_by_api']}), "
-                  f"{lm['replay']['device_kernels']} device kernels; eager "
+                  f"{lm['planes']} planes, 50 iterations): L1 "
+                  f"{lm['l1_wall_ms'][0]:.3f} ms wall (least "
+                  f"{lm['l1_wall_ms'][1]:.3f}), "
+                  f"{lm['l1_event_ms']:.3f} ms by CUDA events, "
+                  f"{lm['l1_launches']['host_launches']} host launches "
+                  f"({lm['l1_launches']['host_by_api']}), "
+                  f"{lm['l1_launches']['device_kernels']} device kernels "
+                  "(L1 and the transform's ops); eager "
                   f"loop with its early exit {lm['eager_wall_ms'][0]:.1f} ms "
                   f"wall, {lm['eager_event_ms']:.1f} ms by events, "
                   f"{lm['eager_launches']['host_launches']} host launches; "
@@ -2479,6 +2680,23 @@ def main():
                   flush=True)
         phase_graph_configs(dev, counters)
         print(f"[graph] phase {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        l1_err, l1 = phase_lm_vs_plain(
+            lmk, {k: g["lm_inputs"] for k, g in graph_ab.items()}, dev)
+        print(f"[lm] L1 heritage batch-8 step ({l1['lanes']} lanes x "
+              f"{l1['planes']} planes, {l1['steps']} LM steps, at most "
+              f"{l1['most_steps']} a lane): {l1['ms'] * 1e3:.2f} us a "
+              f"launch by CUDA events over 20 back to back (one launch "
+              f"alone {l1['one_launch_ms'] * 1e3:.2f} us; "
+              f"{l1['call_event_ms'] * 1e3:.2f} us with the transform's "
+              f"ops); plain (lm_loop to its cap as a graph of its "
+              f"own, {l1['plain_kernels']} device kernels) "
+              f"{l1['plain_ms']:.3f} ms by CUDA events, eager with its "
+              f"early exit {l1['eager_ms']:.1f} ms; bound "
+              f"{l1['bound_ms'] * 1e3:.4f} us ({l1['bound_by']}: "
+              f"{l1['ops']} ops) | ptxas {ptxas['lm_refine']} | {smi}",
+              flush=True)
+        print(f"[lm] phase {time.perf_counter() - t0:.1f} s", flush=True)
         phase_mesh(dev, counters)
         print(f"[mesh] {smi}", flush=True)
         phase_diff(lp)
@@ -2604,6 +2822,23 @@ def main():
                    "batch-8 step; ms device time, plain_ms the host walk's "
                    "time by CUDA events; max_abs_err the most outputs that "
                    "differ"),
+        dict(KERNELS["lm_refine"], launches=launches["lm_refine"],
+             max_abs_err=l1_err, ms=l1["ms"], plain_ms=l1["plain_ms"],
+             bound_ms=l1["bound_ms"], bound_by=l1["bound_by"],
+             library_ms=None,
+             launches_per_step=per_step_of("lm_refine"),
+             one_launch_ms=l1["one_launch_ms"],
+             call_event_ms=l1["call_event_ms"],
+             eager_plain_ms=l1["eager_ms"], lm_steps=l1["steps"],
+             plain_device_kernels=l1["plain_kernels"],
+             launches_by_path={k: v["lm_refine"] for k, v in paths.items()},
+             ptxas=ptxas["lm_refine"],
+             shape=f"the LM of the heritage batch-8 step, {l1['lanes']} "
+                   f"lanes x {l1['planes']} planes, 50 iterations at most; "
+                   "ms a launch by CUDA events over 20 launches back to "
+                   "back, plain_ms lm_loop to its cap replayed as a graph "
+                   "of its own by CUDA events; max_abs_err the most "
+                   "transform entries that differ"),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

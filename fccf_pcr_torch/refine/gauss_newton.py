@@ -8,11 +8,13 @@ batch dimension and every lane follows the batched while-loop semantics
 exactly: a lane iterates until it is done or at its iteration cap, and a
 finished lane's q, t, lam and iteration count stay frozen.
 
-On a card ``refine_pairs`` runs the loop to its cap with no host read,
-as the JAX package's loop test runs on the device, so the register
-step's CUDA graph (``pipeline/register.py``) captures it. On the CPU the
-loop stops once no lane can move (one host read an iteration). Both
-give the same bits.
+``refine_pairs`` dispatches by device (``lm_kernel.refine_lm``): on a
+card the whole loop is one launch of the CUDA kernel L1
+(``csrc/lm.cu``), which reads nothing back, so the register step's CUDA
+graph (``pipeline/register.py``) captures it; on the CPU it is
+``lm_loop``, the loop as PyTorch ops, which stops once no lane can move
+(one host read an iteration). ``lm_loop`` is L1's plain version: run on
+the card, with or without its early exit, it gives L1's bits.
 """
 
 from __future__ import annotations
@@ -22,6 +24,7 @@ import torch
 from ..ops import geometry
 from ..ops.batch import constant, fold_sum
 from ..ops.linalg6 import solve_spd6
+from .lm_kernel import refine_lm
 
 
 def _exp_quat(v):
@@ -118,21 +121,23 @@ def refine_pairs(n1, p1, n2, p2, w, iters: int = 50):
     n1, p1, n2, p2: (Bt, P, 3) plane normals/points of matched pairs;
     w: (Bt, P) per-pair weights (0 for masked slots). Returns (Bt, 4, 4)
     corrections, to be composed T <- DeltaT @ T (FCCF.cpp:775). CUDA
-    tensors run the loop to its cap, which reads nothing back and so can
-    be captured; CPU tensors run it with its early exit.
+    tensors take the kernel L1 (one launch, no host read, so it can be
+    captured); CPU tensors take ``lm_loop`` with its early exit; any other
+    device raises.
     """
-    return lm_loop(n1, p1, n2, p2, w, iters, early_exit=not n1.is_cuda)
+    return refine_lm(n1, p1, n2, p2, w, iters)
 
 
 def lm_loop(n1, p1, n2, p2, w, iters: int = 50, early_exit: bool = True):
-    """The eager LM loop of ``refine_pairs`` (its plain version on a
-    card). ``early_exit`` stops once no lane can move, at the cost of one
-    host read an iteration; without it the loop runs exactly ``iters``
-    iterations and reads nothing back, the form that is captured. A lane
-    at zero (or NaN) cost can never accept a step (``c_new < c_old`` is
-    false), so its q and t are final: once every other lane is done the
-    remaining iterations change only lam, and both forms return the same
-    bits."""
+    """The eager LM loop of ``refine_pairs`` on the CPU, and the plain
+    version of the kernel L1 on a card (which nothing on the card's main
+    path calls). ``early_exit`` stops once no lane can move, at the cost
+    of one host read an iteration; without it the loop runs exactly
+    ``iters`` iterations and reads nothing back (so a CUDA graph can
+    capture it). A lane at zero (or NaN) cost can never accept a step
+    (``c_new < c_old`` is false), so its q and t are final: once every
+    other lane is done the remaining iterations change only lam, and both
+    forms return the same bits."""
     Bt = n1.shape[0]
     dt = p1.dtype
     dev = p1.device

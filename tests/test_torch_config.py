@@ -94,7 +94,7 @@ def test_port_imports_no_jax():
     assert len(files) > 20
     for module in ("parallel/mesh.py", "utils/profiling.py",
                    "utils/records.py", "io/visualize.py", "twin/twin.py",
-                   "twin/diff.py"):
+                   "twin/diff.py", "refine/lm_kernel.py"):
         assert PORT / module in files, module
     files += [PORT.parent / "chip_smoke.py",
               *sorted((PORT.parent / "tools").glob("torch_*.py"))]

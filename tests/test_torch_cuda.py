@@ -14,7 +14,11 @@ V = 16384, and evaluate_config with escalation on the card against the
 CPU; the LM loop run to its cap and replayed as a CUDA graph
 (ops/graph.py's Graphs, the register step graph's machinery) against the
 eager loop bit for bit, one capture a shape, LRU eviction, captures from
-many host threads, no host sync; the cluster stage's kernels C1
+many host threads; the LM kernel L1 (refine/lm_kernel.py) against its
+plain version lm_loop bit for bit (batches of 12, 96 and 192 lanes, 4,
+16 and 32 planes, 0, 1 and 50 iterations, zero-weight, zero-cost and NaN
+lanes), inside a capture, counted at each replay, launched once by
+refine_pairs with no host sync; the cluster stage's kernels C1
 (block seeds) and C2 (floor walk) against their plain versions; the
 register step replayed as one CUDA graph against the eager step
 (_register_batch) bit for bit at the office and heritage presets and
@@ -26,7 +30,8 @@ repository's conftest.py imports jax, hence --noconftest):
     python -m pytest tests/test_torch_cuda.py -q --noconftest
 
 Every test skips where torch.cuda.is_available() is false. Tolerances:
-labels, status, face and hypothesis counts and kept masks exact; the
+labels, status, face and hypothesis counts and kept masks exact; L1's
+transforms exact (it does lm_loop's float32 operations in its order); the
 transform within the golden band (0.1 deg / 0.02 m); scores rtol 1e-3
 (float32 reductions run in another order on the card)."""
 
@@ -42,6 +47,7 @@ from fccf_pcr_torch.ops import gather as gt
 from fccf_pcr_torch.ops import graph
 from fccf_pcr_torch.ops import label_prop as lp
 from fccf_pcr_torch.pipeline.register import STEP
+from fccf_pcr_torch.refine import lm_kernel as lmk
 
 pytestmark = pytest.mark.cuda
 
@@ -606,9 +612,9 @@ def test_evaluate_config_on_card_matches_cpu(cuda):
 
 def _lm_lanes(seed, B, P=16):
     """Plane pairs under a small per-lane pose error with 2 cm of noise on
-    the points (tests/test_torch_refine.py's candidates, noisy), 4 of P
-    masked; then a lane of zero weights, a lane at exactly zero cost and
-    a lane with a NaN point."""
+    the points (tests/test_torch_refine.py's candidates, noisy), a
+    quarter of P masked; then a lane of zero weights, a lane at exactly
+    zero cost and a lane with a NaN point."""
     rng = np.random.default_rng(seed)
     n1 = rng.normal(size=(B, P, 3))
     n1 /= np.linalg.norm(n1, axis=-1, keepdims=True)
@@ -622,10 +628,10 @@ def _lm_lanes(seed, B, P=16):
     p2 = (np.einsum("bij,bpj->bpi", R, p1) + rng.normal(0, 0.05, (B, 1, 3))
           + rng.normal(0, 0.02, (B, P, 3)))
     w = rng.uniform(0.05, 0.2, (B, P))
-    w[:, P - 4:] = 0.0
+    w[:, P - P // 4:] = 0.0
     w[B - 3] = 0.0
     n2[B - 2], p2[B - 2] = n1[B - 2], p1[B - 2]
-    p1[B - 1, 5, 1] = np.nan
+    p1[B - 1, min(5, P - 1), 1] = np.nan
     return [a.astype(np.float32) for a in (n1, p1, n2, p2, w)]
 
 
@@ -760,20 +766,75 @@ def test_lm_graph_captures_from_many_host_threads(cuda):
 
 
 def test_refine_pairs_makes_no_host_sync(cuda):
-    """refine_pairs on the card (the loop to its cap, eagerly) never waits
-    for the card once its constants are on it, so a capture can take it:
-    CUDA's sync debug mode raises on any synchronizing call."""
+    """refine_pairs on the card launches L1 once and never waits for the
+    card, so a capture can take it: CUDA's sync debug mode raises on any
+    synchronizing call."""
     from fccf_pcr_torch.refine import gauss_newton as gn
 
     args = _on_card(_lm_lanes(5, 30), cuda)
     gn.refine_pairs(*args)
     torch.cuda.synchronize()
+    before = lmk.LAUNCHES
     torch.cuda.set_sync_debug_mode("error")
     try:
         got = gn.refine_pairs(*args)
     finally:
         torch.cuda.set_sync_debug_mode("default")
+    assert lmk.LAUNCHES == before + 1
     assert torch.equal(got, gn.lm_loop(*args))
+
+
+@pytest.mark.parametrize("B,P", [(12, 16), (96, 16), (192, 16), (12, 4),
+                                 (96, 4), (24, 32)])
+@pytest.mark.parametrize("iters", [0, 1, 50])
+def test_lm_kernel_matches_plain(cuda, B, P, iters):
+    """L1 against lm_loop on the card, to its cap and with its early exit:
+    bit for bit, the zero-weight, zero-cost and NaN lanes (the last three)
+    at the identity; every lane's LM steps within the cap, and none for
+    those three."""
+    from fccf_pcr_torch.refine import gauss_newton as gn
+
+    args = _on_card(_lm_lanes(B + P, B, P), cuda)
+    before = lmk.LAUNCHES
+    got = lmk.refine_lm(*args, iters)
+    assert lmk.LAUNCHES == before + 1
+    for early_exit in (False, True):
+        assert torch.equal(got, gn.lm_loop(*args, iters,
+                                           early_exit=early_exit))
+    assert torch.equal(got[-3:].cpu(), torch.eye(4).expand(3, 4, 4))
+    steps = lmk.lm_solve(*args, iters)[2].cpu()
+    assert int(steps.min()) >= 0 and int(steps.max()) <= iters
+    assert steps[-3:].tolist() == [0, 0, 0]
+    if iters:
+        assert int(steps.max()) > 0
+
+
+def test_lm_kernel_inside_a_capture(cuda):
+    """L1 captured as a graph (as inside the register step's) equals the
+    eager launch, and its launch counts once at each replay."""
+    graphs = graph.Graphs(max_graphs=1)
+    args = _on_card(_lm_lanes(7, 48), cuda)
+    want = lmk.refine_lm(*args)
+    got = graphs.replay(lmk.refine_lm, args)  # warm-up + capture + replay
+    before = lmk.LAUNCHES
+    again = [graphs.replay(lmk.refine_lm, args) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert lmk.LAUNCHES == before + 2
+    assert all(torch.equal(x, want) for x in [got, *again])
+
+
+def test_lm_kernel_rejects_bad_inputs(cuda):
+    """On CUDA tensors too, what L1 does not take raises before a launch
+    (tests/test_torch_refine.py holds each check on the CPU)."""
+    n = torch.zeros((3, 16, 3), device=cuda)
+    w = torch.zeros((3, 16), device=cuda)
+    before = lmk.LAUNCHES
+    with pytest.raises(ValueError, match="p1 wants"):  # another device
+        lmk.lm_solve(n, n.cpu(), n, n, w)
+    with pytest.raises(ValueError, match="F = 33"):  # more than a warp
+        m = torch.zeros((3, 33, 3), device=cuda)
+        lmk.lm_solve(m, m, m, m, torch.zeros((3, 33), device=cuda))
+    assert lmk.LAUNCHES == before
 
 
 # ------------------------------------------- the cluster stage's kernels
@@ -900,8 +961,8 @@ def _fields_equal(a, b):
 def test_step_graph_equals_eager_step(cuda, name):
     """make_register_fn on the card (the step replayed as one CUDA graph)
     against _register_batch (the eager step) on the same batch of 4:
-    every field bitwise equal; one capture, then a replay a call; C1, C2
-    and the propagation kernel counted at each replay."""
+    every field bitwise equal; one capture, then a replay a call; C1, C2,
+    L1 and the propagation kernel counted at each replay."""
     from fccf_pcr_torch.pipeline.register import _register_batch
 
     model, args = _preset_batch(name, [0, 1, 2, 3], cuda)
@@ -910,12 +971,14 @@ def test_step_graph_equals_eager_step(cuda, name):
     STEP.clear()
     c0 = STEP.captures
     first = fn(*args)
-    counts = (lp.PROPAGATIONS, ck.SEEDS, ck.WALKS, STEP.replays)
+    counts = (lp.PROPAGATIONS, ck.SEEDS, ck.WALKS, lmk.LAUNCHES,
+              STEP.replays)
     again = fn(*args)
     torch.cuda.synchronize()
     H = model.caps.max_hypotheses
-    assert (lp.PROPAGATIONS, ck.SEEDS, ck.WALKS, STEP.replays) == (
-        counts[0] + 2, counts[1] + H // 512, counts[2] + 1, counts[3] + 1)
+    assert (lp.PROPAGATIONS, ck.SEEDS, ck.WALKS, lmk.LAUNCHES,
+            STEP.replays) == (counts[0] + 2, counts[1] + H // 512,
+                              counts[2] + 1, counts[3] + 1, counts[4] + 1)
     assert STEP.captures == c0 + 1
     eager = _register_batch(*args, model.params, model.caps)
     _fields_equal(first, eager)
@@ -957,8 +1020,8 @@ def test_warm_step_makes_no_host_sync(cuda):
 
 def test_refine_pairs_inside_a_capture_runs_inline(cuda):
     """refine_pairs captured as a graph (as inside the register step's)
-    runs the loop to its cap inline, and the replay equals the eager
-    call and the eager loop with its early exit."""
+    runs L1 inline, and the replay equals the eager call and the eager
+    loop with its early exit."""
     from fccf_pcr_torch.refine import gauss_newton as gn
 
     args = _on_card(_lm_lanes(6, 18), cuda)

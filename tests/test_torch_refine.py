@@ -15,10 +15,14 @@ each other by as much). ``refine_pairs`` on well-conditioned candidates
 (12 pairs of planes in general position) agrees within 2e-6. The ops of
 one LM iteration are counted too (each a kernel launch on the card).
 
-The loop's two forms (``lm_loop``): run to the cap with no host read (the
-form captured as a CUDA graph on the card) and with the early exit (the
-CPU's) are bit-equal, also with zero-weight lanes, a lane at zero cost
-and a NaN lane, and the first reads nothing back to the host."""
+The loop's two forms (``lm_loop``): run to the cap with no host read and
+with the early exit (the CPU's) are bit-equal, also with zero-weight
+lanes, a lane at zero cost and a NaN lane, and the first reads nothing
+back to the host. ``lm_loop`` is the plain version of the CUDA kernel L1
+(``refine/lm_kernel.py``, ``csrc/lm.cu``), which ``refine_pairs`` takes
+for CUDA tensors; CPU tensors take ``lm_loop`` and launch nothing, and
+any other device raises. L1 itself is held to ``lm_loop`` bit for bit on
+the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``)."""
 
 import jax
 import jax.numpy as jnp
@@ -30,6 +34,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from fccf_pcr_tpu.ops import geometry as jgeo
 from fccf_pcr_tpu.refine import gauss_newton as jgn
 from fccf_pcr_torch.refine import gauss_newton as tgn
+from fccf_pcr_torch.refine import lm_kernel
 
 
 def _unit(rng, shape):
@@ -234,3 +239,67 @@ def test_loop_to_the_cap_reads_nothing_back():
     with pytest.raises(AssertionError, match="host read"):
         with _NoHostRead():
             tgn.lm_loop(*args)
+
+
+def test_refine_pairs_takes_lm_loop_on_the_cpu(monkeypatch):
+    """CPU tensors take the plain loop with its early exit (the same bits
+    as before the kernel existed) and launch no kernel: L1's launch count
+    stays, and nothing builds it."""
+    monkeypatch.setattr(lm_kernel, "build", lambda force=False: pytest.fail(
+        "the CPU path built the CUDA library"))
+    args = [torch.from_numpy(a) for a in _edge_lanes(2)]
+    before = lm_kernel.LAUNCHES
+    got = tgn.refine_pairs(*args, iters=20)
+    assert lm_kernel.LAUNCHES == before
+    assert torch.equal(got, tgn.lm_loop(*args, iters=20))
+    assert torch.equal(got, lm_kernel.refine_lm(*args, iters=20))
+
+
+def test_refine_pairs_refuses_other_devices():
+    """A tensor on neither the CPU nor a card raises; nothing falls
+    back."""
+    n = torch.zeros((2, 4, 3), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        tgn.refine_pairs(n, n, n, n, torch.zeros((2, 4), device="meta"))
+
+
+@pytest.mark.parametrize("case,match", [
+    ("cpu", "unsupported device cpu"), ("planes", "F = 33"),
+    ("dtype", "n1 wants float32"), ("shape", "n2 wants"),
+    ("iters", "iters = -1")])
+def test_lm_solve_refuses_what_the_kernel_does_not_take(case, match):
+    """The kernel's wrapper checks before it builds or launches: CUDA
+    float32 (Bt, F, 3) planes and (Bt, F) weights, 1 <= F <= 32, iters >=
+    0 (each check fails before any CUDA call, so on the CPU too)."""
+    Bt, F, iters, dtype = 2, 4, 5, torch.float32
+    if case == "planes":
+        F = lm_kernel.MAX_PLANES + 1
+    if case == "iters":
+        iters = -1
+    if case == "dtype":
+        dtype = torch.float64
+    planes = [torch.zeros((Bt, F, 3), dtype=dtype) for _ in range(4)]
+    w = torch.zeros((Bt, F), dtype=dtype)
+    if case == "shape":
+        planes[2] = torch.zeros((Bt, F + 1, 3))
+    before = lm_kernel.LAUNCHES
+    with pytest.raises(ValueError, match=match):
+        lm_kernel.lm_solve(*planes, w, iters)
+    assert lm_kernel.LAUNCHES == before
+
+
+def test_kernel_limits_match_the_source():
+    """The wrapper's MAX_PLANES is the source's kMaxPlanes, and the build
+    keeps every product rounded once (--fmad=false) and never uses fast
+    math, which lm_loop's bits need."""
+    import re
+
+    from fccf_pcr_torch.ops import cuda_build
+
+    src = lm_kernel._LIBRARY.source.read_text()
+    assert int(re.search(r"kMaxPlanes = (\d+);", src).group(1)) == \
+        lm_kernel.MAX_PLANES
+    assert "--fmad=false" in cuda_build.NVCC_FLAGS
+    assert not any("fast" in f for f in cuda_build.NVCC_FLAGS)
+    for fast in ("__fdividef", "rsqrtf", "__sinf", "__cosf", "__expf"):
+        assert fast not in src, fast
