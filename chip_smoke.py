@@ -12,9 +12,9 @@ result:
      (the label-propagation kernels: the propagation entry, one
      cooperative launch a propagation, and the one-sweep entry K1),
      csrc/gather.cu (the per-row gather P1), csrc/cluster.cu (the
-     cluster stage's block seeds C1 and floor walk C2) and csrc/lm.cu
-     (the LM solve L1); ptxas's registers, shared memory and spills of
-     each kernel;
+     cluster stage's block scan C1, the standalone block-seed walk and
+     the floor walk C2) and csrc/lm.cu (the LM solve L1); ptxas's
+     registers, shared memory and spills of each kernel;
   3. label propagation vs its plain PyTorch version on the card, through
      the propagation kernel and through the per-sweep host loop (K1 +
      P1 launches): clustered voxel stats at V=1536 (office), V=1000 (a
@@ -31,7 +31,9 @@ result:
      bound and the roofline share; one propagation through the kernel
      and through the host loop, in device time and wall time, the
      sweeps it ran, the device time outside its sweep phase, and its
-     bound;
+     bound; and the two propagation launches of the heritage batch-8
+     step (their own inputs, 16 clouds each): each launch's device time,
+     sweeps and bound, labels equal to plain;
   4. P1 vs its plain version: the TPU probe's own inputs
      (tools/probe_gather.py) and label rows at the main path's shapes,
      (8, 9216) included; outputs must be equal; times beside plain and
@@ -65,8 +67,9 @@ result:
   8. steady-state step time at batch 8 (build excluded), office and
      heritage, in pairs/s, each kernel's launches per step and the
      sweeps the propagation kernel ran (at most 4 propagation launches a
-     step, no one-sweep or gather launch; H / 512 block-seed launches,
-     one floor walk and one L1 launch), and per step: every kernel
+     step, no one-sweep, gather or standalone block-seed launch; one
+     block-scan launch, whatever H / 512 is, one floor walk and one L1
+     launch), and per step: every kernel
      launched, as host
      launches (the CUDA runtime's launch calls, cudaGraphLaunch
      included) and as device kernels (the kernels CUPTI saw run, those
@@ -89,7 +92,7 @@ result:
      pair_agreement > 0.98 and matched_fraction > 0.95;
  11. one heritage batch-8 step through the step graph under
      utils/profiling.py's trace (its Chrome trace must name
-     label_prop_propagate, both cluster kernels and L1): the device's busy
+     label_prop_propagate, the block scan, the floor walk and L1): the device's busy
      share and the kernels with the most device time; then one eager
      step under the trace and a StageTimer: host time per stage
      (register.py's record_function scopes, which a replay does not
@@ -129,21 +132,32 @@ result:
      golden config's seeds as one batch, and the office batch of 8 over
      make_mesh([cuda:0] * 2), through the step graph and the eager step
      in turns (graph, eager, eager, graph), every field bitwise equal;
- 19. (run after phase 4) C1 and C2 against their plain versions (the
-     fixpoint; the host walk) on the card: every block's and the walk's
-     inputs of the eager step at seed 0 of office, heritage and
-     structured and of the batch-8 steps at office and heritage, and
-     the edge cases (an empty mask, all eligible, a chain, one ball, a
-     full mask, no eligible row, B = 200; cluster_num 0, 1 and large,
-     all sizes equal, a floor that drops below 2, an empty tail, no
-     seed, one slot); outputs equal; their device times at the heritage
-     batch-8 step's inputs beside the plain versions' and the bounds;
+ 19. (run after phase 4) C1, the block scan, against its plain version
+     (the PyTorch block loop, block_scan_plain) on the card: the
+     hypotheses of the eager step at seed 0 of office, heritage and
+     structured and of the batch-8 steps at all three, and synthetic
+     pools (mixed, one type, an empty lane, a chain, non-finite
+     entries, H = 512, 2048 and 8192); seeds equal, sizes and member
+     sums equal bit for bit (NaN where plain has one); its device time
+     at the batch-8 steps' hypotheses beside the plain loop's, the
+     library call's (the JAX formulation: one torch.matmul(geo_f,
+     stats_cols) a block, TF32 off) and the bound. The standalone block-seed walk and C2 against
+     their plain versions (the fixpoint; the host walk): every block's
+     walk inputs of the plain scan and the floor walk's inputs of those
+     steps, and the edge cases (an empty mask, all eligible, a chain,
+     one ball, a full mask, no eligible row, B = 200; cluster_num 0, 1
+     and large, all sizes equal, a floor that drops below 2, an empty
+     tail, no seed, one slot); outputs equal; their device times at the
+     heritage batch-8 step's inputs beside the plain versions' and the
+     bounds. Then the cluster stage's device time on each batch-8 step's
+     hypotheses with the plain loop, with C1, and captured as a graph;
  20. (run after phase 18) L1 against its plain version
      (gauss_newton.lm_loop run to its cap) on the card, torch.equal:
      the LM inputs of the batch-8 steps at office and heritage (phase
      18's), of seed 0 of every golden config, and the edge cases (all
      weights 0, a NaN plane, a lane at zero cost, iters 0, 1 and 50, Bt
-     1, 12, 96 and 192, F 4, 16 and 32); the LM steps each lane ran; L1's
+     1, 12, 96 and 192, F 4, 16, 32, 33, 64 and 200); the LM steps each
+     lane ran; L1's
      device time at the heritage step's inputs beside the plain loop
      captured as a graph of its own and replayed (CUDA events), the
      eager loop and the bound.
@@ -151,8 +165,9 @@ result:
 Phases 5-6 are the main path: their launch counts are the kernels'
 "launches". Every later in-process path (12-16) is driven with the
 counts set to 0 just before it and read just after (drive_path): each
-must launch the propagation kernel and C1, and neither the one-sweep
-nor the gather kernel, and each but the content measurement (which
+must launch the propagation kernel and C1 (the block scan), and neither
+the one-sweep, the gather nor the standalone block-seed kernel, and
+each but the content measurement (which
 stops at the seeds) must replay a step graph and launch C2 and L1. A path's
 kernels launched inside a captured step graph count at each replay
 (ops/graph.py's count_launch); the hooks that record a kernel's inputs
@@ -204,7 +219,15 @@ KERNELS = {
         replaces="tools/probe_gather.py:23",
     ),
     # The cluster stage's device loops: no Pallas kernel, the lax loops of
-    # the JAX package's compiled program.
+    # the JAX package's compiled program. C1 is the whole block scan; the
+    # standalone block-seed walk (its intra-block fixpoint alone) is off
+    # the main path.
+    "cluster_block_scan": dict(
+        name="cluster_block_scan",
+        route="cuda",
+        source="fccf_pcr_torch/csrc/cluster.cu",
+        replaces="fccf_pcr_tpu/cluster/cluster.py:93",
+    ),
     "cluster_block_seeds": dict(
         name="cluster_block_seeds",
         route="cuda",
@@ -270,6 +293,16 @@ PEAK_BYTES = 3.35e12
 # each, 3 compares).
 K1_NORMAL_OPS = 6
 K1_PLANE_OPS = 29
+# float32 operations C1 needs (csrc/cluster.cu): the ball predicate (the
+# 3-term dot products, the squared distance, the clamp and two compares:
+# 18) for a row of a lane against a column of that lane; the member sums'
+# 10 adds for a column in the row's ball (their products are by a 0/1
+# predicate, a select); the finiteness test of each of a hypothesis' 9
+# [t, px, py] entries (a column outside the row's lane adds an exact 0,
+# or a NaN where one of them is not finite).
+C1_BALL_OPS = 18
+C1_SUM_ADDS = 10
+C1_FINITE_OPS = 9
 # float32 operations of one LM step of one lane of L1 (csrc/lm.cu), sqrtf,
 # sinf, cosf, a clamp and a division counted as one each: a plane's
 # residuals and Jacobian at the pose (449), the 27 products of its 4 rows
@@ -538,23 +571,25 @@ def eager_step(params, caps):
 
 
 def cluster_inputs(name, seeds, dev):
-    """C1's (sub_lower, elig) of every block and C2's (s_size,
-    cluster_num), cloned, as the eager batched step of
-    configs.CONFIGS[name]'s ``seeds`` gives them to the kernels (every
-    block: on a card the scan runs all H // 512); and the preset's
-    capacities."""
+    """C1's block-scan inputs (masks, t, px, py, params) and C2's
+    (s_size, cluster_num), cloned, as the eager batched step of
+    configs.CONFIGS[name]'s ``seeds`` gives them to the kernels; and the
+    preset's capacities."""
+    import torch
+
     from fccf_pcr_torch.cluster import cluster as cl
     from fccf_pcr_torch.evaluation import configs
     from fccf_pcr_torch.models.fccf import get_model
 
     model = get_model(configs.CONFIGS[name]["model"])
     args, _ = config_batch(name, seeds, model.params, model.caps, dev)
-    calls = {"block_seeds": [], "floor_walk": []}
+    calls = {"block_scan": [], "floor_walk": []}
     kept = {k: getattr(cl, k) for k in calls}
 
     def recorder(k):
         def record(*a):
-            calls[k].append(tuple(x.clone() for x in a))
+            calls[k].append(tuple(x.clone() if torch.is_tensor(x) else x
+                                  for x in a))
             return kept[k](*a)
         return record
 
@@ -565,7 +600,120 @@ def cluster_inputs(name, seeds, dev):
     finally:
         for k, fn in kept.items():
             setattr(cl, k, fn)
-    return calls["block_seeds"], calls["floor_walk"], model.caps
+    return calls["block_scan"], calls["floor_walk"], model.caps
+
+
+def walk_inputs(ck, scan_args):
+    """The standalone block-seed walk's inputs (sub_lower, elig) of every
+    block, cloned, as the plain block scan gives them on ``scan_args``."""
+    seen = []
+    kept = ck.block_seeds
+
+    def record(sub, elig):
+        seen.append((sub.clone(), elig.clone()))
+        return kept(sub, elig)
+
+    ck.block_seeds = record
+    try:
+        ck.block_scan_plain(*scan_args)
+    finally:
+        ck.block_seeds = kept
+    return seen
+
+
+def scan_pool(seed, P, H, kind, dev):
+    """A batch of P hypothesis pools of capacity H for the block scan
+    (tests/test_torch_cuda.py's _scan_pool): poses around a few centers,
+    the valid prefix ending inside the last block. kind: "mixed", "one
+    type", "empty lane", "chain" (runs of 8 on lines 0.75 apart: each
+    covers the next only) or "nonfinite" (a NaN px entry in a valid slot,
+    an inf t entry in an invalid one)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    masks = np.zeros((P, 3, H), bool)
+    t = np.zeros((P, H, 3), np.float32)
+    ang = np.zeros((P, H))
+    for p in range(P):
+        n = H - int(rng.integers(1, min(H, 300)))
+        if kind == "chain":
+            i = np.arange(n)
+            t[p, :n] = np.stack([0.75 * (i % 8), 3.0 * ((i // 8) % 50),
+                                 3.0 * (i // 400)], -1)
+            typ = np.zeros(n, int)
+        else:
+            centers = rng.uniform(-6, 6, (max(2, n // 40), 3))
+            pick = rng.integers(0, len(centers), n)
+            t[p, :n] = centers[pick] + rng.normal(0, 0.4, (n, 3))
+            ang[p, :n] = (rng.integers(0, 4, n) * 0.5
+                          + rng.normal(0, 0.01, n))
+            typ = rng.integers(0, 3 if kind != "empty lane" else 2, n)
+            if kind == "one type":
+                typ[:] = 0
+        masks[p, typ, np.arange(n)] = True
+    c, s = np.cos(ang), np.sin(ang)
+    z = np.zeros_like(c)
+    px = np.stack([c, s, z], -1).astype(np.float32)
+    py = np.stack([-s, c, z], -1).astype(np.float32)
+    if kind == "nonfinite":
+        px[0, 3, 1] = np.nan
+        t[P - 1, H - 1, 2] = np.inf
+    return tuple(torch.from_numpy(x).to(dev) for x in (masks, t, px, py))
+
+
+def scan_diff(got, want):
+    """The outputs of two block scans (seeds, size, sums) that differ: a
+    NaN equals a NaN."""
+    import torch
+
+    n = int((got[0] != want[0]).sum())
+    for a, b in zip(got[1:], want[1:]):
+        n += int((~((a == b) | (torch.isnan(a) & torch.isnan(b)))).sum())
+    return n
+
+
+def c1_scan_bound(masks, size):
+    """(bound ms, bound_by, operations) of one C1 launch on ``masks``
+    (P, 3, H) whose member counts are ``size`` (P, 3, H): the member
+    sums' operations this pool needs (each row of a lane against each
+    column of that lane: C1_BALL_OPS; each (row, column) pair in a ball,
+    the sum of the rows' sizes: C1_SUM_ADDS; each hypothesis' entries:
+    C1_FINITE_OPS; the seeds' chain adds a predicate a candidate pair
+    within a block and a seed's pair with a later column, fewer, not
+    counted) against the bytes (masks, t, px and py read once; seeds,
+    size and the 9 sums written once)."""
+    P, _, H = masks.shape
+    lane_pairs = int((masks.sum(dim=-1).double() ** 2).sum())
+    in_ball = int(size.double().nansum())
+    ops = (lane_pairs * C1_BALL_OPS + in_ball * C1_SUM_ADDS
+           + P * H * C1_FINITE_OPS)
+    ops_s = ops / PEAK_F32
+    bytes_s = P * H * (3 + 36 + 3 + 4 * 3 + 4 * 27) / PEAK_BYTES
+    return (max(ops_s, bytes_s) * 1e3,
+            "operations" if ops_s >= bytes_s else "bytes", ops)
+
+
+def c1_library(ck, masks, t, px, py, params):
+    """The JAX package's formulation of the member sums as one library
+    call a block: torch.matmul(geo_f, stats_cols) for each block of 512
+    rows (fccf_pcr_tpu/cluster/cluster.py:173), geo_f and stats_cols made
+    beforehand. Returns the function that runs those calls."""
+    import torch
+
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "TF32 is on: the library call would round as no path does")
+    H = masks.shape[-1]
+    B = min(512, H)
+    lead = tuple(masks.shape[:-2])
+    stats10 = torch.cat([t, px, py, torch.ones(lead + (H, 1), device=t.device)],
+                        dim=-1)
+    cols = (stats10[..., None, :, :] * masks[..., None].float()
+            ).transpose(-3, -2).reshape(lead + (H, 30)).contiguous()
+    geos = [ck.ball_rows(t[..., i:i + B, :], px[..., i:i + B, :], t, px,
+                         params).float().contiguous()
+            for i in range(0, H, B)]
+    return lambda: [torch.matmul(g, cols) for g in geos]
 
 
 def cluster_edge_cases(dev):
@@ -642,53 +790,109 @@ def c2_bound(s_size, cluster_num):
 
 
 def phase_cluster_vs_plain(ck, dev):
-    """C1 and C2 against their plain versions on the card: every block's
-    and the walk's inputs of the eager step at seed 0 of the office,
-    heritage and structured presets and of the batch-8 steps of phase 8
-    (office, heritage), and the edge cases; outputs equal. Times at the
-    heritage batch-8 step's inputs (device time, CUPTI), beside the plain
-    versions' (CUDA events: they wait for the host) and the bounds.
-    Returns the largest count of differing outputs and the times."""
+    """C1 (the block scan) against its plain version on the card: the
+    hypotheses of the eager step at seed 0 of the office, heritage and
+    structured presets and of their batch-8 steps, and synthetic pools;
+    seeds, sizes and member sums equal (a NaN equals a NaN). Its device
+    time at the batch-8 steps' hypotheses beside the plain loop's (the
+    sum of its kernels' device times), the library call's and the bound.
+    The standalone block-seed walk and C2 against their plain versions:
+    the walk's inputs of every block of those steps' plain scans, C2's of
+    those steps, and the edge cases; their times at the heritage batch-8
+    step's inputs beside the plain versions' (CUDA events: they wait for
+    the host) and the bounds. Returns the most outputs that differ in a
+    case, by kernel, and the times."""
     import torch
 
-    cases = []
-    for name, seeds in (("office", [0]), ("heritage", [0]),
-                        ("structured", [0]), ("office", list(range(8))),
-                        ("heritage", list(range(8)))):
-        blocks, walks, caps = cluster_inputs(name, seeds, dev)
-        check(len(blocks) == caps.max_hypotheses // 512 and len(walks) == 1,
-              f"{name}: {len(blocks)} block-seed and {len(walks)} floor-walk "
-              f"calls a step (want {caps.max_hypotheses // 512} and 1)")
-        what = f"{name} seeds {seeds[0]}-{seeds[-1]}"
-        cases += [(f"{what} block {k}", "seeds", a)
-                  for k, a in enumerate(blocks)]
-        cases.append((f"{what} walk", "walk", walks[0]))
-        if name == "heritage" and len(seeds) == 8:
-            timed = (blocks, walks[0])
-    seeds_edge, walks_edge = cluster_edge_cases(dev)
-    cases += [(w, "seeds", a) for w, a in seeds_edge]
-    cases += [(w, "walk", a) for w, a in walks_edge]
-    errs = {"seeds": [0], "walk": [0]}
-    for what, kind, a in cases:
-        if kind == "seeds":
-            counter, kernel, plain = "SEEDS", ck.block_seeds, ck.block_seeds_plain
-        else:
-            counter, kernel, plain = "WALKS", ck.floor_walk, ck.floor_walk_plain
+    from fccf_pcr_torch.models.fccf import get_model
+    from fccf_pcr_torch.evaluation import configs
+
+    errs = {"scan": [0], "seeds": [0], "walk": [0]}
+
+    def compare(kind, what, a):
+        counter, kernel, plain = {
+            "scan": ("SCANS", ck.block_scan, ck.block_scan_plain),
+            "seeds": ("SEEDS", ck.block_seeds, ck.block_seeds_plain),
+            "walk": ("WALKS", ck.floor_walk, ck.floor_walk_plain)}[kind]
         before = getattr(ck, counter)
         got = kernel(*a)
         torch.cuda.synchronize()
         check(getattr(ck, counter) == before + 1,
               f"{what}: the {kind} kernel was not launched")
         want = plain(*a)
-        err = int((got != want).sum())
+        err = (scan_diff(got, want) if kind == "scan"
+               else int((got != want).sum()))
         errs[kind].append(err)
         check(err == 0, f"{what}: {err} outputs of the {kind} kernel differ "
               "from plain")
-        print(f"[cluster] {kind} kernel equal to plain: {what} "
-              f"{tuple(a[0].shape)}, {int(got.sum())} true", flush=True)
+        return got
 
-    blocks, walk = timed
-    t = {"blocks": []}
+    timed = {}
+    for name, seeds in (("office", [0]), ("heritage", [0]),
+                        ("structured", [0]), ("office", list(range(8))),
+                        ("heritage", list(range(8))),
+                        ("structured", list(range(8)))):
+        scans, walks, caps = cluster_inputs(name, seeds, dev)
+        check(len(scans) == 1 and len(walks) == 1,
+              f"{name}: {len(scans)} block-scan and {len(walks)} floor-walk "
+              "calls a step (want 1 and 1)")
+        what = f"{name} seeds {seeds[0]}-{seeds[-1]}"
+        got = compare("scan", what, scans[0])
+        masks = scans[0][0]
+        print(f"[cluster] C1 block scan equal to plain: {what} "
+              f"{tuple(masks.shape)}, {int(masks.sum())} hypotheses, "
+              f"{int(got[0].sum())} seeds, NaN sums "
+              f"{int(torch.isnan(got[2]).sum())}", flush=True)
+        compare("walk", f"{what} walk", walks[0])
+        if len(seeds) == 8:
+            timed[name] = scans[0]
+        if name == "heritage" and len(seeds) == 8:
+            blocks = walk_inputs(ck, scans[0])
+            walk = walks[0]
+            for k, a in enumerate(blocks):
+                compare("seeds", f"{what} block {k}", a)
+    params = get_model(configs.CONFIGS["office"]["model"]).params
+    for H, P in ((512, 1), (2048, 8), (8192, 8)):
+        for kind in ("mixed", "one type", "empty lane", "chain",
+                     "nonfinite"):
+            got = compare("scan", f"{kind} pool {P} x {H}",
+                          scan_pool(H + P, P, H, kind, dev) + (params,))
+            print(f"[cluster] C1 block scan equal to plain: {kind} pool, "
+                  f"{P} x {H}, {int(got[0].sum())} seeds", flush=True)
+    seeds_edge, walks_edge = cluster_edge_cases(dev)
+    for w, a in seeds_edge:
+        compare("seeds", w, a)
+    for w, a in walks_edge:
+        compare("walk", w, a)
+    print(f"[cluster] the standalone block-seed walk and C2 equal to plain "
+          f"on {len(errs['seeds']) - 1} and {len(errs['walk']) - 1} cases",
+          flush=True)
+
+    t = {"scan": {}}
+    for name, a in timed.items():
+        masks = a[0]
+        seeds, size, _ = ck.block_scan(*a)
+        b_ms, b_by, ops = c1_scan_bound(masks, size)
+        plain = lambda: ck.block_scan_plain(*a)  # noqa: E731
+        plain()
+        library = c1_library(ck, *a)
+        library()
+        torch.cuda.synchronize()
+        t["scan"][name] = dict(
+            shape=tuple(masks.shape), rows=int(masks.any(dim=1).sum()),
+            seeds=int(seeds.sum()),
+            lane_pairs=int((masks.sum(dim=-1).double() ** 2).sum()),
+            in_ball=int(size.double().nansum()),
+            ms=device_ms(lambda: ck.block_scan(*a), 10,
+                         only="cluster_block_scan_kernel",
+                         launched=lambda: ck.SCANS),
+            # the most of three whole captures (CUPTI drops records and
+            # never adds one)
+            plain_ms=max(sum(capture(plain)) for _ in range(3)),
+            library_ms=max(sum(capture(library)) for _ in range(3)),
+            library_calls=masks.shape[-1] // 512,
+            bound_ms=b_ms, bound_by=b_by, ops=ops)
+    t["blocks"] = []
     for sub, elig in blocks:
         seeds = ck.block_seeds(sub, elig)
         b_ms, b_by = c1_bound(sub, elig, seeds)
@@ -716,21 +920,21 @@ def phase_cluster_vs_plain(ck, dev):
 
 
 def cluster_stage_ms(name, dev):
-    """The price of the card's fixed trip count: the cluster stage
-    (cluster_hypotheses) on the hypotheses of the eager batch-8 step of
-    configs.CONFIGS[name], run eagerly with the block scan stopped at the
-    batch's last occupied block (the CPU's count, one host read), and
-    captured as a graph of its own, all H // 512 blocks, as inside the
-    step graph. Every output equal; each form's device time (the sum of
-    the device times of its kernels and copies, the most of three CUPTI
-    captures: CUPTI drops records and never adds one) and blocks
-    scanned."""
+    """The cluster stage (cluster_hypotheses) on the hypotheses of the
+    eager batch-8 step of configs.CONFIGS[name], three ways: with the
+    plain block loop (block_scan_plain over all H // 512 blocks, as the
+    card ran the stage before C1 was the block scan), with C1, and with
+    C1 captured as a graph of its own, as inside the step graph. Every
+    output equal; each form's device time (the sum of the device times of
+    its kernels and copies, the most of three CUPTI captures: CUPTI drops
+    records and never adds one)."""
     import torch
 
     from fccf_pcr_torch.cluster import cluster as cl
     from fccf_pcr_torch.evaluation import configs
     from fccf_pcr_torch.hypotheses.transforms import Hypotheses
     from fccf_pcr_torch.models.fccf import get_model
+    from fccf_pcr_torch.ops import cluster_kernels as ck
     from fccf_pcr_torch.ops import graph
     from fccf_pcr_torch.pipeline import register
 
@@ -756,30 +960,26 @@ def cluster_stage_ms(name, dev):
         return cl.cluster_hypotheses(Hypotheses(*fields), model.params,
                                      model.caps)
 
-    def to_last_block():
-        fixed = cl._block_count
-        cl._block_count = lambda last_idx, H, B: (
-            int(torch.amax(last_idx)) + B) // B
+    def plain():
+        cl.block_scan = ck.block_scan_plain
         try:
             return stage(*hyp)
         finally:
-            cl._block_count = fixed
+            cl.block_scan = ck.block_scan
 
     graphs = graph.Graphs(max_graphs=1)
-    forms = {"eager": to_last_block,
+    forms = {"plain": plain, "kernel": lambda: stage(*hyp),
              "graph": lambda: graphs.replay(stage, hyp)}
-    want, got = forms["eager"](), forms["graph"]()
+    outs = {form: call() for form, call in forms.items()}
     torch.cuda.synchronize()
-    for f, a, b in zip(want._fields, want, got):
-        check(torch.equal(a, b), f"{name}: the cluster stage's {f} differs "
-              "between the scan to the last occupied block and all blocks")
+    for form in ("kernel", "graph"):
+        for f, a, b in zip(outs["plain"]._fields, outs["plain"], outs[form]):
+            check(torch.equal(a, b), f"{name}: the cluster stage's {f} "
+                  f"differs between the plain loop and the {form} form")
     out = {form: max(sum(capture(call)) for _ in range(3))
            for form, call in forms.items()}
     graphs.clear()
-    H = model.caps.max_hypotheses
-    valid = Hypotheses(*hyp).valid
-    last = int(torch.nonzero(valid)[:, -1].max()) if bool(valid.any()) else -1
-    out["blocks"] = {"eager": (last + 512) // 512, "graph": H // 512}
+    out["blocks"] = model.caps.max_hypotheses // 512
     return out
 
 
@@ -943,6 +1143,82 @@ def k1_bound(stats, labels, nb, cos_gate):
     return (max(ops_s, bytes_s) * 1e3,
             "operations" if ops_s >= bytes_s else "bytes",
             ops, n_normal, n_plane)
+
+
+def step_k1(lp, dev, name="heritage"):
+    """The propagation launches of the eager batch-8 step of
+    configs.CONFIGS[name], on their own recorded inputs: each launch's
+    device time (from its initial labels, reset before each run), sweeps,
+    labels equal to the plain version's (pair by pair), and bound: the
+    operations each sweep's pairs need (k1_bound, from the labels that
+    sweep starts from, a launch capped at s sweeps) of every pair summed
+    over the launch's sweeps, against its bytes (stats and bounds read
+    once, labels read and written once, the flags)."""
+    import torch
+
+    from fccf_pcr_torch.evaluation import configs
+    from fccf_pcr_torch.models.fccf import get_model
+
+    model = get_model(configs.CONFIGS[name]["model"])
+    args, _ = config_batch(name, list(range(8)), model.params, model.caps,
+                           dev)
+    seen = []
+    kept = lp._label_propagate_fused
+
+    def record(*a):
+        seen.append(tuple(x.clone() if torch.is_tensor(x) else x for x in a))
+        return kept(*a)
+
+    lp._label_propagate_fused = record
+    try:
+        eager_step(model.params, model.caps)(*args)
+    finally:
+        lp._label_propagate_fused = kept
+    out = []
+    for normal, centroid, valid, angle, l, k, bound, max_iters in seen:
+        stats, bound_t, init = lp._kernel_inputs(normal, centroid, valid,
+                                                 bound)
+        P, V = init.shape
+        cos_gate = lp.cos_deg(angle)
+        final, n = propagate_once(lp, stats, bound_t, init, cos_gate, l, k,
+                                  max_iters)
+        for p in range(P):
+            want = lp.label_propagate_plain(normal[p:p + 1],
+                                            centroid[p:p + 1],
+                                            valid[p:p + 1], angle, l, k)
+            check(torch.equal(final[p:p + 1], want),
+                  f"{name} step launch {len(out)}: pair {p}'s labels differ "
+                  "from plain")
+        labels = init.clone()
+        flags = torch.zeros((max_iters, P + 1), dtype=torch.int32,
+                            device=dev)
+        sweeps = torch.zeros((1,), dtype=torch.int64, device=dev)
+
+        def reset():
+            labels.copy_(init)
+            flags.zero_()
+
+        def launch():
+            lp._launch_propagate(stats, bound_t, labels, flags, sweeps,
+                                 cos_gate, l, k, max_iters)
+
+        ms = device_ms(launch, 10, reset, "label_prop_propagate",
+                       lambda: lp.PROPAGATIONS)
+        nbs = [int(x) for x in bound_t.tolist()]
+        ops = 0
+        for s in range(n):
+            start = init if s == 0 else propagate_once(
+                lp, stats, bound_t, init, cos_gate, l, k, s)[0]
+            ops += sum(k1_bound(stats[p], start[p], nbs[p], cos_gate)[2]
+                       for p in range(P) if nbs[p] > 0)
+        ops_s = ops / PEAK_F32
+        bytes_s = (P * (12 * V * 4 + 4 + 2 * V * 4)
+                   + 4 * max_iters * (P + 1)) / PEAK_BYTES
+        out.append(dict(P=P, V=V, bounds=nbs, sweeps=n, ms=ms,
+                        bound_ms=max(ops_s, bytes_s) * 1e3,
+                        bound_by="operations" if ops_s >= bytes_s
+                        else "bytes", ops=ops))
+    return out
 
 
 def phase_kernel_vs_plain(lp, dev):
@@ -1224,10 +1500,11 @@ def phase_path(name, counters, dev):
     launches = read_counts(counters, dev)
     check(launches["label_prop_propagate"] > 0 and launches["sweeps"] > 0,
           f"the {name} path launched no propagation kernel")
-    for k in ("label_prop_sweep", "gather_rows"):
+    for k in ("label_prop_sweep", "gather_rows", "cluster_block_seeds"):
         check(launches[k] == 0, f"the {name} path launched the {k} kernel "
-              f"{launches[k]} times (it runs inside the propagation kernel)")
-    for k in ("cluster_block_seeds", "cluster_floor_walk", "lm_refine",
+              f"{launches[k]} times (it runs inside the propagation kernel "
+              "or the block scan)")
+    for k in ("cluster_block_scan", "cluster_floor_walk", "lm_refine",
               "step_graph_replays"):
         check(launches[k] > 0, f"the {name} path made no {k}")
 
@@ -1886,7 +2163,8 @@ def lm_cases(step_inputs, dev):
         ("heritage step, Bt 1", tuple(x[:1] for x in (n1, p1, n2, p2, w)),
          50),
     ]
-    for B, P in ((12, 16), (96, 16), (192, 16), (12, 4), (96, 4), (24, 32)):
+    for B, P in ((12, 16), (96, 16), (192, 16), (12, 4), (96, 4), (24, 32),
+                 (12, 33), (96, 64), (24, 200)):
         lanes = tuple(torch.from_numpy(a).to(dev)
                       for a in lm_lanes(B + P, B, P))
         for iters in (1, 50):
@@ -1951,6 +2229,18 @@ def phase_lm_vs_plain(lmk, step_inputs, dev):
     # far less time than the card runs it), not CUPTI: late in a run CUPTI
     # lost every record of a one-kernel capture, ten captures in a row.
     t["ms"] = cuda_ms(lambda: lmk.lm_solve(*planes, iters), 20)
+    # The scratch instantiation on the same lanes: bit-equal, and its
+    # time in turns with the registers one's (registers, scratch,
+    # scratch, registers), the reason the registers one is kept.
+    regs = lmk.lm_solve(*planes, iters)
+    scratch = lmk.lm_solve(*planes, iters, registers=False)
+    check(all(torch.equal(a, b) for a, b in zip(regs, scratch)),
+          "heritage: L1's scratch instantiation differs from its registers "
+          "one")
+    t["turns"] = [cuda_ms(lambda: lmk.lm_solve(*planes, iters,
+                                               registers=arm), 20)
+                  for arm in (True, False, False, True)]
+    t["scratch_ms"] = min(t["turns"][1:3])
     t["one_launch_ms"] = min(
         event_ms(lambda: lmk.lm_solve(*planes, iters)) for _ in range(3))
     t["call_event_ms"] = cuda_ms(lambda: lmk.refine_lm(*planes, iters), 20)
@@ -2047,7 +2337,7 @@ def phase_graph_configs(dev, counters):
 def phase_profile(fn, args, eager):
     """One heritage batch-8 step through the step graph under
     utils.profiling.trace (its Chrome trace must name the propagation
-    kernel, both cluster kernels and L1): the device kernels of the replay
+    kernel, C1 (the block scan), C2 and L1): the device kernels of the replay
     and the device's busy share; then one eager step under the trace and
     a StageTimer: host time per stage (register.py's record_function
     ranges, which exist only in the eager step) and its busy share."""
@@ -2056,7 +2346,7 @@ def phase_profile(fn, args, eager):
     from fccf_pcr_torch.utils.profiling import StageTimer, trace
 
     stages = STAGES
-    ours = ("label_prop_propagate", "cluster_block_seeds",
+    ours = ("label_prop_propagate", "cluster_block_scan",
             "cluster_floor_walk", "lm_refine")
     for form, call in (("graph", fn), ("eager", eager)):
         call(*args)  # the step graph may have been evicted: capture it first
@@ -2081,7 +2371,7 @@ def phase_profile(fn, args, eager):
         print(f"[profile] {form} step trace exported by "
               f"utils.profiling.trace: "
               f"{os.path.basename(prof.trace_path)}, {len(text)} bytes, "
-              f"names label_prop_propagate, cluster_block_seeds, "
+              f"names label_prop_propagate, cluster_block_scan, "
               f"cluster_floor_walk and lm_refine", flush=True)
         if form == "eager":
             print(f"[profile] StageTimer report:\n{timer.report()}",
@@ -2111,7 +2401,7 @@ def phase_profile(fn, args, eager):
             print(f"[profile] {form} kernel {us / 1e3:.1f} ms over "
                   f"{calls[name]} launches: {name[:90]}", flush=True)
         for ours in ("label_prop_propagate_kernel", "label_prop_sweep_kernel",
-                     "gather_rows", "cluster_block_seeds_kernel",
+                     "gather_rows", "cluster_block_scan_kernel",
                      "cluster_floor_walk_kernel", "lm_refine_kernel"):
             for name, us in by_name.items():
                 if ours in name:
@@ -2123,8 +2413,9 @@ def phase_profile(fn, args, eager):
 def drive_path(what, fn, counters, dev, registers=True):
     """``fn()`` as a path of the port: every kernel's launch count set to
     0 just before and read just after; the path must launch the
-    propagation kernel and C1 (block seeds), and neither the one-sweep
-    nor the gather kernel, and, where it ``registers`` (every path but
+    propagation kernel and C1 (the block scan), and neither the one-sweep,
+    the gather nor the standalone block-seed kernel, and, where it
+    ``registers`` (every path but
     measure_content, which stops at the seeds), replay a step graph and
     launch C2 (the floor walk) and L1 (the LM). Returns (result, counts,
     wall s)."""
@@ -2138,10 +2429,10 @@ def drive_path(what, fn, counters, dev, registers=True):
     counts = read_counts(counters, dev)
     check(counts["label_prop_propagate"] > 0 and counts["sweeps"] > 0,
           f"{what}: the propagation kernel was not launched")
-    for k in ("label_prop_sweep", "gather_rows"):
+    for k in ("label_prop_sweep", "gather_rows", "cluster_block_seeds"):
         check(counts[k] == 0, f"{what}: the {k} kernel was launched")
-    check(counts["cluster_block_seeds"] > 0,
-          f"{what}: the block-seed kernel was not launched")
+    check(counts["cluster_block_scan"] > 0,
+          f"{what}: the block-scan kernel was not launched")
     for k in ("step_graph_replays", "cluster_floor_walk", "lm_refine"):
         check(counts[k] > 0 or not registers, f"{what}: no {k}")
     return out, counts, secs
@@ -2472,6 +2763,7 @@ def main():
     counters = {"label_prop_propagate": (lp, "PROPAGATIONS"),
                 "label_prop_sweep": (lp, "LAUNCHES"),
                 "gather_rows": (gt, "LAUNCHES"),
+                "cluster_block_scan": (ck, "SCANS"),
                 "cluster_block_seeds": (ck, "SEEDS"),
                 "cluster_floor_walk": (ck, "WALKS"),
                 "lm_refine": (lmk, "LAUNCHES"),
@@ -2495,9 +2787,13 @@ def main():
         ptxas = {"label_prop_propagate": ptxas_summary(lp, "propagate_kernel"),
                  "label_prop_sweep": ptxas_summary(lp, "sweep_kernel"),
                  "gather_rows": ptxas_summary(gt),
+                 "cluster_block_scan": ptxas_summary(ck, "block_scan"),
                  "cluster_block_seeds": ptxas_summary(ck, "block_seeds"),
                  "cluster_floor_walk": ptxas_summary(ck, "floor_walk"),
-                 "lm_refine": ptxas_summary(lmk, "lm_refine")}
+                 # the registers and the scratch instantiations
+                 "lm_refine": ptxas_summary(lmk, "lm_refine_kernelILb1"),
+                 "lm_refine_scratch": ptxas_summary(lmk,
+                                                    "lm_refine_kernelILb0")}
         for name, info in ptxas.items():
             check(info, f"no ptxas lines for {name}")
             print(f"[build] ptxas {name}: {info}", flush=True)
@@ -2541,6 +2837,21 @@ def main():
                   f"{[round(x * 1e3, 3) for x in t['sweep_bounds_ms']]} us) | "
                   f"ptxas {ptxas['label_prop_propagate']} | {smi}", flush=True)
 
+        k1_step = step_k1(lp, dev)
+        for i, t in enumerate(k1_step):
+            print(f"[kernel] heritage batch-8 step, propagation launch {i} "
+                  f"({t['P']} clouds, V={t['V']}, bounds "
+                  f"{min(t['bounds'])}-{max(t['bounds'])}): labels equal to "
+                  f"plain; {t['ms']:.4f} ms device, {t['sweeps']} sweeps; "
+                  f"bound {t['bound_ms'] * 1e3:.3f} us ({t['bound_by']}: "
+                  f"{t['ops']} ops), {t['ms'] / t['bound_ms']:.0f}x it | "
+                  f"{smi}", flush=True)
+        print(f"[kernel] heritage batch-8 step: {len(k1_step)} propagation "
+              f"launches, {sum(t['ms'] for t in k1_step):.4f} ms device "
+              f"against a bound of "
+              f"{sum(t['bound_ms'] for t in k1_step) * 1e3:.3f} us | {smi}",
+              flush=True)
+
         p1_err, p1 = phase_gather_vs_plain(gt, dev)
         print("[gather] equal to tbl[idx] at the probe's inputs (1, 1024) and "
               "to plain at (1, 1536), (1, 9216), (8, 9216)", flush=True)
@@ -2556,30 +2867,41 @@ def main():
 
         t0 = time.perf_counter()
         cl_err, cl = phase_cluster_vs_plain(ck, dev)
+        for name, c in cl["scan"].items():
+            print(f"[cluster] C1 block scan, {name} batch-8 step's "
+                  f"hypotheses {c['shape']} ({c['rows']} valid, {c['seeds']} "
+                  f"seeds, {c['lane_pairs']} (row, column) pairs within a "
+                  f"lane, {c['in_ball']} in a ball): {c['ms']:.4f} ms "
+                  f"device; plain loop "
+                  f"{c['plain_ms']:.3f} ms device; library call "
+                  f"(torch.matmul(geo_f, stats_cols), {c['library_calls']} "
+                  f"blocks, TF32 off) {c['library_ms']:.3f} ms device; bound "
+                  f"{c['bound_ms'] * 1e3:.3f} us ({c['bound_by']}: "
+                  f"{c['ops']} ops), {c['ms'] / c['bound_ms']:.1f}x it | "
+                  f"ptxas {ptxas['cluster_block_scan']} | {smi}", flush=True)
         for b in cl["blocks"]:
-            print(f"[cluster] C1 heritage batch 8 {cl['shape']}: "
-                  f"{b['eligible']} eligible, {b['seeds']} seeds; "
-                  f"{b['ms'] * 1e3:.2f} us device vs plain (the fixpoint, "
-                  f"CUDA events) {b['plain_ms'] * 1e3:.1f} us; bound "
-                  f"{b['bound_ms'] * 1e3:.4f} us ({b['bound_by']}) | {smi}",
-                  flush=True)
+            print(f"[cluster] standalone block-seed walk, heritage batch 8 "
+                  f"{cl['shape']}: {b['eligible']} eligible, {b['seeds']} "
+                  f"seeds; {b['ms'] * 1e3:.2f} us device vs plain (the "
+                  f"fixpoint, CUDA events) {b['plain_ms'] * 1e3:.1f} us; "
+                  f"bound {b['bound_ms'] * 1e3:.4f} us ({b['bound_by']}) | "
+                  f"{smi}", flush=True)
         w = cl["walk"]
         print(f"[cluster] C2 heritage batch 8 {w['shape']}: {w['walked']} "
               f"slots walked, {w['emitted']} emitted; {w['ms'] * 1e3:.2f} us "
               f"device vs plain (host walk, CUDA events) "
               f"{w['plain_ms'] * 1e3:.1f} us; bound "
-              f"{w['bound_ms'] * 1e3:.4f} us ({w['bound_by']}) | ptxas C1 "
+              f"{w['bound_ms'] * 1e3:.4f} us ({w['bound_by']}) | ptxas walk "
               f"{ptxas['cluster_block_seeds']} | C2 "
               f"{ptxas['cluster_floor_walk']} | {smi}", flush=True)
+        stage_ms = {}
         for name in ("office", "heritage", "structured"):
-            st = cluster_stage_ms(name, dev)
-            print(f"[cluster] {name} batch 8 cluster stage, device time: "
-                  f"eager {st['eager']:.3f} ms ({st['blocks']['eager']} "
-                  f"blocks: to the last occupied one, the CPU's count), "
-                  f"captured "
-                  f"{st['graph']:.3f} ms ({st['blocks']['graph']} blocks: "
-                  f"all, as in the step graph); outputs equal | {smi}",
-                  flush=True)
+            st = stage_ms[name] = cluster_stage_ms(name, dev)
+            print(f"[cluster] {name} batch 8 cluster stage "
+                  f"({st['blocks']} blocks of 512), device time: plain loop "
+                  f"{st['plain']:.3f} ms, with C1 {st['kernel']:.3f} ms, "
+                  f"with C1 captured {st['graph']:.3f} ms; outputs equal | "
+                  f"{smi}", flush=True)
         print(f"[cluster] phase {time.perf_counter() - t0:.1f} s", flush=True)
 
         launches = collections.Counter()
@@ -2608,12 +2930,18 @@ def main():
                   "launches a step (at most 4)")
             check(t["lm_refine"] == 1,
                   f"{name} timing: {t['lm_refine']} L1 launches a step")
+            check(t["cluster_block_scan"] == 1
+                  and t["cluster_block_seeds"] == 0,
+                  f"{name} timing: {t['cluster_block_scan']} block-scan and "
+                  f"{t['cluster_block_seeds']} block-seed launches a step "
+                  "(want 1 and 0)")
             print(f"[timing] {name} batch 8: {dt * 1e3:.1f} ms/step, "
                   f"{pps:.2f} pairs/s; per step: "
                   f"{t['label_prop_propagate']:g} "
                   f"propagation launches ({t['sweeps']:g} sweeps), "
                   f"{t['label_prop_sweep']:g} one-sweep and "
                   f"{t['gather_rows']:g} gather launches, "
+                  f"{t['cluster_block_scan']:g} block-scan (C1), "
                   f"{t['cluster_block_seeds']:g} block-seed and "
                   f"{t['cluster_floor_walk']:g} floor-walk launches, "
                   f"{t['lm_refine']:g} L1 launches, "
@@ -2696,6 +3024,12 @@ def main():
               f"{l1['bound_ms'] * 1e3:.4f} us ({l1['bound_by']}: "
               f"{l1['ops']} ops) | ptxas {ptxas['lm_refine']} | {smi}",
               flush=True)
+        print(f"[lm] L1's scratch instantiation bitwise equal to the "
+              f"registers one at the heritage step's LM; us a launch in "
+              f"turns (registers, scratch, scratch, registers): "
+              + ", ".join(f"{x * 1e3:.2f}" for x in l1["turns"])
+              + f" | ptxas scratch {ptxas['lm_refine_scratch']} | {smi}",
+              flush=True)
         print(f"[lm] phase {time.perf_counter() - t0:.1f} s", flush=True)
         phase_mesh(dev, counters)
         print(f"[mesh] {smi}", flush=True)
@@ -2731,6 +3065,7 @@ def main():
 
     her = k1["heritage"]
     big = k1[MEASURE_K1]
+    scan = cl["scan"]["heritage"]
     g = p1[(1, 9216)]
     p1_bound_ms, p1_bound_by = p1_bound(1, 9216)
 
@@ -2761,6 +3096,7 @@ def main():
              plain_wall_ms=her["plain_wall_ms"],
              launches_by_path={k: {n: v[n] for n in (
                  "label_prop_propagate", "sweeps")} for k, v in paths.items()},
+             heritage_step_launches=k1_step,
              at_v16384=dict(
                  V=big["V"], bound=big["bound"], ms=big["propagate_ms"],
                  plain_ms=big["plain_ms"], bound_ms=big["propagate_bound_ms"],
@@ -2792,6 +3128,22 @@ def main():
              launches_per_step=per_step_of("gather_rows"),
              ptxas=ptxas["gather_rows"],
              shape="(1, 9216) int32; ms device time; off the main path"),
+        dict(KERNELS["cluster_block_scan"],
+             launches=launches["cluster_block_scan"],
+             max_abs_err=cl_err["scan"], ms=scan["ms"],
+             plain_ms=scan["plain_ms"], bound_ms=scan["bound_ms"],
+             bound_by=scan["bound_by"], library_ms=scan["library_ms"],
+             launches_per_step=per_step_of("cluster_block_scan"),
+             by_config=cl["scan"], cluster_stage_ms=stage_ms,
+             launches_by_path={k: v["cluster_block_scan"]
+                               for k, v in paths.items()},
+             ptxas=ptxas["cluster_block_scan"],
+             shape=f"the block scan of the heritage batch-8 step's "
+                   f"hypotheses {scan['shape']}; ms device time, plain_ms "
+                   "the plain block loop's device time, library_ms "
+                   "torch.matmul(geo_f, stats_cols) a block (the member "
+                   "sums alone, as the JAX package computes them); "
+                   "max_abs_err the most outputs that differ"),
         dict(KERNELS["cluster_block_seeds"],
              launches=launches["cluster_block_seeds"],
              max_abs_err=cl_err["seeds"], ms=cl["ms"],
@@ -2803,10 +3155,10 @@ def main():
                                for k, v in paths.items()},
              ptxas=ptxas["cluster_block_seeds"],
              shape=f"one block {cl['shape']} bool of the heritage batch-8 "
-                   "step, the mean over its blocks; ms device time, "
-                   "plain_ms the fixpoint's time by CUDA events (it reads "
-                   "back each round); max_abs_err the most outputs that "
-                   "differ"),
+                   "step's plain scan, the mean over its blocks; ms device "
+                   "time, plain_ms the fixpoint's time by CUDA events (it "
+                   "reads back each round); max_abs_err the most outputs "
+                   "that differ; off the main path"),
         dict(KERNELS["cluster_floor_walk"],
              launches=launches["cluster_floor_walk"],
              max_abs_err=cl_err["walk"], ms=cl["walk"]["ms"],
@@ -2833,6 +3185,8 @@ def main():
              plain_device_kernels=l1["plain_kernels"],
              launches_by_path={k: v["lm_refine"] for k, v in paths.items()},
              ptxas=ptxas["lm_refine"],
+             scratch_ms=l1["scratch_ms"],
+             ptxas_scratch=ptxas["lm_refine_scratch"],
              shape=f"the LM of the heritage batch-8 step, {l1['lanes']} "
                    f"lanes x {l1['planes']} planes, 50 iterations at most; "
                    "ms a launch by CUDA events over 20 launches back to "

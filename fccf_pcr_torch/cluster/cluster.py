@@ -6,13 +6,12 @@ Reference semantics are kept exactly, as in the JAX package:
 
   - <= 10 hypotheses of a type pass through unclustered; 0 -> one
     identity representative (:1043-1063);
-  - otherwise greedy leader clustering, derived in parallel: index i is a
-    seed iff it is eligible (valid, not the type's last index) and no
-    earlier seed's ball covers it. Blocks of 512 indices are scanned in
-    order; each block's geometric ball predicates are computed for its
-    rows only, and intra-block dependencies resolve with a small
-    fixpoint. Members of a seed's cluster are its whole ball within the
-    type (allocated or not, the reference's overlap quirk);
+  - otherwise greedy leader clustering: index i is a seed iff it is
+    eligible (valid, not the type's last index) and no earlier seed's
+    ball covers it. Blocks of 512 indices are scanned in order (the
+    block scan, ``ops.cluster_kernels.block_scan``). Members of a seed's
+    cluster are its whole ball within the type (allocated or not, the
+    reference's overlap quirk);
   - clusters sorted by size desc (stable), then emitted with the adaptive
     floor walk (:1126-1229), each representative being the mean
     translation and the axis-averaged rotation of its members.
@@ -20,19 +19,17 @@ Reference semantics are kept exactly, as in the JAX package:
 Every function takes leading batch dims (a pair axis), and the three
 types are one more lane axis, and both branches of the <= 10 test are
 computed and selected per lane, as under the JAX package's ``jax.vmap``.
-On the CPU the block scan stops at the batch's last occupied block, as
-the JAX package's does (one host read). On a card it runs all
-``H // 512`` blocks, as the register step's CUDA graph needs (a fixed
-trip count, and the eager warm-up before a capture must run the same
-operations as the capture). A block past every lane's last hypothesis
-has no valid row or column, so it changes no seed and adds only zeros
-to the member sums, whose running total (``0.0 +`` the first tile) is
-never -0.0: both trip counts give the same bits.
+On a card the block scan is one launch of the kernel C1 whatever
+``H // 512`` is, as the register step's CUDA graph needs (a fixed
+launch count, and the eager warm-up before a capture runs the same
+launch as the capture). On the CPU its plain version stops at the
+batch's last occupied block, as the JAX package's does (one host read):
+the same bits.
 
-Host syncs: none on a card, where the intra-block fixpoint and the floor
-walk are ``ops.cluster_kernels``' kernels C1 and C2; on the CPU their
-plain versions read back to the host (one read a fixpoint round, and the
-walk over every lane with one transfer each way).
+Host syncs: none on a card, where the block scan and the floor walk are
+``ops.cluster_kernels``' kernels C1 and C2; on the CPU their plain
+versions read back to the host (one read a fixpoint round, and the walk
+over every lane with one transfer each way).
 """
 
 from __future__ import annotations
@@ -44,11 +41,9 @@ import torch
 from ..config import Capacities, FCCFParams
 from ..hypotheses.transforms import Hypotheses
 from ..ops import geometry
-from ..ops.batch import constant, fold_sum, small_matmul, take
-from ..ops.cluster_kernels import block_seeds, floor_walk
+from ..ops.batch import constant, take
+from ..ops.cluster_kernels import block_scan, floor_walk
 from ..ops.voxelize import compact
-
-_SEED_BLOCK = 512
 
 
 class Representatives(NamedTuple):
@@ -61,95 +56,13 @@ class Representatives(NamedTuple):
     overflow: torch.Tensor  # (...) bool, any type's seed/rep capacity exceeded
 
 
-def _ball_rows(t_rows, px_rows, t, px, params):
-    """(..., B, H) ball predicates: translation within cluster_dist
-    (squared) AND rotation within cluster_angle (angle between Q.x_hat
-    images)."""
-    cos_gate = geometry.cos_deg(params.cluster_angle)
-    r2 = params.cluster_dist * params.cluster_dist
-    d2 = (
-        torch.sum(t_rows * t_rows, dim=-1)[..., :, None]
-        + torch.sum(t * t, dim=-1)[..., None, :]
-        - 2.0 * small_matmul(t_rows, t.mT)
-    )
-    cosm = torch.clamp(small_matmul(px_rows, px.mT), -1.0, 1.0)
-    return (d2 <= r2) & (cosm >= cos_gate)
-
-
-def _block_count(last_idx, H, B):
-    """The blocks the scan visits: all ``H // B`` on a card, up to the
-    batch's last occupied one on the CPU (one host read; module doc: the
-    same bits)."""
-    if last_idx.is_cuda:
-        return H // B
-    return (int(torch.amax(last_idx)) + 1 + B - 1) // B
-
-
 def _greedy_seeds_all_types(masks, t, px, py, params):
     """Exact greedy-leader seed sets + per-slot cluster stats in one
     ordered block scan: masks (..., 3, H), t, px, py (..., H, 3). Returns
-    (seeds (..., 3, H), size (..., 3, H), sums (..., 3, H, 9))."""
-    lead = tuple(masks.shape[:-2])
-    n_types, H = masks.shape[-2:]
-    dev = t.device
-    dt = t.dtype
-    B = min(_SEED_BLOCK, H)
-    if H % B:
-        raise ValueError(f"max_hypotheses={H} must be a multiple of {B}")
-    idx = torch.arange(H, device=dev)
-    last_idx = torch.amax(torch.where(masks, idx, -1), dim=-1)
-    eligible = masks & (idx != last_idx[..., None])
-    bi = torch.arange(B, device=dev)
-    lower = bi[:, None] < bi[None, :]  # [j, i] within block
-    # Per-type member stats: columns [t, px, py, 1] per type lane, zeroed
-    # outside the lane.
-    stats10 = torch.cat(
-        [t, px, py, torch.ones(lead + (H, 1), dtype=dt, device=dev)], dim=-1
-    )
-    stats_cols = stats10[..., None, :, :] * masks[..., None].to(dt)
-    stats_cols = stats_cols.transpose(-3, -2).reshape(lead + (H, n_types * 10))
-
-    covered = torch.zeros_like(masks)
-    seeds = torch.zeros_like(masks)
-    size = torch.zeros(masks.shape, dtype=dt, device=dev)
-    sums = torch.zeros(masks.shape + (9,), dtype=dt, device=dev)
-
-    n_blocks = _block_count(last_idx, H, B)
-    for i in range(n_blocks):
-        sl = slice(i * B, (i + 1) * B)
-        t_rows = t[..., sl, :]
-        px_rows = px[..., sl, :]
-        mask_rows = masks[..., sl]
-        elig_b = (eligible & ~covered)[..., sl]
-
-        geo = _ball_rows(t_rows, px_rows, t, px, params)  # (..., B, H)
-        geo_f = geo.to(dt)
-        sub = (geo[..., None, :, sl] & mask_rows[..., :, None]
-               & mask_rows[..., None, :])
-        sub_lower = sub & lower
-
-        s = block_seeds(sub_lower, elig_b)
-
-        s_eff = (s & mask_rows).to(dt)  # (..., 3, B)
-        # (..., 3, H) seed-ball hit counts: small integers, exact in any
-        # order of additions.
-        cov_hits = s_eff @ geo_f
-        covered = covered | ((cov_hits > 0.5) & masks)
-        # (..., B, 3*10) member sums: a fixed pairwise tree inside each
-        # column tile of B, the tiles added in order, up to the last
-        # block scanned (past the batch's last occupied column every
-        # column is zero).
-        ss = 0.0
-        for j in range(n_blocks):
-            cl = slice(j * B, (j + 1) * B)
-            ss = ss + fold_sum(geo_f[..., :, cl, None]
-                               * stats_cols[..., None, cl, :], dim=-2)
-        ss = ss.reshape(lead + (B, n_types, 10)).transpose(-3, -2)
-        ss = ss * mask_rows[..., None].to(dt)
-        seeds[..., sl] = s
-        size[..., sl] = ss[..., 9]
-        sums[..., sl, :] = ss[..., 0:9]
-    return seeds, size, sums
+    (seeds (..., 3, H), size (..., 3, H), sums (..., 3, H, 9)): the
+    kernel C1 on a card (one launch), its plain version on the CPU
+    (``ops.cluster_kernels.block_scan``)."""
+    return block_scan(masks, t, px, py, params)
 
 
 def _emit_representatives(seed_valid, size, sums, cluster_num, caps):

@@ -18,12 +18,15 @@
 //
 // - a sum over the last axis (torch.sum: n1.p1, the offsets, the step's
 //   squared norm, the quaternion norm and the costs) adds as torch's CUDA
-//   reduce kernel does for a row of n <= 128 entries: block_width =
-//   min(the largest power of two <= n, 32) threads, thread x keeping
-//   entries x, x + bw, x + 2 bw, x + 3 bw (at n = 128, its float4 vector
-//   4x .. 4x + 3) in four accumulators that start at 0 and are then added
-//   in order, then a shuffle tree at offsets bw / 2, ..., 2, 1
-//   (torch_sum_rows, tsum3, tsum4; tools/torch_sum_order.py probes it);
+//   reduce kernel (ATen/native/cuda/Reduce.cuh) does for R rows of n
+//   entries: setReduceConfig's block of bw x bh threads (from the largest
+//   powers of two <= n, or <= n / 4 where n >= 128 is read as float4
+//   vectors, and <= R), thread x keeping its entries (x, x + bw, ..., or
+//   its vectors) in four accumulators that start at 0 and are then added
+//   in order, a tree over the block's width at offsets bw / 2, ..., 1 and,
+//   where a row is split over the block's height (n >= 8192), a tree over
+//   it (SumConfig, torch_sum_rows, tsum3, tsum4;
+//   tools/torch_sum_order.py probes it on the card);
 // - J^T J and J^T r over the 4F residual rows add as ops/batch.py's
 //   fold_sum: the first half plus the second, repeated, an odd last entry
 //   carried (fold_rows);
@@ -36,14 +39,27 @@
 // int32, the LM steps (solves) each lane ran.
 //
 // Design: a warp a lane (a block of 32 threads), its state (q, t, lam)
-// in registers, the same in every thread. Thread i holds plane i (F <= 32)
-// and computes its 4 residual rows and their Jacobian into shared memory;
-// the costs and the 27 sums of J^T J (21 distinct entries) and J^T r are
-// warp shuffles; thread 0 runs the 6x6 Cholesky solve, the exponential
-// map and the normalization, and the new pose goes to every thread by
-// shuffle. A lane stops once it is done (its tolerance met) or its cost
-// is not > 0 (zero or NaN: no step can be accepted, so q and t are
-// final); lm_loop runs such a lane on with only lam changing.
+// in registers, the same in every thread. Thread l takes planes l, l + 32,
+// l + 64, ... and computes their 4 residual rows and their Jacobian; the
+// costs and the 27 sums of J^T J (21 distinct entries) and J^T r are warp
+// shuffles; thread 0 runs the 6x6 Cholesky solve, the exponential map and
+// the normalization, and the new pose goes to every thread by shuffle.
+// The kernel has two instantiations, picked from F at launch:
+// - registers (F <= 32; every shipped preset has 16): a thread holds its
+//   plane in registers, the rows sit in shared memory, the costs' blocks
+//   are at most 64 threads wide (torch_sum_small) and J^T J folds in
+//   registers and shuffles;
+// - scratch (any F): the planes are read from global memory at each use,
+//   and the rows, the squared residuals and the fold's levels go through
+//   a scratch buffer in global memory (L1 and L2 serve it: no other block
+//   reads it); J^T J folds level by level in that buffer down to 32
+//   entries, then by shuffles.
+// The order of additions is the same in both, so the scratch one is also
+// bit-equal at F <= 32; the registers one is kept for its speed there
+// (PERF.md section 6 times both at F = 16). A lane stops once it is done
+// (its tolerance met) or its cost is not > 0 (zero or NaN: no step can be
+// accepted, so q and t are final); lm_loop runs such a lane on with only
+// lam changing.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -51,10 +67,17 @@
 
 namespace {
 
-constexpr int kMaxPlanes = 32;             // F: a plane a thread
-constexpr int kMaxRows = 4 * kMaxPlanes;   // residual rows
+// The most planes a lane: 4F = 16384 residual rows, the longest row
+// whose order of additions tools/torch_sum_order.py has probed on the
+// card. Above 4F = 130560 torch's reduce splits a row over several blocks
+// with a reduction in global memory (setReduceConfig's ctas_per_output),
+// an order this kernel does not model; 16388-130560 is not probed.
+constexpr int kMaxPlanes = 4096;
+constexpr int kRegPlanes = 32;             // a plane a thread, in registers
+constexpr int kRegRows = 4 * kRegPlanes;   // residual rows in shared memory
 constexpr int kRowStride = 8;              // J (6), r, pad
 constexpr int kSums = 27;                  // J^T J (a <= b: 21), J^T r (6)
+constexpr int kReduceThreads = 512;        // Reduce.cuh's MAX_NUM_THREADS
 constexpr unsigned kFull = 0xffffffffu;
 
 // The float32 values of lm_loop's Python scalars.
@@ -87,24 +110,109 @@ __device__ __forceinline__ float tsum4(float a0, float a1, float a2,
   return (s0 + s2) + (s1 + s3);
 }
 
-// torch.sum of x[0..n) (0 < n <= 128) on the card, in every thread.
-__device__ float torch_sum_rows(const float* x, int n, int lane) {
-  int bw = 1;
-  while (2 * bw <= n && 2 * bw <= 32) bw *= 2;
-  float v = 0.0f;
-  if (n == 128) {  // read as float4 vectors: thread x holds 4x .. 4x + 3
-    const float* e = x + 4 * lane;
-    v = (((0.0f + e[0]) + (0.0f + e[1])) + (0.0f + e[2])) + (0.0f + e[3]);
-  } else if (lane < bw) {
-    float acc[4];
+__device__ __forceinline__ int last_pow2(int x) {
+  int p = 1;
+  while (2 * p <= x) p *= 2;
+  return p;
+}
+
+// The block torch's reduce kernel takes to sum R rows of n (> 0)
+// contiguous float32 entries (setReduceConfig, Reduce.cuh): bw threads
+// across a row; ny > 1 where a row is split over the block's height; vec
+// where the row is read as float4 vectors (n >= 128; the port's rows are
+// 4F entries, so their starts are 16-byte aligned and there is no tail).
+struct SumConfig {
+  int n, bw, ny;
+  bool vec;
+};
+
+__device__ SumConfig sum_config(int n, int R) {
+  const bool vec = n >= 128;
+  const int dim0 = vec ? n / 4 : n;
+  const int d = dim0 < kReduceThreads ? last_pow2(dim0) : kReduceThreads;
+  const int r = R < kReduceThreads ? last_pow2(R) : kReduceThreads;
+  int bw = min(d, 32);
+  const int bh = min(r, kReduceThreads / bw);
+  bw = min(d, kReduceThreads / bh);
+  const int per_thread = (n + bw - 1) / bw;
+  const bool split = per_thread >= min(bh * 16, 256);
+  return {n, bw, split ? bh : 1, vec};
+}
+
+// One thread (x, y) of that block: its accumulators over its entries,
+// then added in order.
+__device__ float reduce_thread(const float* e, const SumConfig& c, int x,
+                               int y) {
+  const int step = c.bw * c.ny;
+  float a[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+  if (c.vec) {
+    for (int v = x + y * c.bw; 4 * v + 3 < c.n; v += step)
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int i = lane + k * bw;
-      acc[k] = i < n ? 0.0f + x[i] : 0.0f;
-    }
-    v = ((acc[0] + acc[1]) + acc[2]) + acc[3];
+      for (int i = 0; i < 4; ++i) a[i] = a[i] + e[4 * v + i];
+  } else {
+    int idx = x + y * c.bw;
+    for (; idx + 3 * step < c.n; idx += 4 * step)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = a[i] + e[idx + i * step];
+    for (int i = 0; i < 4 && idx < c.n; ++i, idx += step)
+      a[i] = a[i] + e[idx];
   }
-  for (int off = bw >> 1; off > 0; off >>= 1)
+  return ((a[0] + a[1]) + a[2]) + a[3];
+}
+
+// torch.sum of x[0..c.n) on the card, in every thread of the warp. vbuf
+// holds kReduceThreads floats where the block is wider than a warp.
+__device__ float torch_sum_rows(const float* x, const SumConfig& c, int lane,
+                                float* vbuf) {
+  if (c.ny == 1 && c.bw <= 32) {
+    float v = lane < c.bw ? reduce_thread(x, c, lane, 0) : 0.0f;
+    for (int off = c.bw >> 1; off > 0; off >>= 1)
+      v = v + __shfl_down_sync(kFull, v, off);
+    return __shfl_sync(kFull, v, 0);
+  }
+  const int nt = c.bw * c.ny;
+  for (int u = lane; u < nt; u += 32)
+    vbuf[u] = reduce_thread(x, c, u % c.bw, u / c.bw);
+  __syncwarp();
+  // block_x_reduce: a tree over each row of the block, then
+  // block_y_reduce: a tree over its rows' sums.
+  for (int off = c.bw >> 1; off > 0; off >>= 1) {
+    for (int u = lane; u < c.ny * off; u += 32) {
+      const int y = u / off, xx = u % off;
+      vbuf[y * c.bw + xx] = vbuf[y * c.bw + xx] + vbuf[y * c.bw + xx + off];
+    }
+    __syncwarp();
+  }
+  for (int off = c.ny >> 1; off > 0; off >>= 1) {
+    for (int y = lane; y < off; y += 32)
+      vbuf[y * c.bw] = vbuf[y * c.bw] + vbuf[(y + off) * c.bw];
+    __syncwarp();
+  }
+  const float v = vbuf[0];
+  __syncwarp();  // vbuf is reused by the next sum
+  return v;
+}
+
+// torch_sum_rows for a row of n <= 128 entries (the registers
+// instantiation's): there the block is one row of bw <= 64 threads
+// (ny = 1) and a thread holds at most 4 entries, one an accumulator
+// (x + i bw, or the float4 4x .. 4x + 3), so no shared memory is needed.
+__device__ __forceinline__ float torch_sum_small(const float* x,
+                                                 const SumConfig& c,
+                                                 int lane) {
+  auto part = [&](int u) {  // thread u's accumulators, added in order
+    const int base = c.vec ? 4 * u : u, step = c.vec ? 1 : c.bw;
+    float a[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int k = base + i * step;
+      a[i] = u < c.bw && k < c.n ? 0.0f + x[k] : 0.0f;
+    }
+    return ((a[0] + a[1]) + a[2]) + a[3];
+  };
+  float v = part(lane);
+  if (c.bw > 32) v = v + part(lane + 32);  // the tree's step at offset 32
+  for (int off = min(c.bw, 32) >> 1; off > 0; off >>= 1)
     v = v + __shfl_down_sync(kFull, v, off);
   return __shfl_sync(kFull, v, 0);
 }
@@ -241,13 +349,46 @@ __device__ __forceinline__ void folded_once(const float* rows, int i, int h,
   }
 }
 
-// fold_sum over the n (<= 128) residual rows of the 27 products; the sums
-// end in thread 0.
+// fold_sum over the n residual rows of the 27 products; the sums end in
+// thread 0. With kLevels (any n) the first step's entries go to `levels`
+// (27 floats an entry, ceil(n / 2) entries), which is folded in place,
+// a step at a time, down to 32 entries; without (n <= 128) the first two
+// steps are taken in registers.
+template <bool kLevels>
 __device__ void fold_rows(const float* rows, int n, int lane,
-                          float x[kSums]) {
+                          float x[kSums], float* levels) {
 #pragma unroll
   for (int s = 0; s < kSums; ++s) x[s] = 0.0f;
-  if (n <= 32) {
+  if constexpr (kLevels) {
+    int h = n >> 1;
+    int m = h + (n & 1);
+    for (int e = lane; e < m; e += 32) {
+      float p[kSums];
+      folded_once(rows, e < h ? e : 2 * h, h, p);
+#pragma unroll
+      for (int s = 0; s < kSums; ++s) levels[e * kSums + s] = p[s];
+    }
+    __syncwarp();
+    while (m > 32) {
+      h = m >> 1;
+      for (int e = lane; e < h; e += 32)
+#pragma unroll
+        for (int s = 0; s < kSums; ++s)
+          levels[e * kSums + s] =
+              levels[e * kSums + s] + levels[(e + h) * kSums + s];
+      __syncwarp();
+      if (m & 1) {  // the carried entry moves to slot h
+        if (lane < kSums) levels[h * kSums + lane] = levels[2 * h * kSums + lane];
+        __syncwarp();
+      }
+      m = h + (m & 1);
+    }
+    if (lane < m)
+#pragma unroll
+      for (int s = 0; s < kSums; ++s) x[s] = levels[lane * kSums + s];
+    __syncwarp();  // levels is rewritten by the next iteration
+    n = m;
+  } else if (n <= 32) {
     if (lane < n) row_products(rows, lane, x);
   } else if (n <= 64) {
     const int h = n >> 1;
@@ -358,44 +499,70 @@ __device__ void rotate_pose(const float v[3], const float q[4],
   for (int c = 0; c < 4; ++c) out[c] = m[c] / den;
 }
 
+// Plane i of lane b, and n1 . p1, from global memory.
+__device__ __forceinline__ Plane load_plane(
+    const float* __restrict__ n1, const float* __restrict__ p1,
+    const float* __restrict__ n2, const float* __restrict__ p2,
+    const float* __restrict__ w, long long b, int F, int i) {
+  Plane pl;
+  const long long o = (b * F + i) * 3;
+  float a[3];
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    pl.n1[c] = n1[o + c];
+    a[c] = p1[o + c];
+    pl.n2[c] = n2[o + c];
+    pl.p2[c] = p2[o + c];
+  }
+  pl.n1p1 = tsum3(pl.n1[0] * a[0], pl.n1[1] * a[1], pl.n1[2] * a[2]);
+  pl.w = w[b * F + i];
+  return pl;
+}
+
+// kInRegs: the registers instantiation (F <= kRegPlanes, scratch unused);
+// otherwise the scratch one.
+template <bool kInRegs>
 __global__ void __launch_bounds__(32)
 lm_refine_kernel(const float* __restrict__ n1, const float* __restrict__ p1,
                  const float* __restrict__ n2, const float* __restrict__ p2,
                  const float* __restrict__ w, float* __restrict__ q_out,
                  float* __restrict__ t_out, int* __restrict__ steps_out,
-                 int F, int iters) {
-  __shared__ float rows[kMaxRows * kRowStride];
-  __shared__ float sq[kMaxRows];
+                 float* __restrict__ scratch, int F, int iters) {
+  __shared__ float rows_s[kInRegs ? kRegRows * kRowStride : 1];
+  __shared__ float sq_s[kInRegs ? kRegRows : 1];
+  __shared__ float vbuf[kInRegs ? 1 : kReduceThreads];
   const long long b = blockIdx.x;
   const int lane = threadIdx.x;
   const int n = 4 * F;
-
-  Plane pl = {};
-  if (lane < F) {
-    const long long o = (b * F + lane) * 3;
-    float a[3];
-#pragma unroll
-    for (int c = 0; c < 3; ++c) {
-      pl.n1[c] = n1[o + c];
-      a[c] = p1[o + c];
-      pl.n2[c] = n2[o + c];
-      pl.p2[c] = p2[o + c];
-    }
-    pl.n1p1 = tsum3(pl.n1[0] * a[0], pl.n1[1] * a[1], pl.n1[2] * a[2]);
-    pl.w = w[b * F + lane];
+  // The scratch of this lane: rows, squares, fold levels.
+  float* rows = rows_s;
+  float* sq = sq_s;
+  float* levels = nullptr;
+  if constexpr (!kInRegs) {
+    rows = scratch + b * (long long)(kRowStride * n + n + kSums * ((n + 1) / 2));
+    sq = rows + kRowStride * n;
+    levels = sq + n;
   }
+  const SumConfig cost = sum_config(n, gridDim.x);  // torch.sum(r * r, -1)
+
+  Plane mine = {};
+  if (kInRegs && lane < F) mine = load_plane(n1, p1, n2, p2, w, b, F, lane);
 
   float q[4] = {1.0f, 0.0f, 0.0f, 0.0f};
   float t[3] = {0.0f, 0.0f, 0.0f};
   float lam = f32(1e-4);
   int steps = 0;
   for (int it = 0; it < iters; ++it) {
-    if (lane < F) plane_rows(pl, q, t, lane, rows, sq);
+    for (int i = lane; i < F; i += 32) {
+      const Plane pl = kInRegs ? mine : load_plane(n1, p1, n2, p2, w, b, F, i);
+      plane_rows(pl, q, t, i, rows, sq);
+    }
     __syncwarp();
-    const float c_old = torch_sum_rows(sq, n, lane);
+    const float c_old = (kInRegs ? torch_sum_small(sq, cost, lane)
+                               : torch_sum_rows(sq, cost, lane, vbuf));
     if (!(c_old > 0.0f)) break;  // q and t are final
     float x[kSums];
-    fold_rows(rows, n, lane, x);
+    fold_rows<!kInRegs>(rows, n, lane, x, levels);
     float pose[7];  // q_new, t_new, from thread 0
     if (lane == 0) {
       float delta[6];
@@ -407,14 +574,16 @@ lm_refine_kernel(const float* __restrict__ n1, const float* __restrict__ p1,
 #pragma unroll
     for (int c = 0; c < 7; ++c) pose[c] = __shfl_sync(kFull, pose[c], 0);
     __syncwarp();  // every thread has read this iteration's rows
-    if (lane < F) {
+    for (int i = lane; i < F; i += 32) {
+      const Plane pl = kInRegs ? mine : load_plane(n1, p1, n2, p2, w, b, F, i);
       float r[4], uvn[3], uvp[3], n2r[3], p2r[3];
       residuals(pl, pose, pose + 4, r, uvn, uvp, n2r, p2r);
 #pragma unroll
-      for (int c = 0; c < 4; ++c) sq[4 * lane + c] = r[c] * r[c];
+      for (int c = 0; c < 4; ++c) sq[4 * i + c] = r[c] * r[c];
     }
     __syncwarp();
-    const float c_new = torch_sum_rows(sq, n, lane);
+    const float c_new = (kInRegs ? torch_sum_small(sq, cost, lane)
+                               : torch_sum_rows(sq, cost, lane, vbuf));
     ++steps;
     const bool accept = c_new < c_old;
     const bool stop =
@@ -442,18 +611,30 @@ lm_refine_kernel(const float* __restrict__ n1, const float* __restrict__ p1,
 
 }  // namespace
 
-// The LM solve of Bt lanes of F (1..32) plane pairs, `iters` iterations at
-// most, on `stream`. Returns cudaGetLastError() of the launch (0 =
-// launched).
+// The floats of scratch a lane of F planes needs on the scratch
+// instantiation.
+extern "C" long long fccf_lm_scratch_floats(int F) {
+  const long long n = 4LL * F;
+  return kRowStride * n + n + kSums * ((n + 1) / 2);
+}
+
+// The LM solve of Bt lanes of F (1..kMaxPlanes) plane pairs, `iters`
+// iterations at most, on `stream`: the registers instantiation where
+// in_regs (F <= kRegPlanes), else the scratch one, whose scratch holds
+// Bt * fccf_lm_scratch_floats(F) floats. Returns cudaGetLastError() of
+// the launch (0 = launched).
 extern "C" int fccf_lm_refine(const void* n1, const void* p1, const void* n2,
                               const void* p2, const void* w, void* q_out,
-                              void* t_out, void* steps_out, int Bt, int F,
-                              int iters, void* stream) {
-  if (Bt <= 0 || F <= 0 || F > kMaxPlanes || iters < 0)
+                              void* t_out, void* steps_out, void* scratch,
+                              int Bt, int F, int iters, int in_regs,
+                              void* stream) {
+  if (Bt <= 0 || F <= 0 || F > kMaxPlanes || iters < 0 ||
+      (in_regs && F > kRegPlanes) || (!in_regs && scratch == nullptr))
     return (int)cudaErrorInvalidValue;
-  lm_refine_kernel<<<Bt, 32, 0, (cudaStream_t)stream>>>(
+  auto kernel = in_regs ? lm_refine_kernel<true> : lm_refine_kernel<false>;
+  kernel<<<Bt, 32, 0, (cudaStream_t)stream>>>(
       (const float*)n1, (const float*)p1, (const float*)n2, (const float*)p2,
-      (const float*)w, (float*)q_out, (float*)t_out, (int*)steps_out, F,
-      iters);
+      (const float*)w, (float*)q_out, (float*)t_out, (int*)steps_out,
+      (float*)scratch, F, iters);
   return (int)cudaGetLastError();
 }

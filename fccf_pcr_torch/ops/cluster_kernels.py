@@ -1,23 +1,31 @@
-"""The cluster stage's two sequential loops (C1, C2), each as a CUDA
-kernel and its plain PyTorch version.
+"""The cluster stage's sequential loops, each as a CUDA kernel and its
+plain PyTorch version.
 
-  - ``block_seeds`` (C1): the greedy seeds of one block of hypotheses,
-    the JAX package's intra-block ``lax.while_loop``
-    (``fccf_pcr_tpu/cluster/cluster.py:151-161``);
+  - ``block_scan`` (C1): the whole greedy-leader block scan, the seeds
+    and the member sums of every hypothesis, the JAX package's loop over
+    blocks with its intra-block ``lax.while_loop`` and its member-sum
+    product (``fccf_pcr_tpu/cluster/cluster.py:131-200``), one launch
+    for every block;
+  - ``block_seeds``: the greedy seeds of one block alone (the
+    ``lax.while_loop`` at ``:151-161``), given its predicate block; the
+    walk C1 runs inside, kept as a standalone entry off the main path;
   - ``floor_walk`` (C2): the adaptive floor walk's emit mask, the JAX
     package's ``lax.scan`` (``fccf_pcr_tpu/cluster/cluster.py:241-262``).
 
 CUDA tensors take the kernels of ``csrc/cluster.cu``, which run on the
 card with no host sync; there is no fallback: a missing ``nvcc``, a
 failed build or a refused launch raises. CPU tensors take the plain
-versions (``block_seeds_plain``: the fixpoint iterated until no lane
-changes, one host read a round; ``floor_walk_plain``: the walk in Python
-over every lane, one transfer each way). Any other device raises.
+versions (``block_scan_plain``: the block loop in PyTorch, with
+``block_seeds`` inside and the member sums as (B, B, 30) product tiles
+folded by ``fold_sum``; ``block_seeds_plain``: the fixpoint iterated
+until no lane changes, one host read a round; ``floor_walk_plain``: the
+walk in Python over every lane, one transfer each way). Any other
+device raises.
 
 The library is built with nvcc into ``fccf_pcr_torch/build/`` at first
-use and bound with ctypes (``ops.cuda_build``). ``SEEDS`` and ``WALKS``
-count the kernels' launches (``ops.graph.count_launch``: a launch
-captured into a CUDA graph counts at each replay).
+use and bound with ctypes (``ops.cuda_build``). ``SCANS``, ``SEEDS`` and
+``WALKS`` count the kernels' launches (``ops.graph.count_launch``: a
+launch captured into a CUDA graph counts at each replay).
 """
 
 from __future__ import annotations
@@ -28,15 +36,20 @@ import sys
 import numpy as np
 import torch
 
-from . import graph
+from . import geometry, graph
+from .batch import fold_sum, small_matmul
 from .cuda_build import CudaLibrary
 
-# Launches of cluster_block_seeds (C1) and cluster_floor_walk (C2).
+# Launches of cluster_block_scan (C1), of the standalone cluster_block_seeds
+# and of cluster_floor_walk (C2).
+SCANS = 0
 SEEDS = 0
 WALKS = 0
 _THIS = sys.modules[__name__]
-# The largest block C1 takes (csrc/cluster.cu: kMaxBlock).
+# The largest block the kernels take (csrc/cluster.cu: kMaxBlock), and the
+# block of the scan (the JAX package's _SEED_BLOCK).
 MAX_BLOCK = 512
+SEED_BLOCK = 512
 
 
 def _bind(lib):
@@ -45,6 +58,10 @@ def _bind(lib):
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    fn = lib.fccf_cluster_block_scan
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 3 + [
+        ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
 
 
 _LIBRARY = CudaLibrary("cluster.cu", _bind)
@@ -57,6 +74,105 @@ def build(force: bool = False):
 
 
 # ---------------------------------------------------------------- plain --
+
+
+def ball_rows(t_rows, px_rows, t, px, params):
+    """(..., B, H) ball predicates: translation within cluster_dist
+    (squared) AND rotation within cluster_angle (angle between Q.x_hat
+    images)."""
+    cos_gate = geometry.cos_deg(params.cluster_angle)
+    r2 = params.cluster_dist * params.cluster_dist
+    d2 = (
+        torch.sum(t_rows * t_rows, dim=-1)[..., :, None]
+        + torch.sum(t * t, dim=-1)[..., None, :]
+        - 2.0 * small_matmul(t_rows, t.mT)
+    )
+    cosm = torch.clamp(small_matmul(px_rows, px.mT), -1.0, 1.0)
+    return (d2 <= r2) & (cosm >= cos_gate)
+
+
+def block_count(last_idx, H, B):
+    """The blocks the plain scan visits: all ``H // B`` on a card, up to
+    the batch's last occupied one on the CPU (one host read; the same
+    bits: a block past every lane's last hypothesis has no valid row or
+    column, so it changes no seed and adds only zeros to the member sums,
+    whose running total, ``0.0 +`` the first tile, is never -0.0)."""
+    if last_idx.is_cuda:
+        return H // B
+    return (int(torch.amax(last_idx)) + 1 + B - 1) // B
+
+
+def block_scan_plain(masks, t, px, py, params):
+    """The greedy-leader seed sets and per-slot cluster stats in one
+    ordered block scan: masks (..., 3, H) bool, t, px, py (..., H, 3).
+    Returns (seeds (..., 3, H) bool, size (..., 3, H), sums (..., 3, H,
+    9)). Blocks of 512 indices in order; each block's ball predicates are
+    computed for its rows, its seeds by ``block_seeds`` on the strictly
+    lower (B, B) block, and its rows' member sums (of [t, px, py, 1] over
+    the row's ball within the type lane: allocated or not, the
+    reference's overlap quirk) as (B, B, 30) product tiles folded with a
+    fixed pairwise tree, the tiles added in order."""
+    lead = tuple(masks.shape[:-2])
+    n_types, H = masks.shape[-2:]
+    dev = t.device
+    dt = t.dtype
+    B = min(SEED_BLOCK, H)
+    if H % B:
+        raise ValueError(f"max_hypotheses={H} must be a multiple of {B}")
+    idx = torch.arange(H, device=dev)
+    last_idx = torch.amax(torch.where(masks, idx, -1), dim=-1)
+    eligible = masks & (idx != last_idx[..., None])
+    bi = torch.arange(B, device=dev)
+    lower = bi[:, None] < bi[None, :]  # [j, i] within block
+    # Per-type member stats: columns [t, px, py, 1] per type lane, zeroed
+    # outside the lane.
+    stats10 = torch.cat(
+        [t, px, py, torch.ones(lead + (H, 1), dtype=dt, device=dev)], dim=-1
+    )
+    stats_cols = stats10[..., None, :, :] * masks[..., None].to(dt)
+    stats_cols = stats_cols.transpose(-3, -2).reshape(lead + (H, n_types * 10))
+
+    covered = torch.zeros_like(masks)
+    seeds = torch.zeros_like(masks)
+    size = torch.zeros(masks.shape, dtype=dt, device=dev)
+    sums = torch.zeros(masks.shape + (9,), dtype=dt, device=dev)
+
+    n_blocks = block_count(last_idx, H, B)
+    for i in range(n_blocks):
+        sl = slice(i * B, (i + 1) * B)
+        t_rows = t[..., sl, :]
+        px_rows = px[..., sl, :]
+        mask_rows = masks[..., sl]
+        elig_b = (eligible & ~covered)[..., sl]
+
+        geo = ball_rows(t_rows, px_rows, t, px, params)  # (..., B, H)
+        geo_f = geo.to(dt)
+        sub = (geo[..., None, :, sl] & mask_rows[..., :, None]
+               & mask_rows[..., None, :])
+        sub_lower = sub & lower
+
+        s = block_seeds(sub_lower, elig_b)
+
+        s_eff = (s & mask_rows).to(dt)  # (..., 3, B)
+        # (..., 3, H) seed-ball hit counts: small integers, exact in any
+        # order of additions.
+        cov_hits = s_eff @ geo_f
+        covered = covered | ((cov_hits > 0.5) & masks)
+        # (..., B, 3*10) member sums: a fixed pairwise tree inside each
+        # column tile of B, the tiles added in order, up to the last
+        # block scanned (past the batch's last occupied column every
+        # column is zero).
+        ss = 0.0
+        for j in range(n_blocks):
+            cl = slice(j * B, (j + 1) * B)
+            ss = ss + fold_sum(geo_f[..., :, cl, None]
+                               * stats_cols[..., None, cl, :], dim=-2)
+        ss = ss.reshape(lead + (B, n_types, 10)).transpose(-3, -2)
+        ss = ss * mask_rows[..., None].to(dt)
+        seeds[..., sl] = s
+        size[..., sl] = ss[..., 9]
+        sums[..., sl, :] = ss[..., 0:9]
+    return seeds, size, sums
 
 
 def block_seeds_plain(sub_lower, elig):
@@ -147,6 +263,38 @@ def _launch_block_seeds(sub_lower, elig):
     return out
 
 
+def _launch_block_scan(masks, t, px, py, params):
+    lead, H = tuple(masks.shape[:-2]), masks.shape[-1]
+    B = min(SEED_BLOCK, H)
+    if H % B:
+        raise ValueError(f"max_hypotheses={H} must be a multiple of {B}")
+    dev = masks.device
+    _check(masks, "masks", torch.bool, lead + (3, H), dev)
+    for name, x in (("t", t), ("px", px), ("py", py)):
+        _check(x, name, torch.float32, lead + (H, 3), dev)
+    P = int(np.prod(lead, dtype=np.int64))
+    seeds = torch.empty(masks.shape, dtype=torch.bool, device=dev)
+    size = torch.empty(masks.shape, dtype=torch.float32, device=dev)
+    sums = torch.empty(masks.shape + (9,), dtype=torch.float32, device=dev)
+    if P == 0 or H == 0:
+        return seeds, size, sums
+    # The gates as the plain version's comparisons take them: float32.
+    r2 = float(np.float32(params.cluster_dist * params.cluster_dist))
+    cos_gate = geometry.cos_deg(params.cluster_angle)
+    inputs = [x.contiguous() for x in (masks, t, px, py)]
+    lib = build()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):  # the C entry launches on the current one
+        rc = lib.fccf_cluster_block_scan(
+            *(x.data_ptr() for x in inputs), seeds.data_ptr(),
+            size.data_ptr(), sums.data_ptr(), P, H, B, r2, cos_gate, stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"fccf_cluster_block_scan launch failed: CUDA error {rc}")
+    graph.count_launch(_THIS, "SCANS")
+    return seeds, size, sums
+
+
 def _launch_floor_walk(s_size, cluster_num):
     lead, W = tuple(s_size.shape[:-1]), s_size.shape[-1]
     _check(s_size, "s_size", torch.float32, lead + (W,), s_size.device)
@@ -173,6 +321,20 @@ def block_seeds(sub_lower, elig):
     if elig.device.type == "cuda":
         return _launch_block_seeds(sub_lower, elig)
     raise ValueError(f"block_seeds: unsupported device {elig.device}")
+
+
+def block_scan(masks, t, px, py, params):
+    """The greedy-leader block scan of every (..., type) lane: masks
+    (..., 3, H) bool, t, px, py (..., H, 3) float32, ``params`` with
+    cluster_dist and cluster_angle. Returns (seeds (..., 3, H) bool, size
+    (..., 3, H), sums (..., 3, H, 9)), see ``block_scan_plain``. CPU
+    tensors take the plain version, CUDA tensors the kernel C1 (one
+    launch, no host sync); any other device raises."""
+    if masks.device.type == "cpu":
+        return block_scan_plain(masks, t, px, py, params)
+    if masks.device.type == "cuda":
+        return _launch_block_scan(masks, t, px, py, params)
+    raise ValueError(f"block_scan: unsupported device {masks.device}")
 
 
 def floor_walk(s_size, cluster_num):

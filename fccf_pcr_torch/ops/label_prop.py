@@ -93,12 +93,14 @@ def build(force: bool = False):
     return _LIBRARY.load(force)
 
 
-# The kernel's grid: (row tiles, j slices, P) tiles of BI rows (one thread
-# a row; BI is fixed in csrc/label_prop.cu) by BJ columns, the widest
-# slices that still give 32 blocks per SM: several waves of short blocks
-# balance the SMs, as the work of a tile depends on its labels. On an H100
-# (132 SMs): V = 9216 -> 144 x 36 tiles of 64 x 256; V = 1536 -> 24 x 48
-# tiles of 64 x 32 (the narrowest).
+# The one-sweep kernel's grid: (row tiles, j slices, P) tiles of BI rows
+# (one thread a row; BI is fixed in csrc/label_prop.cu) by BJ columns, the
+# widest slices that still give 32 blocks per SM: several waves of short
+# blocks balance the SMs, as the work of a tile depends on its labels. On
+# an H100 (132 SMs): V = 9216 -> 144 x 36 tiles of 64 x 256; V = 1536 ->
+# 24 x 48 tiles of 64 x 32 (the narrowest). The propagation kernel takes
+# BJ as the widest slice (its shared memory) and sizes each pair's slices
+# by the same rule from the pair's bound, on the card.
 BI = 64
 
 

@@ -34,15 +34,22 @@ from ..ops.cuda_build import CudaLibrary
 # Launches of lm_refine_kernel (L1).
 LAUNCHES = 0
 _THIS = sys.modules[__name__]
-# The most plane pairs a lane L1 takes (csrc/lm.cu: kMaxPlanes).
-MAX_PLANES = 32
+# The most plane pairs a lane L1 takes (csrc/lm.cu: kMaxPlanes): 4F =
+# 16384 residual rows, the longest row whose order of additions in
+# torch's CUDA reduce tools/torch_sum_order.py has probed.
+MAX_PLANES = 4096
+# The most plane pairs a lane of L1's registers instantiation (kRegPlanes).
+REG_PLANES = 32
 
 
 def _bind(lib):
     fn = lib.fccf_lm_refine
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    fn = lib.fccf_lm_scratch_floats
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_longlong
 
 
 _LIBRARY = CudaLibrary("lm.cu", _bind)
@@ -54,12 +61,14 @@ def build(force: bool = False):
     return _LIBRARY.load(force)
 
 
-def lm_solve(n1, p1, n2, p2, w, iters: int = 50):
+def lm_solve(n1, p1, n2, p2, w, iters: int = 50, registers=None):
     """One launch of L1 on the current stream, asynchronously: the final
     (q (Bt, 4), t (Bt, 3), steps (Bt,) int32) of every lane, steps the LM
     steps (solves) the lane ran before it stopped. n1, p1, n2, p2
     (Bt, F, 3) and w (Bt, F) float32 CUDA tensors on one device,
-    1 <= F <= 32."""
+    1 <= F <= MAX_PLANES. ``registers`` picks the kernel's instantiation
+    (True: planes in registers, F <= REG_PLANES; False: planes and rows
+    through a scratch buffer); None takes registers where F allows."""
     Bt, F = w.shape[0], w.shape[-1]
     dev = w.device
     for name, x, shape in (("n1", n1, (Bt, F, 3)), ("p1", p1, (Bt, F, 3)),
@@ -73,6 +82,11 @@ def lm_solve(n1, p1, n2, p2, w, iters: int = 50):
     if not 0 < F <= MAX_PLANES or iters < 0:
         raise ValueError(f"lm_solve: F = {F} (want 1..{MAX_PLANES}), "
                          f"iters = {iters} (want >= 0)")
+    if registers is None:
+        registers = F <= REG_PLANES
+    if registers and F > REG_PLANES:
+        raise ValueError(f"lm_solve: F = {F} does not fit in registers "
+                         f"(want 1..{REG_PLANES})")
     if dev.type != "cuda":
         raise ValueError(f"lm_solve: unsupported device {dev}")
     q = torch.empty((Bt, 4), dtype=torch.float32, device=dev)
@@ -82,11 +96,15 @@ def lm_solve(n1, p1, n2, p2, w, iters: int = 50):
         return q, t, steps
     inputs = [x.contiguous() for x in (n1, p1, n2, p2, w)]
     lib = build()
+    scratch = None if registers else torch.empty(
+        (Bt, int(lib.fccf_lm_scratch_floats(F))), dtype=torch.float32,
+        device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
     with torch.cuda.device(dev):  # the C entry launches on the current one
         rc = lib.fccf_lm_refine(*(x.data_ptr() for x in inputs),
                                 q.data_ptr(), t.data_ptr(), steps.data_ptr(),
-                                Bt, F, iters, stream)
+                                None if scratch is None else scratch.data_ptr(),
+                                Bt, F, iters, int(registers), stream)
     if rc != 0:
         raise RuntimeError(f"fccf_lm_refine launch failed: CUDA error {rc}")
     graph.count_launch(_THIS, "LAUNCHES")

@@ -7,13 +7,17 @@ order and the overflow flag. Cluster member sums: rtol 1e-5 / atol 1e-4
 (matmul sums in another order); representative quaternions and
 translations: atol 1e-4.
 
-The cluster stage's loops (ops/cluster_kernels.py), exact: the plain
-block seeds (the fixpoint) against a sequential pass in index order as
-csrc/cluster.cu's C1 walks it, on random strictly lower-triangular
+The cluster stage's loops (ops/cluster_kernels.py): the plain block
+scan (block_scan_plain, the CPU's path and the plain version of the
+card's C1) on a batch of two pools against the JAX stage (seeds and
+sizes exact, sums within the tolerance above); the plain block seeds
+(the fixpoint) against a sequential pass in index order as
+csrc/cluster.cu's walk runs it, on random strictly lower-triangular
 masks; the fixed-trip block scan against the scan that stops at the
 batch's last occupied block (the JAX package's trip count), bit for bit;
 the plain floor walk, and a chunked walk as C2 runs it, against the emit
-mask of the JAX package's _emit_representatives."""
+mask of the JAX package's _emit_representatives; the kernels' wrappers
+refuse a device that is neither the CPU nor a card."""
 
 import dataclasses
 
@@ -275,12 +279,12 @@ def test_fixed_trip_scan_equals_dynamic_count(counts, monkeypatch):
     H = masks.shape[-1]
     last = max([int(h.valid.nonzero().max()) for h in th if h.valid.any()],
                default=-1)
-    n = tcl._block_count(torch.amax(torch.where(masks, torch.arange(H), -1),
-                                    dim=-1), H, 512)
+    n = ck.block_count(torch.amax(torch.where(masks, torch.arange(H), -1),
+                                  dim=-1), H, 512)
     assert n == (last + 512) // 512 < H // 512  # two trip counts compared
     dyn = tcl._greedy_seeds_all_types(masks, thyp.t, xh, yh, tparams)
     want = tcl.cluster_hypotheses(thyp, tparams, tcaps)
-    monkeypatch.setattr(tcl, "_block_count", lambda last_idx, H, B: H // B)
+    monkeypatch.setattr(ck, "block_count", lambda last_idx, H, B: H // B)
     fixed = tcl._greedy_seeds_all_types(masks, thyp.t, xh, yh, tparams)
     for a, b in zip(fixed, dyn):
         np.testing.assert_array_equal(_bits(a), _bits(b))
@@ -409,6 +413,57 @@ def test_cluster_kernels_refuse_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
         ck.floor_walk(torch.zeros((1, 4), device="meta"),
                       torch.zeros((1,), device="meta"))
+
+
+def test_block_scan_plain_matches_jax():
+    """block_scan_plain (the card's C1's plain version, the CPU's block
+    scan) on a batch of two pools, one straddling three seed blocks and
+    one with an empty type lane, each row against the JAX
+    _greedy_seeds_all_types on the CPU: seeds and sizes exact, sums
+    within rtol 1e-5, atol 1e-4 (check_cluster's: float32 sums in
+    another order)."""
+    rng = np.random.default_rng(12)
+    pools = [_pool(rng, (700, 500, 300), n_centers=30),
+             _pool(rng, (0, 7, 300))]
+    params = FCCFParams()
+    tparams = interop.params_from_reference(dataclasses.asdict(params))
+    H = pools[0].valid.shape[0]
+    xh = jnp.broadcast_to(jnp.array([1.0, 0, 0], jnp.float32), (H, 3))
+    yh = jnp.broadcast_to(jnp.array([0, 1.0, 0], jnp.float32), (H, 3))
+    want, inputs = [], []
+    for hyp in pools:
+        masks = hyp.valid[None] & (hyp.type_[None] == jnp.arange(3)[:, None])
+        want.append(jax.jit(lambda m, t, q: jcl._greedy_seeds_all_types(
+            m, t, jgeo.quat_rotate(q, xh), jgeo.quat_rotate(q, yh), params
+        ))(masks, hyp.t, hyp.quat))
+        tq = torch.from_numpy(np.array(hyp.quat))
+        inputs.append((torch.from_numpy(np.array(masks)),
+                       torch.from_numpy(np.array(hyp.t)),
+                       tgeo.quat_rotate(tq, torch.tensor([1.0, 0, 0])
+                                        .expand(H, 3)),
+                       tgeo.quat_rotate(tq, torch.tensor([0, 1.0, 0])
+                                        .expand(H, 3))))
+    batch = [torch.stack(x) for x in zip(*inputs)]
+    got = ck.block_scan_plain(*batch, tparams)
+    assert ck.block_scan(*batch, tparams)[0].shape == (2, 3, H)
+    for k, js in enumerate(want):
+        np.testing.assert_array_equal(got[0][k].numpy(), np.asarray(js[0]))
+        np.testing.assert_array_equal(got[1][k].numpy(), np.asarray(js[1]))
+        np.testing.assert_allclose(got[2][k].numpy(), np.asarray(js[2]),
+                                   rtol=1e-5, atol=1e-4)
+    assert not bool(got[0][1, 0].any())  # the empty lane has no seed
+    assert int(got[0][0].sum()) > 0
+
+
+def test_block_scan_refuses_other_devices():
+    """The block scan on a tensor on neither the CPU nor a card raises
+    before it launches anything; nothing falls back."""
+    masks = torch.zeros((1, 3, 512), dtype=torch.bool, device="meta")
+    x = torch.zeros((1, 512, 3), device="meta")
+    before = ck.SCANS
+    with pytest.raises(ValueError, match="unsupported device"):
+        ck.block_scan(masks, x, x, x, FCCFParams())
+    assert ck.SCANS == before
 
 
 def test_count_launch_goes_to_the_capturing_graph(monkeypatch):

@@ -16,10 +16,13 @@ CPU; the LM loop run to its cap and replayed as a CUDA graph
 eager loop bit for bit, one capture a shape, LRU eviction, captures from
 many host threads; the LM kernel L1 (refine/lm_kernel.py) against its
 plain version lm_loop bit for bit (batches of 12, 96 and 192 lanes, 4,
-16 and 32 planes, 0, 1 and 50 iterations, zero-weight, zero-cost and NaN
-lanes), inside a capture, counted at each replay, launched once by
-refine_pairs with no host sync; the cluster stage's kernels C1
-(block seeds) and C2 (floor walk) against their plain versions; the
+16, 32, 33, 64 and 200 planes, 0, 1 and 50 iterations, zero-weight,
+zero-cost and NaN lanes), inside a capture, counted at each replay, launched once by
+refine_pairs with no host sync; the cluster stage's kernels C1 (the
+block scan: seeds, sizes and member sums, at H = 512-8192, batch 1 and
+8, mixed pools, one type, an empty lane, a chain, non-finite entries),
+the standalone block-seed walk and C2 (floor walk) against their plain
+versions; K1's propagation with bounds far below V; the
 register step replayed as one CUDA graph against the eager step
 (_register_batch) bit for bit at the office and heritage presets and
 over [cuda:0] * 2, with no host sync in a warm step.
@@ -133,6 +136,26 @@ def test_kernel_matches_plain_at_measurement_scale(cuda):
         normal, centroid, valid, 5.0, 0.5, 5.0,
         bound=torch.tensor([15000], dtype=torch.int32, device=cuda),
     )
+    torch.cuda.synchronize()
+    assert lp.PROPAGATIONS == before + 1
+    want = lp.label_propagate_plain(normal, centroid, valid, 5.0, 0.5, 5.0)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.cpu().numpy())
+
+
+@pytest.mark.parametrize("V,bounds", [(1536, (200, 700, 40)),
+                                      (9216, (1200, 3000, 100)),
+                                      (16384, (2500, 900))])
+def test_propagation_tiles_follow_the_bound(cuda, V, bounds):
+    """The propagation kernel draws tiles from each pair's bound x bound
+    square, sized from the bound: pairs with bound[p] far below V reach
+    the plain labels at the office, heritage and measurement V."""
+    rng = np.random.default_rng(V + len(bounds))
+    arrays = [np.stack([c[i] for c in [_clustered(rng, V, b, n_groups=8)
+                                       for b in bounds]]) for i in range(3)]
+    normal, centroid, valid, bound = _on(cuda, arrays, bounds)
+    before = lp.PROPAGATIONS
+    got = lp.label_propagate(normal, centroid, valid, 5.0, 0.5, 5.0,
+                             bound=bound)
     torch.cuda.synchronize()
     assert lp.PROPAGATIONS == before + 1
     want = lp.label_propagate_plain(normal, centroid, valid, 5.0, 0.5, 5.0)
@@ -785,13 +808,20 @@ def test_refine_pairs_makes_no_host_sync(cuda):
 
 
 @pytest.mark.parametrize("B,P", [(12, 16), (96, 16), (192, 16), (12, 4),
-                                 (96, 4), (24, 32)])
+                                 (96, 4), (24, 32), (12, 25), (12, 33),
+                                 (96, 33), (12, 64), (96, 64), (12, 200),
+                                 (96, 200), (4, 4096)])
 @pytest.mark.parametrize("iters", [0, 1, 50])
 def test_lm_kernel_matches_plain(cuda, B, P, iters):
     """L1 against lm_loop on the card, to its cap and with its early exit:
     bit for bit, the zero-weight, zero-cost and NaN lanes (the last three)
     at the identity; every lane's LM steps within the cap, and none for
-    those three."""
+    those three. Up to 32 planes L1 keeps them in registers; 33, 64, 200
+    and 4096 (MAX_PLANES) take its scratch instantiation (rows of 132 to
+    16384 entries in torch.sum, folds of as many rows; from 8192 entries
+    torch splits a row over its block's height). At 25 planes and 12
+    lanes torch's reduce block is 64 threads wide (fewer than 16 rows to
+    sum)."""
     from fccf_pcr_torch.refine import gauss_newton as gn
 
     args = _on_card(_lm_lanes(B + P, B, P), cuda)
@@ -807,6 +837,22 @@ def test_lm_kernel_matches_plain(cuda, B, P, iters):
     assert steps[-3:].tolist() == [0, 0, 0]
     if iters:
         assert int(steps.max()) > 0
+
+
+@pytest.mark.parametrize("B,P", [(12, 4), (96, 16), (12, 25), (24, 32)])
+def test_lm_kernel_scratch_instantiation_matches_registers(cuda, B, P):
+    """Where the planes fit in registers, L1's scratch instantiation
+    (planes and rows through global memory) gives the registers one's q,
+    t and steps bit for bit, and both lm_loop's transforms: the two add
+    in the same order."""
+    from fccf_pcr_torch.refine import gauss_newton as gn
+
+    args = _on_card(_lm_lanes(B + 7 * P, B, P), cuda)
+    regs = lmk.lm_solve(*args, 50, registers=True)
+    scratch = lmk.lm_solve(*args, 50, registers=False)
+    for a, b in zip(regs, scratch):
+        assert torch.equal(a, b)
+    assert torch.equal(lmk.refine_lm(*args), gn.lm_loop(*args))
 
 
 def test_lm_kernel_inside_a_capture(cuda):
@@ -831,9 +877,10 @@ def test_lm_kernel_rejects_bad_inputs(cuda):
     before = lmk.LAUNCHES
     with pytest.raises(ValueError, match="p1 wants"):  # another device
         lmk.lm_solve(n, n.cpu(), n, n, w)
-    with pytest.raises(ValueError, match="F = 33"):  # more than a warp
-        m = torch.zeros((3, 33, 3), device=cuda)
-        lmk.lm_solve(m, m, m, m, torch.zeros((3, 33), device=cuda))
+    F = lmk.MAX_PLANES + 1
+    with pytest.raises(ValueError, match=f"F = {F}"):  # unprobed sum order
+        m = torch.zeros((3, F, 3), device=cuda)
+        lmk.lm_solve(m, m, m, m, torch.zeros((3, F), device=cuda))
     assert lmk.LAUNCHES == before
 
 
@@ -930,6 +977,97 @@ def test_cluster_kernels_reject_bad_inputs(cuda):
     assert (ck.SEEDS, ck.WALKS) == before
 
 
+def _scan_pool(seed, P, H, kind):
+    """A batch of P hypothesis pools of capacity H for the block scan:
+    masks (P, 3, H), t, px, py (P, H, 3), with FCCFParams' gates
+    (cluster_dist 0.8, cluster_angle 2 deg). Poses cluster around a few
+    centers a pool; the valid prefix ends inside the last block. kind:
+    "mixed" (three types), "one type" (every hypothesis type 0),
+    "empty lane" (no type 2), "chain" (type 0 in runs of 8 on lines 0.75
+    apart, the runs 3 apart: each covers the next of its run only), "nonfinite" (a NaN in one valid px, an inf in
+    an invalid slot's t)."""
+    rng = np.random.default_rng(seed)
+    masks = np.zeros((P, 3, H), bool)
+    t = np.zeros((P, H, 3), np.float32)
+    ang = np.zeros((P, H))
+    for p in range(P):
+        n = H - int(rng.integers(1, min(H, 300)))
+        if kind == "chain":
+            i = np.arange(n)
+            t[p, :n] = np.stack([0.75 * (i % 8), 3.0 * ((i // 8) % 50),
+                                 3.0 * (i // 400)], -1)
+            typ = np.zeros(n, int)
+        else:
+            centers = rng.uniform(-6, 6, (max(2, n // 40), 3))
+            pick = rng.integers(0, len(centers), n)
+            t[p, :n] = centers[pick] + rng.normal(0, 0.4, (n, 3))
+            ang[p, :n] = (rng.integers(0, 4, n) * 0.5
+                          + rng.normal(0, 0.01, n))
+            typ = rng.integers(0, 3 if kind != "empty lane" else 2, n)
+            if kind == "one type":
+                typ[:] = 0
+        masks[p, typ, np.arange(n)] = True
+    c, s = np.cos(ang), np.sin(ang)
+    z = np.zeros_like(c)
+    px = np.stack([c, s, z], -1).astype(np.float32)
+    py = np.stack([-s, c, z], -1).astype(np.float32)
+    if kind == "nonfinite":
+        px[0, 3, 1] = np.nan
+        t[P - 1, H - 1, 2] = np.inf
+    return masks, t, px, py
+
+
+def _nan_equal(a, b):
+    return a.shape == b.shape and bool(torch.all(
+        (a == b) | (torch.isnan(a) & torch.isnan(b))))
+
+
+_SCAN_CASES = [(H, P, kind) for H in (512, 2048, 3072, 8192) for P in (1, 8)
+               for kind in ("mixed", "one type", "empty lane")] + [
+    (H, P, kind) for H, P in ((512, 1), (2048, 8))
+    for kind in ("chain", "nonfinite")]
+
+
+@pytest.mark.parametrize("H,P,kind", _SCAN_CASES)
+def test_block_scan_kernel_matches_plain(cuda, H, P, kind):
+    """C1, the whole block scan, against block_scan_plain (the PyTorch
+    block loop) on the card: seeds exactly equal, sizes and member sums
+    equal bit for bit (a NaN where the plain version has one), one
+    launch whatever H // 512 is. Every H and batch at the three pool
+    kinds; the chain and the non-finite entries at one block and at an
+    office-sized batch."""
+    params = FCCFParams()
+    masks, t, px, py = _on_card(_scan_pool(H + P, P, H, kind), cuda)
+    before = ck.SCANS
+    got = ck.block_scan(masks, t, px, py, params)
+    torch.cuda.synchronize()
+    assert ck.SCANS == before + 1
+    want = ck.block_scan_plain(masks, t, px, py, params)
+    assert torch.equal(got[0], want[0])
+    assert _nan_equal(got[1], want[1]) and _nan_equal(got[2], want[2])
+    if kind == "chain":  # every other hypothesis of a run is a seed
+        n = int(masks[0, 0].sum())  # the last one is never eligible
+        assert int(got[0][0, 0].sum()) == sum(i % 2 == 0 for i in
+                                              np.arange(n - 1) % 8)
+    if kind == "nonfinite":
+        assert bool(torch.isnan(got[2]).any())
+
+
+def test_block_scan_kernel_rejects_bad_inputs(cuda):
+    params = FCCFParams()
+    masks, t, px, py = _on_card(_scan_pool(0, 2, 512, "mixed"), cuda)
+    before = ck.SCANS
+    with pytest.raises(ValueError):  # t on another device
+        ck.block_scan(masks, t.cpu(), px, py, params)
+    with pytest.raises(ValueError):  # float64
+        ck.block_scan(masks, t.double(), px, py, params)
+    with pytest.raises(ValueError):  # no multiple of the block
+        ck.block_scan(torch.zeros((2, 3, 600), dtype=torch.bool,
+                                  device=cuda),
+                      *(torch.zeros((2, 600, 3), device=cuda),) * 3, params)
+    assert ck.SCANS == before
+
+
 # ------------------------------------------- the register step as a graph
 
 
@@ -961,8 +1099,9 @@ def _fields_equal(a, b):
 def test_step_graph_equals_eager_step(cuda, name):
     """make_register_fn on the card (the step replayed as one CUDA graph)
     against _register_batch (the eager step) on the same batch of 4:
-    every field bitwise equal; one capture, then a replay a call; C1, C2,
-    L1 and the propagation kernel counted at each replay."""
+    every field bitwise equal; one capture, then a replay a call; C1 (one
+    block-scan launch), C2, L1 and the propagation kernel counted at each
+    replay."""
     from fccf_pcr_torch.pipeline.register import _register_batch
 
     model, args = _preset_batch(name, [0, 1, 2, 3], cuda)
@@ -971,14 +1110,16 @@ def test_step_graph_equals_eager_step(cuda, name):
     STEP.clear()
     c0 = STEP.captures
     first = fn(*args)
-    counts = (lp.PROPAGATIONS, ck.SEEDS, ck.WALKS, lmk.LAUNCHES,
-              STEP.replays)
+    counts = (lp.PROPAGATIONS, ck.SCANS, ck.WALKS, lmk.LAUNCHES,
+              STEP.replays, ck.SEEDS)
     again = fn(*args)
     torch.cuda.synchronize()
-    H = model.caps.max_hypotheses
-    assert (lp.PROPAGATIONS, ck.SEEDS, ck.WALKS, lmk.LAUNCHES,
-            STEP.replays) == (counts[0] + 2, counts[1] + H // 512,
-                              counts[2] + 1, counts[3] + 1, counts[4] + 1)
+    # One block-scan launch a step whatever H // 512 is, and no
+    # standalone block-seed launch.
+    assert (lp.PROPAGATIONS, ck.SCANS, ck.WALKS, lmk.LAUNCHES,
+            STEP.replays, ck.SEEDS) == (counts[0] + 2, counts[1] + 1,
+                                        counts[2] + 1, counts[3] + 1,
+                                        counts[4] + 1, counts[5])
     assert STEP.captures == c0 + 1
     eager = _register_batch(*args, model.params, model.caps)
     _fields_equal(first, eager)

@@ -129,6 +129,23 @@ def test_refine_pairs_matches_reference(seed):
     assert not np.allclose(j, np.eye(4), atol=1e-3)  # the LM moved
 
 
+@pytest.mark.parametrize("F", [33, 64])
+def test_refine_pairs_matches_reference_above_32_planes(F):
+    """More plane pairs a lane than a warp has threads (L1 takes them
+    through its scratch buffer on a card): refine_pairs (lm_loop with its
+    early exit) and lm_loop to its cap on the CPU against the JAX
+    refine_pairs on the same planes, within 2e-6 as at 16 planes; the
+    two loop forms bit-equal."""
+    args = _candidates(F, P=F, n_pairs=F - F // 4)
+    j = np.asarray(jax.jit(jax.vmap(lambda *a: jgn.refine_pairs(*a)))(*args))
+    ta = [torch.from_numpy(a) for a in args]
+    t = tgn.refine_pairs(*ta).numpy()
+    np.testing.assert_allclose(t, j, rtol=0, atol=2e-6)
+    np.testing.assert_array_equal(
+        tgn.lm_loop(*ta, early_exit=False).numpy(), t)
+    assert not np.allclose(j, np.eye(4), atol=1e-3)  # the LM moved
+
+
 class _CountLaunches(TorchDispatchMode):
     """Counts the aten ops that compute (views excluded): on the card,
     one kernel launch each."""
@@ -264,16 +281,23 @@ def test_refine_pairs_refuses_other_devices():
 
 
 @pytest.mark.parametrize("case,match", [
-    ("cpu", "unsupported device cpu"), ("planes", "F = 33"),
+    ("cpu", "unsupported device cpu"),
+    ("planes", f"F = {lm_kernel.MAX_PLANES + 1}"),
     ("dtype", "n1 wants float32"), ("shape", "n2 wants"),
-    ("iters", "iters = -1")])
+    ("iters", "iters = -1"), ("registers", "does not fit in registers")])
 def test_lm_solve_refuses_what_the_kernel_does_not_take(case, match):
     """The kernel's wrapper checks before it builds or launches: CUDA
-    float32 (Bt, F, 3) planes and (Bt, F) weights, 1 <= F <= 32, iters >=
-    0 (each check fails before any CUDA call, so on the CPU too)."""
+    float32 (Bt, F, 3) planes and (Bt, F) weights, 1 <= F <= MAX_PLANES
+    (above it torch's order of additions for a row of 4F entries has not
+    been probed), iters >= 0, and the registers instantiation only up to
+    REG_PLANES (each check fails before any CUDA call, so on the CPU
+    too)."""
     Bt, F, iters, dtype = 2, 4, 5, torch.float32
+    registers = None
     if case == "planes":
         F = lm_kernel.MAX_PLANES + 1
+    if case == "registers":
+        F, registers = lm_kernel.REG_PLANES + 1, True
     if case == "iters":
         iters = -1
     if case == "dtype":
@@ -284,12 +308,14 @@ def test_lm_solve_refuses_what_the_kernel_does_not_take(case, match):
         planes[2] = torch.zeros((Bt, F + 1, 3))
     before = lm_kernel.LAUNCHES
     with pytest.raises(ValueError, match=match):
-        lm_kernel.lm_solve(*planes, w, iters)
+        lm_kernel.lm_solve(*planes, w, iters, registers=registers)
     assert lm_kernel.LAUNCHES == before
 
 
 def test_kernel_limits_match_the_source():
-    """The wrapper's MAX_PLANES is the source's kMaxPlanes, and the build
+    """The wrapper's MAX_PLANES and REG_PLANES are the source's kMaxPlanes
+    and kRegPlanes, MAX_PLANES is no longer than the rows
+    tools/torch_sum_order.py probes (4F entries), and the build
     keeps every product rounded once (--fmad=false) and never uses fast
     math, which lm_loop's bits need."""
     import re
@@ -299,6 +325,13 @@ def test_kernel_limits_match_the_source():
     src = lm_kernel._LIBRARY.source.read_text()
     assert int(re.search(r"kMaxPlanes = (\d+);", src).group(1)) == \
         lm_kernel.MAX_PLANES
+    assert int(re.search(r"kRegPlanes = (\d+);", src).group(1)) == \
+        lm_kernel.REG_PLANES
+    probe = (lm_kernel._LIBRARY.source.parents[2] / "tools"
+             / "torch_sum_order.py").read_text()
+    lengths = re.search(r"^LENGTHS = \((.*?)\)$", probe, re.M | re.S)
+    assert 4 * lm_kernel.MAX_PLANES <= max(
+        int(x) for x in re.findall(r"\d+", lengths.group(1)))
     assert "--fmad=false" in cuda_build.NVCC_FLAGS
     assert not any("fast" in f for f in cuda_build.NVCC_FLAGS)
     for fast in ("__fdividef", "rsqrtf", "__sinf", "__cosf", "__expf"):
