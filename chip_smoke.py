@@ -147,20 +147,25 @@ result:
      steps, and the edge cases (an empty mask, all eligible, a chain,
      one ball, a full mask, no eligible row, B = 200; cluster_num 0, 1
      and large, all sizes equal, a floor that drops below 2, an empty
-     tail, no seed, one slot); outputs equal; their device times at the
-     heritage batch-8 step's inputs beside the plain versions' and the
-     bounds. Then the cluster stage's device time on each batch-8 step's
+     tail, no seed, one slot, each stop in the last slot of a round of
+     32, ties at the floor, NaN sizes, a first floor above 2^24, W = 1000
+     and 8192, sizes that are no integers); outputs equal; their device
+     times at the heritage batch-8 step's inputs beside the plain
+     versions' and the bounds, and C2's slots walked (the most a lane
+     and in all). Then the cluster stage's device time on each batch-8 step's
      hypotheses with the plain loop, with C1, and captured as a graph;
  20. (run after phase 18) L1 against its plain version
      (gauss_newton.lm_loop run to its cap) on the card, torch.equal:
      the LM inputs of the batch-8 steps at office and heritage (phase
      18's), of seed 0 of every golden config, and the edge cases (all
      weights 0, a NaN plane, a lane at zero cost, iters 0, 1 and 50, Bt
-     1, 12, 96 and 192, F 4, 16, 32, 33, 64 and 200); the LM steps each
-     lane ran; L1's
+     1, 12, 96 and 192, F 4, 16, 32, 33, 64, 200, 4097 and 40000); the
+     LM steps each lane ran and those it accepted; at the heritage step's
+     inputs a lane alone and in 12 lanes against the same lane in the 96,
+     q, t and both counts bitwise equal; L1's
      device time at the heritage step's inputs beside the plain loop
      captured as a graph of its own and replayed (CUDA events), the
-     eager loop and the bound.
+     eager loop and the bound, and its two instantiations in turns.
 
 Phases 5-6 are the main path: their launch counts are the kernels'
 "launches". Every later in-process path (12-16) is driven with the
@@ -303,14 +308,16 @@ K1_PLANE_OPS = 29
 C1_BALL_OPS = 18
 C1_SUM_ADDS = 10
 C1_FINITE_OPS = 9
-# float32 operations of one LM step of one lane of L1 (csrc/lm.cu), sqrtf,
-# sinf, cosf, a clamp and a division counted as one each: a plane's
-# residuals and Jacobian at the pose (449), the 27 products of its 4 rows
-# (108) and its trial residuals and squares (86); a lane's adds of the
-# 27 folds and the two costs over its 4F rows, and its damping, 6 x 6
-# Cholesky solve, exponential map, quaternion product, normalization and
-# update (315).
-L1_PLANE_OPS = 643
+# float32 operations of L1 (csrc/lm.cu), sqrtf, sinf, cosf, a clamp and a
+# division counted as one each. Every LM step: a plane's trial residuals
+# and squares (86), the cost's adds over the lane's 4F rows, and the
+# lane's damping, 6 x 6 Cholesky solve, exponential map, quaternion
+# product, normalization and update (315). At the start and at each
+# accepted step: a plane's residuals and Jacobian at the pose (449) and
+# the 27 products of its 4 rows (108), and the 27 folds' adds over the
+# 4F rows (a rejected step leaves them as they were).
+L1_TRIAL_OPS = 86
+L1_ROWS_OPS = 557
 L1_LANE_OPS = 315
 # register.py's record_function scopes; their ranges also appear on the
 # device timeline and are not kernels.
@@ -753,10 +760,35 @@ def cluster_edge_cases(dev):
     sizes[4, W // 7:] = 0.0  # an empty tail
     sizes[5] = 0.0  # no seed
     walks = [("cluster_num 0, 1, large; all equal; floor below 2; empty "
-              "tail; no seed", (torch.from_numpy(sizes).to(dev),
-                                torch.from_numpy(cn).to(dev))),
-             ("one slot", (torch.from_numpy(sizes[:, :1].copy()).to(dev),
-                           torch.from_numpy(cn).to(dev)))]
+              "tail; no seed", (sizes, cn)),
+             ("one slot", (sizes[:, :1].copy(), cn))]
+    # C2's rounds of 32 slots: each stop in the last slot of a round, ties
+    # at the floor, widths that are no multiple of 32, 8192 slots,
+    # sizes that are no integers, a first floor of 2^24 and more
+    f32 = np.float32
+    edge = np.full((6, 96), 1, f32)
+    edge[0, :32] = 7   # the 32nd emit is over a budget of 31: slot 31
+    edge[1, :31] = 2   # slot 31 lowers the floor from 2 to 1
+    edge[2, :63] = 7   # slot 63 emits nothing at 63 >= half of 100
+    edge[3] = 5
+    edge[3, 40:] = 4   # ties at the floor, and at the floor lowered
+    edge[4, :] = np.nan
+    edge[4, 0] = 4     # no seed after slot 0
+    edge[5, :] = 3e7   # a first floor above 2^24
+    walks += [
+        ("a stop in the last slot of a round, ties, NaN sizes, a floor "
+         "above 2^24", (edge, f32([31, 100, 100, 1000, 10, 50]))),
+        ("W = 1000", (np.sort(rng.integers(0, 30, (6, 1000)), axis=-1)
+                      [:, ::-1].astype(f32), f32([0, 1, 20, 60, 500, 2000]))),
+        ("W = 8192", (np.sort(rng.integers(0, 9, (24, 8192)), axis=-1)
+                      [:, ::-1].astype(f32), np.full(24, 4000, f32))),
+        ("sizes that are no integers", (np.sort(rng.uniform(
+            0, 30, (9, 500)), axis=-1)[:, ::-1].astype(f32),
+            rng.uniform(0, 80, 9).astype(f32))),
+    ]
+    walks = [(w, (torch.from_numpy(np.ascontiguousarray(a)).to(dev),
+                  torch.from_numpy(np.ascontiguousarray(c)).to(dev)))
+             for w, (a, c) in walks]
     return seeds, walks
 
 
@@ -774,17 +806,17 @@ def c1_bound(sub_lower, elig, seeds):
 
 
 def c2_bound(s_size, cluster_num):
-    """(bound ms, bound_by, slots walked) of one C2 launch: each slot a
-    lane walks before it stops read once, the budgets read and the mask
-    written once; a few comparisons a slot."""
+    """(bound ms, bound_by, slots walked by each lane) of one C2 launch:
+    each slot a lane walks before it stops read once, the budgets read
+    and the mask written once; a few comparisons a slot."""
     from fccf_pcr_torch.ops import cluster_kernels as ck
 
     W = s_size.shape[-1]
     rows = s_size.reshape(-1, W).cpu().tolist()
-    walked = sum(ck._walk_lane(r, c)[1] for r, c in zip(
-        rows, cluster_num.reshape(-1).cpu().tolist()))
-    bytes_s = (4 * walked + 4 * len(rows) + s_size.numel()) / PEAK_BYTES
-    ops_s = 6 * walked / PEAK_F32
+    walked = [ck._walk_lane(r, c)[1] for r, c in zip(
+        rows, cluster_num.reshape(-1).cpu().tolist())]
+    bytes_s = (4 * sum(walked) + 4 * len(rows) + s_size.numel()) / PEAK_BYTES
+    ops_s = 6 * sum(walked) / PEAK_F32
     return (max(bytes_s, ops_s) * 1e3,
             "bytes" if bytes_s >= ops_s else "operations", walked)
 
@@ -909,7 +941,8 @@ def phase_cluster_vs_plain(ck, dev):
     t["bound_by"] = t["blocks"][0]["bound_by"]
     w_ms, w_by, walked = c2_bound(*walk)
     t["walk"] = dict(
-        shape=tuple(walk[0].shape), walked=walked,
+        shape=tuple(walk[0].shape), walked=sum(walked),
+        most_walked=max(walked), lanes=len(walked),
         emitted=int(ck.floor_walk(*walk).sum()),
         ms=device_ms(lambda: ck.floor_walk(*walk), 10,
                      only="cluster_floor_walk_kernel",
@@ -2170,19 +2203,49 @@ def lm_cases(step_inputs, dev):
         for iters in (1, 50):
             cases.append((f"Bt {B}, F {P} (zero-weight, zero-cost and NaN "
                           f"lanes), iters {iters}", lanes, iters))
+    # no cap on F: one above PR 11's 4096, and 4F above the 130560 entries
+    # from which torch's reduce splits a row over several blocks
+    for B, P, iters in ((5, 4097, 20), (4, 40000, 10)):
+        lanes = tuple(torch.from_numpy(a).to(dev)
+                      for a in lm_lanes(B + P, B, P))
+        cases.append((f"Bt {B}, F {P} (zero-weight, zero-cost and NaN "
+                      f"lanes), iters {iters}", lanes, iters))
     return cases
 
 
-def l1_bound(planes, steps):
-    """(bound ms, bound_by, ops) of one L1 launch: the operations of the
-    LM steps each lane ran (L1_PLANE_OPS a plane, L1_LANE_OPS and the
-    folds' and costs' adds over the 4F rows a lane, a step) against the
-    bytes (13 floats a plane read, q, t and the step count written)."""
+def lane_alone_diff(lmk, planes, iters, lanes=(0, 1, 47, 94, 95)):
+    """L1's outputs (q, t, steps, accepted) of a lane alone (Bt = 1) and
+    of the lanes 36-47 alone (Bt = 12) against the same lanes in the
+    whole launch: the count of entries that differ (a NaN equals a
+    NaN)."""
+    import torch
+
+    full = lmk.lm_solve(*planes, iters)
+    parts = [(slice(36, 48), lmk.lm_solve(*(x[36:48] for x in planes),
+                                          iters))]
+    parts += [(slice(i, i + 1), lmk.lm_solve(*(x[i:i + 1] for x in planes),
+                                             iters)) for i in lanes]
+    n = 0
+    for sl, got in parts:
+        for a, b in zip(got, full):
+            b = b[sl]
+            n += int((~((a == b) | (torch.isnan(a) & torch.isnan(b)))).sum())
+    return n
+
+
+def l1_bound(planes, steps, accepted, iters):
+    """(bound ms, bound_by, ops) of one L1 launch: the operations the LM
+    steps each lane ran need (L1_TRIAL_OPS a plane, L1_LANE_OPS and the
+    cost's adds over the 4F rows a lane, a step; L1_ROWS_OPS a plane and
+    the 27 folds' adds a pass over the rows, at least one pass a lane
+    and one an accepted step but the last) against the bytes (13 floats
+    a plane read, q, t and the two counts written)."""
     Bt, F = planes[4].shape
-    ops = int(steps.sum()) * (L1_PLANE_OPS * F + L1_LANE_OPS
-                              + 29 * (4 * F - 1))
+    passes = int(accepted.clamp(min=1).sum()) if iters else 0
+    ops = (int(steps.sum()) * (L1_TRIAL_OPS * F + L1_LANE_OPS + 4 * F - 1)
+           + passes * (L1_ROWS_OPS * F + 27 * (4 * F - 1)))
     ops_s = ops / PEAK_F32
-    bytes_s = 4 * (13 * Bt * F + 8 * Bt) / PEAK_BYTES
+    bytes_s = 4 * (13 * Bt * F + 9 * Bt) / PEAK_BYTES
     return max(bytes_s, ops_s) * 1e3, ("operations" if ops_s >= bytes_s
                                        else "bytes"), ops
 
@@ -2212,19 +2275,27 @@ def phase_lm_vs_plain(lmk, step_inputs, dev):
         check(err == 0 and torch.equal(got, want),
               f"{what}: {err} entries of L1's transforms differ from "
               "lm_loop's")
-        steps = lmk.lm_solve(*planes, iters)[2]
+        _, _, steps, accepted = lmk.lm_solve(*planes, iters)
         print(f"[lm] L1 bitwise equal to lm_loop: {what} "
               f"{tuple(planes[0].shape[:2])}, {iters} iterations at most, "
               f"LM steps {int(steps.sum())} (most {int(steps.max())} a "
-              "lane)", flush=True)
+              f"lane), {int(accepted.sum())} accepted", flush=True)
 
     kw = step_inputs["heritage"]
     planes = tuple(kw[k] for k in ("n1", "p1", "n2", "p2", "w"))
     iters = kw["iters"]
-    steps = lmk.lm_solve(*planes, iters)[2]
+    # a lane rounds alike alone, in 12 lanes and in the step's 96
+    alone = lane_alone_diff(lmk, planes, iters)
+    check(alone == 0, f"heritage: {alone} outputs of L1 differ between a "
+          "lane alone and in the batch")
+    _, _, steps, accepted = lmk.lm_solve(*planes, iters)
+    most = int(torch.argmax(steps))  # the first lane with the most steps
     t = {"lanes": int(planes[0].shape[0]), "planes": int(planes[0].shape[1]),
-         "steps": int(steps.sum()), "most_steps": int(steps.max())}
-    t["bound_ms"], t["bound_by"], t["ops"] = l1_bound(planes, steps)
+         "steps": int(steps.sum()), "most_steps": int(steps.max()),
+         "accepted": int(accepted.sum()),
+         "most_steps_accepted": int(accepted[most]), "alone_diff": alone}
+    t["bound_ms"], t["bound_by"], t["ops"] = l1_bound(planes, steps,
+                                                      accepted, iters)
     # By CUDA events over launches back to back (the host enqueues one in
     # far less time than the card runs it), not CUPTI: late in a run CUPTI
     # lost every record of a one-kernel capture, ten captures in a row.
@@ -2888,7 +2959,9 @@ def main():
                   f"{smi}", flush=True)
         w = cl["walk"]
         print(f"[cluster] C2 heritage batch 8 {w['shape']}: {w['walked']} "
-              f"slots walked, {w['emitted']} emitted; {w['ms'] * 1e3:.2f} us "
+              f"slots walked over {w['lanes']} lanes (most "
+              f"{w['most_walked']} a lane), {w['emitted']} emitted; "
+              f"{w['ms'] * 1e3:.2f} us "
               f"device vs plain (host walk, CUDA events) "
               f"{w['plain_ms'] * 1e3:.1f} us; bound "
               f"{w['bound_ms'] * 1e3:.4f} us ({w['bound_by']}) | ptxas walk "
@@ -3012,8 +3085,13 @@ def main():
         l1_err, l1 = phase_lm_vs_plain(
             lmk, {k: g["lm_inputs"] for k, g in graph_ab.items()}, dev)
         print(f"[lm] L1 heritage batch-8 step ({l1['lanes']} lanes x "
-              f"{l1['planes']} planes, {l1['steps']} LM steps, at most "
-              f"{l1['most_steps']} a lane): {l1['ms'] * 1e3:.2f} us a "
+              f"{l1['planes']} planes, {l1['steps']} LM steps, "
+              f"{l1['accepted']} accepted; the first lane with the most "
+              f"steps: {l1['most_steps']}, {l1['most_steps_accepted']} "
+              f"accepted; "
+              f"a lane alone and in 12 lanes equal to it in the 96 "
+              f"({l1['alone_diff']} outputs differ)): "
+              f"{l1['ms'] * 1e3:.2f} us a "
               f"launch by CUDA events over 20 back to back (one launch "
               f"alone {l1['one_launch_ms'] * 1e3:.2f} us; "
               f"{l1['call_event_ms'] * 1e3:.2f} us with the transform's "
@@ -3166,7 +3244,9 @@ def main():
              bound_ms=cl["walk"]["bound_ms"],
              bound_by=cl["walk"]["bound_by"], library_ms=None,
              launches_per_step=per_step_of("cluster_floor_walk"),
-             walked=cl["walk"]["walked"], emitted=cl["walk"]["emitted"],
+             walked=cl["walk"]["walked"],
+             most_walked=cl["walk"]["most_walked"],
+             emitted=cl["walk"]["emitted"],
              launches_by_path={k: v["cluster_floor_walk"]
                                for k, v in paths.items()},
              ptxas=ptxas["cluster_floor_walk"],
@@ -3182,6 +3262,7 @@ def main():
              one_launch_ms=l1["one_launch_ms"],
              call_event_ms=l1["call_event_ms"],
              eager_plain_ms=l1["eager_ms"], lm_steps=l1["steps"],
+             lm_accepted=l1["accepted"], most_steps=l1["most_steps"],
              plain_device_kernels=l1["plain_kernels"],
              launches_by_path={k: v["lm_refine"] for k, v in paths.items()},
              ptxas=ptxas["lm_refine"],

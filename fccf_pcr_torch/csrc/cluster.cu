@@ -47,7 +47,9 @@
 // H % B == 0, B <= 512. sub_lower (L, B, B), elig and seeds (L, B) bool
 // bytes for the standalone walk; s_size (L, W) float32 (a slot is a seed
 // cluster iff its size is > 0), cluster_num (L,) float32, emit (L, W)
-// bool bytes for C2. L is every leading dim (pairs x 3 types) flattened.
+// bool bytes for C2, which compares as the plain walk (Python floats):
+// bit-equal on any float32 sizes, NaN and infinities included. L is
+// every leading dim (pairs x 3 types) flattened.
 //
 // Bound. The member sums are the work: a ball predicate (18 operations)
 // for every row of a lane against every column of that lane, and 10 adds
@@ -57,8 +59,9 @@
 // test a pool entry decides); the bytes (the pool, the outputs) are a
 // few MB. The seeds are a chain in index order: a seed's ball
 // decides whether every later hypothesis of its lane can still be one.
-// C2's walk is a chain too: neither its bytes nor its operations come
-// near the card's rates, its time is the chain's latency.
+// C2's walk is a chain of rounds of 32 slots: neither its bytes nor its
+// operations come near the card's rates, its time is the rounds'
+// latency.
 //
 // Design of C1: one launch, two kinds of blocks, independent of each
 // other, so that they run side by side:
@@ -102,10 +105,13 @@
 // shared load a lane) and skips every index that row covers, so a step is
 // a seed, never a row that is not.
 //
-// Design of C2: one block a lane, the lane's sizes staged through shared
-// memory by all threads in chunks, one thread walking each chunk in order
-// and the walk's state (emitted, floor, stop) kept in that thread's
-// registers; the block stops at the chunk where the walk stops.
+// Design of C2: a warp a lane (kWalkWarps lanes a block), 32 slots a
+// round, slot c0 + l in lane l, the loads of the next kWalkBatch rounds
+// in flight while these are decided. Non-seeds are skipped by a ballot;
+// the round's emits are the fixpoint of one ballot a try (see the
+// kernel), and its stop the first seed whose step stops (__ffs). A first
+// floor of 2^24 or more (never a member count of a pool) takes the walk
+// slot by slot with a double floor, as the plain walk runs it.
 
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
@@ -118,8 +124,9 @@ namespace {
 constexpr int kMaxBlock = 512;          // B: the seed block of cluster.py
 constexpr int kChunks = kMaxBlock / 16;  // 16-column chunks of a row
 constexpr int kSeedThreads = 256;
-constexpr int kWalkThreads = 256;
-constexpr int kWalkChunk = 2048;         // slots staged at a time
+constexpr int kWalkWarps = 4;            // C2: lanes a block, a warp each
+constexpr int kWalkBatch = 4;            // C2: rounds of 32 slots loaded ahead
+constexpr unsigned kFull = 0xffffffffu;
 constexpr int kScanThreads = 256;        // threads of a C1 block
 constexpr int kSumRows = 64;             // rows of a member-sum block
 constexpr int kStats = 10;               // [t, px, py, 1]
@@ -200,60 +207,142 @@ cluster_block_seeds_kernel(const uint8_t* __restrict__ sub,
     seeds_l[16 * l + b] = (uint8_t)((mine >> b) & 1u);
 }
 
-__global__ void __launch_bounds__(kWalkThreads)
-cluster_floor_walk_kernel(const float* __restrict__ s_size,
-                          const float* __restrict__ cluster_num,
-                          uint8_t* __restrict__ emit, int W) {
-  __shared__ float sz[kWalkChunk];
-  __shared__ uint8_t out[kWalkChunk];
-  __shared__ int stopped;
-  const long long lane_id = blockIdx.x;
-  const float* size_l = s_size + lane_id * W;
-  uint8_t* emit_l = emit + lane_id * W;
-  const int t = threadIdx.x;
-
-  // The scan's carry, in thread 0's registers: (emitted, floor, stop).
-  const float cn = cluster_num[lane_id];
-  const float half = cn / 2.0f;
-  int emitted = 0;
-  float floor_ = 0.0f;
-  if (t == 0) {
-    const float s0 = size_l[0];
-    floor_ = 0.0f > s0 ? 0.0f : s0;  // jnp.maximum(s_size[0], 0.0)
-    stopped = 0;
+// The plain walk's carry as it compares: `emitted` an integer against the
+// budget and its half, which it holds as doubles (Python floats).
+struct WalkBudget {
+  double cn, half;
+  __device__ bool over(int emitted) const { return (double)emitted > cn; }
+  __device__ bool under_half(int emitted) const {
+    return (double)emitted < half;
   }
-  __syncthreads();
-  int c0 = 0;
-  for (; c0 < W && !stopped; c0 += kWalkChunk) {
-    const int n = W - c0 < kWalkChunk ? W - c0 : kWalkChunk;
-    for (int i = t; i < n; i += kWalkThreads) {
-      sz[i] = size_l[c0 + i];
-      out[i] = 0;
-    }
-    __syncthreads();
-    if (t == 0) {
-      bool stop = false;
-      for (int i = 0; i < n && !stop; ++i) {
-        const float x = sz[i];
-        if (!(x > 0.0f)) continue;  // not a seed: the carry is unchanged
-        if (x >= floor_) {
-          out[i] = 1;
+};
+
+// Zero emit[from .. to) by the warp, 16 bytes a store where the address
+// is aligned.
+__device__ void zero_tail(uint8_t* emit, long long from, long long to,
+                          int l) {
+  uint8_t* const p = emit + from;
+  uint8_t* const e = emit + to;
+  uint8_t* const a = p + min((long long)(to - from),
+                             (long long)((16 - (uintptr_t)p % 16) % 16));
+  uint8_t* const v = a + ((e - a) & ~15LL);
+  for (uint8_t* x = p + l; x < a; x += 32) *x = 0;
+  for (uint8_t* x = a + 16 * l; x < v; x += 16 * 32)
+    *reinterpret_cast<uint4*>(x) = make_uint4(0u, 0u, 0u, 0u);
+  for (uint8_t* x = v + l; x < e; x += 32) *x = 0;
+}
+
+// The walk one slot at a time with a double floor, as the plain walk
+// runs it, by lane 0: for a first floor of 2^24 or more, where the
+// float32 subtractions of the rounds would round.
+__device__ void floor_walk_serial(const float* size_l, uint8_t* emit_l,
+                                  long long W, double floor_,
+                                  const WalkBudget& bud, int l) {
+  if (l == 0) {
+    int emitted = 0;
+    bool stop = false;
+    for (long long i = 0; i < W; ++i) {
+      const float x = size_l[i];
+      bool out = false;
+      if (!stop && x > 0.0f) {
+        if ((double)x >= floor_) {
+          out = true;
           ++emitted;
-          stop = (float)emitted > cn;  // break after push (:1208-1211)
-        } else if ((float)emitted < half) {
-          floor_ = floor_ - 1.0f;
-          stop = floor_ < 2.0f;
+          stop = bud.over(emitted);  // break after push (:1208-1211)
+        } else if (bud.under_half(emitted)) {
+          floor_ = floor_ - 1.0;
+          stop = floor_ < 2.0;
         } else {
           stop = true;
         }
       }
-      stopped = stop;
+      emit_l[i] = out;
     }
-    __syncthreads();
-    for (int i = t; i < n; i += kWalkThreads) emit_l[c0 + i] = out[i];
-    __syncthreads();
   }
-  for (int i = c0 + t; i < W; i += kWalkThreads) emit_l[i] = 0;
+}
+
+__global__ void __launch_bounds__(32 * kWalkWarps)
+cluster_floor_walk_kernel(const float* __restrict__ s_size,
+                          const float* __restrict__ cluster_num,
+                          uint8_t* __restrict__ emit, int L, int W) {
+  const int l = threadIdx.x & 31;
+  const long long lane_id =
+      (long long)blockIdx.x * kWalkWarps + (threadIdx.x >> 5);
+  if (lane_id >= L) return;  // the whole warp
+  const float* size_l = s_size + lane_id * W;
+  uint8_t* emit_l = emit + lane_id * W;
+  const float cn = cluster_num[lane_id];
+  const WalkBudget bud{(double)cn, (double)cn / 2.0};
+  const float s0 = size_l[0];
+  float f0 = 0.0f > s0 ? 0.0f : s0;  // max(sizes[0], 0.0)
+  if (isfinite(f0) && !(f0 < 16777216.0f)) {
+    floor_walk_serial(size_l, emit_l, W, f0, bud, l);
+    return;
+  }
+  // Rounds of 32 slots, slot c0 + l in lane l, kWalkBatch rounds loaded
+  // ahead of the ones decided. With the carry (emitted e0, floor f0) at a
+  // round's start, its seed j (in slot order) is reached with e0 + E_j
+  // emitted and the floor f0 - D_j, E_j and D_j the seeds before it that
+  // emit and that do not (each of those lowered the floor by one, or
+  // the walk stopped there). f0 - D_j is exact (f0 < 2^24 and every
+  // floor the walk reaches before it stops is >= 2, or D_j = 0), so it
+  // is the plain walk's floor. Seed j emits iff size_j >= f0 - D_j, which
+  // depends only on the seeds before it: iterating the ballot from any
+  // guess fixes one more seed each time, and a guess that does not change
+  // is the walk's. The stop is then the first seed whose step stops.
+  const unsigned lt = (1u << l) - 1u;
+  int e0 = 0;
+  float next[kWalkBatch];
+#pragma unroll
+  for (int k = 0; k < kWalkBatch; ++k)
+    next[k] = 32 * k + l < W ? size_l[32 * k + l] : 0.0f;
+  for (long long c0 = 0; c0 < W; c0 += 32 * kWalkBatch) {
+    float cur[kWalkBatch];
+#pragma unroll
+    for (int k = 0; k < kWalkBatch; ++k) {
+      cur[k] = next[k];
+      const long long i = c0 + 32 * (kWalkBatch + k) + l;
+      next[k] = i < W ? size_l[i] : 0.0f;
+    }
+#pragma unroll
+    for (int k = 0; k < kWalkBatch; ++k) {
+      const long long i = c0 + 32 * k + l;
+      const float x = cur[k];
+      const bool seed = x > 0.0f;  // else the carry is unchanged
+      const unsigned sb = __ballot_sync(kFull, seed);
+      unsigned g = 0;
+      if (sb) {
+        const int S = __popc(sb & lt);
+        g = __ballot_sync(kFull, seed && x >= f0);
+        for (int it = 0; it <= 32; ++it) {
+          const float f = f0 - (float)(S - __popc(g & lt));
+          const unsigned ng = __ballot_sync(kFull, seed && x >= f);
+          if (ng == g) break;
+          g = ng;
+        }
+        const int e = e0 + __popc(g & lt);  // emitted before this slot
+        const int D = S - __popc(g & lt);
+        bool stop;
+        if ((g >> l) & 1u)
+          stop = bud.over(e + 1);  // break after push (:1208-1211)
+        else if (bud.under_half(e))
+          stop = f0 - (float)(D + 1) < 2.0f;
+        else
+          stop = true;
+        const unsigned sbits = __ballot_sync(kFull, seed && stop);
+        if (sbits) {
+          const int s = __ffs(sbits) - 1;
+          g &= s == 31 ? kFull : (2u << s) - 1u;
+          if (i < W) emit_l[i] = (g >> l) & 1u;
+          zero_tail(emit_l, min((long long)W, c0 + 32 * (k + 1)), W, l);
+          return;
+        }
+        e0 += __popc(g);
+        f0 = f0 - (float)(__popc(sb) - __popc(g));
+      }
+      if (i < W) emit_l[i] = (g >> l) & 1u;
+    }
+  }
 }
 
 // ------------------------------------------------------------------ C1 --
@@ -671,8 +760,9 @@ extern "C" int fccf_cluster_floor_walk(const void* s_size,
                                        const void* cluster_num, void* emit,
                                        int L, int W, void* stream) {
   if (L <= 0 || W <= 0) return (int)cudaErrorInvalidValue;
-  cluster_floor_walk_kernel<<<L, kWalkThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)s_size, (const float*)cluster_num, (uint8_t*)emit, W);
+  cluster_floor_walk_kernel<<<(L + kWalkWarps - 1) / kWalkWarps,
+                              32 * kWalkWarps, 0, (cudaStream_t)stream>>>(
+      (const float*)s_size, (const float*)cluster_num, (uint8_t*)emit, L, W);
   return (int)cudaGetLastError();
 }
 

@@ -4,7 +4,7 @@
 // package's compiled program runs for the LM refine, the lax.while_loop
 // at fccf_pcr_tpu/refine/gauss_newton.py:100 (vmapped over the candidate
 // lanes), which the port's plain version, refine/gauss_newton.py::lm_loop,
-// runs as ~420 small PyTorch kernels an iteration.
+// runs as ~430 small PyTorch kernels an iteration.
 //
 // Each lane minimizes sum_i w_i^2 (|n1 x (Q n2)|^2 + (n1.p1 - (Q n2).(Q
 // p2 + t))^2) over (q, t) from the identity, with the left-multiplied
@@ -16,49 +16,63 @@
 // no multiply-add is contracted; sinf / cosf / sqrtf and IEEE division as
 // torch's own CUDA kernels call them):
 //
-// - a sum over the last axis (torch.sum: n1.p1, the offsets, the step's
-//   squared norm, the quaternion norm and the costs) adds as torch's CUDA
-//   reduce kernel (ATen/native/cuda/Reduce.cuh) does for R rows of n
-//   entries: setReduceConfig's block of bw x bh threads (from the largest
-//   powers of two <= n, or <= n / 4 where n >= 128 is read as float4
-//   vectors, and <= R), thread x keeping its entries (x, x + bw, ..., or
-//   its vectors) in four accumulators that start at 0 and are then added
-//   in order, a tree over the block's width at offsets bw / 2, ..., 1 and,
-//   where a row is split over the block's height (n >= 8192), a tree over
-//   it (SumConfig, torch_sum_rows, tsum3, tsum4;
+// - a sum of 3 or 4 entries over the last axis (torch.sum: n1.p1, the
+//   offsets, the step's squared norm, the quaternion norm) adds as
+//   torch's CUDA reduce kernel (ATen/native/cuda/Reduce.cuh) does for
+//   rows that short, whatever their number (tsum3, tsum4;
 //   tools/torch_sum_order.py probes it on the card);
-// - J^T J and J^T r over the 4F residual rows add as ops/batch.py's
-//   fold_sum: the first half plus the second, repeated, an odd last entry
-//   carried (fold_rows);
+// - the costs, J^T J and J^T r over the 4F residual rows add as
+//   ops/batch.py's fold_sum: the first half plus the second, repeated, an
+//   odd last entry carried (fold_arrays, fold_entries), so a lane rounds
+//   alike in any batch and at any F;
 // - a division by a Python scalar (lam / 3.0, t2 / 48.0) is torch's
 //   multiply by the float32 reciprocal; the scalars are float32 values
 //   of the Python doubles (e.g. (float)1e-12).
 //
 // Layout: n1, p1, n2, p2 (Bt, F, 3) float32, w (Bt, F) float32, all
 // contiguous; q_out (Bt, 4), t_out (Bt, 3) float32; steps_out (Bt,)
-// int32, the LM steps (solves) each lane ran.
+// int32, the LM steps (solves) each lane ran, and accepted_out (Bt,)
+// int32, how many of them it accepted.
 //
-// Design: a warp a lane (a block of 32 threads), its state (q, t, lam)
-// in registers, the same in every thread. Thread l takes planes l, l + 32,
-// l + 64, ... and computes their 4 residual rows and their Jacobian; the
-// costs and the 27 sums of J^T J (21 distinct entries) and J^T r are warp
-// shuffles; thread 0 runs the 6x6 Cholesky solve, the exponential map and
-// the normalization, and the new pose goes to every thread by shuffle.
+// Design: a warp a lane (a block of 32 threads). lm_loop's iteration is a
+// solve, a trial pose and its cost, and the test c_new < c_old; a
+// rejected step changes only lam (doubled, at most 1e8), so until a step
+// is accepted every solve has the same J^T J, J^T r and pose, and the
+// lams of the next steps are known in advance: lam 2^j, or 1e8 from where
+// that passes it (lam_at; a product by a power of two is exact). So the
+// kernel runs a lane as rounds:
+//
+// - a solve round: thread j runs the damped 6 x 6 Cholesky solve, the
+//   exponential map and the normalization (linalg6.solve_spd6's and
+//   lm_loop's operations, in their order) for the step after j
+//   rejections, 32 candidate steps for the latency of one;
+// - trial rounds: the candidates' costs in order, G at a time (a plane a
+//   thread, G = 32 / F candidates side by side where F <= 32), each a
+//   fold_sum of its squared trial residuals, until one is below c_old
+//   (accepted) or the iterations run out. A candidate rejected at lam =
+//   1e8 is followed by the same step forever: the lane's pose is final;
+// - on an accepted step, one pass over the planes at the new pose
+//   computes the residual rows and the Jacobian (the trial's cost is the
+//   next c_old: the same residuals of the same pose), and J^T J and J^T r
+//   fold from them (27 sums).
+//
 // The kernel has two instantiations, picked from F at launch:
 // - registers (F <= 32; every shipped preset has 16): a thread holds its
-//   plane in registers, the rows sit in shared memory, the costs' blocks
-//   are at most 64 threads wide (torch_sum_small) and J^T J folds in
-//   registers and shuffles;
+//   plane in registers, the rows and the squared residuals sit in shared
+//   memory; where F is a power of two a trial cost folds by shuffles in
+//   its group of F threads, and where F = 8, 16 or 32 J^T J folds a sum
+//   a thread, else a row a thread and shuffles (both special cases give
+//   the general folds' bits and were faster than them at F = 16 in
+//   turns on an H100, tools/torch_kernel_ab.py);
 // - scratch (any F): the planes are read from global memory at each use,
 //   and the rows, the squared residuals and the fold's levels go through
 //   a scratch buffer in global memory (L1 and L2 serve it: no other block
-//   reads it); J^T J folds level by level in that buffer down to 32
-//   entries, then by shuffles.
+//   reads it), one candidate a trial round; J^T J folds level by level in
+//   that buffer down to 32 entries, then by shuffles.
 // The order of additions is the same in both, so the scratch one is also
-// bit-equal at F <= 32; the registers one is kept for its speed there
-// (PERF.md section 6 times both at F = 16). A lane stops once it is done
-// (its tolerance met) or its cost is not > 0 (zero or NaN: no step can be
-// accepted, so q and t are final); lm_loop runs such a lane on with only
+// bit-equal at F <= 32. A lane stops once it is done (its tolerance met),
+// its cost is not > 0 (zero or NaN: no step can be accepted, so q and t
+// are final) or its pose is final; lm_loop runs such a lane on with only
 // lam changing.
 
 #include <cuda_runtime.h>
@@ -67,17 +81,11 @@
 
 namespace {
 
-// The most planes a lane: 4F = 16384 residual rows, the longest row
-// whose order of additions tools/torch_sum_order.py has probed on the
-// card. Above 4F = 130560 torch's reduce splits a row over several blocks
-// with a reduction in global memory (setReduceConfig's ctas_per_output),
-// an order this kernel does not model; 16388-130560 is not probed.
-constexpr int kMaxPlanes = 4096;
 constexpr int kRegPlanes = 32;             // a plane a thread, in registers
 constexpr int kRegRows = 4 * kRegPlanes;   // residual rows in shared memory
 constexpr int kRowStride = 8;              // J (6), r, pad
 constexpr int kSums = 27;                  // J^T J (a <= b: 21), J^T r (6)
-constexpr int kReduceThreads = 512;        // Reduce.cuh's MAX_NUM_THREADS
+constexpr int kCands = 32;                 // candidate steps a solve round
 constexpr unsigned kFull = 0xffffffffu;
 
 // The float32 values of lm_loop's Python scalars.
@@ -89,6 +97,12 @@ __device__ __forceinline__ float clamp_min(float x, float lo) {
 }
 __device__ __forceinline__ float clamp_max(float x, float hi) {
   return isnan(x) ? x : fminf(x, hi);
+}
+
+// lam after j rejected steps: j times clamp(lam * 2, max=1e8), which is
+// min(lam 2^j, 1e8) (lam >= 1e-10: the doubling is exact), j <= 32.
+__device__ __forceinline__ float lam_at(float lam, int j) {
+  return clamp_max(lam * __int_as_float((127 + j) << 23), f32(1e8));
 }
 
 // torch.sum of 3 entries on the card: block_width 2, thread 0 holds
@@ -110,111 +124,24 @@ __device__ __forceinline__ float tsum4(float a0, float a1, float a2,
   return (s0 + s2) + (s1 + s3);
 }
 
-__device__ __forceinline__ int last_pow2(int x) {
-  int p = 1;
-  while (2 * p <= x) p *= 2;
-  return p;
-}
-
-// The block torch's reduce kernel takes to sum R rows of n (> 0)
-// contiguous float32 entries (setReduceConfig, Reduce.cuh): bw threads
-// across a row; ny > 1 where a row is split over the block's height; vec
-// where the row is read as float4 vectors (n >= 128; the port's rows are
-// 4F entries, so their starts are 16-byte aligned and there is no tail).
-struct SumConfig {
-  int n, bw, ny;
-  bool vec;
-};
-
-__device__ SumConfig sum_config(int n, int R) {
-  const bool vec = n >= 128;
-  const int dim0 = vec ? n / 4 : n;
-  const int d = dim0 < kReduceThreads ? last_pow2(dim0) : kReduceThreads;
-  const int r = R < kReduceThreads ? last_pow2(R) : kReduceThreads;
-  int bw = min(d, 32);
-  const int bh = min(r, kReduceThreads / bw);
-  bw = min(d, kReduceThreads / bh);
-  const int per_thread = (n + bw - 1) / bw;
-  const bool split = per_thread >= min(bh * 16, 256);
-  return {n, bw, split ? bh : 1, vec};
-}
-
-// One thread (x, y) of that block: its accumulators over its entries,
-// then added in order.
-__device__ float reduce_thread(const float* e, const SumConfig& c, int x,
-                               int y) {
-  const int step = c.bw * c.ny;
-  float a[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  if (c.vec) {
-    for (int v = x + y * c.bw; 4 * v + 3 < c.n; v += step)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = a[i] + e[4 * v + i];
-  } else {
-    int idx = x + y * c.bw;
-    for (; idx + 3 * step < c.n; idx += 4 * step)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = a[i] + e[idx + i * step];
-    for (int i = 0; i < 4 && idx < c.n; ++i, idx += step)
-      a[i] = a[i] + e[idx];
-  }
-  return ((a[0] + a[1]) + a[2]) + a[3];
-}
-
-// torch.sum of x[0..c.n) on the card, in every thread of the warp. vbuf
-// holds kReduceThreads floats where the block is wider than a warp.
-__device__ float torch_sum_rows(const float* x, const SumConfig& c, int lane,
-                                float* vbuf) {
-  if (c.ny == 1 && c.bw <= 32) {
-    float v = lane < c.bw ? reduce_thread(x, c, lane, 0) : 0.0f;
-    for (int off = c.bw >> 1; off > 0; off >>= 1)
-      v = v + __shfl_down_sync(kFull, v, off);
-    return __shfl_sync(kFull, v, 0);
-  }
-  const int nt = c.bw * c.ny;
-  for (int u = lane; u < nt; u += 32)
-    vbuf[u] = reduce_thread(x, c, u % c.bw, u / c.bw);
-  __syncwarp();
-  // block_x_reduce: a tree over each row of the block, then
-  // block_y_reduce: a tree over its rows' sums.
-  for (int off = c.bw >> 1; off > 0; off >>= 1) {
-    for (int u = lane; u < c.ny * off; u += 32) {
-      const int y = u / off, xx = u % off;
-      vbuf[y * c.bw + xx] = vbuf[y * c.bw + xx] + vbuf[y * c.bw + xx + off];
-    }
+// fold_sum of G arrays of n floats each (array g at buf + g * n), in place
+// by the warp: each level adds the second half of an array to its first,
+// then moves an odd last entry to the middle; the sums end in buf[g * n].
+// Thread (g, e) takes entries e, e + tg, ... of array g, tg = 32 / G.
+__device__ void fold_arrays(float* buf, long long n, int G, int lane) {
+  const int tg = 32 / G;
+  const int g = lane / tg, e0 = lane - g * tg;
+  float* a = buf + g * n;
+  for (long long m = n; m > 1; m = (m >> 1) + (m & 1)) {
+    const long long h = m >> 1;
+    if (g < G)
+      for (long long e = e0; e < h; e += tg) a[e] = a[e] + a[e + h];
     __syncwarp();
-  }
-  for (int off = c.ny >> 1; off > 0; off >>= 1) {
-    for (int y = lane; y < off; y += 32)
-      vbuf[y * c.bw] = vbuf[y * c.bw] + vbuf[(y + off) * c.bw];
-    __syncwarp();
-  }
-  const float v = vbuf[0];
-  __syncwarp();  // vbuf is reused by the next sum
-  return v;
-}
-
-// torch_sum_rows for a row of n <= 128 entries (the registers
-// instantiation's): there the block is one row of bw <= 64 threads
-// (ny = 1) and a thread holds at most 4 entries, one an accumulator
-// (x + i bw, or the float4 4x .. 4x + 3), so no shared memory is needed.
-__device__ __forceinline__ float torch_sum_small(const float* x,
-                                                 const SumConfig& c,
-                                                 int lane) {
-  auto part = [&](int u) {  // thread u's accumulators, added in order
-    const int base = c.vec ? 4 * u : u, step = c.vec ? 1 : c.bw;
-    float a[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int k = base + i * step;
-      a[i] = u < c.bw && k < c.n ? 0.0f + x[k] : 0.0f;
+    if (m & 1) {
+      if (g < G && e0 == 0) a[h] = a[2 * h];
+      __syncwarp();
     }
-    return ((a[0] + a[1]) + a[2]) + a[3];
-  };
-  float v = part(lane);
-  if (c.bw > 32) v = v + part(lane + 32);  // the tree's step at offset 32
-  for (int off = min(c.bw, 32) >> 1; off > 0; off >>= 1)
-    v = v + __shfl_down_sync(kFull, v, off);
-  return __shfl_sync(kFull, v, 0);
+  }
 }
 
 // geometry.cross
@@ -282,7 +209,7 @@ __device__ __forceinline__ void rot_tangent(const float q[4], float dw,
 // _residuals_and_jacobian of one plane: rows 4i + c of r and J (Bt, 4P,
 // 6) into rows[], and the squared residuals into sq[].
 __device__ __forceinline__ void plane_rows(const Plane& pl, const float q[4],
-                                           const float t[3], int i,
+                                           const float t[3], long long i,
                                            float* rows, float* sq) {
   float r[4], uvn[3], uvp[3], n2r[3], p2r[3];
   residuals(pl, q, t, r, uvn, uvp, n2r, p2r);
@@ -323,7 +250,7 @@ __device__ __forceinline__ void plane_rows(const Plane& pl, const float q[4],
 }
 
 // The 27 products of one residual row: J_a J_b (a <= b), then J_a r.
-__device__ __forceinline__ void row_products(const float* rows, int row,
+__device__ __forceinline__ void row_products(const float* rows, long long row,
                                              float p[kSums]) {
   const float* j = rows + row * kRowStride;
   int s = 0;
@@ -338,8 +265,8 @@ __device__ __forceinline__ void row_products(const float* rows, int row,
 // An entry of the rows' products after one fold step with half h: rows
 // i and i + h for i < h; for i >= h, row i alone (the caller passes the
 // carried row 2h).
-__device__ __forceinline__ void folded_once(const float* rows, int i, int h,
-                                            float p[kSums]) {
+__device__ __forceinline__ void folded_once(const float* rows, long long i,
+                                            long long h, float p[kSums]) {
   row_products(rows, i, p);
   if (i < h) {
     float o[kSums];
@@ -349,20 +276,21 @@ __device__ __forceinline__ void folded_once(const float* rows, int i, int h,
   }
 }
 
-// fold_sum over the n residual rows of the 27 products; the sums end in
-// thread 0. With kLevels (any n) the first step's entries go to `levels`
-// (27 floats an entry, ceil(n / 2) entries), which is folded in place,
-// a step at a time, down to 32 entries; without (n <= 128) the first two
-// steps are taken in registers.
+// fold_sum over the n residual rows of the 27 products, down to m <= 32
+// entries: entry `lane` in x (0 from m on); returns m. With kLevels (any
+// n) the first step's entries go to `levels` (27 floats an entry,
+// ceil(n / 2) entries), which is folded in place, a step at a time, down
+// to 32 entries; without (n <= 128) the first two steps are taken in
+// registers.
 template <bool kLevels>
-__device__ void fold_rows(const float* rows, int n, int lane,
-                          float x[kSums], float* levels) {
+__device__ int fold_entries(const float* rows, long long n, int lane,
+                            float x[kSums], float* levels) {
 #pragma unroll
   for (int s = 0; s < kSums; ++s) x[s] = 0.0f;
   if constexpr (kLevels) {
-    int h = n >> 1;
-    int m = h + (n & 1);
-    for (int e = lane; e < m; e += 32) {
+    long long h = n >> 1;
+    long long m = h + (n & 1);
+    for (long long e = lane; e < m; e += 32) {
       float p[kSums];
       folded_once(rows, e < h ? e : 2 * h, h, p);
 #pragma unroll
@@ -371,7 +299,7 @@ __device__ void fold_rows(const float* rows, int n, int lane,
     __syncwarp();
     while (m > 32) {
       h = m >> 1;
-      for (int e = lane; e < h; e += 32)
+      for (long long e = lane; e < h; e += 32)
 #pragma unroll
         for (int s = 0; s < kSums; ++s)
           levels[e * kSums + s] =
@@ -391,13 +319,13 @@ __device__ void fold_rows(const float* rows, int n, int lane,
   } else if (n <= 32) {
     if (lane < n) row_products(rows, lane, x);
   } else if (n <= 64) {
-    const int h = n >> 1;
+    const int h = (int)(n >> 1);
     if (lane < h) folded_once(rows, lane, h, x);
     else if ((n & 1) && lane == h) row_products(rows, 2 * h, x);
     n = h + (n & 1);
   } else {
-    const int h = n >> 1;
-    const int n1 = h + (n & 1), h1 = n1 >> 1;
+    const int h = (int)(n >> 1);
+    const int n1 = h + (int)(n & 1), h1 = n1 >> 1;
     // entry e of the first step: rows e and e + h, or the carried row 2h
     if (lane < h1) {
       float o[kSums];
@@ -412,16 +340,53 @@ __device__ void fold_rows(const float* rows, int n, int lane,
     }
     n = h1 + (n1 & 1);
   }
-  while (n > 1) {
-    const int h = n >> 1;
-    const bool carry = (n & 1) && lane == h;
+  return (int)n;
+}
+
+// fold_sum's last steps over m <= 32 entries, one a lane, by shuffles:
+// the sums end in lane 0.
+__device__ void fold_lanes(float x[kSums], int m, int lane) {
+  while (m > 1) {
+    const int h = m >> 1;
+    const bool carry = (m & 1) && lane == h;
 #pragma unroll
     for (int s = 0; s < kSums; ++s) {
       const float o = __shfl_down_sync(kFull, x[s], h);
       x[s] = lane < h ? x[s] + o : (carry ? o : x[s]);
     }
-    n = h + (n & 1);
+    m = h + (m & 1);
   }
+}
+
+// J^T J and J^T r over n = 32, 64 or 128 rows, sum s by thread s, into
+// out[s]: each of the 32 entries fold_entries leaves (row e, or rows e
+// and e + 32, or (e, e + 64) and (e + 32, e + 96) added as it adds them)
+// from the products of sum s's two columns, then fold_sum's last five
+// steps in registers.
+__device__ __forceinline__ void fold_by_sum(const float* rows, int n,
+                                            int lane, float* out) {
+  if (lane >= kSums) return;
+  // J_a r, or J_a J_b (a <= b) in row_products' order
+  int a = lane - 21, b = 6;
+  if (lane < 21) {
+    int k = lane;
+    for (a = 0; k >= 6 - a; ++a) k -= 6 - a;
+    b = a + k;
+  }
+  auto p = [&](int r) {
+    return rows[r * kRowStride + a] * rows[r * kRowStride + b];
+  };
+  float v[32];
+#pragma unroll
+  for (int e = 0; e < 32; ++e)
+    v[e] = n == 32   ? p(e)
+           : n == 64 ? p(e) + p(e + 32)
+                     : (p(e) + p(e + 64)) + (p(e + 32) + p(e + 96));
+#pragma unroll
+  for (int h = 16; h > 0; h >>= 1)
+#pragma unroll
+    for (int e = 0; e < h; ++e) v[e] = v[e] + v[e + h];
+  out[lane] = v[0];
 }
 
 // The step delta = -solve_spd6(damped, g) (linalg6.solve_spd6's unrolled
@@ -503,7 +468,7 @@ __device__ void rotate_pose(const float v[3], const float q[4],
 __device__ __forceinline__ Plane load_plane(
     const float* __restrict__ n1, const float* __restrict__ p1,
     const float* __restrict__ n2, const float* __restrict__ p2,
-    const float* __restrict__ w, long long b, int F, int i) {
+    const float* __restrict__ w, long long b, int F, long long i) {
   Plane pl;
   const long long o = (b * F + i) * 3;
   float a[3];
@@ -519,6 +484,13 @@ __device__ __forceinline__ Plane load_plane(
   return pl;
 }
 
+// The floats of scratch a lane of F planes needs on the scratch
+// instantiation: rows, squared residuals, fold levels.
+__host__ __device__ __forceinline__ long long scratch_floats(long long F) {
+  const long long n = 4 * F;
+  return kRowStride * n + n + kSums * ((n + 1) / 2);
+}
+
 // kInRegs: the registers instantiation (F <= kRegPlanes, scratch unused);
 // otherwise the scratch one.
 template <bool kInRegs>
@@ -527,78 +499,161 @@ lm_refine_kernel(const float* __restrict__ n1, const float* __restrict__ p1,
                  const float* __restrict__ n2, const float* __restrict__ p2,
                  const float* __restrict__ w, float* __restrict__ q_out,
                  float* __restrict__ t_out, int* __restrict__ steps_out,
-                 float* __restrict__ scratch, int F, int iters) {
+                 int* __restrict__ accepted_out, float* __restrict__ scratch,
+                 int F, int iters) {
   __shared__ float rows_s[kInRegs ? kRegRows * kRowStride : 1];
   __shared__ float sq_s[kInRegs ? kRegRows : 1];
-  __shared__ float vbuf[kInRegs ? 1 : kReduceThreads];
+  __shared__ float pose_s[kCands][8];  // q, t of each candidate step
+  __shared__ float sums_s[kSums];      // J^T J, J^T r at the pose
   const long long b = blockIdx.x;
   const int lane = threadIdx.x;
-  const int n = 4 * F;
-  // The scratch of this lane: rows, squares, fold levels.
+  const long long n = 4LL * F;
   float* rows = rows_s;
   float* sq = sq_s;
   float* levels = nullptr;
   if constexpr (!kInRegs) {
-    rows = scratch + b * (long long)(kRowStride * n + n + kSums * ((n + 1) / 2));
+    rows = scratch + b * scratch_floats(F);
     sq = rows + kRowStride * n;
     levels = sq + n;
   }
-  const SumConfig cost = sum_config(n, gridDim.x);  // torch.sum(r * r, -1)
-
+  // A trial round's candidates: G groups of F threads, thread (cg, i)
+  // with candidate cg's plane i (registers), or one over the warp.
+  const int G = kInRegs ? kCands / F : 1;
+  const int cg = kInRegs ? lane / F : 0;
+  const bool pow2 = kInRegs && (F & (F - 1)) == 0;  // G F = 32
   Plane mine = {};
-  if (kInRegs && lane < F) mine = load_plane(n1, p1, n2, p2, w, b, F, lane);
+  if (kInRegs && cg < G) mine = load_plane(n1, p1, n2, p2, w, b, F, lane - cg * F);
+
+  // The rows (and squared residuals) of every plane at (pq, pt).
+  auto rows_at = [&](const float* pq, const float* pt) {
+    for (long long i = lane; i < F; i += 32) {
+      const Plane pl = kInRegs ? mine : load_plane(n1, p1, n2, p2, w, b, F, i);
+      plane_rows(pl, pq, pt, i, rows, sq);
+    }
+    __syncwarp();
+  };
+  // J^T J and J^T r of the rows, into sums_s: a sum a thread where F =
+  // 8, 16 or 32, else a row a thread and shuffles.
+  auto fold_jtj = [&]() {
+    if (kInRegs && (n == 32 || n == 64 || n == 128)) {
+      fold_by_sum(rows, (int)n, lane, sums_s);
+    } else {
+      float x[kSums];
+      const int m = fold_entries<!kInRegs>(rows, n, lane, x, levels);
+      fold_lanes(x, m, lane);
+      if (lane == 0)
+#pragma unroll
+        for (int s = 0; s < kSums; ++s) sums_s[s] = x[s];
+    }
+    __syncwarp();
+  };
 
   float q[4] = {1.0f, 0.0f, 0.0f, 0.0f};
   float t[3] = {0.0f, 0.0f, 0.0f};
   float lam = f32(1e-4);
-  int steps = 0;
-  for (int it = 0; it < iters; ++it) {
-    for (int i = lane; i < F; i += 32) {
-      const Plane pl = kInRegs ? mine : load_plane(n1, p1, n2, p2, w, b, F, i);
-      plane_rows(pl, q, t, i, rows, sq);
-    }
-    __syncwarp();
-    const float c_old = (kInRegs ? torch_sum_small(sq, cost, lane)
-                               : torch_sum_rows(sq, cost, lane, vbuf));
-    if (!(c_old > 0.0f)) break;  // q and t are final
-    float x[kSums];
-    fold_rows<!kInRegs>(rows, n, lane, x, levels);
-    float pose[7];  // q_new, t_new, from thread 0
-    if (lane == 0) {
-      float delta[6];
-      lm_step(x, lam, delta);
+  int steps = 0, accepted = 0;
+  float c_old = 0.0f;
+  bool more = iters > 0;
+  if (more) {
+    rows_at(q, t);
+    fold_arrays(sq, n, 1, lane);
+    c_old = sq[0];
+    more = c_old > 0.0f;  // else q and t are final
+    if (more) fold_jtj();
+  }
+  while (more) {
+    {  // the solve round: thread j's step after j rejections
+      float x[kSums], delta[6], pose[7];
+#pragma unroll
+      for (int s = 0; s < kSums; ++s) x[s] = sums_s[s];
+      lm_step(x, lam_at(lam, lane), delta);
       rotate_pose(delta, q, pose);
 #pragma unroll
       for (int c = 0; c < 3; ++c) pose[4 + c] = t[c] + delta[3 + c];
-    }
 #pragma unroll
-    for (int c = 0; c < 7; ++c) pose[c] = __shfl_sync(kFull, pose[c], 0);
-    __syncwarp();  // every thread has read this iteration's rows
-    for (int i = lane; i < F; i += 32) {
-      const Plane pl = kInRegs ? mine : load_plane(n1, p1, n2, p2, w, b, F, i);
-      float r[4], uvn[3], uvp[3], n2r[3], p2r[3];
-      residuals(pl, pose, pose + 4, r, uvn, uvp, n2r, p2r);
-#pragma unroll
-      for (int c = 0; c < 4; ++c) sq[4 * i + c] = r[c] * r[c];
+      for (int c = 0; c < 7; ++c) pose_s[lane][c] = pose[c];
     }
     __syncwarp();
-    const float c_new = (kInRegs ? torch_sum_small(sq, cost, lane)
-                               : torch_sum_rows(sq, cost, lane, vbuf));
-    ++steps;
-    const bool accept = c_new < c_old;
-    const bool stop =
-        accept && (c_old - c_new <= f32(1e-6) * clamp_min(c_old, f32(1e-30)));
-    if (accept) {
+    const int ncand = min(kCands, iters - steps);
+    int acc = -1;  // the accepted candidate
+    bool final_pose = false;
+    float c_new = 0.0f;
+    for (int base = 0; base < ncand && acc < 0 && !final_pose; base += G) {
+      // the trial costs of candidates base .. base + G - 1
+      if constexpr (kInRegs) {
+        float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        if (cg < G && base + cg < ncand) {
+          const float* pose = pose_s[base + cg];
+          float r[4], uvn[3], uvp[3], n2r[3], p2r[3];
+          residuals(mine, pose, pose + 4, r, uvn, uvp, n2r, p2r);
 #pragma unroll
-      for (int c = 0; c < 4; ++c) q[c] = pose[c];
+          for (int c = 0; c < 4; ++c) s[c] = r[c] * r[c];
+        }
+        if (pow2) {
+          // fold_sum over 4F rows, row 4i + c from plane i: its first
+          // log2(F) steps add plane i + F / 2^k to plane i, c by c
+          for (int off = F >> 1; off > 0; off >>= 1)
 #pragma unroll
-      for (int c = 0; c < 3; ++c) t[c] = pose[4 + c];
-      lam = clamp_min(lam * (1.0f / 3.0f), f32(1e-10));
-    } else {
-      lam = clamp_max(lam * 2.0f, f32(1e8));
+            for (int c = 0; c < 4; ++c)
+              s[c] = s[c] + __shfl_down_sync(kFull, s[c], off, F);
+          if (lane == cg * F) sq[cg * n] = (s[0] + s[2]) + (s[1] + s[3]);
+        } else if (cg < G) {
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            sq[cg * n + 4 * (lane - cg * F) + c] = s[c];
+        }
+      } else {
+        const float* pose = pose_s[base];
+        for (long long i = lane; i < F; i += 32) {
+          const Plane pl = load_plane(n1, p1, n2, p2, w, b, F, i);
+          float r[4], uvn[3], uvp[3], n2r[3], p2r[3];
+          residuals(pl, pose, pose + 4, r, uvn, uvp, n2r, p2r);
+#pragma unroll
+          for (int c = 0; c < 4; ++c) sq[4 * i + c] = r[c] * r[c];
+        }
+      }
+      __syncwarp();
+      if (!pow2) fold_arrays(sq, n, G, lane);
+      for (int g = 0; g < G && base + g < ncand; ++g) {
+        const float c = sq[g * n];
+        if (c < c_old) {
+          acc = base + g;
+          c_new = c;
+          break;
+        }
+        // rejected at lam = 1e8: every later step is this one
+        if (lam_at(lam, base + g) == f32(1e8)) {
+          final_pose = true;
+          break;
+        }
+      }
+      __syncwarp();  // every thread has read the costs
     }
-    if (stop) break;  // done: lm_loop freezes the lane
-    __syncwarp();     // before the next iteration's rows
+    if (acc >= 0) {
+      steps += acc + 1;
+      ++accepted;
+      const bool stop =
+          c_old - c_new <= f32(1e-6) * clamp_min(c_old, f32(1e-30));
+#pragma unroll
+      for (int c = 0; c < 4; ++c) q[c] = pose_s[acc][c];
+#pragma unroll
+      for (int c = 0; c < 3; ++c) t[c] = pose_s[acc][4 + c];
+      lam = clamp_min(lam_at(lam, acc) * (1.0f / 3.0f), f32(1e-10));
+      c_old = c_new;
+      more = !stop && steps < iters && c_old > 0.0f;
+      __syncwarp();  // pose_s read before the next solve round writes it
+      if (more) {
+        rows_at(q, t);
+        fold_jtj();
+      }
+    } else if (final_pose) {
+      steps = iters;
+      more = false;
+    } else {
+      steps += ncand;
+      lam = lam_at(lam, ncand);
+      more = steps < iters;
+    }
   }
   if (lane == 0) {
 #pragma unroll
@@ -606,6 +661,7 @@ lm_refine_kernel(const float* __restrict__ n1, const float* __restrict__ p1,
 #pragma unroll
     for (int c = 0; c < 3; ++c) t_out[b * 3 + c] = t[c];
     steps_out[b] = steps;
+    accepted_out[b] = accepted;
   }
 }
 
@@ -614,27 +670,26 @@ lm_refine_kernel(const float* __restrict__ n1, const float* __restrict__ p1,
 // The floats of scratch a lane of F planes needs on the scratch
 // instantiation.
 extern "C" long long fccf_lm_scratch_floats(int F) {
-  const long long n = 4LL * F;
-  return kRowStride * n + n + kSums * ((n + 1) / 2);
+  return scratch_floats(F);
 }
 
-// The LM solve of Bt lanes of F (1..kMaxPlanes) plane pairs, `iters`
-// iterations at most, on `stream`: the registers instantiation where
-// in_regs (F <= kRegPlanes), else the scratch one, whose scratch holds
-// Bt * fccf_lm_scratch_floats(F) floats. Returns cudaGetLastError() of
-// the launch (0 = launched).
+// The LM solve of Bt lanes of F (>= 1) plane pairs, `iters` iterations at
+// most, on `stream`: the registers instantiation where in_regs (F <=
+// kRegPlanes), else the scratch one, whose scratch holds Bt *
+// fccf_lm_scratch_floats(F) floats. Returns cudaGetLastError() of the
+// launch (0 = launched).
 extern "C" int fccf_lm_refine(const void* n1, const void* p1, const void* n2,
                               const void* p2, const void* w, void* q_out,
-                              void* t_out, void* steps_out, void* scratch,
-                              int Bt, int F, int iters, int in_regs,
-                              void* stream) {
-  if (Bt <= 0 || F <= 0 || F > kMaxPlanes || iters < 0 ||
-      (in_regs && F > kRegPlanes) || (!in_regs && scratch == nullptr))
+                              void* t_out, void* steps_out,
+                              void* accepted_out, void* scratch, int Bt,
+                              int F, int iters, int in_regs, void* stream) {
+  if (Bt <= 0 || F <= 0 || iters < 0 || (in_regs && F > kRegPlanes) ||
+      (!in_regs && scratch == nullptr))
     return (int)cudaErrorInvalidValue;
   auto kernel = in_regs ? lm_refine_kernel<true> : lm_refine_kernel<false>;
   kernel<<<Bt, 32, 0, (cudaStream_t)stream>>>(
       (const float*)n1, (const float*)p1, (const float*)n2, (const float*)p2,
       (const float*)w, (float*)q_out, (float*)t_out, (int*)steps_out,
-      (float*)scratch, F, iters);
+      (int*)accepted_out, (float*)scratch, F, iters);
   return (int)cudaGetLastError();
 }

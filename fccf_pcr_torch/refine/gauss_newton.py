@@ -153,11 +153,11 @@ def lm_loop(n1, p1, n2, p2, w, iters: int = 50, early_exit: bool = True):
     for _ in range(iters):
         active = ~done & (it < iters)
         r, J = _residuals_and_jacobian(q, t, n1, n1p1, n2, p2, w)
-        c_old = torch.sum(r * r, dim=-1)
+        # The costs, J^T J and J^T r as fixed pairwise sums over the
+        # residuals, so a lane rounds alike in every batch.
+        c_old = fold_sum(r * r, dim=-1)
         if early_exit and not bool(torch.any(active & (c_old > 0))):
             break  # one host sync
-        # J^T J and J^T r as fixed pairwise sums over the residuals, so a
-        # lane rounds alike in every batch.
         JtJ = fold_sum(J[..., :, None] * J[..., None, :], dim=1)
         g = fold_sum(J * r[..., None], dim=1)
         damped = (
@@ -171,7 +171,7 @@ def lm_loop(n1, p1, n2, p2, w, iters: int = 50, early_exit: bool = True):
         )
         t_new = t + delta[:, 3:]
         r_new = _residual_terms(q_new, t_new, n1, n1p1, n2, p2, w)[0].flatten(1)
-        c_new = torch.sum(r_new * r_new, dim=-1)
+        c_new = fold_sum(r_new * r_new, dim=-1)
         accept = c_new < c_old
         # Ceres-style function_tolerance termination (relative 1e-6).
         stop = accept & (

@@ -16,13 +16,15 @@ CPU; the LM loop run to its cap and replayed as a CUDA graph
 eager loop bit for bit, one capture a shape, LRU eviction, captures from
 many host threads; the LM kernel L1 (refine/lm_kernel.py) against its
 plain version lm_loop bit for bit (batches of 12, 96 and 192 lanes, 4,
-16, 32, 33, 64 and 200 planes, 0, 1 and 50 iterations, zero-weight,
-zero-cost and NaN lanes), inside a capture, counted at each replay, launched once by
+16, 32, 33, 64, 200, 4097 and 40000 planes, 0, 1 and 50 iterations,
+zero-weight, zero-cost and NaN lanes, lanes that accept every step and
+lanes that reject most), a lane alone equal to it in a batch of 12 and
+96, inside a capture, counted at each replay, launched once by
 refine_pairs with no host sync; the cluster stage's kernels C1 (the
 block scan: seeds, sizes and member sums, at H = 512-8192, batch 1 and
 8, mixed pools, one type, an empty lane, a chain, non-finite entries),
 the standalone block-seed walk and C2 (floor walk) against their plain
-versions; K1's propagation with bounds far below V; the
+versions (C2 also at its edge lanes); K1's propagation with bounds far below V; the
 register step replayed as one CUDA graph against the eager step
 (_register_batch) bit for bit at the office and heritage presets and
 over [cuda:0] * 2, with no host sync in a warm step.
@@ -855,6 +857,93 @@ def test_lm_kernel_scratch_instantiation_matches_registers(cuda, B, P):
     assert torch.equal(lmk.refine_lm(*args), gn.lm_loop(*args))
 
 
+@pytest.mark.parametrize("P", [4097, 40000])
+def test_lm_kernel_takes_any_number_of_planes(cuda, P):
+    """L1 has no cap on the planes a lane: 4097 (one above the cap it had)
+    and 40000 (4F = 160000 residual rows, above the 130560 entries from
+    which torch's reduce splits a row over several blocks) against
+    lm_loop to its cap and with its early exit, bit for bit, with the
+    zero-weight, zero-cost and NaN lanes."""
+    from fccf_pcr_torch.refine import gauss_newton as gn
+
+    args = _on_card(_lm_lanes(P, 5, P), cuda)
+    got = lmk.refine_lm(*args, 20)
+    for early_exit in (False, True):
+        assert torch.equal(got, gn.lm_loop(*args, 20, early_exit=early_exit))
+    assert torch.equal(got[-3:].cpu(), torch.eye(4).expand(3, 4, 4))
+    steps = lmk.lm_solve(*args, 20)[2].cpu()
+    assert steps[-3:].tolist() == [0, 0, 0] and int(steps.max()) > 0
+
+
+@pytest.mark.parametrize("P", [16, 33])
+def test_lm_kernel_lane_alone_equals_batch(cuda, P):
+    """A lane's q, t and LM steps are the same bits alone (Bt = 1), in a
+    launch of 12 lanes and in one of 96: nothing L1 does depends on the
+    other lanes of its launch. lm_loop on the card gives the same
+    transforms at every batch size."""
+    from fccf_pcr_torch.refine import gauss_newton as gn
+
+    args = _on_card(_lm_lanes(P + 96, 96, P), cuda)
+    full = lmk.lm_solve(*args, 50)
+    twelve = lmk.lm_solve(*(a[36:48] for a in args), 50)
+    for a, b in zip(twelve, full):
+        assert torch.equal(a, b[36:48])
+    want = gn.lm_loop(*args, 50, early_exit=False)
+    assert torch.equal(gn.lm_loop(*(a[36:48] for a in args), 50,
+                                  early_exit=False), want[36:48])
+    for lane in (0, 40, 93, 94, 95):
+        alone = lmk.lm_solve(*(a[lane:lane + 1] for a in args), 50)
+        for a, b in zip(alone, full):
+            assert torch.equal(a[0], b[lane]), lane
+        assert torch.equal(
+            gn.lm_loop(*(a[lane:lane + 1] for a in args), 50,
+                       early_exit=False)[0], want[lane]), lane
+    assert torch.equal(lmk.refine_lm(*args, 50), want)
+
+
+def _noise_free_lanes(seed, B, P):
+    """_lm_lanes' plane pairs with no noise on the points: the LM accepts
+    its first steps, each a large decrease of the cost."""
+    rng = np.random.default_rng(seed)
+    n1 = rng.normal(size=(B, P, 3))
+    n1 /= np.linalg.norm(n1, axis=-1, keepdims=True)
+    p1 = rng.uniform(-5, 5, (B, P, 3))
+    ang = rng.normal(0, 0.05, B)
+    c, s = np.cos(ang), np.sin(ang)
+    R = np.zeros((B, 3, 3))
+    R[:, 0, 0], R[:, 0, 1], R[:, 1, 0], R[:, 1, 1] = c, -s, s, c
+    R[:, 2, 2] = 1.0
+    n2 = np.einsum("bij,bpj->bpi", R, n1)
+    p2 = np.einsum("bij,bpj->bpi", R, p1) + rng.normal(0, 0.1, (B, 1, 3))
+    w = rng.uniform(0.05, 0.2, (B, P))
+    return [a.astype(np.float32) for a in (n1, p1, n2, p2, w)]
+
+
+@pytest.mark.parametrize("kind,iters", [("accepting", 2), ("rejecting", 50),
+                                        ("rejecting", 200)])
+@pytest.mark.parametrize("P", [16, 40])
+def test_lm_kernel_accepting_and_rejecting_lanes(cuda, kind, iters, P):
+    """Lanes that accept every step they run (no noise, 2 iterations:
+    each a large decrease) and lanes that reject most of theirs (noisy: a
+    few accepted steps, then rejections while lam doubles up to its 1e8
+    cap, where the step no longer changes; 200 iterations keep them
+    there for 150 more): L1 against lm_loop, bit for bit, and L1's counts
+    of steps and accepted steps."""
+    from fccf_pcr_torch.refine import gauss_newton as gn
+
+    make = _noise_free_lanes if kind == "accepting" else _lm_lanes
+    args = _on_card(make(P + iters, 24, P), cuda)
+    got = lmk.refine_lm(*args, iters)
+    assert torch.equal(got, gn.lm_loop(*args, iters, early_exit=False))
+    _, _, steps, accepted = (x.cpu() for x in lmk.lm_solve(*args, iters))
+    if kind == "accepting":
+        assert steps.tolist() == [iters] * 24
+        assert torch.equal(accepted, steps)
+    else:
+        assert int((steps == iters).sum()) >= 6
+        assert int(accepted.sum()) * 4 < int(steps.sum())
+
+
 def test_lm_kernel_inside_a_capture(cuda):
     """L1 captured as a graph (as inside the register step's) equals the
     eager launch, and its launch counts once at each replay."""
@@ -877,10 +966,9 @@ def test_lm_kernel_rejects_bad_inputs(cuda):
     before = lmk.LAUNCHES
     with pytest.raises(ValueError, match="p1 wants"):  # another device
         lmk.lm_solve(n, n.cpu(), n, n, w)
-    F = lmk.MAX_PLANES + 1
-    with pytest.raises(ValueError, match=f"F = {F}"):  # unprobed sum order
-        m = torch.zeros((3, F, 3), device=cuda)
-        lmk.lm_solve(m, m, m, m, torch.zeros((3, F), device=cuda))
+    with pytest.raises(ValueError, match="F = 0"):  # no plane
+        m = torch.zeros((3, 0, 3), device=cuda)
+        lmk.lm_solve(m, m, m, m, torch.zeros((3, 0), device=cuda))
     assert lmk.LAUNCHES == before
 
 
@@ -957,6 +1045,61 @@ def test_floor_walk_kernel_matches_plain(cuda, lanes, W):
     assert ck.WALKS == before + 1
     assert torch.equal(got, ck.floor_walk_plain(s, c))
     assert torch.equal(ck.floor_walk(s.reshape(-1, 1, W)[:, 0], c), got)
+
+
+def _walk_edge(name):
+    """(s_size, cluster_num) of one C2 edge lane batch."""
+    f32 = np.float32
+    if name == "no seed":
+        return np.zeros((3, 100), f32), f32([0, 5, 100])
+    if name == "W = 1":
+        return f32([[3], [0], [1]]), f32([0, 1, 5])
+    if name == "W = 8192":
+        s = np.sort(np.random.default_rng(8192).integers(0, 9, (24, 8192)),
+                    axis=-1)[:, ::-1].astype(f32)
+        return np.ascontiguousarray(s), np.full(24, 4000, f32)
+    if name == "W = 1000 (no multiple of 32)":
+        s = np.sort(np.random.default_rng(1000).integers(0, 30, (6, 1000)),
+                    axis=-1)[:, ::-1].astype(f32)
+        return np.ascontiguousarray(s), f32([0, 1, 20, 60, 500, 2000])
+    if name == "ties at the floor":
+        s = np.full((2, 96), 5, f32)
+        s[1, 40:] = 4
+        return s, f32([1000, 1000])
+    if name == "stop over the budget":
+        return np.full((2, 80), 6, f32), f32([10, 40])
+    if name == "stop below a floor of 2":
+        s = np.full((2, 80), 1, f32)
+        s[:, 0] = (9, 2)
+        return s, f32([100, 100])
+    if name == "stop at half the budget":
+        s = np.full((2, 80), 3, f32)
+        s[:, 0] = 9
+        s[1, :20] = 9
+        return s, f32([2, 30])
+    if name == "stop in the last slot of a round":
+        s = np.full((3, 96), 1, f32)
+        s[0, :32] = 7   # the 32nd emit is over a budget of 31: slot 31
+        s[1, :31] = 2   # slot 31 lowers the floor from 2 to 1
+        s[2, :63] = 7   # slot 63 emits nothing at 63 >= half of 100
+        return s, f32([31, 100, 100])
+    raise KeyError(name)
+
+
+@pytest.mark.parametrize("name", [
+    "no seed", "W = 1", "W = 8192", "W = 1000 (no multiple of 32)",
+    "ties at the floor", "stop over the budget", "stop below a floor of 2",
+    "stop at half the budget", "stop in the last slot of a round"])
+def test_floor_walk_kernel_edge_lanes(cuda, name):
+    """C2 against the plain walk on the card at its edges: every slot a
+    non-seed, one slot, 8192 slots, a width that is no multiple of 32,
+    ties at the floor, each of the walk's three stops, and a stop in the
+    last slot of a round of 32."""
+    sizes, cn = _walk_edge(name)
+    s = torch.from_numpy(sizes).to(cuda)
+    c = torch.from_numpy(cn).to(cuda)
+    got = ck.floor_walk(s, c)
+    assert torch.equal(got, ck.floor_walk_plain(s, c))
 
 
 def test_cluster_kernels_reject_bad_inputs(cuda):

@@ -129,13 +129,14 @@ def test_refine_pairs_matches_reference(seed):
     assert not np.allclose(j, np.eye(4), atol=1e-3)  # the LM moved
 
 
-@pytest.mark.parametrize("F", [33, 64])
+@pytest.mark.parametrize("F", [33, 64, 4097])
 def test_refine_pairs_matches_reference_above_32_planes(F):
     """More plane pairs a lane than a warp has threads (L1 takes them
-    through its scratch buffer on a card): refine_pairs (lm_loop with its
-    early exit) and lm_loop to its cap on the CPU against the JAX
-    refine_pairs on the same planes, within 2e-6 as at 16 planes; the
-    two loop forms bit-equal."""
+    through its scratch buffer on a card), up to 4097 (beyond the 4096
+    L1 once capped): refine_pairs (lm_loop with its early exit) and
+    lm_loop to its cap on the CPU against the JAX refine_pairs on the
+    same planes, within 2e-6 as at 16 planes; the two loop forms
+    bit-equal."""
     args = _candidates(F, P=F, n_pairs=F - F // 4)
     j = np.asarray(jax.jit(jax.vmap(lambda *a: jgn.refine_pairs(*a)))(*args))
     ta = [torch.from_numpy(a) for a in args]
@@ -162,13 +163,14 @@ class _CountLaunches(TorchDispatchMode):
 
 def test_lm_iteration_launches():
     """The LM loop is bound by kernel launches on the card (PERF.md
-    section 5), so the ops of one iteration are pinned: 422 with the
+    section 5), so the ops of one iteration are pinned: 432 with the
     Jacobian written out as forward-mode AD forms it, one residual helper
-    shared with the step's cost, J^T J and J^T r as fixed pairwise sums
-    (the same rounding in every batch; 412 with two matrix products) and
-    the cross tangent's index permutations as rolls (no index list copied
-    to the card), against 455 for the closed-form Jacobian it replaced
-    (same count)."""
+    shared with the step's cost, J^T J, J^T r and the two costs as fixed
+    pairwise sums (the same rounding in every batch; 412 with two matrix
+    products and the costs as one torch.sum each, 422 with the costs so)
+    and the cross tangent's index permutations as rolls (no index list
+    copied to the card), against 455 for the closed-form Jacobian it
+    replaced (same count)."""
     args = [torch.from_numpy(a) for a in _candidates(3, B=12)]
     counts = []
     for iters in (1, 2, 3):
@@ -177,7 +179,7 @@ def test_lm_iteration_launches():
         counts.append(c.n)
     per_iteration = counts[2] - counts[1]
     assert per_iteration == counts[1] - counts[0]  # every lane still runs
-    assert per_iteration == 422
+    assert per_iteration == 432
 
 
 def _edge_lanes(seed, B=6, P=16, noisy=True):
@@ -217,11 +219,11 @@ class _NoHostRead(TorchDispatchMode):
 
 
 @pytest.mark.parametrize("seed,exits_early", [
-    (0, False), (3, True), (4, True), (6, True)])
+    (0, True), (1, False), (3, True), (4, True), (6, True)])
 def test_loop_to_the_cap_equals_early_exit(seed, exits_early):
     """Run to the cap, the loop returns the early exit's bits, whether
-    the early exit stops before the cap (seeds 3, 4, 6: every live lane
-    met its tolerance) or not (seed 0)."""
+    the early exit stops before the cap (seeds 0, 3, 4, 6: every live
+    lane met its tolerance) or not (seed 1)."""
     args = [torch.from_numpy(a) for a in _edge_lanes(seed)]
     with _CountLaunches() as early_ops:
         early = tgn.lm_loop(*args)
@@ -282,20 +284,18 @@ def test_refine_pairs_refuses_other_devices():
 
 @pytest.mark.parametrize("case,match", [
     ("cpu", "unsupported device cpu"),
-    ("planes", f"F = {lm_kernel.MAX_PLANES + 1}"),
+    ("planes", "F = 0"),
     ("dtype", "n1 wants float32"), ("shape", "n2 wants"),
     ("iters", "iters = -1"), ("registers", "does not fit in registers")])
 def test_lm_solve_refuses_what_the_kernel_does_not_take(case, match):
     """The kernel's wrapper checks before it builds or launches: CUDA
-    float32 (Bt, F, 3) planes and (Bt, F) weights, 1 <= F <= MAX_PLANES
-    (above it torch's order of additions for a row of 4F entries has not
-    been probed), iters >= 0, and the registers instantiation only up to
-    REG_PLANES (each check fails before any CUDA call, so on the CPU
-    too)."""
+    float32 (Bt, F, 3) planes and (Bt, F) weights, F >= 1 (no cap above),
+    iters >= 0, and the registers instantiation only up to REG_PLANES
+    (each check fails before any CUDA call, so on the CPU too)."""
     Bt, F, iters, dtype = 2, 4, 5, torch.float32
     registers = None
     if case == "planes":
-        F = lm_kernel.MAX_PLANES + 1
+        F = 0
     if case == "registers":
         F, registers = lm_kernel.REG_PLANES + 1, True
     if case == "iters":
@@ -313,26 +313,39 @@ def test_lm_solve_refuses_what_the_kernel_does_not_take(case, match):
 
 
 def test_kernel_limits_match_the_source():
-    """The wrapper's MAX_PLANES and REG_PLANES are the source's kMaxPlanes
-    and kRegPlanes, MAX_PLANES is no longer than the rows
-    tools/torch_sum_order.py probes (4F entries), and the build
-    keeps every product rounded once (--fmad=false) and never uses fast
-    math, which lm_loop's bits need."""
+    """The wrapper's REG_PLANES is the source's kRegPlanes, the source
+    caps no other number of planes, and the build keeps every product
+    rounded once (--fmad=false) and never uses fast math, which lm_loop's
+    bits need."""
     import re
 
     from fccf_pcr_torch.ops import cuda_build
 
     src = lm_kernel._LIBRARY.source.read_text()
-    assert int(re.search(r"kMaxPlanes = (\d+);", src).group(1)) == \
-        lm_kernel.MAX_PLANES
     assert int(re.search(r"kRegPlanes = (\d+);", src).group(1)) == \
         lm_kernel.REG_PLANES
-    probe = (lm_kernel._LIBRARY.source.parents[2] / "tools"
-             / "torch_sum_order.py").read_text()
-    lengths = re.search(r"^LENGTHS = \((.*?)\)$", probe, re.M | re.S)
-    assert 4 * lm_kernel.MAX_PLANES <= max(
-        int(x) for x in re.findall(r"\d+", lengths.group(1)))
+    assert "kMaxPlanes" not in src
     assert "--fmad=false" in cuda_build.NVCC_FLAGS
     assert not any("fast" in f for f in cuda_build.NVCC_FLAGS)
     for fast in ("__fdividef", "rsqrtf", "__sinf", "__cosf", "__expf"):
         assert fast not in src, fast
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_lane_rounds_alike_in_any_batch(seed):
+    """A lane of lm_loop gives the same bits alone (Bt = 1), in a batch of
+    12 and in one of 96 built from the same planes: every sum of the loop
+    (the costs, J^T J, J^T r) adds in an order fixed by one lane's shape.
+    The batch holds noisy lanes, a zero-weight, a zero-cost and a NaN
+    lane."""
+    parts = [_edge_lanes(seed * 8 + k, B=12) for k in range(8)]
+    args = [torch.from_numpy(np.concatenate([p[i] for p in parts]))
+            for i in range(5)]
+    assert args[4].shape == (96, 16)
+    full = tgn.lm_loop(*args, early_exit=False)
+    twelve = tgn.lm_loop(*(a[24:36] for a in args), early_exit=False)
+    assert torch.equal(twelve, full[24:36])
+    for lane in (0, 9, 10, 11, 30, 95):
+        alone = tgn.lm_loop(*(a[lane:lane + 1] for a in args),
+                            early_exit=False)
+        assert torch.equal(alone[0], full[lane]), lane

@@ -1,32 +1,29 @@
 #!/usr/bin/env python3
-"""The order in which torch adds on a CUDA card, as the LM kernel L1
-(``fccf_pcr_torch/csrc/lm.cu``) reproduces it.
+"""The order in which torch adds a row of 3 or 4 entries on a CUDA card,
+as the kernels that copy it reproduce it: ``tsum3`` and ``tsum4`` in the
+LM kernel L1 (``fccf_pcr_torch/csrc/lm.cu``: n1.p1, the offsets, the
+step's squared norm, the quaternion norm) and ``tsum3`` in C1
+(``csrc/cluster.cu``). Longer sums of the port's kernels add in
+``ops/batch.py::fold_sum``'s order, which no kernel needs torch for.
 
     python3 tools/torch_sum_order.py [--rows N] [--device cuda]
 
-For each row length n and each number R of rows a call sums,
+For n = 3 and 4 and each number R of rows a call sums,
 ``torch.sum(x, dim=-1)`` of (R, n) rows with entries of mixed sign and
 magnitude (so that different orders round differently), over enough
-calls to give a few thousand rows, against three float32 models of the
-order, computed on the host with NumPy:
-
-  - ``reduce``: torch's CUDA reduce kernel (``ATen/native/cuda/
-    Reduce.cuh``: ``setReduceConfig`` and ``ReduceOp``), as L1 adds: a
-    block of bw x bh threads, bw from the largest power of two <= n (<=
-    n / 4 where n >= 128, read as float4 vectors) and bh from R, at most
-    512 threads; thread (x, y) keeps its entries (x + k bw, or its
-    vectors), or, where a row is split over the block's height, every
-    bw bh-th, in four accumulators that start at 0 and are added in
-    order; then a tree over the width at offsets bw / 2, ..., 1 and one
-    over the height;
-  - ``sequential``: ((x0 + x1) + x2) + ...;
-  - ``fold``: ``ops/batch.py::fold_sum``.
+calls to give a few thousand rows, against the float32 model of torch's
+CUDA reduce kernel for rows that short (``ATen/native/cuda/Reduce.cuh``:
+``setReduceConfig`` gives a block bw threads wide, bw the largest power
+of two <= n, whatever R; thread x keeps entries x, x + bw, ... in four
+accumulators that start at 0 and are added in order; then a tree over
+the width at offsets bw / 2, ..., 1), computed on the host with NumPy.
 
 Then ``x / 3.0`` and ``x / 48.0`` (a Python scalar) against x times the
 float32 reciprocal and against the float32 division. Prints one line a
-probe with the rows that differ from each model (0 = that model is
+probe with the rows that differ from the model (0 = the model is
 torch's order; ``reduce_fits`` says whether it is so at every probe), the
-card's name and power limit, and the whole as JSON last. Exits non-zero without a card, unless ``--device cpu``.
+card's name and power limit, and the whole as JSON last. Exits non-zero
+without a card, unless ``--device cpu``.
 """
 
 import argparse
@@ -37,13 +34,11 @@ import sys
 import numpy as np
 import torch
 
-# Row lengths: L1 sums rows of 4F entries (F planes a lane).
-LENGTHS = (3, 4, 12, 16, 48, 64, 100, 124, 128, 132, 256, 260, 512, 800,
-           1024, 4096, 8192, 16384)
-# Rows a call sums (L1: the lanes of a launch); the block's shape depends
-# on them.
+# Row lengths: the kernels copy torch's order for 3- and 4-entry sums.
+LENGTHS = (3, 4)
+# Rows a call sums (L1: the lanes of a launch); for rows this short the
+# block's shape does not depend on them.
 ROW_COUNTS = (4096, 96, 12, 1)
-MAX_THREADS = 512  # Reduce.cuh's MAX_NUM_THREADS for float32
 
 
 def _last_pow2(x):
@@ -53,80 +48,32 @@ def _last_pow2(x):
     return p
 
 
-def reduce_config(n, R):
-    """(bw, ny, vec) of setReduceConfig for R contiguous rows of n
-    float32 entries, 16-byte aligned (csrc/lm.cu: sum_config)."""
-    vec = n >= 128
-    dim0 = n // 4 if vec else n
-    d = _last_pow2(dim0) if dim0 < MAX_THREADS else MAX_THREADS
-    r = _last_pow2(R) if R < MAX_THREADS else MAX_THREADS
-    bw = min(d, 32)
-    bh = min(r, MAX_THREADS // bw)
-    bw = min(d, MAX_THREADS // bh)
-    split = -(-n // bw) >= min(bh * 16, 256)
-    return bw, (bh if split else 1), vec
-
-
-def reduce_model(x, R):
+def reduce_model(x):
+    """torch's CUDA sum of each row of x (..., n), n < 128: thread xx of
+    a block bw = _last_pow2(n) wide keeps entries xx, xx + bw, ... in four
+    accumulators, added in order; then the tree over the width."""
     n = x.shape[-1]
-    if n >= 128 and n % 4:
-        raise ValueError("the model takes rows of n % 4 == 0 from 128 on")
-    bw, ny, vec = reduce_config(n, R)
-    step = bw * ny
+    bw = _last_pow2(n)
     zero = np.zeros(x.shape[:-1], np.float32)
     vals = []
-    for y in range(ny):
-        for xx in range(bw):
-            acc = [zero] * 4
-            if vec:
-                v = xx + y * bw
-                while 4 * v + 3 < n:
-                    acc = [acc[i] + x[..., 4 * v + i] for i in range(4)]
-                    v += step
-            else:
-                idx = xx + y * bw
-                while idx + 3 * step < n:
-                    acc = [acc[i] + x[..., idx + i * step] for i in range(4)]
-                    idx += 4 * step
-                for i in range(4):
-                    if idx >= n:
-                        break
-                    acc[i] = acc[i] + x[..., idx]
-                    idx += step
-            vals.append(((acc[0] + acc[1]) + acc[2]) + acc[3])
-    for y in range(ny):  # block_x_reduce
-        off = bw // 2
-        while off:
-            for i in range(off):
-                vals[y * bw + i] = vals[y * bw + i] + vals[y * bw + i + off]
-            off //= 2
-    off = ny // 2  # block_y_reduce
+    for xx in range(bw):
+        acc = [zero] * 4
+        idx = xx
+        while idx + 3 * bw < n:
+            acc = [acc[i] + x[..., idx + i * bw] for i in range(4)]
+            idx += 4 * bw
+        for i in range(4):
+            if idx >= n:
+                break
+            acc[i] = acc[i] + x[..., idx]
+            idx += bw
+        vals.append(((acc[0] + acc[1]) + acc[2]) + acc[3])
+    off = bw // 2
     while off:
-        for y in range(off):
-            vals[y * bw] = vals[y * bw] + vals[(y + off) * bw]
+        for i in range(off):
+            vals[i] = vals[i] + vals[i + off]
         off //= 2
     return vals[0]
-
-
-def sequential_model(x):
-    s = x[..., 0]
-    for i in range(1, x.shape[-1]):
-        s = s + x[..., i]
-    return s
-
-
-def fold_model(x):
-    while x.shape[-1] > 1:
-        n = x.shape[-1]
-        h = n // 2
-        head = x[..., :h] + x[..., h:2 * h]
-        x = head if n % 2 == 0 else np.concatenate([head, x[..., 2 * h:]], -1)
-    return x[..., 0]
-
-
-MODELS = {"reduce": reduce_model,
-          "sequential": lambda x, R: sequential_model(x),
-          "fold": lambda x, R: fold_model(x)}
 
 
 def main():
@@ -151,11 +98,10 @@ def main():
             got = torch.stack([torch.sum(xd[c], dim=-1)
                                for c in range(calls)]).cpu().numpy()
             key = f"{n}x{R}"
-            out["sum"][key] = {k: int((m(x, R) != got).sum())
-                               for k, m in MODELS.items()}
-            out["sum"][key]["rows"] = calls * R
+            out["sum"][key] = {"reduce": int((reduce_model(x) != got).sum()),
+                               "rows": calls * R}
             print(f"[sum] n = {n}, {R} rows a call: rows differing from "
-                  f"each model {out['sum'][key]}", flush=True)
+                  f"the model {out['sum'][key]}", flush=True)
     out["reduce_fits"] = all(v["reduce"] == 0 for v in out["sum"].values())
     x = rng.uniform(1e-10, 1e8, a.rows).astype(np.float32)
     for d in (3.0, 48.0):
