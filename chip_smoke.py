@@ -8,12 +8,13 @@ result:
 
   1. environment: torch / CUDA / nvcc versions and the card's name and
      power limit (nvidia-smi); no card -> fail (never a CPU fallback);
-  2. build the four sources with nvcc, in parallel: csrc/label_prop.cu
+  2. build the five sources with nvcc, in parallel: csrc/label_prop.cu
      (the label-propagation kernels: the propagation entry, one
      cooperative launch a propagation, and the one-sweep entry K1),
      csrc/gather.cu (the per-row gather P1), csrc/cluster.cu (the
      cluster stage's block scan C1, the standalone block-seed walk and
-     the floor walk C2) and csrc/lm.cu (the LM solve L1); ptxas's
+     the floor walk C2), csrc/lm.cu (the LM solve L1) and csrc/scan.cu
+     (the integer scans S1 and the blocked prefix sum S2); ptxas's
      registers, shared memory and spills of each kernel;
   3. label propagation vs its plain PyTorch version on the card, through
      the propagation kernel and through the per-sweep host loop (K1 +
@@ -69,7 +70,7 @@ result:
      sweeps the propagation kernel ran (at most 4 propagation launches a
      step, no one-sweep, gather or standalone block-seed launch; one
      block-scan launch, whatever H / 512 is, one floor walk and one L1
-     launch), and per step: every kernel
+     launch, S1 and S2 called), and per step: every kernel
      launched, as host
      launches (the CUDA runtime's launch calls, cudaGraphLaunch
      included) and as device kernels (the kernels CUPTI saw run, those
@@ -165,18 +166,38 @@ result:
      q, t and both counts bitwise equal; L1's
      device time at the heritage step's inputs beside the plain loop
      captured as a graph of its own and replayed (CUDA events), the
-     eager loop and the bound, and its two instantiations in turns.
+     eager loop and the bound, and its two instantiations in turns;
+ 21. (run after phase 18) the device time of one eager batch-8 step by
+     stage, at heritage and office: each device kernel put in the
+     record_function ranges around the host op that launched it
+     (register.py's stages, the finer ranges of the port's modules), by
+     stage and by chain of ranges: device ms, kernels and the three
+     kernels with the most time, every kernel in a stage and the buckets
+     adding up to the step's kernels; once with the step's scans as their
+     plain versions (the port before S1 and S2) and once through S1 and
+     S2; beside it the graph step's kernel count and the kernel names a
+     replay holds more or fewer than the eager step;
+ 22. S1 and S2 against their plain versions on the card, bit for bit:
+     every S1 and S2 input of the heritage and office batch-8 eager steps
+     and the edge cases (lengths 1, 17 and 8193, all-false and all-true
+     flags, int32 and int64 values near 2^31, sentinel tails; -0.0, inf
+     and NaN in the float input, lengths 1, 17, 257 and 65537); at the
+     steps' inputs each call's device time (a graph of 10 calls, CUDA
+     events) beside the plain version's, the library call's
+     (torch.cumsum / torch.cummax / torch.cummin; for S2 torch.cumsum,
+     another order of additions) and the bound, and their sums a step.
 
 Phases 5-6 are the main path: their launch counts are the kernels'
 "launches". Every later in-process path (12-16) is driven with the
 counts set to 0 just before it and read just after (drive_path): each
-must launch the propagation kernel and C1 (the block scan), and neither
+must launch the propagation kernel, C1 (the block scan), S1 and S2, and
+neither
 the one-sweep, the gather nor the standalone block-seed kernel, and
 each but the content measurement (which
 stops at the seeds) must replay a step graph and launch C2 and L1. A path's
 kernels launched inside a captured step graph count at each replay
 (ops/graph.py's count_launch); the hooks that record a kernel's inputs
-(phases 3, 18, 19, 20) drive the eager step, where Python runs.
+(phases 3, 18, 19, 20, 22) drive the eager step, where Python runs.
 
 Then one JSON line describing the kernels, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
@@ -253,6 +274,25 @@ KERNELS = {
         source="fccf_pcr_torch/csrc/lm.cu",
         replaces="fccf_pcr_tpu/refine/gauss_newton.py:100",
     ),
+    # The step's scans along long rows: no Pallas kernel, jnp.cumsum and
+    # lax.cummax in the JAX package's compiled program.
+    "scan_int": dict(
+        name="scan_int",
+        route="cuda",
+        source="fccf_pcr_torch/csrc/scan.cu",
+        replaces="fccf_pcr_tpu/ops/voxelize.py:526",
+        also_replaces=["fccf_pcr_tpu/ops/voxelize.py:116",
+                       "fccf_pcr_tpu/ops/voxelize.py:208",
+                       "fccf_pcr_tpu/ops/voxelize.py:386"],
+    ),
+    "prefix_sum16": dict(
+        name="prefix_sum16",
+        route="cuda",
+        source="fccf_pcr_torch/csrc/scan.cu",
+        replaces="fccf_pcr_tpu/ops/voxelize.py:143",
+        also_replaces=["fccf_pcr_tpu/ops/voxelize.py:530",
+                       "fccf_pcr_tpu/ops/voxelize.py:584"],
+    ),
 }
 _BIG = 2**30
 # K1 against plain: (V, per-pair bounds) of batch-2 comparisons, and the
@@ -319,10 +359,13 @@ C1_FINITE_OPS = 9
 L1_TRIAL_OPS = 86
 L1_ROWS_OPS = 557
 L1_LANE_OPS = 315
-# register.py's record_function scopes; their ranges also appear on the
-# device timeline and are not kernels.
+# register.py's record_function ranges, the stages of the step, in order
+# (the port's modules nest finer ranges inside them); a range also appears
+# on the device timeline, as no kernel.
 STAGES = ("downsample", "faces", "hypotheses", "cluster", "quick_verify",
-          "refine", "fine_verify")
+          "select", "refine", "fine_verify", "fuse")
+# The host's CUDA calls that launch work on the card.
+LAUNCH_CALLS = ("cudaLaunch", "cuLaunch", "cudaGraphLaunch")
 # The graph counts read around a step (pipeline/register.py's STEP).
 GRAPH_COUNTS = ("step_graph_captures", "step_graph_replays")
 # torch.profiler captures taken again because CUPTI had dropped records
@@ -1029,9 +1072,27 @@ def capture(fn, only="", reset=None):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return [e.device_time / 1e3 for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and only in e.name]
+    return [record_ms(e) for e in device_records(prof) if only in e.name()]
+
+
+def device_records(prof):
+    """The device records of a torch.profiler capture (its raw kineto
+    records): kernels, copies and fills, without the device-side mirrors
+    of the port's record_function ranges, which are no work of their
+    own."""
+    import torch
+
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.profiler.kineto_results.events()
+    ranges = {e.name() for e in events
+              if e.device_type() != cuda and e.is_user_annotation()}
+    return [e for e in events if e.device_type() == cuda
+            and not e.is_user_annotation() and e.name() not in ranges]
+
+
+def record_ms(e):
+    """A raw kineto record's duration in ms."""
+    return (e.end_ns() - e.start_ns()) / 1e6
 
 
 def record_count(fn, only="", reset=None, n=3, tries=10):
@@ -1538,7 +1599,7 @@ def phase_path(name, counters, dev):
               f"{launches[k]} times (it runs inside the propagation kernel "
               "or the block scan)")
     for k in ("cluster_block_scan", "cluster_floor_walk", "lm_refine",
-              "step_graph_replays"):
+              "scan_int", "prefix_sum16", "step_graph_replays"):
         check(launches[k] > 0, f"the {name} path made no {k}")
 
     T = res.transform
@@ -1891,9 +1952,10 @@ def count_syncs(fn, *args):
 def launch_capture(fn):
     """One torch.profiler capture (CPU and CUDA activity) of ``fn()``:
     the host's launch calls by the name of the CUDA call (cudaLaunchKernel,
-    cuLaunchKernel, cudaGraphLaunch, ...), the device kernels (CUDA records that are
-    neither copies, fills nor register.py's stage ranges) and the device
-    copies and fills. Read from the raw kineto records (building the
+    cuLaunchKernel, cudaGraphLaunch, ...), the device kernels (CUDA
+    records that are neither copies, fills nor the mirrors of the
+    record_function ranges: ``device_records``) and the device copies and
+    fills. Read from the raw kineto records (building the
     profiler's event tree of an eager step takes seconds)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1904,17 +1966,13 @@ def launch_capture(fn):
         fn()
         torch.cuda.synchronize()
     host = collections.Counter()
-    kernels = copies = 0
     for e in prof.profiler.kineto_results.events():
-        name = e.name()
-        if e.device_type() == torch.autograd.DeviceType.CUDA:
-            if name.startswith(("Memcpy", "Memset")):
-                copies += 1
-            elif name not in STAGES:
-                kernels += 1
-        elif name.startswith(("cudaLaunch", "cuLaunch", "cudaGraphLaunch")):
-            host[name] += 1
-    return host, kernels, copies
+        if (e.device_type() != torch.autograd.DeviceType.CUDA
+                and e.name().startswith(LAUNCH_CALLS)):
+            host[e.name()] += 1
+    records = device_records(prof)
+    copies = sum(e.name().startswith(("Memcpy", "Memset")) for e in records)
+    return host, len(records) - copies, copies
 
 
 def count_launches(fn, *args, n=3, tries=10):
@@ -2352,6 +2410,329 @@ def graph_turns(what, graph_fn, eager_fn, args):
     return dict(turns)
 
 
+def kernel_stages(fn):
+    """One torch.profiler capture (CPU and CUDA activity) of ``fn()``:
+    each device kernel (``device_records``, copies and fills left out)
+    as (ranges, name, ms), ``ranges`` the record_function ranges around
+    the host call that launched it, outermost first. That call is the
+    CUDA launch call with the kernel's correlation id (a kernel of the
+    port is launched through ctypes, inside no aten op), else the aten op
+    the kernel is linked to; a kernel with neither gets no ranges."""
+    import bisect
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    ranges, ops, calls = [], {}, {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == cuda:
+            continue
+        if e.is_user_annotation():
+            ranges.append((e.start_ns(), e.end_ns(), e.name()))
+        if e.name().startswith(LAUNCH_CALLS):
+            calls[e.correlation_id()] = e.start_ns()
+        elif e.name().startswith("aten::"):
+            ops.setdefault(e.correlation_id(), e.start_ns())
+    ranges.sort()
+    starts = [r[0] for r in ranges]
+    out = []
+    for e in device_records(prof):
+        if e.name().startswith(("Memcpy", "Memset")):
+            continue
+        t = calls.get(e.correlation_id())
+        if t is None and e.linked_correlation_id() > 0:
+            t = ops.get(e.linked_correlation_id())
+        chain = () if t is None else tuple(
+            name for start, end, name in ranges[:bisect.bisect_right(starts, t)]
+            if end >= t)
+        out.append((chain, e.name(), record_ms(e)))
+    return out
+
+
+@contextlib.contextmanager
+def plain_scans():
+    """ops/scan.py's kernels S1 and S2 replaced by their plain versions
+    for the duration: the step's scans as the port ran them on the card
+    before S1 and S2 (torch.cumsum, torch.cummax, flip / cummin / flip,
+    and the blocked prefix sum as PyTorch ops)."""
+    from fccf_pcr_torch.ops import scan
+
+    kept = scan._launch_int_scan, scan._launch_prefix_sum
+    scan._launch_int_scan = scan.int_scan_plain
+    scan._launch_prefix_sum = functools.partial(scan.prefix_sum_plain, dim=1)
+    try:
+        yield
+    finally:
+        scan._launch_int_scan, scan._launch_prefix_sum = kept
+
+
+def stage_table(name, ks):
+    """``kernel_stages``' kernels by stage (the outermost range, one of
+    STAGES) and by chain of ranges: device ms, kernel count and the three
+    kernels with the most time. Every kernel must lie in a stage, and the
+    buckets must add up to the kernels."""
+    stages, paths = {}, {}
+    for chain, kname, ms in ks:
+        for key, table in ((chain[0] if chain else "", stages),
+                           (" > ".join(chain), paths)):
+            b = table.setdefault(key, dict(ms=0.0, kernels=0, by_name={}))
+            b["ms"] += ms
+            b["kernels"] += 1
+            b["by_name"][kname] = b["by_name"].get(kname, 0.0) + ms
+    check(sum(b["kernels"] for b in stages.values()) == len(ks)
+          == sum(b["kernels"] for b in paths.values()),
+          f"{name} stages: the buckets do not add up to {len(ks)} kernels")
+    outside = collections.Counter(k for chain, k, _ in ks
+                                  if not chain or chain[0] not in STAGES)
+    check(not outside, f"{name} stages: kernels outside every stage: "
+          f"{dict(outside)}")
+    for b in list(stages.values()) + list(paths.values()):
+        b["top"] = sorted(b.pop("by_name").items(), key=lambda kv: -kv[1])[:3]
+    return dict(kernels=len(ks), ms=sum(ms for _, _, ms in ks),
+                stages={k: stages[k] for k in STAGES if k in stages},
+                paths=dict(sorted(paths.items(),
+                                  key=lambda kv: -kv[1]["ms"])))
+
+
+def phase_stages(name, step, eager, graph_kernels):
+    """Phase 21 at one preset: the device kernels of one eager batch-8
+    step by stage and by range (``stage_table``; ``kernel_stages``, the
+    capture of three that holds the most kernels: CUPTI drops records and
+    never adds one), with the step's scans as their plain versions
+    (``plain_scans``, the port before S1 and S2) and through S1 and S2.
+    Beside it the graph step's kernels (phase 8's count, and the kernel
+    names one capture of the replay holds more or fewer than the eager
+    step: the graph replays the same program)."""
+    import torch
+
+    fn, args = step
+    out = {}
+    for arm in ("plain scans", "S1/S2"):
+        with plain_scans() if arm == "plain scans" else contextlib.nullcontext():
+            eager(*args)  # warm up
+            torch.cuda.synchronize()
+            ks = max((kernel_stages(lambda: eager(*args)) for _ in range(3)),
+                     key=len)
+        out[arm] = stage_table(name, ks)
+    fn(*args)  # the step graph may have been evicted: capture it first
+    torch.cuda.synchronize()
+    graph_names = collections.Counter(
+        e.name() for e in max(
+            (device_records_of(lambda: fn(*args)) for _ in range(3)),
+            key=len)
+        if not e.name().startswith(("Memcpy", "Memset")))
+    eager_names = collections.Counter(kname for _, kname, _ in ks)
+    out.update(graph_kernels=graph_kernels,
+               graph_capture_kernels=sum(graph_names.values()),
+               graph_more=dict((graph_names - eager_names).most_common()),
+               eager_more=dict((eager_names - graph_names).most_common()))
+    return out
+
+
+def device_records_of(fn):
+    """``device_records`` of one torch.profiler capture (CUDA activity) of
+    ``fn()``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return device_records(prof)
+
+
+def print_stages(name, st, smi):
+    """Phase 21's lines for one preset."""
+    for arm in ("plain scans", "S1/S2"):
+        t = st[arm]
+        print(f"[stages] {name} eager batch-8 step, {arm}: {t['kernels']} "
+              f"device kernels, {t['ms']:.3f} ms of device time, every "
+              f"kernel in a stage | {smi}", flush=True)
+        for stage, b in t["stages"].items():
+            top = "; ".join(f"{ms:.3f} ms {k[:70]}" for k, ms in b["top"])
+            print(f"[stages] {name} {arm} stage {stage}: {b['ms']:.3f} ms "
+                  f"over {b['kernels']} kernels; most: {top}", flush=True)
+        for path, b in t["paths"].items():
+            top = "; ".join(f"{ms:.3f} ms {k[:60]}" for k, ms in b["top"])
+            print(f"[stages] {name} {arm} range {path}: {b['ms']:.3f} ms "
+                  f"over {b['kernels']} kernels; most: {top}", flush=True)
+    print(f"[stages] {name} graph step: {st['graph_kernels']} device "
+          f"kernels (phase 8; {st['graph_capture_kernels']} in this capture "
+          f"of a replay) against the eager step's "
+          f"{st['S1/S2']['kernels']}; kernels the replay holds more: "
+          f"{st['graph_more']}, fewer: {st['eager_more']} | {smi}",
+          flush=True)
+
+
+def graph_ms(fn, reps=10):
+    """Device ms of one call of ``fn``: ``reps`` calls captured in one
+    CUDA graph and its replay timed with CUDA events (no host time between
+    the kernels), the least of three replays. Back to back, so an input
+    that fits in the 50 MB L2 cache is read from there after the first
+    call."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(reps):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(3):
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        g.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / reps)
+    del g
+    torch.cuda.synchronize()
+    return min(times)
+
+
+def record_scans(eager, args):
+    """The inputs of every S1 and S2 call of one eager step, in order:
+    (kernel, input, op) with S1's op and S2's (B, n, D) input."""
+    import torch
+
+    from fccf_pcr_torch.ops import scan
+
+    seen = []
+    kept = scan._launch_int_scan, scan._launch_prefix_sum
+
+    def s1(x, op):
+        seen.append(("S1", x.clone(), op))
+        return kept[0](x, op)
+
+    def s2(x3):
+        seen.append(("S2", x3.clone(), None))
+        return kept[1](x3)
+
+    scan._launch_int_scan, scan._launch_prefix_sum = s1, s2
+    try:
+        eager(*args)
+    finally:
+        scan._launch_int_scan, scan._launch_prefix_sum = kept
+    torch.cuda.synchronize()
+    return seen
+
+
+def scan_bound(kernel, x, op):
+    """The least time the card could take for one S1 or S2 call, in ms,
+    and what bounds it: each input byte read once and each output byte
+    written once over the memory rate (S1 writes int64 sums, or the input
+    type; S2 float32). Its operations (one add or compare an entry, S2 a
+    few more levels of 1/16 of them) take far less at any peak rate."""
+    in_bytes = x.numel() * x.element_size()
+    out_bytes = x.numel() * (8 if kernel == "S1" and op == 0
+                             else x.element_size())
+    return (in_bytes + out_bytes) / PEAK_BYTES * 1e3, "bytes"
+
+
+def scan_edge_cases(dev):
+    """S1's and S2's edge inputs: (kernel, input, op)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(13)
+    cases = []
+    for n in (1, 17, 8193):
+        flags = rng.uniform(size=(2, 3, n)) < 0.3
+        flags[:, 0] = False
+        flags[:, 2] = True
+        big = rng.integers(2**31 - 2**20, 2**31 - 1, (2, 3, n))
+        big[:, 0] = -big[:, 0]
+        tail = np.where(rng.uniform(size=(1, n)) < 0.2, np.arange(n),
+                        2**31 - 1)
+        tail[:, n - n // 3:] = 2**31 - 1
+        cases.append(("S1", torch.from_numpy(flags), 0))
+        for x in (big.astype(np.int32), big, tail.astype(np.int32), tail):
+            for op in (0, 1, 2):
+                cases.append(("S1", torch.from_numpy(x), op))
+    for shape in ((1, 1, 4), (2, 17, 4), (3, 257, 10), (1, 65537, 3)):
+        x = rng.uniform(-1, 1, shape).astype(np.float32)
+        x[..., 0] = -0.0
+        x[rng.uniform(size=shape) < 0.01] = np.inf
+        x[rng.uniform(size=shape) < 0.01] = np.nan
+        cases.append(("S2", torch.from_numpy(x), None))
+    return [(k, x.to(dev), op) for k, x, op in cases]
+
+
+def phase_scans(steps, eager, dev):
+    """Phase 22: S1 and S2 against their plain versions on the card, bit
+    for bit, on every S1 and S2 input of the heritage and office batch-8
+    eager steps (``record_scans``) and on the edge cases; at each step's
+    inputs the device time a call (``graph_ms``) of the kernel, the plain
+    version and the library call (torch.cumsum / torch.cummax /
+    torch.cummin on the same rows; torch.cumsum along dim 1 for S2, which
+    adds in another order) beside the bound, and their sums over the
+    step."""
+    import torch
+
+    from fccf_pcr_torch.ops import scan
+
+    names = {0: "cumsum", 1: "cummax", 2: "rev_cummin"}
+    library = {0: lambda x: torch.cumsum(x, dim=-1),
+               1: lambda x: torch.cummax(x, dim=-1),
+               2: lambda x: torch.cummin(x, dim=-1)}
+
+    def forms(kernel, x, op):
+        if kernel == "S1":
+            return (lambda: scan._launch_int_scan(x, op),
+                    lambda: scan.int_scan_plain(x, op),
+                    lambda: library[op](x))
+        return (lambda: scan._launch_prefix_sum(x),
+                lambda: scan.prefix_sum_plain(x, dim=1),
+                lambda: torch.cumsum(x, dim=1))
+
+    def equal(kernel, a, b):
+        if kernel == "S2":
+            a, b = a.view(torch.int32), b.contiguous().view(torch.int32)
+        return a.dtype == b.dtype and torch.equal(a, b)
+
+    out = {"S1": {}, "S2": {}, "edge_cases": 0, "differ": 0}
+    for name in ("heritage", "office"):
+        fn, args = steps[name]
+        calls = record_scans(eager[name], args)
+        for kernel in ("S1", "S2"):
+            out[kernel][name] = dict(calls=[], ms=0.0, plain_ms=0.0,
+                                     library_ms=0.0, bound_ms=0.0)
+        for kernel, x, op in calls:
+            k, plain, lib = forms(kernel, x, op)
+            ok = equal(kernel, k(), plain())
+            out["differ"] += not ok
+            check(ok, f"{name}: {kernel} {names.get(op, 'prefix_sum')} "
+                  f"{tuple(x.shape)} {x.dtype} differs from plain")
+            bound_ms, bound_by = scan_bound(kernel, x, op)
+            c = dict(what=names.get(op, "prefix_sum"), shape=tuple(x.shape),
+                     dtype=str(x.dtype).replace("torch.", ""),
+                     ms=graph_ms(k), plain_ms=graph_ms(plain),
+                     library_ms=graph_ms(lib), bound_ms=bound_ms,
+                     bound_by=bound_by)
+            t = out[kernel][name]
+            t["calls"].append(c)
+            for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+                t[key] += c[key]
+    for kernel, x, op in scan_edge_cases(dev):
+        k, plain, _ = forms(kernel, x, op)
+        ok = equal(kernel, k(), plain())
+        out["differ"] += not ok
+        check(ok, f"edge case: {kernel} {names.get(op, 'prefix_sum')} "
+              f"{tuple(x.shape)} {x.dtype} differs from plain")
+        out["edge_cases"] += 1
+    return out
+
+
 def phase_graph_configs(dev, counters):
     """Every golden config's seeds as one batch through the step graph
     (make_register_fn) and the eager step in turns, every field bitwise
@@ -2448,11 +2829,13 @@ def phase_profile(fn, args, eager):
             print(f"[profile] StageTimer report:\n{timer.report()}",
                   flush=True)
         # Device work = the kernels' own time (one stream, so no
-        # overlap); the stage ranges also appear on the device timeline
-        # and are skipped.
+        # overlap); the record_function ranges also appear on the device
+        # timeline and are skipped.
+        ranges = {e.name for e in prof.events() if e.is_user_annotation
+                  and e.device_type != torch.autograd.DeviceType.CUDA}
         kernels = [e for e in prof.events()
                    if e.device_type == torch.autograd.DeviceType.CUDA
-                   and e.name not in stages]
+                   and not e.is_user_annotation and e.name not in ranges]
         busy_ms = sum(e.device_time for e in kernels) / 1e3
         print(f"[profile] heritage {form} step {wall_ms:.1f} ms wall, "
               f"{len(kernels)} kernels, device busy {busy_ms:.1f} ms "
@@ -2484,7 +2867,8 @@ def phase_profile(fn, args, eager):
 def drive_path(what, fn, counters, dev, registers=True):
     """``fn()`` as a path of the port: every kernel's launch count set to
     0 just before and read just after; the path must launch the
-    propagation kernel and C1 (the block scan), and neither the one-sweep,
+    propagation kernel, C1 (the block scan), S1 and S2 (the scans), and
+    neither the one-sweep,
     the gather nor the standalone block-seed kernel, and, where it
     ``registers`` (every path but
     measure_content, which stops at the seeds), replay a step graph and
@@ -2502,8 +2886,8 @@ def drive_path(what, fn, counters, dev, registers=True):
           f"{what}: the propagation kernel was not launched")
     for k in ("label_prop_sweep", "gather_rows", "cluster_block_seeds"):
         check(counts[k] == 0, f"{what}: the {k} kernel was launched")
-    check(counts["cluster_block_scan"] > 0,
-          f"{what}: the block-scan kernel was not launched")
+    for k in ("cluster_block_scan", "scan_int", "prefix_sum16"):
+        check(counts[k] > 0, f"{what}: the {k} kernel was not launched")
     for k in ("step_graph_replays", "cluster_floor_walk", "lm_refine"):
         check(counts[k] > 0 or not registers, f"{what}: no {k}")
     return out, counts, secs
@@ -2821,6 +3205,7 @@ def main():
         from fccf_pcr_torch.ops import cuda_build
         from fccf_pcr_torch.ops import gather as gt
         from fccf_pcr_torch.ops import label_prop as lp
+        from fccf_pcr_torch.ops import scan as scn
         from fccf_pcr_torch.pipeline.register import STEP
         from fccf_pcr_torch.refine import lm_kernel as lmk
     except ImportError as e:
@@ -2838,6 +3223,8 @@ def main():
                 "cluster_block_seeds": (ck, "SEEDS"),
                 "cluster_floor_walk": (ck, "WALKS"),
                 "lm_refine": (lmk, "LAUNCHES"),
+                "scan_int": (scn, "INT_SCANS"),
+                "prefix_sum16": (scn, "PREFIX_SUMS"),
                 "step_graph_captures": (STEP, "captures"),
                 "step_graph_replays": (STEP, "replays")}
     try:
@@ -2851,10 +3238,11 @@ def main():
               f"(count {torch.cuda.device_count()}) | {smi}", flush=True)
 
         t_start = time.perf_counter()
-        secs = phase_build([lp, gt, ck, lmk])
+        secs = phase_build([lp, gt, ck, lmk, scn])
         print(f"[build] label_prop.cu {secs[0]:.2f} s, gather.cu {secs[1]:.2f} s, "
-              f"cluster.cu {secs[2]:.2f} s, lm.cu {secs[3]:.2f} s (in "
-              f"parallel, {time.perf_counter() - t_start:.2f} s)", flush=True)
+              f"cluster.cu {secs[2]:.2f} s, lm.cu {secs[3]:.2f} s, scan.cu "
+              f"{secs[4]:.2f} s (in parallel, "
+              f"{time.perf_counter() - t_start:.2f} s)", flush=True)
         ptxas = {"label_prop_propagate": ptxas_summary(lp, "propagate_kernel"),
                  "label_prop_sweep": ptxas_summary(lp, "sweep_kernel"),
                  "gather_rows": ptxas_summary(gt),
@@ -2864,7 +3252,12 @@ def main():
                  # the registers and the scratch instantiations
                  "lm_refine": ptxas_summary(lmk, "lm_refine_kernelILb1"),
                  "lm_refine_scratch": ptxas_summary(lmk,
-                                                    "lm_refine_kernelILb0")}
+                                                    "lm_refine_kernelILb0"),
+                 # S1's int64 sum (its other instantiations alike) and S2
+                 "scan_int": ptxas_summary(scn, "scan_tile_apply_kernelILi0Exx")
+                 + " | reduce " + ptxas_summary(
+                     scn, "scan_tile_reduce_kernelILi0Exx"),
+                 "prefix_sum16": ptxas_summary(scn, "prefix16")}
         for name, info in ptxas.items():
             check(info, f"no ptxas lines for {name}")
             print(f"[build] ptxas {name}: {info}", flush=True)
@@ -3003,6 +3396,9 @@ def main():
                   "launches a step (at most 4)")
             check(t["lm_refine"] == 1,
                   f"{name} timing: {t['lm_refine']} L1 launches a step")
+            check(t["scan_int"] > 0 and t["prefix_sum16"] > 0,
+                  f"{name} timing: {t['scan_int']} S1 and "
+                  f"{t['prefix_sum16']} S2 calls a step")
             check(t["cluster_block_scan"] == 1
                   and t["cluster_block_seeds"] == 0,
                   f"{name} timing: {t['cluster_block_scan']} block-scan and "
@@ -3018,6 +3414,8 @@ def main():
                   f"{t['cluster_block_seeds']:g} block-seed and "
                   f"{t['cluster_floor_walk']:g} floor-walk launches, "
                   f"{t['lm_refine']:g} L1 launches, "
+                  f"{t['scan_int']:g} S1 and {t['prefix_sum16']:g} S2 "
+                  "calls, "
                   f"{t['step_graph_replays']:g} step graph replays and "
                   f"{t['step_graph_captures']:g} captures, "
                   f"{t['host_launches']} host launches "
@@ -3081,6 +3479,34 @@ def main():
                   flush=True)
         phase_graph_configs(dev, counters)
         print(f"[graph] phase {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        stage_tables = {}
+        for name in ("heritage", "office"):
+            stage_tables[name] = phase_stages(
+                name, steps[name], eager[name],
+                per_step[name]["device_kernels"])
+            print_stages(name, stage_tables[name], smi)
+        print(f"[stages] phase {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        sc = phase_scans(steps, eager, dev)
+        for kernel in ("S1", "S2"):
+            for name, t in sc[kernel].items():
+                for c in t["calls"]:
+                    print(f"[scan] {kernel} {name} step, {c['what']} "
+                          f"{c['shape']} {c['dtype']}: {c['ms'] * 1e3:.2f} "
+                          f"us device vs plain {c['plain_ms'] * 1e3:.2f} us, "
+                          f"library {c['library_ms'] * 1e3:.2f} us; bound "
+                          f"{c['bound_ms'] * 1e3:.3f} us ({c['bound_by']}), "
+                          f"{c['ms'] / c['bound_ms']:.1f}x it", flush=True)
+                print(f"[scan] {kernel} {name} batch-8 step: "
+                      f"{len(t['calls'])} calls, each equal to plain bit for "
+                      f"bit; {t['ms']:.4f} ms device vs plain "
+                      f"{t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} "
+                      f"ms; bound {t['bound_ms'] * 1e3:.3f} us (bytes) | "
+                      f"ptxas {ptxas['scan_int' if kernel == 'S1' else 'prefix_sum16']}"
+                      f" | {smi}", flush=True)
+        print(f"[scan] {sc['edge_cases']} edge cases equal to plain; phase "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
         t0 = time.perf_counter()
         l1_err, l1 = phase_lm_vs_plain(
             lmk, {k: g["lm_inputs"] for k, g in graph_ab.items()}, dev)
@@ -3274,6 +3700,29 @@ def main():
                    "back, plain_ms lm_loop to its cap replayed as a graph "
                    "of its own by CUDA events; max_abs_err the most "
                    "transform entries that differ"),
+        *(dict(KERNELS[name], launches=launches[name],
+               max_abs_err=sc["differ"], ms=sc[kernel]["heritage"]["ms"],
+               plain_ms=sc[kernel]["heritage"]["plain_ms"],
+               bound_ms=sc[kernel]["heritage"]["bound_ms"], bound_by="bytes",
+               library_ms=sc[kernel]["heritage"]["library_ms"],
+               launches_per_step=per_step_of(name),
+               by_config={k: {f: v for f, v in t.items() if f != "calls"}
+                          for k, t in sc[kernel].items()},
+               calls=sc[kernel]["heritage"]["calls"],
+               stage_ms={k: {arm: {st: round(b["ms"], 4) for st, b in
+                                   stage_tables[k][arm]["stages"].items()}
+                             for arm in ("plain scans", "S1/S2")}
+                         for k in stage_tables},
+               launches_by_path={k: v[name] for k, v in paths.items()},
+               ptxas=ptxas[name],
+               shape=f"the {len(sc[kernel]['heritage']['calls'])} {kernel} "
+                     "calls of the heritage batch-8 step, summed; ms, "
+                     "plain_ms and library_ms device time a call by CUDA "
+                     "events over a graph of 10 calls; a call launches "
+                     + ("1-2 kernels" if kernel == "S1" else
+                        "2K + 1 kernels (K levels above the input)")
+                     + "; max_abs_err the most outputs that differ")
+          for name, kernel in (("scan_int", "S1"), ("prefix_sum16", "S2"))),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -16,9 +16,10 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+from torch.profiler import record_function
 
 from ..config import Capacities, FCCFParams
-from ..ops import eigen3, geometry
+from ..ops import eigen3, geometry, scan
 from ..ops.batch import fold_sum, take
 from ..ops.label_prop import label_propagate
 from ..ops.voxelize import compact, voxel_stats
@@ -74,19 +75,20 @@ def _label_segment_sum(values, labels, valid, V):
 def _face_stats(labels, valid, count, centroid, normal, V):
     """Point-count-weighted segment stats per face label
     (FCCF.cpp:570-586 / :626-642)."""
-    dt = centroid.dtype
-    w = torch.where(valid, count.to(dt), 0.0)
-    stats = torch.cat(
-        [centroid * w[..., None], normal * w[..., None], w[..., None],
-         torch.ones_like(w[..., None])],
-        dim=-1,
-    )  # (..., V, 8)
-    sums = _label_segment_sum(stats, labels, valid, V)
-    csum, nsum = sums[..., 0:3], sums[..., 3:6]
-    psize = sums[..., 6]
-    vcount = torch.round(sums[..., 7]).to(torch.int32)
-    denom = torch.clamp(psize, min=1e-12)[..., None]
-    return csum / denom, nsum / denom, psize, vcount
+    with record_function("face_stats"):
+        dt = centroid.dtype
+        w = torch.where(valid, count.to(dt), 0.0)
+        stats = torch.cat(
+            [centroid * w[..., None], normal * w[..., None], w[..., None],
+             torch.ones_like(w[..., None])],
+            dim=-1,
+        )  # (..., V, 8)
+        sums = _label_segment_sum(stats, labels, valid, V)
+        csum, nsum = sums[..., 0:3], sums[..., 3:6]
+        psize = sums[..., 6]
+        vcount = torch.round(sums[..., 7]).to(torch.int32)
+        denom = torch.clamp(psize, min=1e-12)[..., None]
+        return csum / denom, nsum / denom, psize, vcount
 
 
 def extract_faces(points, mask, params: FCCFParams, caps: Capacities):
@@ -127,105 +129,113 @@ def faces_from_voxels(vs, cloud_pts, point_voxel, params: FCCFParams,
     ar = torch.arange(V, device=dev)
     lead = tuple(vs.valid.shape[:-1])
 
-    cloud_mask = point_voxel < V
-    total = torch.sum(cloud_mask.to(dt), dim=-1)
-    # fold_sum: a library's long reduction splits its work by the number
-    # of outputs, so its rounding would depend on the batch.
-    global_centroid = fold_sum(
-        torch.where(cloud_mask[..., None], cloud_pts, 0.0), dim=-2
-    ) / torch.clamp(total, min=1.0)[..., None]
+    with record_function("faces.plane_fit"):
+        cloud_mask = point_voxel < V
+        total = torch.sum(cloud_mask.to(dt), dim=-1)
+        # fold_sum: a library's long reduction splits its work by the number
+        # of outputs, so its rounding would depend on the batch.
+        global_centroid = fold_sum(
+            torch.where(cloud_mask[..., None], cloud_pts, 0.0), dim=-2
+        ) / torch.clamp(total, min=1.0)[..., None]
 
-    normal, curvature = eigen3.plane_fit_from_cov(vs.cov)
+        normal, curvature = eigen3.plane_fit_from_cov(vs.cov)
 
-    enough = vs.count > params.voxel_point_threshold  # strictly > (:486)
-    planar = curvature < params.curvature_threshold   # (:497)
-    vvalid = vs.valid & enough & planar
+        enough = vs.count > params.voxel_point_threshold  # strictly > (:486)
+        planar = curvature < params.curvature_threshold   # (:497)
+        vvalid = vs.valid & enough & planar
 
-    # Orient each normal toward the global centroid (:504-516).
-    to_c = vs.centroid - global_centroid[..., None, :]
-    flip = torch.sum(to_c * normal, dim=-1) < 0.0
-    normal = torch.where(flip[..., None], normal, -normal)
+        # Orient each normal toward the global centroid (:504-516).
+        to_c = vs.centroid - global_centroid[..., None, :]
+        flip = torch.sum(to_c * normal, dim=-1) < 0.0
+        normal = torch.where(flip[..., None], normal, -normal)
 
-    # Residual (non-planar) point mask (:527-530): a marker
-    # (2 * run start + gate) is planted at each voxel's first row and
-    # forward-filled by a running max (run starts strictly increase).
-    residual_gate = vs.valid & enough & ~planar
-    N = point_voxel.shape[-1]
-    if voxel_start is None:
-        # Packed layout: run k starts at the exclusive cumsum of counts.
-        start_v = torch.cumsum(vs.count.long(), dim=-1) - vs.count.long()
-    else:
-        start_v = voxel_start.long()
-    dest = torch.where(vs.valid, start_v, N)
-    marker = torch.zeros(lead + (N + 1,), dtype=torch.int64, device=dev)
-    marker.scatter_(-1, dest, start_v * 2 + residual_gate.long())
-    gate_pt = (torch.cummax(marker[..., :N], dim=-1).values & 1) == 1
-    residual_mask = gate_pt & (point_voxel < V)
+    with record_function("faces.residual"):
+        # Residual (non-planar) point mask (:527-530): a marker
+        # (2 * run start + gate) is planted at each voxel's first row and
+        # forward-filled by a running max (run starts strictly increase).
+        residual_gate = vs.valid & enough & ~planar
+        N = point_voxel.shape[-1]
+        if voxel_start is None:
+            # Packed layout: run k starts at the exclusive cumsum of counts.
+            start_v = scan.cumsum(vs.count) - vs.count.long()
+        else:
+            start_v = voxel_start.long()
+        dest = torch.where(vs.valid, start_v, N)
+        marker = torch.zeros(lead + (N + 1,), dtype=torch.int64, device=dev)
+        marker.scatter_(-1, dest, start_v * 2 + residual_gate.long())
+        gate_pt = (scan.cummax(marker[..., :N]) & 1) == 1
+        residual_mask = gate_pt & (point_voxel < V)
 
-    # Pass 1: voxel -> face growth (compare_normal 5 deg, l1/k1)
-    # (:536-593). Occupied slots are a prefix, so each cloud's max planar
-    # slot bounds the kernel's sweeps over it.
-    n_occ = torch.amax(torch.where(vvalid, ar, -1), dim=-1) + 1
-    labels1 = label_propagate(
-        normal, vs.centroid, vvalid, params.normal_thresh1, params.l1,
-        params.k1, bound=n_occ, max_iters=params.label_prop_iters,
-    ).long()
+    with record_function("faces.grow"):
+        # Pass 1: voxel -> face growth (compare_normal 5 deg, l1/k1)
+        # (:536-593). Occupied slots are a prefix, so each cloud's max planar
+        # slot bounds the kernel's sweeps over it.
+        n_occ = torch.amax(torch.where(vvalid, ar, -1), dim=-1) + 1
+        labels1 = label_propagate(
+            normal, vs.centroid, vvalid, params.normal_thresh1, params.l1,
+            params.k1, bound=n_occ, max_iters=params.label_prop_iters,
+        ).long()
 
-    c1, n1, p1, vc1 = _face_stats(
-        labels1, vvalid, vs.count, vs.centroid, normal, V
-    )
-    rep1 = vvalid & (labels1 == ar)
+        c1, n1, p1, vc1 = _face_stats(
+            labels1, vvalid, vs.count, vs.centroid, normal, V
+        )
+        rep1 = vvalid & (labels1 == ar)
 
-    # Pass 2: face <-> face merge (compare_normal 8 deg, l2/k2)
-    # (:595-648) over the representatives, compacted (stably) to a slot
-    # prefix so the merge sweeps cost n_reps^2.
-    n_reps, _, cvalid, c_n1, c_c1, slot_of = compact(
-        rep1, V, n1, c1, ar.expand(rep1.shape), batch_dims=len(lead)
-    )
-    labels2_c = label_propagate(
-        c_n1, c_c1, cvalid, params.normal_thresh2, params.l2, params.k2,
-        bound=n_reps, max_iters=params.label_prop_iters,
-    ).long()
-    comp_of_slot = torch.cumsum(rep1.long(), dim=-1) - 1
-    lbl_c = take(labels2_c, torch.clamp(comp_of_slot, 0, V - 1))
-    labels2 = torch.where(
-        rep1, take(slot_of, torch.clamp(lbl_c, max=V - 1)), _BIG
-    )
+    with record_function("faces.merge"):
+        # Pass 2: face <-> face merge (compare_normal 8 deg, l2/k2)
+        # (:595-648) over the representatives, compacted (stably) to a slot
+        # prefix so the merge sweeps cost n_reps^2.
+        n_reps, _, cvalid, c_n1, c_c1, slot_of = compact(
+            rep1, V, n1, c1, ar.expand(rep1.shape), batch_dims=len(lead)
+        )
+        labels2_c = label_propagate(
+            c_n1, c_c1, cvalid, params.normal_thresh2, params.l2, params.k2,
+            bound=n_reps, max_iters=params.label_prop_iters,
+        ).long()
+        comp_of_slot = scan.cumsum(rep1) - 1
+        lbl_c = take(labels2_c, torch.clamp(comp_of_slot, 0, V - 1))
+        labels2 = torch.where(
+            rep1, take(slot_of, torch.clamp(lbl_c, max=V - 1)), _BIG
+        )
 
-    final_label = torch.where(
-        vvalid, take(labels2, torch.clamp(labels1, max=V - 1)), _BIG
-    )
-    cF, nF, pF, vcF = _face_stats(
-        final_label, vvalid, vs.count, vs.centroid, normal, V
-    )
-    repF = vvalid & (final_label == ar)
+        final_label = torch.where(
+            vvalid, take(labels2, torch.clamp(labels1, max=V - 1)), _BIG
+        )
+        cF, nF, pF, vcF = _face_stats(
+            final_label, vvalid, vs.count, vs.centroid, normal, V
+        )
+        repF = vvalid & (final_label == ar)
 
-    # Per-voxel angle to its face's normal -> per-face roughness (:660-667).
-    fl = torch.clamp(final_label, max=V - 1)
-    ang = torch.where(
-        vvalid, torch.abs(geometry.angle_deg(take(nF, fl), normal)), 0.0
-    )
-    asum = _label_segment_sum(ang[..., None], final_label, vvalid, V)[..., 0]
-    theta = asum / torch.clamp(vcF.to(dt), min=1.0)
+    with record_function("faces.roughness"):
+        # Per-voxel angle to its face's normal -> per-face roughness
+        # (:660-667).
+        fl = torch.clamp(final_label, max=V - 1)
+        ang = torch.where(
+            vvalid, torch.abs(geometry.angle_deg(take(nF, fl), normal)), 0.0
+        )
+        asum = _label_segment_sum(ang[..., None], final_label, vvalid,
+                                  V)[..., 0]
+        theta = asum / torch.clamp(vcF.to(dt), min=1.0)
 
-    # Top-F faces by member-voxel count, desc; ties by slot index asc
-    # (range_face :409-427 is stable): one stable sort.
-    sort_key = torch.where(repF, vcF, -1)
-    order = torch.sort(-sort_key, dim=-1, stable=True).indices[..., :F]
-    fvalid = take(sort_key, order) > 0
+    with record_function("faces.top"):
+        # Top-F faces by member-voxel count, desc; ties by slot index asc
+        # (range_face :409-427 is stable): one stable sort.
+        sort_key = torch.where(repF, vcF, -1)
+        order = torch.sort(-sort_key, dim=-1, stable=True).indices[..., :F]
+        fvalid = take(sort_key, order) > 0
 
-    def top(x, zero=0.0):
-        m = fvalid.reshape(fvalid.shape + (1,) * (x.dim() - fvalid.dim()))
-        return torch.where(m, take(x, order), zero)
+        def top(x, zero=0.0):
+            m = fvalid.reshape(fvalid.shape + (1,) * (x.dim() - fvalid.dim()))
+            return torch.where(m, take(x, order), zero)
 
-    faces = Faces(
-        centroid=top(cF),
-        normal=top(nF),
-        point_size=top(pF),
-        voxel_count=top(vcF, 0).to(torch.int32),
-        theta=top(theta),
-        valid=fvalid,
-    )
+        faces = Faces(
+            centroid=top(cF),
+            normal=top(nF),
+            point_size=top(pF),
+            voxel_count=top(vcF, 0).to(torch.int32),
+            theta=top(theta),
+            valid=fvalid,
+        )
     if with_labels:
         return faces, (cloud_pts, residual_mask), vs.overflow, (
             final_label, vvalid, order, fvalid

@@ -35,6 +35,7 @@ import sys
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from . import geometry, graph
 from .batch import fold_sum, small_matmul
@@ -330,11 +331,12 @@ def block_scan(masks, t, px, py, params):
     (..., 3, H), sums (..., 3, H, 9)), see ``block_scan_plain``. CPU
     tensors take the plain version, CUDA tensors the kernel C1 (one
     launch, no host sync); any other device raises."""
-    if masks.device.type == "cpu":
-        return block_scan_plain(masks, t, px, py, params)
-    if masks.device.type == "cuda":
-        return _launch_block_scan(masks, t, px, py, params)
-    raise ValueError(f"block_scan: unsupported device {masks.device}")
+    with record_function("block_scan"):
+        if masks.device.type == "cpu":
+            return block_scan_plain(masks, t, px, py, params)
+        if masks.device.type == "cuda":
+            return _launch_block_scan(masks, t, px, py, params)
+        raise ValueError(f"block_scan: unsupported device {masks.device}")
 
 
 def floor_walk(s_size, cluster_num):
@@ -342,8 +344,9 @@ def floor_walk(s_size, cluster_num):
     float32 sorted by size descending, with the budgets cluster_num (...)
     float32. CPU tensors take the plain version, CUDA tensors the kernel
     C2; any other device raises."""
-    if s_size.device.type == "cpu":
-        return floor_walk_plain(s_size, cluster_num)
-    if s_size.device.type == "cuda":
-        return _launch_floor_walk(s_size, cluster_num)
-    raise ValueError(f"floor_walk: unsupported device {s_size.device}")
+    with record_function("floor_walk"):
+        if s_size.device.type == "cpu":
+            return floor_walk_plain(s_size, cluster_num)
+        if s_size.device.type == "cuda":
+            return _launch_floor_walk(s_size, cluster_num)
+        raise ValueError(f"floor_walk: unsupported device {s_size.device}")

@@ -42,6 +42,7 @@ import sys
 import threading
 
 import torch
+from torch.profiler import record_function
 
 from . import graph
 from .cuda_build import CudaLibrary
@@ -347,17 +348,20 @@ def label_propagate(normal, centroid, valid, angle_thresh_deg, l, k,
     valid's shape. CPU tensors take the plain version, CUDA tensors the
     propagation kernel (no host sync); any other device raises.
     """
-    squeeze = normal.dim() == 2
-    if squeeze:
-        normal, centroid, valid = normal[None], centroid[None], valid[None]
-    if normal.device.type == "cpu":
-        labels = label_propagate_plain(
-            normal, centroid, valid, angle_thresh_deg, l, k, max_iters
-        )
-    elif normal.device.type == "cuda":
-        labels = _label_propagate_fused(
-            normal, centroid, valid, angle_thresh_deg, l, k, bound, max_iters
-        )
-    else:
-        raise ValueError(f"label_propagate: unsupported device {normal.device}")
-    return labels[0] if squeeze else labels
+    with record_function("label_prop"):
+        squeeze = normal.dim() == 2
+        if squeeze:
+            normal, centroid, valid = normal[None], centroid[None], valid[None]
+        if normal.device.type == "cpu":
+            labels = label_propagate_plain(
+                normal, centroid, valid, angle_thresh_deg, l, k, max_iters
+            )
+        elif normal.device.type == "cuda":
+            labels = _label_propagate_fused(
+                normal, centroid, valid, angle_thresh_deg, l, k, bound,
+                max_iters,
+            )
+        else:
+            raise ValueError(
+                f"label_propagate: unsupported device {normal.device}")
+        return labels[0] if squeeze else labels

@@ -9,15 +9,17 @@ first, each pass stable, so the composite order is lexicographic.
 from __future__ import annotations
 
 import torch
+from torch.profiler import record_function
 
 
 def cosort(keys, payloads=(), dim: int = -1):
     """Sort ``(*keys, *payloads)`` by the lexicographic ``keys`` along
     ``dim``; returns the same tuple, sorted. Always stable."""
-    keys = tuple(keys)
-    perm = None
-    for k in reversed(keys):
-        kk = k if perm is None else torch.gather(k, dim, perm)
-        _, p = torch.sort(kk, dim=dim, stable=True)
-        perm = p if perm is None else torch.gather(perm, dim, p)
-    return tuple(torch.gather(x, dim, perm) for x in (*keys, *payloads))
+    with record_function("cosort"):
+        keys = tuple(keys)
+        perm = None
+        for k in reversed(keys):
+            kk = k if perm is None else torch.gather(k, dim, perm)
+            _, p = torch.sort(kk, dim=dim, stable=True)
+            perm = p if perm is None else torch.gather(perm, dim, p)
+        return tuple(torch.gather(x, dim, perm) for x in (*keys, *payloads))

@@ -28,8 +28,11 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
+from . import scan
 from .batch import constant, scatter_unique, take
+from .scan import prefix_sum
 from .sorting import cosort
 
 _SENT = 2**31 - 1  # int32 max: invalid points sort last
@@ -107,36 +110,6 @@ def cell_index(points, res):
     return torch.floor(points * _inv(res)).to(torch.int32)
 
 
-def _prefix_sum0(x):
-    m = x.shape[0]
-    if m <= 16:
-        cols = [x[0]]
-        for c in range(1, m):
-            cols.append(cols[-1] + x[c])
-        return torch.stack(cols)
-    rows = -(-m // 16)
-    pad = x.new_zeros((rows * 16 - m,) + tuple(x.shape[1:]))
-    X = torch.cat([x, pad]).reshape((rows, 16) + tuple(x.shape[1:]))
-    cols = [X[:, 0]]
-    for c in range(1, 16):
-        cols.append(cols[-1] + X[:, c])
-    P = torch.stack(cols, dim=1)
-    inc = _prefix_sum0(P[:, 15])
-    exc = torch.cat([torch.zeros_like(inc[:1]), inc[:-1]])
-    return (P + exc[:, None]).reshape((rows * 16,) + tuple(x.shape[1:]))[:m]
-
-
-def prefix_sum(x, dim=0):
-    """Inclusive prefix sum along ``dim``, associated as a base-16 blocked
-    scan: sequential sums inside rows of 16, the row totals scanned the
-    same way one level up, and each level's exclusive total added back.
-    This is the association of XLA's cumsum on the CPU (the reference's
-    goldens), so float32 prefixes agree bit for bit on every device, and
-    the error stays O(eps log16 N) of the prefix magnitude. The other
-    dims are batch: each is scanned alone, with the same adds."""
-    return _prefix_sum0(x.movedim(dim, 0)).movedim(0, dim)
-
-
 def sorted_segment_reduce(values, seg, num_segments, return_start=False):
     """Sums + counts per segment for a NONDECREASING, consecutive
     segment-id row (``seg == num_segments`` = dropped rows): values
@@ -183,14 +156,15 @@ def _kth_true_positions(flag, S):
     (..., N); slots k >= count are garbage (callers mask by count). One
     S-bounded scatter of the row indices by rank. Returns (pos (..., S)
     int64, count (...) int64)."""
-    n = flag.shape[-1]
-    c = torch.cumsum(flag.to(torch.int64), dim=-1)
-    count = c[..., -1]
-    k = c - 1
-    dest = torch.where(flag & (k < S), k, S)
-    pos = scatter_unique(S, dest, torch.arange(n, device=flag.device)
-                         .expand(flag.shape))
-    return pos, count
+    with record_function("kth"):
+        n = flag.shape[-1]
+        c = scan.cumsum(flag)
+        count = c[..., -1]
+        k = c - 1
+        dest = torch.where(flag & (k < S), k, S)
+        pos = scatter_unique(S, dest, torch.arange(n, device=flag.device)
+                             .expand(flag.shape))
+        return pos, count
 
 
 def voxel_grid_downsample(points, mask, res):
@@ -209,7 +183,7 @@ def voxel_grid_downsample(points, mask, res):
     v = _fms(points, torch.floor(points * _inv(res)), res32) * w[..., None]
     k_s, vx, vy, vz = cosort((key,), (v[..., 0], v[..., 1], v[..., 2]))
     m_s = k_s != _SENT
-    seg_id = torch.cumsum(_first_flags(k_s).to(torch.int64), dim=-1) - 1
+    seg_id = scan.cumsum(_first_flags(k_s)) - 1
     seg = torch.where(m_s, torch.clamp(seg_id, max=cap), cap)
     sums, cnts, start = sorted_segment_reduce(
         torch.stack([vx, vy, vz], dim=-1), seg, cap, return_start=True
@@ -235,30 +209,33 @@ def compact(valid, capacity, *payloads, batch_dims: int = 0):
     capacity), *out_payloads), each with the batch dims leading. Entries
     beyond capacity are dropped (overflow raised).
     """
-    lead = tuple(valid.shape[:batch_dims])
-    inner = valid.dim()
-    valid = valid.reshape(lead + (-1,))
-    L = valid.shape[-1]
-    dev = valid.device
-    pos = torch.cumsum(valid.to(torch.int64), dim=-1) - 1
-    count = pos[..., -1] + 1
-    overflow = count > capacity
-    dest = torch.where(valid & (pos < capacity), pos, capacity)
-    src = scatter_unique(capacity, dest,
-                         torch.arange(L, device=dev).expand(valid.shape))
-    out_valid = torch.arange(capacity, device=dev) < count[..., None]
-    outs = []
-    for p in payloads:
-        p = p.reshape(lead + (L,) + tuple(p.shape[inner:]))
-        g = take(p, src)
-        m = out_valid.reshape(out_valid.shape + (1,) * (g.dim() - out_valid.dim()))
-        outs.append(torch.where(m, g, torch.zeros((), dtype=p.dtype, device=dev)))
-    return (
-        torch.clamp(count, max=capacity).to(torch.int32),
-        overflow,
-        out_valid,
-        *outs,
-    )
+    with record_function("compact"):
+        lead = tuple(valid.shape[:batch_dims])
+        inner = valid.dim()
+        valid = valid.reshape(lead + (-1,))
+        L = valid.shape[-1]
+        dev = valid.device
+        pos = scan.cumsum(valid) - 1
+        count = pos[..., -1] + 1
+        overflow = count > capacity
+        dest = torch.where(valid & (pos < capacity), pos, capacity)
+        src = scatter_unique(capacity, dest,
+                             torch.arange(L, device=dev).expand(valid.shape))
+        out_valid = torch.arange(capacity, device=dev) < count[..., None]
+        outs = []
+        for p in payloads:
+            p = p.reshape(lead + (L,) + tuple(p.shape[inner:]))
+            g = take(p, src)
+            m = out_valid.reshape(
+                out_valid.shape + (1,) * (g.dim() - out_valid.dim()))
+            outs.append(torch.where(
+                m, g, torch.zeros((), dtype=p.dtype, device=dev)))
+        return (
+            torch.clamp(count, max=capacity).to(torch.int32),
+            overflow,
+            out_valid,
+            *outs,
+        )
 
 
 def _cov_from_moments(mu, e):
@@ -324,7 +301,7 @@ def voxel_stats(points, mask, res, num_voxels):
         (key,), (points[..., 0], points[..., 1], points[..., 2]))
     pts_s = torch.stack([px, py, pz], dim=-1)
     m_s = k_s != _SENT
-    seg_id = torch.cumsum(_first_flags(k_s).to(torch.int64), dim=-1) - 1
+    seg_id = scan.cumsum(_first_flags(k_s)) - 1
     seg = torch.where(m_s & (seg_id < V), seg_id, V)
 
     # Per-segment anchor (cell corner), exact from the sorted key itself.
@@ -414,75 +391,81 @@ def downsample_and_voxelize(points, mask, leaf, face_res, num_voxels,
     )
     face_first = _first_flags(fk_s)
 
-    # Leaf reduce, sparse layout: each leaf run's stats land at its last
-    # row. A running max forward-fills each run's start index.
-    idx = torch.arange(n, device=dev)
-    leaf_last = torch.cat(
-        [leaf_first[..., 1:], torch.ones_like(leaf_first[..., :1])], dim=-1
-    ) & m_s
-    start_fill = torch.cummax(torch.where(leaf_first, idx, 0), dim=-1).values
-    w = m_s.to(dt)
-    ff = (face_first & m_s).to(dt)
-    vals1 = torch.cat([pts_s * w[..., None], ff[..., None]], dim=-1)
-    ps1 = prefix_sum(vals1, dim=-2)
-    ps_prev = torch.where(
-        (start_fill > 0)[..., None],
-        take(ps1, torch.clamp(start_fill - 1, min=0)), 0.0,
-    )
-    run = ps1 - ps_prev  # at row i: column sums over [run start, i]
-    cnt_leaf = torch.clamp((idx - start_fill + 1).to(dt), min=1.0)
+    with record_function("voxelize.leaf"):
+        # Leaf reduce, sparse layout: each leaf run's stats land at its last
+        # row. A running max forward-fills each run's start index.
+        idx = torch.arange(n, device=dev)
+        leaf_last = torch.cat(
+            [leaf_first[..., 1:], torch.ones_like(leaf_first[..., :1])], dim=-1
+        ) & m_s
+        start_fill = scan.cummax(torch.where(leaf_first, idx, 0))
+        w = m_s.to(dt)
+        ff = (face_first & m_s).to(dt)
+        vals1 = torch.cat([pts_s * w[..., None], ff[..., None]], dim=-1)
+        ps1 = prefix_sum(vals1, dim=-2)
+        ps_prev = torch.where(
+            (start_fill > 0)[..., None],
+            take(ps1, torch.clamp(start_fill - 1, min=0)), 0.0,
+        )
+        run = ps1 - ps_prev  # at row i: column sums over [run start, i]
+        cnt_leaf = torch.clamp((idx - start_fill + 1).to(dt), min=1.0)
 
-    down_mask = leaf_last
-    down_anchored = torch.where(
-        down_mask[..., None], run[..., 0:3] / cnt_leaf[..., None], 0.0
-    )
-    down_anchor = torch.where(down_mask[..., None], anchor_s, 0.0)
-    down_pts = down_anchored + down_anchor
-    # Feature-voxel id of each down point: face starts seen so far, minus
-    # one. The f32 flag cumsum is exact below 2^24 rows.
-    face_of_leaf = ps1[..., 3].to(torch.int64) - 1
-    point_voxel = torch.where(
-        down_mask & (face_of_leaf >= 0) & (face_of_leaf < V), face_of_leaf, V
-    )
-    face_first_down = down_mask & (run[..., 3] > 0.5)
+        down_mask = leaf_last
+        down_anchored = torch.where(
+            down_mask[..., None], run[..., 0:3] / cnt_leaf[..., None], 0.0
+        )
+        down_anchor = torch.where(down_mask[..., None], anchor_s, 0.0)
+        down_pts = down_anchored + down_anchor
+        # Feature-voxel id of each down point: face starts seen so far, minus
+        # one. The f32 flag cumsum is exact below 2^24 rows.
+        face_of_leaf = ps1[..., 3].to(torch.int64) - 1
+        point_voxel = torch.where(
+            down_mask & (face_of_leaf >= 0) & (face_of_leaf < V),
+            face_of_leaf, V,
+        )
+        face_first_down = down_mask & (run[..., 3] > 0.5)
 
-    # Feature-voxel stats: prefix-sum differences at voxel boundaries.
-    # V+1 start positions: the extra slot is the first DROPPED voxel's
-    # start, which clamps the last kept slot's window under overflow.
-    start_full, n_faces_seen = _kth_true_positions(face_first_down, V + 1)
-    start_tbl = start_full[..., :V]
-    slot = torch.arange(V, device=dev)
-    R = torch.clamp(n_faces_seen, max=V)[..., None]
-    occupied = slot < R
-    p = down_anchored
-    vals2 = torch.cat([p, _outer6(p, p), down_mask.to(dt)[..., None]], dim=-1)
-    ps2 = prefix_sum(vals2, dim=-2)
-    safe_start = torch.where(occupied, start_tbl, 0)
-    nxt = torch.cat([start_tbl[..., 1:], torch.zeros_like(start_tbl[..., :1])],
-                    dim=-1)
-    last_end = torch.where(
-        n_faces_seen > V, torch.clamp(start_full[..., V] - 1, min=0), n - 1
-    )[..., None]
-    end = torch.where(slot == R - 1, last_end, torch.clamp(nxt - 1, min=0))
-    end = torch.where(occupied, end, 0)
-    ps_end = torch.where(occupied[..., None], take(ps2, end), 0.0)
-    ps_st = torch.where(
-        (occupied & (safe_start > 0))[..., None],
-        take(ps2, torch.clamp(safe_start - 1, min=0)),
-        0.0,
-    )
-    sums2 = ps_end - ps_st
-    cnt = torch.where(occupied, sums2[..., 9].to(torch.int32), 0).to(torch.int32)
-    cntf = torch.clamp(cnt.to(dt), min=1.0)
-    mu = sums2[..., 0:3] / cntf[..., None]
-    anchor_face = torch.where(occupied[..., None], take(anchor_s, safe_start), 0.0)
-    mean = mu + anchor_face
-    e = sums2[..., 3:9] / cntf[..., None]
-    cov = _cov_from_moments(mu, e)
+    with record_function("voxelize.voxels"):
+        # Feature-voxel stats: prefix-sum differences at voxel boundaries.
+        # V+1 start positions: the extra slot is the first DROPPED voxel's
+        # start, which clamps the last kept slot's window under overflow.
+        start_full, n_faces_seen = _kth_true_positions(face_first_down, V + 1)
+        start_tbl = start_full[..., :V]
+        slot = torch.arange(V, device=dev)
+        R = torch.clamp(n_faces_seen, max=V)[..., None]
+        occupied = slot < R
+        p = down_anchored
+        vals2 = torch.cat([p, _outer6(p, p), down_mask.to(dt)[..., None]],
+                          dim=-1)
+        ps2 = prefix_sum(vals2, dim=-2)
+        safe_start = torch.where(occupied, start_tbl, 0)
+        nxt = torch.cat(
+            [start_tbl[..., 1:], torch.zeros_like(start_tbl[..., :1])], dim=-1)
+        last_end = torch.where(
+            n_faces_seen > V, torch.clamp(start_full[..., V] - 1, min=0), n - 1
+        )[..., None]
+        end = torch.where(slot == R - 1, last_end, torch.clamp(nxt - 1, min=0))
+        end = torch.where(occupied, end, 0)
+        ps_end = torch.where(occupied[..., None], take(ps2, end), 0.0)
+        ps_st = torch.where(
+            (occupied & (safe_start > 0))[..., None],
+            take(ps2, torch.clamp(safe_start - 1, min=0)),
+            0.0,
+        )
+        sums2 = ps_end - ps_st
+        cnt = torch.where(occupied, sums2[..., 9].to(torch.int32),
+                          0).to(torch.int32)
+        cntf = torch.clamp(cnt.to(dt), min=1.0)
+        mu = sums2[..., 0:3] / cntf[..., None]
+        anchor_face = torch.where(occupied[..., None],
+                                  take(anchor_s, safe_start), 0.0)
+        mean = mu + anchor_face
+        e = sums2[..., 3:9] / cntf[..., None]
+        cov = _cov_from_moments(mu, e)
 
-    overflow = (n_faces_seen > V) | ovf
-    stats = VoxelStats(
-        centroid=mean, cov=cov, count=cnt, valid=cnt > 0, overflow=overflow
-    )
-    voxel_start = torch.where(occupied, start_tbl, n)
+        overflow = (n_faces_seen > V) | ovf
+        stats = VoxelStats(
+            centroid=mean, cov=cov, count=cnt, valid=cnt > 0, overflow=overflow
+        )
+        voxel_start = torch.where(occupied, start_tbl, n)
     return down_pts, down_mask, stats, point_voxel, voxel_start

@@ -140,12 +140,13 @@ def _split(nt, P):
 def _pad_rows(pts, mask, n):
     """(P, N, 3) points + (P, N) mask with masked zero rows appended up
     to n rows."""
-    extra = n - pts.shape[1]
-    if extra == 0:
-        return pts, mask
-    P = pts.shape[0]
-    return (torch.cat([pts, pts.new_zeros((P, extra, 3))], dim=1),
-            torch.cat([mask, mask.new_zeros((P, extra))], dim=1))
+    with record_function("downsample"):
+        extra = n - pts.shape[1]
+        if extra == 0:
+            return pts, mask
+        P = pts.shape[0]
+        return (torch.cat([pts, pts.new_zeros((P, extra, 3))], dim=1),
+                torch.cat([mask, mask.new_zeros((P, extra))], dim=1))
 
 
 def _register_batch(src_pts, src_mask, tar_pts, tar_mask, params, caps):
@@ -175,10 +176,11 @@ def _register_batch(src_pts, src_mask, tar_pts, tar_mask, params, caps):
 
     with record_function("faces"):
         if fused:
-            d, _, vs, pv, vstart = downsample_and_voxelize(
-                pts, msk, params.leaf_size, params.face_voxel_size,
-                caps.max_voxels, wide_extent=caps.wide_extent,
-            )
+            with record_function("voxelize"):
+                d, _, vs, pv, vstart = downsample_and_voxelize(
+                    pts, msk, params.leaf_size, params.face_voxel_size,
+                    caps.max_voxels, wide_extent=caps.wide_extent,
+                )
             faces, (res_pts, res_mask), ovf = faces_from_voxels(
                 vs, d, pv, params, caps, voxel_start=vstart)
         else:
@@ -203,13 +205,14 @@ def _register_batch(src_pts, src_mask, tar_pts, tar_mask, params, caps):
         qs = match_faces(rep_T, f1, f2, params)[0]
         qscore = torch.where(reps.valid, qs, float("-inf"))
 
-    # Per-type sort by quick score desc (stable), top fine_verify_number.
-    K = params.fine_verify_number
-    order = torch.sort(-qscore, dim=-1, stable=True).indices
-    top_idx = order[..., :K]                                 # (P, 3, K)
-    top_valid = torch.gather(reps.valid, -1, top_idx)
-    top_T0 = take(rep_T, top_idx)
-    top_q = torch.where(top_valid, torch.gather(qscore, -1, top_idx), 0.0)
+    with record_function("select"):
+        # Per-type sort by quick score desc (stable), top fine_verify_number.
+        K = params.fine_verify_number
+        order = torch.sort(-qscore, dim=-1, stable=True).indices
+        top_idx = order[..., :K]                                 # (P, 3, K)
+        top_valid = torch.gather(reps.valid, -1, top_idx)
+        top_T0 = take(rep_T, top_idx)
+        top_q = torch.where(top_valid, torch.gather(qscore, -1, top_idx), 0.0)
 
     # Refine only the (P, 3, K) selected candidates (:772-776).
     with record_function("refine"):
@@ -226,61 +229,65 @@ def _register_batch(src_pts, src_mask, tar_pts, tar_mask, params, caps):
         fscore = torch.where(top_valid, fscore, 0.0)
         fine_aliased = torch.any((falias & top_valid).flatten(1), dim=-1)
 
-    # Global score normalization across all fine-verified candidates
-    # (:1539-1540), then per-type best by combined score (:1553-1567).
-    s1_sum = torch.sum(top_q, dim=(-2, -1))[:, None, None]
-    s2_sum = torch.sum(fscore, dim=(-2, -1))[:, None, None]
-    combined = torch.where(
-        s1_sum > 0, top_q / torch.clamp(s1_sum, min=1e-20), 0.0
-    ) + torch.where(s2_sum > 0, fscore / torch.clamp(s2_sum, min=1e-20), 0.0)
-    combined = torch.where(top_valid, combined, 0.0)
+    with record_function("fuse"):
+        # Global score normalization across all fine-verified candidates
+        # (:1539-1540), then per-type best by combined score (:1553-1567).
+        s1_sum = torch.sum(top_q, dim=(-2, -1))[:, None, None]
+        s2_sum = torch.sum(fscore, dim=(-2, -1))[:, None, None]
+        combined = torch.where(
+            s1_sum > 0, top_q / torch.clamp(s1_sum, min=1e-20), 0.0
+        ) + torch.where(s2_sum > 0, fscore / torch.clamp(s2_sum, min=1e-20),
+                        0.0)
+        combined = torch.where(top_valid, combined, 0.0)
 
-    best_in_type = torch.argmax(combined, dim=-1)  # first max (:1559 >)
-    best_score = torch.gather(combined, -1, best_in_type[..., None])[..., 0]
-    best_T = take(top_T, best_in_type[..., None])[:, :, 0]
-    best_best = torch.amax(best_score, dim=-1)
+        best_in_type = torch.argmax(combined, dim=-1)  # first max (:1559 >)
+        best_score = torch.gather(combined, -1,
+                                  best_in_type[..., None])[..., 0]
+        best_T = take(top_T, best_in_type[..., None])[:, :, 0]
+        best_best = torch.amax(best_score, dim=-1)
 
-    # 0.8 gate (:1600-1605), rotation-consistency gate, weighted fusion.
-    keep = best_score > params.fuse_gate * best_best[:, None]
-    if params.fuse_rotation_gate_deg > 0:
-        best_type = torch.argmax(best_score, dim=-1)
-        ref = take(best_T, best_type[:, None])  # (P, 1, 4, 4)
-        rel = geometry.rotation_error_deg(best_T[..., :3, :3],
-                                          ref[..., :3, :3])
-        keep = keep & (rel < params.fuse_rotation_gate_deg)
-    quats = geometry.matrix_to_quat(best_T[..., :3, :3])
-    T = fuse_transforms(quats, best_T[..., :3, 3], best_score, keep)
+        # 0.8 gate (:1600-1605), rotation-consistency gate, weighted fusion.
+        keep = best_score > params.fuse_gate * best_best[:, None]
+        if params.fuse_rotation_gate_deg > 0:
+            best_type = torch.argmax(best_score, dim=-1)
+            ref = take(best_T, best_type[:, None])  # (P, 1, 4, 4)
+            rel = geometry.rotation_error_deg(best_T[..., :3, :3],
+                                              ref[..., :3, :3])
+            keep = keep & (rel < params.fuse_rotation_gate_deg)
+        quats = geometry.matrix_to_quat(best_T[..., :3, :3])
+        T = fuse_transforms(quats, best_T[..., :3, 3], best_score, keep)
 
-    degenerate = best_best <= 0.0
-    T = torch.where(degenerate[:, None, None],
-                    torch.eye(4, dtype=f32, device=dev), T)
+        degenerate = best_best <= 0.0
+        T = torch.where(degenerate[:, None, None],
+                        torch.eye(4, dtype=f32, device=dev), T)
 
-    def bit(flag, value):
-        return torch.where(flag, value, 0)
+        def bit(flag, value):
+            return torch.where(flag, value, 0)
 
-    status = (
-        bit(ovf[:P] | ovf[P:], STATUS_VOXEL_OVERFLOW)
-        | bit(hyp.overflow, STATUS_HYPOTHESIS_OVERFLOW)
-        | bit(degenerate, STATUS_DEGENERATE)
-        | bit(reps.overflow, STATUS_REP_OVERFLOW)
-        | bit(r_ovf[:P] | r_ovf[P:], STATUS_RESIDUAL_OVERFLOW)
-        | bit(table.overflow, STATUS_FINE_OVERFLOW)
-        | bit(fine_aliased, STATUS_FINE_ALIAS)
-    ).to(torch.int32)
+        status = (
+            bit(ovf[:P] | ovf[P:], STATUS_VOXEL_OVERFLOW)
+            | bit(hyp.overflow, STATUS_HYPOTHESIS_OVERFLOW)
+            | bit(degenerate, STATUS_DEGENERATE)
+            | bit(reps.overflow, STATUS_REP_OVERFLOW)
+            | bit(r_ovf[:P] | r_ovf[P:], STATUS_RESIDUAL_OVERFLOW)
+            | bit(table.overflow, STATUS_FINE_OVERFLOW)
+            | bit(fine_aliased, STATUS_FINE_ALIAS)
+        ).to(torch.int32)
 
-    return RegistrationResult(
-        transform=T,
-        quick_score=torch.amax(top_q, dim=-1),
-        fine_score=torch.amax(fscore, dim=-1),
-        n_faces=torch.stack(
-            [torch.sum(f1.valid, dim=-1), torch.sum(f2.valid, dim=-1)], dim=-1
-        ).to(torch.int32),
-        n_hypotheses=hyp.count,
-        status=status,
-        type_transform=best_T,
-        type_score=best_score,
-        kept=keep,
-    )
+        return RegistrationResult(
+            transform=T,
+            quick_score=torch.amax(top_q, dim=-1),
+            fine_score=torch.amax(fscore, dim=-1),
+            n_faces=torch.stack(
+                [torch.sum(f1.valid, dim=-1), torch.sum(f2.valid, dim=-1)],
+                dim=-1,
+            ).to(torch.int32),
+            n_hypotheses=hyp.count,
+            status=status,
+            type_transform=best_T,
+            type_score=best_score,
+            kept=keep,
+        )
 
 
 def pre_downsample(points, mask, params: FCCFParams, caps: Capacities,
@@ -300,8 +307,8 @@ def pre_downsample(points, mask, params: FCCFParams, caps: Capacities,
 
 
 # The step graphs, at most 4 a device: a step graph's private pool holds
-# about the eager step's peak memory, 2.080 GiB at the heritage preset
-# and 0.859 GiB at office, batch 8 (chip_smoke.py phase 8 on an NVIDIA
+# about the eager step's peak memory, 1.730 GiB at the heritage preset
+# and 0.648 GiB at office, batch 8 (chip_smoke.py phase 8 on an NVIDIA
 # H100 80GB HBM3 at 700.00 W), and the accuracy sweep captures one per
 # config and capacities.
 STEP = graph.Graphs(max_graphs=4)

@@ -29,6 +29,7 @@ import ctypes
 import sys
 
 import torch
+from torch.profiler import record_function
 
 from ..ops import geometry, graph
 from ..ops.cuda_build import CudaLibrary
@@ -118,11 +119,13 @@ def refine_lm(n1, p1, n2, p2, w, iters: int = 50):
     ``lm_loop`` with its early exit, CUDA tensors the kernel L1 (the
     transform formed from its q and t by the same torch ops as
     ``lm_loop``'s); any other device raises."""
-    if n1.device.type == "cpu":
-        from .gauss_newton import lm_loop  # gauss_newton imports this module
+    with record_function("lm"):
+        if n1.device.type == "cpu":
+            # gauss_newton imports this module
+            from .gauss_newton import lm_loop
 
-        return lm_loop(n1, p1, n2, p2, w, iters, early_exit=True)
-    if n1.device.type == "cuda":
-        q, t = lm_solve(n1, p1, n2, p2, w, iters)[:2]
-        return geometry.make_transform(geometry.quat_to_matrix(q), t)
-    raise ValueError(f"refine_lm: unsupported device {n1.device}")
+            return lm_loop(n1, p1, n2, p2, w, iters, early_exit=True)
+        if n1.device.type == "cuda":
+            q, t = lm_solve(n1, p1, n2, p2, w, iters)[:2]
+            return geometry.make_transform(geometry.quat_to_matrix(q), t)
+        raise ValueError(f"refine_lm: unsupported device {n1.device}")

@@ -22,8 +22,10 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+from torch.profiler import record_function
 
 from ..config import Capacities, FCCFParams
+from ..ops import scan
 from ..ops.batch import fold_sum, small_matmul
 from ..ops.sorting import cosort
 from ..ops.voxelize import cell_index
@@ -60,7 +62,7 @@ def _unique_counts(keys, cap):
          s[..., 1:] != s[..., :-1]], dim=-1
     ) & valid
     n_unique = torch.sum(first, dim=-1, keepdim=True)
-    seg = torch.clamp(torch.cumsum(first.to(torch.int64), dim=-1) - 1, max=cap)
+    seg = torch.clamp(scan.cumsum(first) - 1, max=cap)
     idx = torch.arange(n, device=dev).expand(s.shape)
     start = torch.full(tuple(s.shape[:-1]) + (cap + 1,), -1, dtype=torch.int64,
                        device=dev)
@@ -93,19 +95,20 @@ class SourceTable(NamedTuple):
 
 def build_source_table(src_pts, src_mask, params: FCCFParams,
                        caps: Capacities) -> SourceTable:
-    cells = cell_index(src_pts, params.fine_voxel)
-    keys = _pack_cells(cells, src_mask)
-    kmin, kmax = _cell_bounds(cells, src_mask)
-    ukeys, counts, overflow = _unique_counts(keys, caps.max_fine_voxels)
-    return SourceTable(
-        keys=ukeys,
-        counts=counts,
-        n_src=torch.sum(src_mask.to(torch.float32), dim=-1),
-        overflow=overflow,
-        cell_min=kmin,
-        cell_max=kmax,
-        aliased=torch.any(kmax - kmin >= 1024, dim=-1),
-    )
+    with record_function("fine.table"):
+        cells = cell_index(src_pts, params.fine_voxel)
+        keys = _pack_cells(cells, src_mask)
+        kmin, kmax = _cell_bounds(cells, src_mask)
+        ukeys, counts, overflow = _unique_counts(keys, caps.max_fine_voxels)
+        return SourceTable(
+            keys=ukeys,
+            counts=counts,
+            n_src=torch.sum(src_mask.to(torch.float32), dim=-1),
+            overflow=overflow,
+            cell_min=kmin,
+            cell_max=kmax,
+            aliased=torch.any(kmax - kmin >= 1024, dim=-1),
+        )
 
 
 def fine_verify(T, table: SourceTable, tar_pts, tar_mask, params, caps):
@@ -119,62 +122,67 @@ def fine_verify(T, table: SourceTable, tar_pts, tar_mask, params, caps):
     (label 1); each run is evaluated at its start, elementwise, with the
     next run start found by a reverse running min.
     """
-    lead = tuple(tar_mask.shape[:-1])
-    cand = tuple(T.shape[len(lead):-2])
-    T = T.reshape(lead + (-1, 4, 4))
-    C = T.shape[-3]
-    dev = T.device
-    R = T[..., :3, :3]
-    t = T[..., :3, 3]
-    tar_t = small_matmul(tar_pts[..., None, :, :], R.mT) + t[..., None, :]
-    cells_t = cell_index(tar_t, params.fine_voxel)
-    in_win = torch.all(
-        (cells_t >= table.cell_min[..., None, None, :])
-        & (cells_t <= table.cell_max[..., None, None, :]), dim=-1
-    )
-    keys_t = _pack_cells(cells_t, tar_mask[..., None, :] & in_win)
+    with record_function("fine.keys"):
+        lead = tuple(tar_mask.shape[:-1])
+        cand = tuple(T.shape[len(lead):-2])
+        T = T.reshape(lead + (-1, 4, 4))
+        C = T.shape[-3]
+        dev = T.device
+        R = T[..., :3, :3]
+        t = T[..., :3, 3]
+        tar_t = small_matmul(tar_pts[..., None, :, :], R.mT) + t[..., None, :]
+        cells_t = cell_index(tar_t, params.fine_voxel)
+        in_win = torch.all(
+            (cells_t >= table.cell_min[..., None, None, :])
+            & (cells_t <= table.cell_max[..., None, None, :]), dim=-1
+        )
+        keys_t = _pack_cells(cells_t, tar_mask[..., None, :] & in_win)
 
-    Vf = table.keys.shape[-1]
-    M = keys_t.shape[-1]
-    n = Vf + M
-    ks2 = torch.where(table.keys != _SENTINEL, table.keys << 1, _SENTINEL)
-    kt2 = torch.where(keys_t != _SENTINEL, (keys_t << 1) | 1, _SENTINEL)
-    keys = torch.cat([ks2[..., None, :].expand(lead + (C, Vf)), kt2], dim=-1)
-    vals = torch.cat(
-        [table.counts[..., None, :].expand(lead + (C, Vf)),
-         torch.ones(lead + (C, M), dtype=torch.float32, device=dev)],
-        dim=-1,
-    )
-    k_s, val_s = cosort((keys,), (vals,), dim=-1)
-    src_s = (k_s & 1) == 0
+    with record_function("fine.join"):
+        Vf = table.keys.shape[-1]
+        M = keys_t.shape[-1]
+        n = Vf + M
+        ks2 = torch.where(table.keys != _SENTINEL, table.keys << 1, _SENTINEL)
+        kt2 = torch.where(keys_t != _SENTINEL, (keys_t << 1) | 1, _SENTINEL)
+        keys = torch.cat([ks2[..., None, :].expand(lead + (C, Vf)), kt2],
+                         dim=-1)
+        vals = torch.cat(
+            [table.counts[..., None, :].expand(lead + (C, Vf)),
+             torch.ones(lead + (C, M), dtype=torch.float32, device=dev)],
+            dim=-1,
+        )
+        k_s, val_s = cosort((keys,), (vals,), dim=-1)
+        src_s = (k_s & 1) == 0
 
-    pos = torch.arange(n, device=dev)
-    cell = k_s >> 1
-    start_flag = torch.cat(
-        [torch.ones_like(cell[..., :1], dtype=torch.bool),
-         cell[..., 1:] != cell[..., :-1]],
-        dim=-1,
-    )
-    marked = torch.where(start_flag, pos, n)
-    nxt = torch.flip(
-        torch.cummin(torch.flip(marked, dims=[-1]), dim=-1).values, dims=[-1]
-    )
-    nxt = torch.cat([nxt[..., 1:], torch.full_like(nxt[..., :1], n)], dim=-1)
+    with record_function("fine.runs"):
+        pos = torch.arange(n, device=dev)
+        cell = k_s >> 1
+        start_flag = torch.cat(
+            [torch.ones_like(cell[..., :1], dtype=torch.bool),
+             cell[..., 1:] != cell[..., :-1]],
+            dim=-1,
+        )
+        marked = torch.where(start_flag, pos, n)
+        nxt = scan.rev_cummin(marked)
+        nxt = torch.cat([nxt[..., 1:], torch.full_like(nxt[..., :1], n)],
+                        dim=-1)
 
-    has_src = start_flag & src_s
-    s_cnt = torch.where(has_src, val_s, 0.0)
-    run_len = (nxt - pos).to(torch.float32)
-    t_cnt = run_len - has_src.to(torch.float32)
-    live = start_flag & has_src & (t_cnt >= 1.0) & (k_s != _SENTINEL)
-    mn = torch.minimum(s_cnt, t_cnt)
-    mx = torch.maximum(s_cnt, t_cnt)
-    # fold_sum: a library's long reduction splits its work by the number
-    # of outputs, so its rounding would depend on the batch.
-    similar = fold_sum(
-        torch.where(live, (s_cnt + t_cnt) * mn / torch.clamp(mx, min=1.0), 0.0),
-        dim=-1,
-    )
-    total = table.n_src + torch.sum(tar_mask.to(torch.float32), dim=-1)
-    score = similar / torch.clamp(total, min=1.0)[..., None]
-    aliased = table.aliased[..., None].expand(score.shape)
+    with record_function("fine.score"):
+        has_src = start_flag & src_s
+        s_cnt = torch.where(has_src, val_s, 0.0)
+        run_len = (nxt - pos).to(torch.float32)
+        t_cnt = run_len - has_src.to(torch.float32)
+        live = start_flag & has_src & (t_cnt >= 1.0) & (k_s != _SENTINEL)
+        mn = torch.minimum(s_cnt, t_cnt)
+        mx = torch.maximum(s_cnt, t_cnt)
+        # fold_sum: a library's long reduction splits its work by the number
+        # of outputs, so its rounding would depend on the batch.
+        similar = fold_sum(
+            torch.where(live,
+                        (s_cnt + t_cnt) * mn / torch.clamp(mx, min=1.0), 0.0),
+            dim=-1,
+        )
+        total = table.n_src + torch.sum(tar_mask.to(torch.float32), dim=-1)
+        score = similar / torch.clamp(total, min=1.0)[..., None]
+        aliased = table.aliased[..., None].expand(score.shape)
     return score.reshape(lead + cand), aliased.reshape(lead + cand)

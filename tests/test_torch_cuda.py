@@ -27,7 +27,12 @@ the standalone block-seed walk and C2 (floor walk) against their plain
 versions (C2 also at its edge lanes); K1's propagation with bounds far below V; the
 register step replayed as one CUDA graph against the eager step
 (_register_batch) bit for bit at the office and heritage presets and
-over [cuda:0] * 2, with no host sync in a warm step.
+over [cuda:0] * 2, with no host sync in a warm step; the scans S1
+(cumsum, running max, reversed running min of bool, int32 and int64 rows)
+and S2 (the base-16 blocked float prefix sum) against their plain
+versions bit for bit, at row lengths 1 to 245760 (one tile, many tiles, a
+ragged last tile), (16, 245760) and (1, n) rows, int values near 2^31,
+-0.0, inf and NaN, inside a capture and counted at each replay.
 
 This file imports no jax, so it runs on a machine without it (the
 repository's conftest.py imports jax, hence --noconftest):
@@ -51,6 +56,7 @@ from fccf_pcr_torch.ops import cluster_kernels as ck
 from fccf_pcr_torch.ops import gather as gt
 from fccf_pcr_torch.ops import graph
 from fccf_pcr_torch.ops import label_prop as lp
+from fccf_pcr_torch.ops import scan
 from fccf_pcr_torch.pipeline.register import STEP
 from fccf_pcr_torch.refine import lm_kernel as lmk
 
@@ -1313,3 +1319,115 @@ def test_refine_pairs_inside_a_capture_runs_inline(cuda):
     got = graph.Graphs(max_graphs=1).replay(gn.refine_pairs, args)
     assert torch.equal(got, want)
     assert torch.equal(got, gn.lm_loop(*args))
+
+
+# ------------------------------------------------------------ S1 and S2 --
+
+SCAN_LENGTHS = (1, 15, 16, 17, 255, 256, 257, 4097, 8192, 8193, 65536,
+                245760)
+
+
+def _scan_inputs(n, seed):
+    """Rows of length n as the step's scans see them, and edge rows:
+    ((name, tensor) pairs): flags (random, all false, all true), int32
+    values near 2^31 with sentinel tails, int64 values around 2^31, a
+    batch of 16 rows and a batch of 1."""
+    rng = np.random.default_rng(seed)
+    lead = (2, 3) if n <= 65536 else (16,)
+    flags = rng.uniform(size=lead + (n,)) < 0.3
+    flags[..., 0, :] = False
+    flags[..., -1, :] = True
+    big = rng.integers(2**31 - 2**20, 2**31 - 1, lead + (n,),
+                       dtype=np.int64)
+    big[..., 0, :] = -big[..., 0, :]
+    idx = np.arange(n)
+    tail = np.where(rng.uniform(size=lead + (n,)) < 0.2, idx, 2**31 - 1)
+    tail[..., idx >= n - n // 3] = 2**31 - 1
+    wide = rng.integers(-2**40, 2**40, (1, n), dtype=np.int64) + 2**31
+    return (("flags", torch.from_numpy(flags)),
+            ("int32 near 2^31", torch.from_numpy(big.astype(np.int32))),
+            ("int32 sentinel tail", torch.from_numpy(tail.astype(np.int32))),
+            ("int64 near 2^31", torch.from_numpy(big)),
+            ("int64 sentinel tail", torch.from_numpy(tail)),
+            ("int64 one row", torch.from_numpy(wide)))
+
+
+@pytest.mark.parametrize("n", SCAN_LENGTHS)
+def test_int_scan_kernel_matches_plain(cuda, n):
+    """S1 == torch.cumsum / torch.cummax / flip-cummin-flip on the card,
+    bit for bit, one launch (or two) a call."""
+    fns = {scan.SUM: scan.cumsum, scan.MAX: scan.cummax,
+           scan.MIN_REVERSED: scan.rev_cummin}
+    for what, x in _scan_inputs(n, n):
+        x = x.to(cuda)
+        for op, fn in fns.items():
+            if op != scan.SUM and x.dtype == torch.bool:
+                continue
+            before = scan.INT_SCANS
+            got = fn(x)
+            assert scan.INT_SCANS == before + 1
+            want = scan.int_scan_plain(x, op)
+            assert got.dtype == want.dtype and got.shape == want.shape
+            assert torch.equal(got, want), (what, op)
+    x = _scan_inputs(n, 1)[4][1].to(cuda)
+    head = torch.cat([x, x[..., :5]], dim=-1)[..., :n]  # rows a stride apart
+    assert torch.equal(scan.cummax(head), scan.int_scan_plain(x, scan.MAX))
+
+
+def _float_rows(shape, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.uniform(-1, 1, shape).astype(np.float32)
+    x[..., 0] = -0.0
+    if shape[-1] > 1:
+        x[..., 1] = np.where(rng.uniform(size=shape[:-1]) < 0.5, -0.0, 0.0)
+    x[rng.uniform(size=shape) < 1e-3] = np.inf
+    x[rng.uniform(size=shape) < 1e-3] = -np.inf
+    x[rng.uniform(size=shape) < 1e-3] = np.nan
+    return torch.from_numpy(x)
+
+
+@pytest.mark.parametrize("shape", [
+    (1, 1, 4), (2, 2, 4), (2, 15, 10), (2, 16, 4), (2, 17, 4), (3, 255, 10),
+    (3, 256, 4), (3, 257, 10), (2, 4097, 4), (2, 65536, 10), (1, 65537, 3),
+    (16, 245760, 4), (16, 245760, 10), (1, 300001, 1)])
+def test_prefix_sum_kernel_matches_plain(cuda, shape):
+    """S2 == the plain blocked prefix sum on the card, every bit (signed
+    zeros and the card's NaNs included), one call a launch count."""
+    x = _float_rows(shape, sum(shape)).to(cuda)
+    before = scan.PREFIX_SUMS
+    got = scan.prefix_sum(x, dim=1)
+    assert scan.PREFIX_SUMS == before + 1
+    want = scan.prefix_sum_plain(x, dim=1).contiguous()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    # Along dim 0 of a 2-D tensor and dim -2 of a 4-D one.
+    x2 = x[0]
+    assert torch.equal(scan.prefix_sum(x2).view(torch.int32),
+                       scan.prefix_sum_plain(x2).contiguous()
+                       .view(torch.int32))
+    x4 = x[None]
+    assert torch.equal(scan.prefix_sum(x4, dim=-2).view(torch.int32),
+                       want[None].view(torch.int32))
+
+
+def test_scan_kernels_in_a_capture(cuda):
+    """S1 and S2 captured in a CUDA graph: each replay equals the eager
+    calls, and the launches count at each replay."""
+    x = _scan_inputs(4097, 5)[4][1].to(cuda)
+    f = _float_rows((2, 4097, 10), 5).to(cuda)
+
+    def fn(x, f):
+        return (scan.cumsum(x), scan.cummax(x), scan.rev_cummin(x),
+                scan.prefix_sum(f, dim=1))
+
+    graphs = graph.Graphs(max_graphs=1)
+    want = fn(x, f)
+    graphs.replay(fn, (x, f))  # the capture
+    ints, sums = scan.INT_SCANS, scan.PREFIX_SUMS
+    for _ in range(2):
+        got = graphs.replay(fn, (x, f))
+    torch.cuda.synchronize()
+    assert scan.INT_SCANS == ints + 6 and scan.PREFIX_SUMS == sums + 2
+    for a, b in zip(got[:3], want[:3]):
+        assert torch.equal(a, b)
+    assert torch.equal(got[3].view(torch.int32), want[3].view(torch.int32))
+    graphs.clear()
