@@ -173,19 +173,37 @@ result:
      (register.py's stages, the finer ranges of the port's modules), by
      stage and by chain of ranges: device ms, kernels and the three
      kernels with the most time, every kernel in a stage and the buckets
-     adding up to the step's kernels; once with the step's scans as their
-     plain versions (the port before S1 and S2) and once through S1 and
-     S2; beside it the graph step's kernel count and the kernel names a
+     adding up to the step's kernels; three times: with the step's scans
+     as their plain versions (the port before S1 and S2), with the
+     voxelization's leaf and moment columns concatenated and then
+     prefix-summed by S2 (the port before the fused S2), and through S1
+     and the fused S2, whose voxelize.leaf and voxelize.voxels ranges
+     must hold no torch.cat / torch.stack of float32 columns of the
+     clouds' rows (seen by a TorchDispatchMode; the concatenated arm
+     must show them, so the check is proven) and as many fewer 3-D
+     float32 CatArrayBatchedCopy kernels as the concatenated arm makes
+     such calls there; beside it the graph step's kernel count and the
+     kernel names a
      replay holds more or fewer than the eager step;
  22. S1 and S2 against their plain versions on the card, bit for bit:
      every S1 and S2 input of the heritage and office batch-8 eager steps
-     and the edge cases (lengths 1, 17 and 8193, all-false and all-true
-     flags, int32 and int64 values near 2^31, sentinel tails; -0.0, inf
-     and NaN in the float input, lengths 1, 17, 257 and 65537); at the
-     steps' inputs each call's device time (a graph of 10 calls, CUDA
-     events) beside the plain version's, the library call's
-     (torch.cumsum / torch.cummax / torch.cummin; for S2 torch.cumsum,
-     another order of additions) and the bound, and their sums a step.
+     (the fused S2 calls by their sources) and the edge cases (S1: rows
+     of 1, 17, 1023, 1024, 1025, 4095, 4096, 4097, 8192, 8193 and 12289
+     entries (tiles of 1024), one row
+     and many, all-false and all-true flags, int32 and int64 values near
+     2^31, sentinel tails; S2: -0.0, inf and NaN in the float input,
+     lengths 1, 17, 257 and 65537; the fused S2: -0.0, inf and NaN in p
+     and px, masked rows where x * 0.0 gives -0.0 or NaN, lengths 1, 17,
+     4097, 65537 and 65536 + 4096 k +- 1); every kernel called twice in
+     one captured CUDA graph, replayed twice, equal to the eager calls
+     (the calls' scratch may share the graph's pool); at the steps'
+     inputs each call's device
+     time (a graph of 10 calls, CUDA events) beside the plain version's,
+     the library call's (torch.cumsum / torch.cummax / torch.cummin; for
+     S2 torch.cumsum, another order of additions, on the columns formed
+     beforehand) and the bound (the fused S2: its sources read once and
+     its output written once), for a fused call also the columns
+     concatenated and then prefix-summed by S2, and their sums a step.
 
 Phases 5-6 are the main path: their launch counts are the kernels'
 "launches". Every later in-process path (12-16) is driven with the
@@ -211,6 +229,7 @@ import json
 import math
 import os
 import pathlib
+import re
 import subprocess
 import sys
 import tempfile
@@ -2463,13 +2482,51 @@ def plain_scans():
     and the blocked prefix sum as PyTorch ops)."""
     from fccf_pcr_torch.ops import scan
 
-    kept = scan._launch_int_scan, scan._launch_prefix_sum
-    scan._launch_int_scan = scan.int_scan_plain
-    scan._launch_prefix_sum = functools.partial(scan.prefix_sum_plain, dim=1)
+    with swapped(scan, _launch_int_scan=scan.int_scan_plain,
+                 _launch_prefix_sum=functools.partial(scan.prefix_sum_plain,
+                                                      dim=1),
+                 _launch_leaf_sums=scan.leaf_sums_plain,
+                 _launch_moment_sums=scan.moment_sums_plain):
+        yield
+
+
+@contextlib.contextmanager
+def swapped(module, **attrs):
+    """``module``'s attributes set to ``attrs`` for the duration."""
+    kept = {k: getattr(module, k) for k in attrs}
+    for k, v in attrs.items():
+        setattr(module, k, v)
     try:
         yield
     finally:
-        scan._launch_int_scan, scan._launch_prefix_sum = kept
+        for k, v in kept.items():
+            setattr(module, k, v)
+
+
+def unfused(kind):
+    """A fused S2 call as the port made it before the fused entries: its
+    columns concatenated (``leaf_columns`` / ``moment_columns``), then S2
+    on them (``kind`` "leaf" or "moments")."""
+    from fccf_pcr_torch.ops import scan
+
+    columns = scan.leaf_columns if kind == "leaf" else scan.moment_columns
+
+    def run(*sources):
+        cols = columns(*sources)
+        return scan._launch_prefix_sum(
+            cols.reshape(-1, *cols.shape[-2:])).view(cols.shape)
+    return run
+
+
+@contextlib.contextmanager
+def concatenated_columns():
+    """The fused S2 calls made as before them (``unfused``): the leaf and
+    moment columns written by torch.cat / torch.stack, then S2."""
+    from fccf_pcr_torch.ops import scan
+
+    with swapped(scan, _launch_leaf_sums=unfused("leaf"),
+                 _launch_moment_sums=unfused("moments")):
+        yield
 
 
 def stage_table(name, ks):
@@ -2500,26 +2557,110 @@ def stage_table(name, ks):
                                   key=lambda kv: -kv[1]["ms"])))
 
 
+# A torch.cat / torch.stack kernel writing a 3-D float32 tensor (4-byte
+# elements, 3 dims), the kind that concatenated the voxelization's leaf
+# and moment columns before the fused S2 (and that assembles its
+# covariances).
+CAT_3D_FLOAT = re.compile(
+    r"CatArrayBatchedCopy\w*<[^>]*OpaqueType<4u?>\s*,\s*unsigned int\s*,"
+    r"\s*3\s*,")
+COLUMN_RANGES = ("voxelize.leaf", "voxelize.voxels")
+STAGE_ARMS = {"plain scans": plain_scans,
+              "concatenated columns": concatenated_columns,
+              "S1/S2": contextlib.nullcontext}
+
+
+def column_cats(eager, args, n):
+    """The torch.cat / torch.stack calls of one eager step inside
+    COLUMN_RANGES that take a float32 tensor with a dim of n (the rows of
+    the voxelized clouds): (range, input shapes) each. The calls are seen
+    by a TorchDispatchMode, the ranges by wrapping ops/voxelize.py's
+    record_function."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from fccf_pcr_torch.ops import voxelize as tvox
+
+    ranges, found = [], []
+    real = tvox.record_function
+    cats = (torch.ops.aten.cat.default, torch.ops.aten.stack.default)
+
+    @contextlib.contextmanager
+    def tracked(name):
+        ranges.append(name)
+        try:
+            with real(name):
+                yield
+        finally:
+            ranges.pop()
+
+    class Cats(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            inside = [r for r in ranges if r in COLUMN_RANGES]
+            if func in cats and inside and any(
+                    t.dtype == torch.float32 and n in t.shape
+                    for t in args[0]):
+                found.append((inside[-1], [tuple(t.shape) for t in args[0]]))
+            return func(*args, **(kwargs or {}))
+
+    with swapped(tvox, record_function=tracked), Cats():
+        eager(*args)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    return found
+
+
 def phase_stages(name, step, eager, graph_kernels):
     """Phase 21 at one preset: the device kernels of one eager batch-8
     step by stage and by range (``stage_table``; ``kernel_stages``, the
     capture of three that holds the most kernels: CUPTI drops records and
     never adds one), with the step's scans as their plain versions
-    (``plain_scans``, the port before S1 and S2) and through S1 and S2.
-    Beside it the graph step's kernels (phase 8's count, and the kernel
-    names one capture of the replay holds more or fewer than the eager
-    step: the graph replays the same program)."""
+    (``plain_scans``, the port before S1 and S2), with the leaf and
+    moment columns concatenated before S2 (``concatenated_columns``, the
+    port before the fused S2) and through S1 and the fused S2. In
+    ``COLUMN_RANGES`` the fused arm must make no concatenation of the
+    clouds' float32 columns (``column_cats``), the concatenated arm must
+    make one at least in each range, and the fused arm's 3-D float32 cat
+    kernels (``CAT_3D_FLOAT``) must be fewer by as many. Beside it the
+    graph step's kernels (phase 8's
+    count, and the kernel names one capture of the replay holds more or
+    fewer than the eager step: the graph replays the same program)."""
     import torch
 
     fn, args = step
-    out = {}
-    for arm in ("plain scans", "S1/S2"):
-        with plain_scans() if arm == "plain scans" else contextlib.nullcontext():
+    n = next(x[-1].shape[-1] for _, x, op in record_scans(eager, args)
+             if op == "moments")
+    out = {"column_cats": {}, "cat_kernels": {}}
+    for arm, ctx in STAGE_ARMS.items():
+        with ctx():
             eager(*args)  # warm up
             torch.cuda.synchronize()
             ks = max((kernel_stages(lambda: eager(*args)) for _ in range(3)),
                      key=len)
+            calls = column_cats(eager, args, n)
         out[arm] = stage_table(name, ks)
+        out["column_cats"][arm] = {r: [c for c in calls if c[0] == r]
+                                   for r in COLUMN_RANGES}
+        out["cat_kernels"][arm] = {
+            r: sum(1 for chain, k, _ in ks
+                   if r in chain and CAT_3D_FLOAT.search(k))
+            for r in COLUMN_RANGES}
+        print(f"[stages] {name} {arm}: torch.cat / torch.stack calls on "
+              f"float32 columns of {n} rows in {COLUMN_RANGES}: "
+              f"{out['column_cats'][arm]}; 3-D float32 cat kernels there "
+              f"{out['cat_kernels'][arm]}", flush=True)
+    for r in COLUMN_RANGES:
+        fused = out["column_cats"]["S1/S2"][r]
+        cat = out["column_cats"]["concatenated columns"][r]
+        check(not fused, f"{name}: {r} still concatenates its columns: "
+              f"{fused}")
+        check(cat, f"{name}: no column concatenation seen in {r} with the "
+              "columns concatenated: column_cats misses them")
+        check(out["cat_kernels"]["concatenated columns"][r]
+              - out["cat_kernels"]["S1/S2"][r] == len(cat),
+              f"{name}: {r}'s 3-D float32 cat kernels "
+              f"{out['cat_kernels']} do not fall by the {len(cat)} column "
+              "concatenations")
     fn(*args)  # the step graph may have been evicted: capture it first
     torch.cuda.synchronize()
     graph_names = collections.Counter(
@@ -2550,7 +2691,7 @@ def device_records_of(fn):
 
 def print_stages(name, st, smi):
     """Phase 21's lines for one preset."""
-    for arm in ("plain scans", "S1/S2"):
+    for arm in STAGE_ARMS:
         t = st[arm]
         print(f"[stages] {name} eager batch-8 step, {arm}: {t['kernels']} "
               f"device kernels, {t['ms']:.3f} ms of device time, every "
@@ -2602,27 +2743,38 @@ def graph_ms(fn, reps=10):
 
 def record_scans(eager, args):
     """The inputs of every S1 and S2 call of one eager step, in order:
-    (kernel, input, op) with S1's op and S2's (B, n, D) input."""
+    (kernel, input, op) with S1's op; for S2 its (B, n, D) input and op
+    None, or for a fused call the tuple of its sources and op "leaf" or
+    "moments"."""
     import torch
 
     from fccf_pcr_torch.ops import scan
 
     seen = []
-    kept = scan._launch_int_scan, scan._launch_prefix_sum
+    kept = {k: getattr(scan, k) for k in (
+        "_launch_int_scan", "_launch_prefix_sum", "_launch_leaf_sums",
+        "_launch_moment_sums")}
 
     def s1(x, op):
         seen.append(("S1", x.clone(), op))
-        return kept[0](x, op)
+        return kept["_launch_int_scan"](x, op)
 
     def s2(x3):
         seen.append(("S2", x3.clone(), None))
-        return kept[1](x3)
+        return kept["_launch_prefix_sum"](x3)
 
-    scan._launch_int_scan, scan._launch_prefix_sum = s1, s2
-    try:
+    def fused(kind, launch):
+        def run(*sources):
+            seen.append(("S2", tuple(t.clone() for t in sources), kind))
+            return launch(*sources)
+        return run
+
+    with swapped(scan, _launch_int_scan=s1, _launch_prefix_sum=s2,
+                 _launch_leaf_sums=fused("leaf",
+                                         kept["_launch_leaf_sums"]),
+                 _launch_moment_sums=fused("moments",
+                                           kept["_launch_moment_sums"])):
         eager(*args)
-    finally:
-        scan._launch_int_scan, scan._launch_prefix_sum = kept
     torch.cuda.synchronize()
     return seen
 
@@ -2631,27 +2783,39 @@ def scan_bound(kernel, x, op):
     """The least time the card could take for one S1 or S2 call, in ms,
     and what bounds it: each input byte read once and each output byte
     written once over the memory rate (S1 writes int64 sums, or the input
-    type; S2 float32). Its operations (one add or compare an entry, S2 a
-    few more levels of 1/16 of them) take far less at any peak rate."""
-    in_bytes = x.numel() * x.element_size()
-    out_bytes = x.numel() * (8 if kernel == "S1" and op == 0
-                             else x.element_size())
+    type; S2 float32; a fused S2 call reads its sources and writes 4 or
+    10 float32 columns). Its operations (one add or compare an entry, S2
+    a few more levels of 1/16 of them and the products) take far less at
+    any peak rate."""
+    if op in ("leaf", "moments"):
+        in_bytes = sum(t.numel() * t.element_size() for t in x)
+        out_bytes = x[-1].numel() * 4 * (4 if op == "leaf" else 10)
+    else:
+        in_bytes = x.numel() * x.element_size()
+        out_bytes = x.numel() * (8 if kernel == "S1" and op == 0
+                                 else x.element_size())
     return (in_bytes + out_bytes) / PEAK_BYTES * 1e3, "bytes"
 
 
 def scan_edge_cases(dev):
-    """S1's and S2's edge inputs: (kernel, input, op)."""
+    """S1's and S2's edge inputs: (kernel, input, op), the fused S2's
+    input the tuple of its sources."""
     import numpy as np
     import torch
 
     rng = np.random.default_rng(13)
     cases = []
-    for n in (1, 17, 8193):
-        flags = rng.uniform(size=(2, 3, n)) < 0.3
-        flags[:, 0] = False
-        flags[:, 2] = True
-        big = rng.integers(2**31 - 2**20, 2**31 - 1, (2, 3, n))
-        big[:, 0] = -big[:, 0]
+    # Rows of one tile (1024 entries), of exactly k tiles, one entry more
+    # or less; one row and many.
+    for lead, n in (((2, 3), 1), ((2, 3), 17), ((2, 3), 1023), ((2, 3), 1024),
+                    ((1,), 1025), ((2, 3), 4095), ((2, 3), 4096),
+                    ((1,), 4097), ((2, 3), 8192), ((1,), 8193),
+                    ((7, 5), 12289)):
+        flags = rng.uniform(size=lead + (n,)) < 0.3
+        flags[..., 0, :] = False
+        flags[..., -1, :] = True
+        big = rng.integers(2**31 - 2**20, 2**31 - 1, lead + (n,))
+        big[..., 0, :] = -big[..., 0, :]
         tail = np.where(rng.uniform(size=(1, n)) < 0.2, np.arange(n),
                         2**31 - 1)
         tail[:, n - n // 3:] = 2**31 - 1
@@ -2665,40 +2829,108 @@ def scan_edge_cases(dev):
         x[rng.uniform(size=shape) < 0.01] = np.inf
         x[rng.uniform(size=shape) < 0.01] = np.nan
         cases.append(("S2", torch.from_numpy(x), None))
-    return [(k, x.to(dev), op) for k, x, op in cases]
+    # The fused S2: -0.0, inf and NaN in p / px, masked rows (x * 0.0 is
+    # -0.0 or NaN there), lengths around its levels' rows (4096, 65536).
+    for n in (1, 17, 4097, 65537, 65536 + 4096 - 1, 65536 + 4096 + 1,
+              65536 + 3 * 4096 - 1, 65536 + 3 * 4096 + 1):
+        p = rng.uniform(-2, 2, (2, n, 3)).astype(np.float32)
+        p[rng.uniform(size=p.shape) < 0.02] = -0.0
+        p[rng.uniform(size=p.shape) < 0.002] = np.inf
+        p[rng.uniform(size=p.shape) < 0.002] = -np.inf
+        p[rng.uniform(size=p.shape) < 0.002] = np.nan
+        mask = rng.uniform(size=(2, n)) < 0.7
+        mask[1, : n // 2] = False
+        first = rng.uniform(size=(2, n)) < 0.2
+        t = [torch.from_numpy(a) for a in (p, mask, first)]
+        cases.append(("S2", (t[0][..., 0].contiguous(),
+                             t[0][..., 1].contiguous(),
+                             t[0][..., 2].contiguous(), t[1], t[2]), "leaf"))
+        cases.append(("S2", (t[0], t[1]), "moments"))
+    return [(k, tuple(t.to(dev) for t in x) if isinstance(x, tuple)
+             else x.to(dev), op) for k, x, op in cases]
+
+
+def scan_forms(kernel, x, op):
+    """(kernel, plain, library) calls of one S1 or S2 input: the library
+    call is torch.cumsum / torch.cummax / torch.cummin on the same rows,
+    for S2 torch.cumsum along dim 1 (another order of additions) on the
+    columns formed beforehand for a fused call."""
+    import torch
+
+    from fccf_pcr_torch.ops import scan
+
+    if kernel == "S1":
+        library = {0: lambda: torch.cumsum(x, dim=-1),
+                   1: lambda: torch.cummax(x, dim=-1),
+                   2: lambda: torch.cummin(x, dim=-1)}[op]
+        return (lambda: scan._launch_int_scan(x, op),
+                lambda: scan.int_scan_plain(x, op), library)
+    if op is None:
+        return (lambda: scan._launch_prefix_sum(x),
+                lambda: scan.prefix_sum_plain(x, dim=1),
+                lambda: torch.cumsum(x, dim=1))
+    leaf = op == "leaf"
+    cols = (scan.leaf_columns if leaf else scan.moment_columns)(*x)
+    return ((lambda: scan._launch_leaf_sums(*x)) if leaf
+            else (lambda: scan._launch_moment_sums(*x)),
+            lambda: (scan.leaf_sums_plain if leaf
+                     else scan.moment_sums_plain)(*x),
+            lambda: torch.cumsum(cols, dim=-2))
+
+
+def scan_equal(kernel, a, b):
+    """Two scan outputs bit for bit (S2's as int32 views: signed zeros,
+    and the card's NaNs are one bit pattern)."""
+    import torch
+
+    if kernel == "S2":
+        a, b = a.view(torch.int32), b.contiguous().view(torch.int32)
+    return a.dtype == b.dtype and torch.equal(a, b)
+
+
+def scan_replays(cases):
+    """Every S1 operation and S2 form of ``cases`` called twice inside one
+    captured CUDA graph, the graph replayed twice: each replay's outputs
+    equal the eager calls' (a call's scratch may be another's, freed, in
+    the graph's pool). Returns the kernel calls the graph holds."""
+    import torch
+
+    forms = [scan_forms(k, x, op) for k, x, op in cases]
+    kinds = [k for k, _, _ in cases]
+    want = [f[0]() for f in forms]
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        outs = [f[0]() for f in forms for _ in range(2)]
+    for _ in range(2):
+        g.replay()
+        torch.cuda.synchronize()
+        for i, (k, w) in enumerate(zip(kinds, want)):
+            for o in outs[2 * i:2 * i + 2]:
+                check(scan_equal(k, o, w), f"{k} {cases[i][2]} called twice "
+                      "in a replayed graph differs from its eager call")
+    del g
+    return len(outs)
 
 
 def phase_scans(steps, eager, dev):
     """Phase 22: S1 and S2 against their plain versions on the card, bit
     for bit, on every S1 and S2 input of the heritage and office batch-8
-    eager steps (``record_scans``) and on the edge cases; at each step's
-    inputs the device time a call (``graph_ms``) of the kernel, the plain
-    version and the library call (torch.cumsum / torch.cummax /
-    torch.cummin on the same rows; torch.cumsum along dim 1 for S2, which
-    adds in another order) beside the bound, and their sums over the
-    step."""
-    import torch
+    eager steps (``record_scans``; the fused S2 calls by their sources)
+    and on the edge cases; each kernel twice in one replayed graph; at
+    each step's inputs the device time a call (``graph_ms``) of the
+    kernel, the plain version and the library call beside the bound, for
+    a fused call also its columns concatenated and then S2 (``unfused``),
+    and their sums over the step."""
+    names = {0: "cumsum", 1: "cummax", 2: "rev_cummin", None: "prefix_sum",
+             "leaf": "leaf_prefix_sums", "moments": "moment_prefix_sums"}
 
-    from fccf_pcr_torch.ops import scan
+    def shape(x):
+        return tuple(x[-1].shape if isinstance(x, tuple) else x.shape)
 
-    names = {0: "cumsum", 1: "cummax", 2: "rev_cummin"}
-    library = {0: lambda x: torch.cumsum(x, dim=-1),
-               1: lambda x: torch.cummax(x, dim=-1),
-               2: lambda x: torch.cummin(x, dim=-1)}
-
-    def forms(kernel, x, op):
-        if kernel == "S1":
-            return (lambda: scan._launch_int_scan(x, op),
-                    lambda: scan.int_scan_plain(x, op),
-                    lambda: library[op](x))
-        return (lambda: scan._launch_prefix_sum(x),
-                lambda: scan.prefix_sum_plain(x, dim=1),
-                lambda: torch.cumsum(x, dim=1))
-
-    def equal(kernel, a, b):
-        if kernel == "S2":
-            a, b = a.view(torch.int32), b.contiguous().view(torch.int32)
-        return a.dtype == b.dtype and torch.equal(a, b)
+    def dtype(x):
+        return ",".join(str(t.dtype).replace("torch.", "") for t in (
+            x if isinstance(x, tuple) else (x,)))
 
     out = {"S1": {}, "S2": {}, "edge_cases": 0, "differ": 0}
     for name in ("heritage", "office"):
@@ -2708,28 +2940,40 @@ def phase_scans(steps, eager, dev):
             out[kernel][name] = dict(calls=[], ms=0.0, plain_ms=0.0,
                                      library_ms=0.0, bound_ms=0.0)
         for kernel, x, op in calls:
-            k, plain, lib = forms(kernel, x, op)
-            ok = equal(kernel, k(), plain())
+            k, plain, lib = scan_forms(kernel, x, op)
+            ok = scan_equal(kernel, k(), plain())
             out["differ"] += not ok
-            check(ok, f"{name}: {kernel} {names.get(op, 'prefix_sum')} "
-                  f"{tuple(x.shape)} {x.dtype} differs from plain")
+            check(ok, f"{name}: {kernel} {names[op]} {shape(x)} {dtype(x)} "
+                  "differs from plain")
             bound_ms, bound_by = scan_bound(kernel, x, op)
-            c = dict(what=names.get(op, "prefix_sum"), shape=tuple(x.shape),
-                     dtype=str(x.dtype).replace("torch.", ""),
+            c = dict(what=names[op], shape=shape(x), dtype=dtype(x),
                      ms=graph_ms(k), plain_ms=graph_ms(plain),
                      library_ms=graph_ms(lib), bound_ms=bound_ms,
                      bound_by=bound_by)
+            if op in ("leaf", "moments"):
+                c["unfused_ms"] = graph_ms(lambda: unfused(op)(*x))
             t = out[kernel][name]
             t["calls"].append(c)
             for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
                 t[key] += c[key]
-    for kernel, x, op in scan_edge_cases(dev):
-        k, plain, _ = forms(kernel, x, op)
-        ok = equal(kernel, k(), plain())
+        check(any(op == "leaf" for _, _, op in calls)
+              and any(op == "moments" for _, _, op in calls),
+              f"{name}: the step made no fused S2 call")
+    cases = scan_edge_cases(dev)
+    for kernel, x, op in cases:
+        k, plain, _ = scan_forms(kernel, x, op)
+        ok = scan_equal(kernel, k(), plain())
         out["differ"] += not ok
-        check(ok, f"edge case: {kernel} {names.get(op, 'prefix_sum')} "
-              f"{tuple(x.shape)} {x.dtype} differs from plain")
+        check(ok, f"edge case: {kernel} {names[op]} {shape(x)} {dtype(x)} "
+              "differs from plain")
         out["edge_cases"] += 1
+    # Each S1 operation on rows of one and of four tiles; each S2 form on
+    # columns of many tiles.
+    out["replayed_calls"] = scan_replays([
+        (k, x, op) for k, x, op in cases
+        if (k == "S1" and shape(x)[-1] in (4096, 12289))
+        or (k == "S2" and shape(x)[1 if op is None else -1] in (
+            65537, 65536 + 3 * 4096 + 1))])
     return out
 
 
@@ -3253,11 +3497,16 @@ def main():
                  "lm_refine": ptxas_summary(lmk, "lm_refine_kernelILb1"),
                  "lm_refine_scratch": ptxas_summary(lmk,
                                                     "lm_refine_kernelILb0"),
-                 # S1's int64 sum (its other instantiations alike) and S2
+                 # S1's int64 sum (its other instantiations alike) and
+                 # S2's launches on the moment columns
                  "scan_int": ptxas_summary(scn, "scan_tile_apply_kernelILi0Exx")
                  + " | reduce " + ptxas_summary(
                      scn, "scan_tile_reduce_kernelILi0Exx"),
-                 "prefix_sum16": ptxas_summary(scn, "prefix16")}
+                 "prefix_sum16": " | ".join(
+                     f"{k} " + ptxas_summary(scn, f"prefix16_{k}_kernel"
+                                             + ("" if k == "top" else
+                                                "INS_7Moments"))
+                     for k in ("up", "top", "down"))}
         for name, info in ptxas.items():
             check(info, f"no ptxas lines for {name}")
             print(f"[build] ptxas {name}: {info}", flush=True)
@@ -3495,9 +3744,13 @@ def main():
                     print(f"[scan] {kernel} {name} step, {c['what']} "
                           f"{c['shape']} {c['dtype']}: {c['ms'] * 1e3:.2f} "
                           f"us device vs plain {c['plain_ms'] * 1e3:.2f} us, "
-                          f"library {c['library_ms'] * 1e3:.2f} us; bound "
-                          f"{c['bound_ms'] * 1e3:.3f} us ({c['bound_by']}), "
-                          f"{c['ms'] / c['bound_ms']:.1f}x it", flush=True)
+                          f"library {c['library_ms'] * 1e3:.2f} us"
+                          + (f", columns concatenated then S2 "
+                             f"{c['unfused_ms'] * 1e3:.2f} us"
+                             if "unfused_ms" in c else "")
+                          + f"; bound {c['bound_ms'] * 1e3:.3f} us "
+                          f"({c['bound_by']}), {c['ms'] / c['bound_ms']:.1f}x "
+                          "it", flush=True)
                 print(f"[scan] {kernel} {name} batch-8 step: "
                       f"{len(t['calls'])} calls, each equal to plain bit for "
                       f"bit; {t['ms']:.4f} ms device vs plain "
@@ -3505,7 +3758,9 @@ def main():
                       f"ms; bound {t['bound_ms'] * 1e3:.3f} us (bytes) | "
                       f"ptxas {ptxas['scan_int' if kernel == 'S1' else 'prefix_sum16']}"
                       f" | {smi}", flush=True)
-        print(f"[scan] {sc['edge_cases']} edge cases equal to plain; phase "
+        print(f"[scan] {sc['edge_cases']} edge cases equal to plain; "
+              f"{sc['replayed_calls']} kernel calls in one graph, replayed "
+              f"twice, equal to their eager calls; phase "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
         t0 = time.perf_counter()
         l1_err, l1 = phase_lm_vs_plain(
@@ -3711,7 +3966,7 @@ def main():
                calls=sc[kernel]["heritage"]["calls"],
                stage_ms={k: {arm: {st: round(b["ms"], 4) for st, b in
                                    stage_tables[k][arm]["stages"].items()}
-                             for arm in ("plain scans", "S1/S2")}
+                             for arm in STAGE_ARMS}
                          for k in stage_tables},
                launches_by_path={k: v[name] for k, v in paths.items()},
                ptxas=ptxas[name],
@@ -3719,8 +3974,10 @@ def main():
                      "calls of the heritage batch-8 step, summed; ms, "
                      "plain_ms and library_ms device time a call by CUDA "
                      "events over a graph of 10 calls; a call launches "
-                     + ("1-2 kernels" if kernel == "S1" else
-                        "2K + 1 kernels (K levels above the input)")
+                     + ("2 kernels (1 for rows of at most 1024 entries)"
+                        if kernel == "S1" else
+                        "3 kernels (1 for columns of at most 256 entries); "
+                        "the leaf and moment columns formed in the kernel")
                      + "; max_abs_err the most outputs that differ")
           for name, kernel in (("scan_int", "S1"), ("prefix_sum16", "S2"))),
     ]}))

@@ -11,14 +11,19 @@ version.
     ``lax.cummax`` (``:526``), and the scans of ``features/faces.py`` and
     ``verify/fine.py``. Integer results are exact in any order of
     combination, so the kernel equals the plain version bit for bit.
-  - S2, ``prefix_sum``: the float32 inclusive prefix sum along one dim in
-    the association of XLA's cumsum on the CPU (the reference's goldens;
-    ``jnp.cumsum`` at ``fccf_pcr_tpu/ops/voxelize.py:143``, ``:530`` and
-    ``:584``): a base-16 blocked scan. Sequential sums from +0.0 inside
-    rows of 16, the row totals scanned the same way one level up, and
-    each level's exclusive total (+0.0 for the first row) added back
-    with ``P + exc``; a scan of 2..16 entries is one such row, a scan of
-    one entry returns it as it is. ``_prefix_sum0`` is the plain version.
+  - S2, the float32 inclusive prefix sum along one dim in the association
+    of XLA's cumsum on the CPU (the reference's goldens; ``jnp.cumsum`` at
+    ``fccf_pcr_tpu/ops/voxelize.py:143``, ``:530`` and ``:584``): a
+    base-16 blocked scan. Sequential sums from +0.0 inside rows of 16, the
+    row totals scanned the same way one level up, and each level's
+    exclusive total (+0.0 for the first row) added back with
+    ``P + exc``; a scan of 2..16 entries is one such row, a scan of one
+    entry returns it as it is. ``_prefix_sum0`` is the plain version.
+    ``prefix_sum`` scans a tensor's columns; ``leaf_prefix_sums`` and
+    ``moment_prefix_sums`` scan the voxelization's leaf and moment
+    columns, which the kernel forms from their sources (the plain
+    versions concatenate them first: ``leaf_columns`` /
+    ``moment_columns``), so the columns are never written on the card.
 
 CUDA tensors take the kernels of ``csrc/scan.cu`` on the current stream,
 with no host sync, so the register step's CUDA graph captures them; there
@@ -26,10 +31,11 @@ is no fallback: a missing ``nvcc``, a failed build or a refused launch
 raises. CPU tensors take the plain versions; any other device raises. The
 library is built with nvcc into ``fccf_pcr_torch/build/`` at first use and
 bound with ctypes (``ops.cuda_build``). ``INT_SCANS`` and ``PREFIX_SUMS``
-count the calls that launch S1 (one or two kernels) and S2 (2K + 1
-kernels for K levels above the first; ``ops.graph.count_launch``: a launch
-captured into a CUDA graph counts at each replay). Every entry point runs
-inside a ``record_function`` range named ``scan.<entry>``.
+count the calls that launch S1 (two kernels, one for rows of at most 1024
+entries) and S2 (three kernels, one for columns of at most 256 entries;
+``ops.graph.count_launch``: a launch captured into a CUDA graph counts at
+each replay). Every entry point runs inside a ``record_function`` range
+named ``scan.<entry>``.
 """
 
 from __future__ import annotations
@@ -59,14 +65,19 @@ def _bind(lib):
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 2 + [
         ctypes.c_longlong] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    fn = lib.fccf_prefix_sum16
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_longlong] * 3 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    for name in ("fccf_scan_tiles", "fccf_prefix_sum16_scratch"):
+    fn = lib.fccf_scan_scratch_bytes
+    fn.argtypes = [ctypes.c_longlong] * 2
+    fn.restype = ctypes.c_longlong
+    fn = lib.fccf_prefix_sum16_scratch
+    fn.argtypes = [ctypes.c_longlong]
+    fn.restype = ctypes.c_longlong
+    for name, pointers in (("fccf_prefix_sum16", 3),
+                           ("fccf_prefix_sum16_leaf", 7),
+                           ("fccf_prefix_sum16_moments", 4)):
         fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_longlong]
-        fn.restype = ctypes.c_longlong
+        fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_longlong] * (
+            3 if name == "fccf_prefix_sum16" else 2) + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
 
 
 _LIBRARY = CudaLibrary("scan.cu", _bind)
@@ -118,6 +129,36 @@ def prefix_sum_plain(x, dim=0):
     return _prefix_sum0(x.movedim(d, 0)).movedim(0, d)
 
 
+def leaf_columns(px, py, pz, m_s, face_first):
+    """The voxelization's leaf columns (..., n, 4) from the sorted anchored
+    coordinates px, py, pz (float32) and flags m_s, face_first (bool), all
+    (..., n): ``[px w, py w, pz w, ff]``, w = float(m_s) and ff =
+    float(face_first & m_s) (a product by w, not a select)."""
+    w = m_s.to(px.dtype)
+    ff = (face_first & m_s).to(px.dtype)
+    return torch.cat([torch.stack([px, py, pz], dim=-1) * w[..., None],
+                      ff[..., None]], dim=-1)
+
+
+def moment_columns(p, mask):
+    """The voxelization's moment columns (..., n, 10) from p (..., n, 3)
+    float32 and mask (..., n) bool: ``[x, y, z, xx, yy, zz, xy, xz, yz,
+    float(mask)]``, the products in ``ops/voxelize.py::_outer6``'s order."""
+    x, y, z = p[..., 0], p[..., 1], p[..., 2]
+    outer6 = torch.stack([x * x, y * y, z * z, x * y, x * z, y * z], dim=-1)
+    return torch.cat([p, outer6, mask.to(p.dtype)[..., None]], dim=-1)
+
+
+def leaf_sums_plain(px, py, pz, m_s, face_first):
+    """``leaf_prefix_sums``' plain version (any device)."""
+    return prefix_sum_plain(leaf_columns(px, py, pz, m_s, face_first), -2)
+
+
+def moment_sums_plain(p, mask):
+    """``moment_prefix_sums``' plain version (any device)."""
+    return prefix_sum_plain(moment_columns(p, mask), -2)
+
+
 # -------------------------------------------------------------- kernels --
 
 
@@ -139,12 +180,13 @@ def _launch_int_scan(x, op):
     if rows.stride(-1) != 1:
         rows = rows.contiguous()
     lib = build()
-    tiles = int(lib.fccf_scan_tiles(n))
-    totals = torch.empty((rows.shape[0] * tiles if tiles > 1 else 0,),
-                         dtype=torch.int64, device=x.device)
+    # A total a tile (none for rows of one tile).
+    scratch = torch.empty(
+        (int(lib.fccf_scan_scratch_bytes(rows.shape[0], n)),),
+        dtype=torch.uint8, device=x.device)
     with torch.cuda.device(x.device):  # the C entry launches on it
         rc = lib.fccf_scan_int(rows.data_ptr(), out.data_ptr(),
-                               totals.data_ptr(), op, _IN_TYPES[x.dtype],
+                               scratch.data_ptr(), op, _IN_TYPES[x.dtype],
                                rows.shape[0], n, rows.stride(0),
                                _stream(x.device))
     if rc != 0:
@@ -153,25 +195,66 @@ def _launch_int_scan(x, op):
     return out
 
 
+def _prefix_sums(entry, sources, lead, n, D, dev):
+    """One S2 call of C entry ``entry`` on ``sources`` (contiguous CUDA
+    tensors) of B = prod(lead) batch rows of n entries and D columns:
+    out (*lead, n, D) float32."""
+    B = math.prod(lead)
+    out = torch.empty(tuple(lead) + (n, D), dtype=torch.float32, device=dev)
+    if out.numel() == 0:
+        return out
+    lib = build()
+    scratch = torch.empty((B * D * int(lib.fccf_prefix_sum16_scratch(n)),),
+                          dtype=torch.float32, device=dev)
+    sizes = (B, n, D) if entry == "fccf_prefix_sum16" else (B, n)
+    with torch.cuda.device(dev):  # the C entry launches on it
+        rc = getattr(lib, entry)(*(t.data_ptr() for t in sources),
+                                 out.data_ptr(), scratch.data_ptr(), *sizes,
+                                 _stream(dev))
+    if rc != 0:
+        raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")
+    graph.count_launch(_THIS, "PREFIX_SUMS")
+    return out
+
+
 def _launch_prefix_sum(x3):
     """S2 on a contiguous (B, n, D) float32 CUDA tensor, along dim 1."""
     if x3.dtype != torch.float32:
         raise ValueError(f"prefix_sum kernel: want float32, got {x3.dtype}")
     B, n, D = x3.shape
-    out = torch.empty_like(x3)
-    if out.numel() == 0:
-        return out
-    lib = build()
-    scratch = torch.empty((B * D * int(lib.fccf_prefix_sum16_scratch(n)),),
-                          dtype=torch.float32, device=x3.device)
-    with torch.cuda.device(x3.device):  # the C entry launches on it
-        rc = lib.fccf_prefix_sum16(x3.data_ptr(), out.data_ptr(),
-                                   scratch.data_ptr(), B, n, D,
-                                   _stream(x3.device))
-    if rc != 0:
-        raise RuntimeError(f"fccf_prefix_sum16 launch failed: CUDA error {rc}")
-    graph.count_launch(_THIS, "PREFIX_SUMS")
-    return out
+    return _prefix_sums("fccf_prefix_sum16", (x3,), (B,), n, D, x3.device)
+
+
+def _sources(what, floats, flags):
+    """The sources of a fused S2 call, checked (float32 and bool tensors
+    on one device) and made contiguous."""
+    dev = floats[0].device
+    for want, group in ((torch.float32, floats), (torch.bool, flags)):
+        for t in group:
+            if t.dtype != want or t.device != dev:
+                raise ValueError(f"{what} kernel: want {want} on {dev}, got "
+                                 f"{t.dtype} on {t.device}")
+    return tuple(t.contiguous() for t in floats + flags)
+
+
+def _launch_leaf_sums(px, py, pz, m_s, face_first):
+    """S2 of ``leaf_columns`` formed in the kernel (CUDA tensors)."""
+    shape = tuple(px.shape)
+    if any(tuple(t.shape) != shape for t in (py, pz, m_s, face_first)):
+        raise ValueError("leaf_prefix_sums: sources of different shapes")
+    src = _sources("leaf_prefix_sums", (px, py, pz), (m_s, face_first))
+    return _prefix_sums("fccf_prefix_sum16_leaf", src, shape[:-1],
+                        shape[-1], 4, px.device)
+
+
+def _launch_moment_sums(p, mask):
+    """S2 of ``moment_columns`` formed in the kernel (CUDA tensors)."""
+    if p.shape[-1] != 3 or tuple(p.shape[:-1]) != tuple(mask.shape):
+        raise ValueError(f"moment_prefix_sums: p {tuple(p.shape)} and mask "
+                         f"{tuple(mask.shape)} do not match")
+    src = _sources("moment_prefix_sums", (p,), (mask,))
+    return _prefix_sums("fccf_prefix_sum16_moments", src, mask.shape[:-1],
+                        mask.shape[-1], 10, p.device)
 
 
 def _int_scan(x, op):
@@ -219,3 +302,25 @@ def prefix_sum(x, dim=0):
                                      math.prod(shape[d + 1:]))
             return _launch_prefix_sum(x3).view(shape)
         raise ValueError(f"prefix_sum: unsupported device {x.device}")
+
+
+def leaf_prefix_sums(px, py, pz, m_s, face_first):
+    """``prefix_sum(leaf_columns(...), dim=-2)``: on a card S2 forms the
+    four columns from their sources, so they are never written."""
+    with record_function("scan.leaf_prefix_sums"):
+        if px.device.type == "cpu":
+            return leaf_sums_plain(px, py, pz, m_s, face_first)
+        if px.device.type == "cuda":
+            return _launch_leaf_sums(px, py, pz, m_s, face_first)
+        raise ValueError(f"leaf_prefix_sums: unsupported device {px.device}")
+
+
+def moment_prefix_sums(p, mask):
+    """``prefix_sum(moment_columns(p, mask), dim=-2)``: on a card S2 forms
+    the ten columns from p and mask, so they are never written."""
+    with record_function("scan.moment_prefix_sums"):
+        if p.device.type == "cpu":
+            return moment_sums_plain(p, mask)
+        if p.device.type == "cuda":
+            return _launch_moment_sums(p, mask)
+        raise ValueError(f"moment_prefix_sums: unsupported device {p.device}")

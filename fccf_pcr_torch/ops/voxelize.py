@@ -382,7 +382,6 @@ def downsample_and_voxelize(points, mask, leaf, face_res, num_voxels,
         fk_s = ck_s >> bits_w
         leaf_first = _first_flags(ck_s)
 
-    pts_s = torch.stack([px, py, pz], dim=-1)  # anchored coords
     anchor_s = torch.where(
         m_s[..., None],
         _unpack_cells(torch.where(m_s, fk_s, 0), kmin, bits=bits).to(dt)
@@ -399,10 +398,10 @@ def downsample_and_voxelize(points, mask, leaf, face_res, num_voxels,
             [leaf_first[..., 1:], torch.ones_like(leaf_first[..., :1])], dim=-1
         ) & m_s
         start_fill = scan.cummax(torch.where(leaf_first, idx, 0))
-        w = m_s.to(dt)
-        ff = (face_first & m_s).to(dt)
-        vals1 = torch.cat([pts_s * w[..., None], ff[..., None]], dim=-1)
-        ps1 = prefix_sum(vals1, dim=-2)
+        # Prefix sums of [p w, ff] (anchored coords p, w = float(m_s), ff
+        # = float(face_first & m_s)), formed from the payloads in the
+        # kernel on a card.
+        ps1 = scan.leaf_prefix_sums(px, py, pz, m_s, face_first)
         ps_prev = torch.where(
             (start_fill > 0)[..., None],
             take(ps1, torch.clamp(start_fill - 1, min=0)), 0.0,
@@ -434,10 +433,9 @@ def downsample_and_voxelize(points, mask, leaf, face_res, num_voxels,
         slot = torch.arange(V, device=dev)
         R = torch.clamp(n_faces_seen, max=V)[..., None]
         occupied = slot < R
-        p = down_anchored
-        vals2 = torch.cat([p, _outer6(p, p), down_mask.to(dt)[..., None]],
-                          dim=-1)
-        ps2 = prefix_sum(vals2, dim=-2)
+        # Prefix sums of [p, _outer6(p, p), float(down_mask)], formed from
+        # p and the mask in the kernel on a card.
+        ps2 = scan.moment_prefix_sums(down_anchored, down_mask)
         safe_start = torch.where(occupied, start_tbl, 0)
         nxt = torch.cat(
             [start_tbl[..., 1:], torch.zeros_like(start_tbl[..., :1])], dim=-1)

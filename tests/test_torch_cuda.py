@@ -32,7 +32,12 @@ over [cuda:0] * 2, with no host sync in a warm step; the scans S1
 and S2 (the base-16 blocked float prefix sum) against their plain
 versions bit for bit, at row lengths 1 to 245760 (one tile, many tiles, a
 ragged last tile), (16, 245760) and (1, n) rows, int values near 2^31,
--0.0, inf and NaN, inside a capture and counted at each replay.
+-0.0, inf and NaN, inside a capture and counted at each replay; S2 on the
+voxelization's leaf and moment columns formed in the kernel from their
+sources against the plain prefix sum of the concatenated columns, at
+lengths around its blocks of 256 and its levels' rows (4096, 65536), with
+-0.0, inf, NaN and masked rows;
+every scan kernel called twice in one captured graph replayed twice.
 
 This file imports no jax, so it runs on a machine without it (the
 repository's conftest.py imports jax, hence --noconftest):
@@ -1323,8 +1328,8 @@ def test_refine_pairs_inside_a_capture_runs_inline(cuda):
 
 # ------------------------------------------------------------ S1 and S2 --
 
-SCAN_LENGTHS = (1, 15, 16, 17, 255, 256, 257, 4097, 8192, 8193, 65536,
-                245760)
+SCAN_LENGTHS = (1, 15, 16, 17, 255, 256, 257, 1024, 1025, 4095, 4096, 4097,
+                8192, 8193, 12288, 65536, 245760)
 
 
 def _scan_inputs(n, seed):
@@ -1355,7 +1360,8 @@ def _scan_inputs(n, seed):
 @pytest.mark.parametrize("n", SCAN_LENGTHS)
 def test_int_scan_kernel_matches_plain(cuda, n):
     """S1 == torch.cumsum / torch.cummax / flip-cummin-flip on the card,
-    bit for bit, one launch (or two) a call."""
+    bit for bit, one call a count: rows of one tile, of exactly k tiles
+    of 1024 and one entry more or less, and many rows."""
     fns = {scan.SUM: scan.cumsum, scan.MAX: scan.cummax,
            scan.MIN_REVERSED: scan.rev_cummin}
     for what, x in _scan_inputs(n, n):
@@ -1389,10 +1395,12 @@ def _float_rows(shape, seed):
 @pytest.mark.parametrize("shape", [
     (1, 1, 4), (2, 2, 4), (2, 15, 10), (2, 16, 4), (2, 17, 4), (3, 255, 10),
     (3, 256, 4), (3, 257, 10), (2, 4097, 4), (2, 65536, 10), (1, 65537, 3),
-    (16, 245760, 4), (16, 245760, 10), (1, 300001, 1)])
+    (16, 245760, 4), (16, 245760, 10), (1, 300001, 1), (2, 4097, 20),
+    (1, 300, 33)])
 def test_prefix_sum_kernel_matches_plain(cuda, shape):
     """S2 == the plain blocked prefix sum on the card, every bit (signed
-    zeros and the card's NaNs included), one call a launch count."""
+    zeros and the card's NaNs included), one call a launch count; more
+    than 16 columns take several column groups."""
     x = _float_rows(shape, sum(shape)).to(cuda)
     before = scan.PREFIX_SUMS
     got = scan.prefix_sum(x, dim=1)
@@ -1407,6 +1415,83 @@ def test_prefix_sum_kernel_matches_plain(cuda, shape):
     x4 = x[None]
     assert torch.equal(scan.prefix_sum(x4, dim=-2).view(torch.int32),
                        want[None].view(torch.int32))
+
+
+FUSED_SHAPES = ((1, 1), (2, 17), (2, 256), (2, 257), (2, 4095), (2, 4096),
+                (3, 4097),
+                (1, 65535), (1, 65536), (2, 65537), (1, 65536 + 4096 * 3 - 1),
+                (1, 65536 + 4096 * 3 + 1), (16, 245760))
+
+
+def _fused_sources(B, n, seed):
+    """The fused prefix sums' sources: coordinates with -0.0, inf and
+    NaN, some in masked rows (x * 0.0 gives -0.0 or NaN there), a row of
+    all-false flags; p zero off the mask for the moments, as
+    down_anchored is."""
+    rng = np.random.default_rng(seed)
+    p = rng.uniform(-2, 2, (B, n, 3)).astype(np.float32)
+    p[rng.uniform(size=p.shape) < 1e-2] = -0.0
+    p[rng.uniform(size=p.shape) < 1e-3] = np.inf
+    p[rng.uniform(size=p.shape) < 1e-3] = np.nan
+    mask = rng.uniform(size=(B, n)) < 0.7
+    mask[0, : n // 3] = False
+    first = rng.uniform(size=(B, n)) < 0.2
+    first[:, 0] = True
+    down = np.where(mask[..., None], p, 0.0).astype(np.float32)
+    return [torch.from_numpy(a) for a in (p, mask, first, down)]
+
+
+@pytest.mark.parametrize("shape", FUSED_SHAPES)
+def test_fused_prefix_sums_match_plain(cuda, shape):
+    """S2 on the voxelization's leaf and moment columns formed in the
+    kernel == the plain prefix sum of the concatenated columns, every bit
+    (signed zeros and the card's NaNs included), one call a count."""
+    p, mask, first, down = (t.to(cuda) for t in _fused_sources(*shape,
+                                                               sum(shape)))
+    px, py, pz = p.unbind(-1)
+    before = scan.PREFIX_SUMS
+    got = scan.leaf_prefix_sums(px, py, pz, mask, first)
+    assert scan.PREFIX_SUMS == before + 1
+    want = scan.leaf_sums_plain(px, py, pz, mask, first)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    got = scan.moment_prefix_sums(down, mask)
+    assert scan.PREFIX_SUMS == before + 2
+    want = scan.moment_sums_plain(down, mask)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    # Coordinates that are not zero off the mask: the products as they are.
+    got = scan.moment_prefix_sums(p, mask)
+    want = scan.moment_sums_plain(p, mask)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_scan_kernels_replay_twice_in_one_capture(cuda):
+    """Each kernel called twice inside one captured graph and the graph
+    replayed twice: every replay equals the eager calls (a call's scratch
+    may be another's, freed, in the graph's pool)."""
+    x = _scan_inputs(12289, 9)[4][1].to(cuda)
+    p, mask, first, down = (t.to(cuda) for t in _fused_sources(2, 20000, 9))
+    px, py, pz = p.unbind(-1)
+
+    def fn(x, px, py, pz, mask, first, down):
+        out = []
+        for _ in range(2):
+            out += [scan.cumsum(x), scan.cummax(x), scan.rev_cummin(x),
+                    scan.leaf_prefix_sums(px, py, pz, mask, first),
+                    scan.moment_prefix_sums(down, mask)]
+        return tuple(out)
+
+    args = (x, px, py, pz, mask, first, down)
+    want = fn(*args)
+    graphs = graph.Graphs(max_graphs=1)
+    graphs.replay(fn, args)  # the capture
+    for _ in range(2):
+        got = graphs.replay(fn, args)
+        torch.cuda.synchronize()
+        for a, b in zip(got, want):
+            if a.is_floating_point():
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            assert torch.equal(a, b)
+    graphs.clear()
 
 
 def test_scan_kernels_in_a_capture(cuda):
