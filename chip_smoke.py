@@ -8,14 +8,15 @@ result:
 
   1. environment: torch / CUDA / nvcc versions and the card's name and
      power limit (nvidia-smi); no card -> fail (never a CPU fallback);
-  2. build the five sources with nvcc, in parallel: csrc/label_prop.cu
+  2. build the six sources with nvcc, in parallel: csrc/label_prop.cu
      (the label-propagation kernels: the propagation entry, one
      cooperative launch a propagation, and the one-sweep entry K1),
      csrc/gather.cu (the per-row gather P1), csrc/cluster.cu (the
      cluster stage's block scan C1, the standalone block-seed walk and
-     the floor walk C2), csrc/lm.cu (the LM solve L1) and csrc/scan.cu
-     (the integer scans S1 and the blocked prefix sum S2); ptxas's
-     registers, shared memory and spills of each kernel;
+     the floor walk C2), csrc/lm.cu (the LM solve L1), csrc/scan.cu
+     (the integer scans S1 and the blocked prefix sum S2) and
+     csrc/faces.cu (the faces stage's plane fit F1 and label segment sums
+     F2); ptxas's registers, shared memory and spills of each kernel;
   3. label propagation vs its plain PyTorch version on the card, through
      the propagation kernel and through the per-sweep host loop (K1 +
      P1 launches): clustered voxel stats at V=1536 (office), V=1000 (a
@@ -70,7 +71,8 @@ result:
      sweeps the propagation kernel ran (at most 4 propagation launches a
      step, no one-sweep, gather or standalone block-seed launch; one
      block-scan launch, whatever H / 512 is, one floor walk and one L1
-     launch, S1 and S2 called), and per step: every kernel
+     launch, S1 and S2 called, one F1 and three F2 launches), and per
+     step: every kernel
      launched, as host
      launches (the CUDA runtime's launch calls, cudaGraphLaunch
      included) and as device kernels (the kernels CUPTI saw run, those
@@ -184,7 +186,12 @@ result:
      float32 CatArrayBatchedCopy kernels as the concatenated arm makes
      such calls there; beside it the graph step's kernel count and the
      kernel names a
-     replay holds more or fewer than the eager step;
+     replay holds more or fewer than the eager step; a fourth time with
+     F1 and F2 swapped for their plain versions (the port before them),
+     against which the kernels' arm must hold no kernel but F1 in the
+     faces_kernels.plane_fit range (no eigen3 chain) and no
+     CatArrayBatchedCopy (the doubling steps) in the face_stats and
+     roughness ranges of F2 (faces_kernels.face_stats / .segment_sum);
  22. S1 and S2 against their plain versions on the card, bit for bit:
      every S1 and S2 input of the heritage and office batch-8 eager steps
      (the fused S2 calls by their sources) and the edge cases (S1: rows
@@ -203,19 +210,37 @@ result:
      S2 torch.cumsum, another order of additions, on the columns formed
      beforehand) and the bound (the fused S2: its sources read once and
      its output written once), for a fused call also the columns
-     concatenated and then prefix-summed by S2, and their sums a step.
+     concatenated and then prefix-summed by S2, and their sums a step;
+ 23. F1 and F2 against their plain versions on the card, bit for bit:
+     first F1's cosf and atan2f against torch.cos and torch.atan2 at
+     every float32 of their domains in the plane fit (cos on [0, pi],
+     atan2 at every r in [-1, 1]) and at random float32 pairs; then every
+     F1 and F2 input of the heritage and office batch-8 eager steps (one
+     F1, two face statistics and one roughness call a step) and the edge
+     cases (zero, isotropic and rank-1 covariances, -0.0 off-diagonals
+     around a negative eigenvalue, NaN and inf entries, V = 1; F2 at V =
+     1, one-voxel faces, labels past V, -0.0 and NaN sources, V = 40000
+     with one face of every voxel, which does not fit in shared memory);
+     every form called twice in one captured CUDA graph, replayed twice,
+     equal to the eager calls; at the steps' inputs each call's device
+     time (a graph of 10 calls) beside the plain version's, the library
+     call's (torch.linalg.eigh of the covariances for F1, in the fewest
+     equal slices cuSOLVER takes, by CUDA events around 5 calls since it
+     reads back its error flags;
+     Tensor.index_add_ of the same rows for F2, atomics in another order)
+     and the bound.
 
 Phases 5-6 are the main path: their launch counts are the kernels'
 "launches". Every later in-process path (12-16) is driven with the
 counts set to 0 just before it and read just after (drive_path): each
-must launch the propagation kernel, C1 (the block scan), S1 and S2, and
-neither
+must launch the propagation kernel, C1 (the block scan), S1, S2, F1 and
+F2, and neither
 the one-sweep, the gather nor the standalone block-seed kernel, and
 each but the content measurement (which
 stops at the seeds) must replay a step graph and launch C2 and L1. A path's
 kernels launched inside a captured step graph count at each replay
 (ops/graph.py's count_launch); the hooks that record a kernel's inputs
-(phases 3, 18, 19, 20, 22) drive the eager step, where Python runs.
+(phases 3, 18, 19, 20, 22, 23) drive the eager step, where Python runs.
 
 Then one JSON line describing the kernels, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
@@ -312,6 +337,23 @@ KERNELS = {
         also_replaces=["fccf_pcr_tpu/ops/voxelize.py:530",
                        "fccf_pcr_tpu/ops/voxelize.py:584"],
     ),
+    # The faces stage's plane fit and segment sums: no Pallas kernel, fused
+    # loops of the JAX package's compiled program (its segment sums are a
+    # one-hot contraction; the port's plain version a doubling scan).
+    "faces_plane_fit": dict(
+        name="faces_plane_fit",
+        route="cuda",
+        source="fccf_pcr_torch/csrc/faces.cu",
+        replaces="fccf_pcr_tpu/ops/eigen3.py:72",
+        also_replaces=["fccf_pcr_tpu/features/faces.py:261"],
+    ),
+    "faces_segment_sum": dict(
+        name="faces_segment_sum",
+        route="cuda",
+        source="fccf_pcr_torch/csrc/faces.cu",
+        replaces="fccf_pcr_tpu/features/faces.py:163",
+        also_replaces=["fccf_pcr_tpu/features/faces.py:200"],
+    ),
 }
 _BIG = 2**30
 # K1 against plain: (V, per-pair bounds) of batch-2 comparisons, and the
@@ -378,6 +420,13 @@ C1_FINITE_OPS = 9
 L1_TRIAL_OPS = 86
 L1_ROWS_OPS = 557
 L1_LANE_OPS = 315
+# Operations of F1 a voxel (csrc/faces.cu), float64 ones counted twice, a
+# conversion, cosf, atan2f, a clamp and a division as one each: 33 of
+# eigen3's _fma (a float64 product and sum and four conversions: 8), 3 of
+# its _sqrt (4) and 147 float32 ones (the scale, the divisions by it and
+# by p, the phases, the 9 entries of A - lam I, the cross products'
+# products, the choice of the best, the gates and the orientation).
+F1_OPS = 33 * 8 + 3 * 4 + 147
 # register.py's record_function ranges, the stages of the step, in order
 # (the port's modules nest finer ranges inside them); a range also appears
 # on the device timeline, as no kernel.
@@ -1618,7 +1667,8 @@ def phase_path(name, counters, dev):
               f"{launches[k]} times (it runs inside the propagation kernel "
               "or the block scan)")
     for k in ("cluster_block_scan", "cluster_floor_walk", "lm_refine",
-              "scan_int", "prefix_sum16", "step_graph_replays"):
+              "scan_int", "prefix_sum16", "faces_plane_fit",
+              "faces_segment_sum", "step_graph_replays"):
         check(launches[k] > 0, f"the {name} path made no {k}")
 
     T = res.transform
@@ -2565,9 +2615,46 @@ CAT_3D_FLOAT = re.compile(
     r"CatArrayBatchedCopy\w*<[^>]*OpaqueType<4u?>\s*,\s*unsigned int\s*,"
     r"\s*3\s*,")
 COLUMN_RANGES = ("voxelize.leaf", "voxelize.voxels")
+# The outer ranges of F1 (the plane fit) and F2 (the face statistics and
+# the roughness), F1's entry range, and the kernel a doubling step's
+# torch.cat runs.
+F1_RANGE = "faces_kernels.plane_fit"
+F2_RANGES = ("face_stats", "faces.roughness")
+CAT_KERNEL = re.compile(r"CatArrayBatchedCopy")
+
+
+@contextlib.contextmanager
+def plain_faces():
+    """ops/faces_kernels.py's kernels F1 and F2 replaced by their plain
+    versions for the duration: the faces stage's plane fit and segment
+    sums as the port ran them on the card before F1 and F2."""
+    from fccf_pcr_torch.ops import faces_kernels as fk
+
+    with swapped(fk, _launch_plane_fit=fk.plane_fit_plain,
+                 _launch_face_stats=fk.face_stats_plain,
+                 _launch_segment_sum=fk.values_sum_plain):
+        yield
+
+
 STAGE_ARMS = {"plain scans": plain_scans,
               "concatenated columns": concatenated_columns,
-              "S1/S2": contextlib.nullcontext}
+              "plain faces": plain_faces,
+              "kernels": contextlib.nullcontext}
+
+
+def faces_chains(ks):
+    """In one eager step's kernels (``kernel_stages``): the kernels in
+    F1's entry range (the eigen3 chain and the gates, or F1 alone), and
+    those in F2's outer ranges with the CatArrayBatchedCopy kernels among
+    them (the doubling steps' cats)."""
+    f1 = collections.Counter(k for chain, k, _ in ks if F1_RANGE in chain)
+    f2 = [k for chain, k, _ in ks if any(r in chain for r in F2_RANGES)]
+    return dict(f1_kernels=sum(f1.values()),
+                f1_names=sorted(k[:60] for k in f1),
+                f2_kernels=len(f2),
+                f2_cats=sum(1 for k in f2 if CAT_KERNEL.search(k)),
+                f2_launches=sum(1 for k in f2
+                                if "faces_segment_sum_kernel" in k))
 
 
 def column_cats(eager, args, n):
@@ -2630,7 +2717,7 @@ def phase_stages(name, step, eager, graph_kernels):
     fn, args = step
     n = next(x[-1].shape[-1] for _, x, op in record_scans(eager, args)
              if op == "moments")
-    out = {"column_cats": {}, "cat_kernels": {}}
+    out = {"column_cats": {}, "cat_kernels": {}, "faces_chains": {}}
     for arm, ctx in STAGE_ARMS.items():
         with ctx():
             eager(*args)  # warm up
@@ -2639,6 +2726,7 @@ def phase_stages(name, step, eager, graph_kernels):
                      key=len)
             calls = column_cats(eager, args, n)
         out[arm] = stage_table(name, ks)
+        out["faces_chains"][arm] = faces_chains(ks)
         out["column_cats"][arm] = {r: [c for c in calls if c[0] == r]
                                    for r in COLUMN_RANGES}
         out["cat_kernels"][arm] = {
@@ -2649,15 +2737,29 @@ def phase_stages(name, step, eager, graph_kernels):
               f"float32 columns of {n} rows in {COLUMN_RANGES}: "
               f"{out['column_cats'][arm]}; 3-D float32 cat kernels there "
               f"{out['cat_kernels'][arm]}", flush=True)
+    fc, plain = out["faces_chains"]["kernels"], out["faces_chains"][
+        "plain faces"]
+    check(fc["f1_kernels"] == 1 and "faces_plane_fit_kernel" in fc[
+        "f1_names"][0], f"{name}: {F1_RANGE} holds {fc['f1_names']}, not F1 "
+          "alone")
+    check(plain["f1_kernels"] > 100, f"{name}: the plain plane fit ran "
+          f"{plain['f1_kernels']} kernels in {F1_RANGE}: the range misses "
+          "its chain")
+    check(fc["f2_cats"] == 0 and fc["f2_launches"] == 3,
+          f"{name}: {F2_RANGES} hold {fc['f2_cats']} cat kernels and "
+          f"{fc['f2_launches']} F2 launches (want 0 and 3)")
+    check(plain["f2_cats"] > 0 and plain["f2_launches"] == 0,
+          f"{name}: the plain segment sums ran {plain['f2_cats']} cat "
+          f"kernels and {plain['f2_launches']} F2 launches in {F2_RANGES}")
     for r in COLUMN_RANGES:
-        fused = out["column_cats"]["S1/S2"][r]
+        fused = out["column_cats"]["kernels"][r]
         cat = out["column_cats"]["concatenated columns"][r]
         check(not fused, f"{name}: {r} still concatenates its columns: "
               f"{fused}")
         check(cat, f"{name}: no column concatenation seen in {r} with the "
               "columns concatenated: column_cats misses them")
         check(out["cat_kernels"]["concatenated columns"][r]
-              - out["cat_kernels"]["S1/S2"][r] == len(cat),
+              - out["cat_kernels"]["kernels"][r] == len(cat),
               f"{name}: {r}'s 3-D float32 cat kernels "
               f"{out['cat_kernels']} do not fall by the {len(cat)} column "
               "concatenations")
@@ -2693,9 +2795,14 @@ def print_stages(name, st, smi):
     """Phase 21's lines for one preset."""
     for arm in STAGE_ARMS:
         t = st[arm]
+        fc = st["faces_chains"][arm]
         print(f"[stages] {name} eager batch-8 step, {arm}: {t['kernels']} "
               f"device kernels, {t['ms']:.3f} ms of device time, every "
-              f"kernel in a stage | {smi}", flush=True)
+              f"kernel in a stage; {fc['f1_kernels']} kernels in {F1_RANGE}"
+              f" ({len(set(fc['f1_names']))} names), {fc['f2_kernels']} in "
+              f"{' / '.join(F2_RANGES)}, {fc['f2_cats']} of them "
+              f"CatArrayBatchedCopy, {fc['f2_launches']} F2 | {smi}",
+              flush=True)
         for stage, b in t["stages"].items():
             top = "; ".join(f"{ms:.3f} ms {k[:70]}" for k, ms in b["top"])
             print(f"[stages] {name} {arm} stage {stage}: {b['ms']:.3f} ms "
@@ -2707,7 +2814,7 @@ def print_stages(name, st, smi):
     print(f"[stages] {name} graph step: {st['graph_kernels']} device "
           f"kernels (phase 8; {st['graph_capture_kernels']} in this capture "
           f"of a replay) against the eager step's "
-          f"{st['S1/S2']['kernels']}; kernels the replay holds more: "
+          f"{st['kernels']['kernels']}; kernels the replay holds more: "
           f"{st['graph_more']}, fewer: {st['eager_more']} | {smi}",
           flush=True)
 
@@ -2977,6 +3084,347 @@ def phase_scans(steps, eager, dev):
     return out
 
 
+def record_faces(eager, args):
+    """The inputs of every F1 and F2 call of one eager step, in order:
+    (form, args) with form "plane_fit", "face_stats" or "values" and args
+    those of its plain version (the F2 forms take the sorted labels and
+    the order)."""
+    import torch
+
+    from fccf_pcr_torch.ops import faces_kernels as fk
+
+    seen = []
+    launches = {"plane_fit": "_launch_plane_fit",
+                "face_stats": "_launch_face_stats",
+                "values": "_launch_segment_sum"}
+    kept = {form: getattr(fk, name) for form, name in launches.items()}
+
+    def recorded(form):
+        def run(*a):
+            seen.append((form, tuple(x.clone() if torch.is_tensor(x) else x
+                                     for x in a)))
+            return kept[form](*a)
+        return run
+
+    with swapped(fk, **{name: recorded(form)
+                        for form, name in launches.items()}):
+        eager(*args)
+    torch.cuda.synchronize()
+    return seen
+
+
+def faces_forms(form, a):
+    """(kernel, plain, library) calls of one F1 or F2 input: the library
+    call is torch.linalg.eigh of the covariances for F1 (their non-finite
+    entries zeroed first: eigh raises on them; ``eigh_calls``), and for F2
+    Tensor.index_add_ of the same rows (the columns formed and gathered
+    beforehand) into their slots, with atomics in another order."""
+    import torch
+
+    from fccf_pcr_torch.ops import faces_kernels as fk
+    from fccf_pcr_torch.ops.batch import take
+
+    if form == "plane_fit":
+        finite = torch.nan_to_num(a[0], nan=0.0, posinf=0.0,
+                                  neginf=0.0).reshape(-1, 3, 3)
+        return (lambda: fk._launch_plane_fit(*a),
+                lambda: fk.plane_fit_plain(*a),
+                eigh_calls(finite))
+    seg_s, order = a[0], a[1]
+    V = a[-1]
+    if form == "face_stats":
+        cols = fk.stat_columns(a[2], a[3], a[4], a[5])
+        kernel = lambda: fk._launch_face_stats(*a)  # noqa: E731
+        plain = lambda: fk.face_stats_plain(*a)  # noqa: E731
+    else:
+        cols = a[2][..., None]
+        kernel = lambda: fk._launch_segment_sum(*a)  # noqa: E731
+        plain = lambda: fk.values_sum_plain(*a)  # noqa: E731
+    rows = take(cols, order).reshape(-1, cols.shape[-1])
+    B = seg_s.numel() // seg_s.shape[-1]
+    base = torch.arange(B, device=seg_s.device)[:, None] * (V + 1)
+    idx = (seg_s.reshape(B, -1) + base).reshape(-1)
+    sums = torch.zeros(B * (V + 1), cols.shape[-1], device=seg_s.device)
+    return kernel, plain, lambda: sums.index_add_(0, idx, rows)
+
+
+def eigh_calls(cov):
+    """torch.linalg.eigh of the (m, 3, 3) covariances ``cov`` as one call,
+    or, where cuSOLVER refuses a batch that large, as the fewest calls
+    on equal slices that it takes; the function returned reports the
+    number of calls in its ``calls`` attribute."""
+    import torch
+
+    for parts in (1, 2, 4, 8, 16):
+        slices = cov.chunk(parts)
+        try:
+            for s in slices:
+                torch.linalg.eigh(s)
+            torch.cuda.synchronize()
+        except RuntimeError:  # torch._C._LinAlgError is one
+            continue
+
+        def run(slices=slices):
+            return [torch.linalg.eigh(s) for s in slices]
+        run.calls = len(slices)
+        return run
+    raise SmokeFailure(f"torch.linalg.eigh refuses {tuple(cov.shape)} in "
+                       "16 slices")
+
+
+def faces_equal(a, b):
+    """Two F1 or F2 results bit for bit (float outputs as int32 views:
+    signed zeros, and the card's NaNs are one bit pattern)."""
+    import torch
+
+    if torch.is_tensor(a):
+        a, b = (a,), (b,)
+
+    def bits(t):
+        t = t.contiguous()
+        return t.view(torch.int32) if t.is_floating_point() else t
+
+    return all(x.dtype == y.dtype and x.shape == y.shape
+               and torch.equal(bits(x), bits(y)) for x, y in zip(a, b))
+
+
+def faces_bound(form, a):
+    """The least time the card could take for one F1 or F2 call, in ms,
+    and what bounds it: each input byte read once and each output byte
+    written once over the memory rate, against the operations over the
+    float32 rate (F1: F1_OPS a voxel; F2: an add a row and column, a
+    division a slot and statistics column)."""
+    nbytes = sum(t.numel() * t.element_size() for t in a
+                 if hasattr(t, "numel"))
+    if form == "plane_fit":
+        voxels = a[3].numel()
+        nbytes += voxels * (12 + 4 + 1 + 1)
+        ops = voxels * F1_OPS
+    else:
+        slots = a[0].numel() // a[0].shape[-1] * a[-1]
+        D = 8 if form == "face_stats" else 1
+        nbytes += slots * (32 if D == 8 else 4)
+        ops = a[0].numel() * D + slots * (6 if D == 8 else 0)
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def faces_math_sweep(dev):
+    """F1's cosf and atan2f (faces_kernels.math_probe) against torch.cos
+    and torch.atan2, bit for bit: cos at every float32 in [0, pi] (the
+    phases eigen3 takes the cosine of), atan2 at every r in [-1, 1] with
+    y = sqrt((1 - r)(1 + r)) formed as eigen3 forms it (the whole domain
+    of its acos), then 2^24 random float32 pairs of any magnitude, inf
+    and NaN. Returns the count of inputs held."""
+    import numpy as np
+    import torch
+
+    from fccf_pcr_torch.ops import faces_kernels as fk
+
+    step, held = 1 << 26, 0
+    top = int(np.array(np.pi, np.float32).view(np.int32))
+    for lo in range(0, top + 1, step):
+        x = torch.arange(lo, min(lo + step, top + 1), dtype=torch.int32,
+                         device=dev).view(torch.float32)
+        check(faces_equal(fk.math_probe(x, x)[0], torch.cos(x)),
+              f"cosf differs from torch.cos from bits {lo}")
+        held += x.numel()
+    one = int(np.array(1.0, np.float32).view(np.int32))
+    for sign in (0, -(1 << 31)):
+        for lo in range(0, one + 1, step):
+            r = (torch.arange(lo, min(lo + step, one + 1), dtype=torch.int32,
+                              device=dev) + sign).view(torch.float32)
+            y = torch.sqrt(((1.0 - r) * (r + 1.0)).double()).float()
+            check(faces_equal(fk.math_probe(r, y)[1], torch.atan2(y, r)),
+                  f"atan2f differs from torch.atan2 from bits {lo + sign}")
+            held += r.numel()
+    g = torch.Generator(device=dev).manual_seed(23)
+    bits = torch.randint(-2**31, 2**31 - 1, (2, 1 << 24), generator=g,
+                         device=dev, dtype=torch.int64).to(torch.int32)
+    x, y = bits.view(torch.float32)
+    c, t = fk.math_probe(x, y)
+    check(faces_equal(c, torch.cos(x)) and faces_equal(t, torch.atan2(y, x)),
+          "cosf / atan2f differ from torch's on random float32 pairs")
+    return held + 2 * x.numel()
+
+
+def faces_edge_cases(dev):
+    """F1's and F2's edge inputs as (form, args) of their plain versions:
+    F1 on zero, isotropic, rank-1 and rank-2 covariances, -0.0
+    off-diagonals around a negative eigenvalue, NaN and inf entries, tiny
+    and huge scales, each kind alone (V = 1) and mixed (4 x 2000); F2's
+    two forms at V = 1, one-voxel faces, one face of every voxel (V =
+    40000: the rows do not fit in shared memory), labels past V, -0.0,
+    NaN and -NaN sources, counts of 0 (a negative coordinate times w = 0
+    is -0.0) and invalid rows."""
+    import numpy as np
+    import torch
+
+    from fccf_pcr_torch.ops import faces_kernels as fk
+
+    rng = np.random.default_rng(23)
+    cases = []
+
+    def covariances(n, kinds=None):
+        R = np.linalg.qr(rng.normal(size=(n, 3, 3)))[0]
+        ev = rng.uniform(0.01, 1.0, (n, 3))
+        ev[: n // 2, 0] = rng.uniform(1e-6, 1e-3, n // 2)
+        cov = np.einsum("nij,nj,nkj->nik", R, ev, R).astype(np.float32)
+        u = rng.normal(size=(n, 3)).astype(np.float32)
+        w = rng.normal(size=(n, 3)).astype(np.float32)
+        if kinds is None:
+            kinds = rng.integers(0, 9, n)
+        for i in range(n):
+            k = kinds[i]
+            if k == 0:
+                cov[i] = 0.0
+            elif k == 1:
+                cov[i] = np.eye(3, dtype=np.float32) * np.float32(0.7)
+            elif k == 2:
+                cov[i] = np.outer(u[i], u[i])
+            elif k == 3:
+                cov[i] = np.outer(u[i], u[i]) + np.outer(w[i], w[i])
+            elif k == 4:
+                cov[i] = np.diag(rng.uniform(-1, 1, 3)).astype(np.float32)
+                cov[i][~np.eye(3, dtype=bool)] = -0.0
+            elif k == 5:
+                cov[i] *= np.float32(10.0 ** rng.choice([-30, -8, 8, 20]))
+            elif k == 6:
+                cov[i].flat[rng.integers(0, 9)] = rng.choice(
+                    [np.nan, np.inf, -np.inf])
+        return cov
+
+    def plane(B, V, kinds=None):
+        cov = covariances(B * V, kinds).reshape(B, V, 3, 3)
+        centroid = rng.uniform(-5, 5, (B, V, 3)).astype(np.float32)
+        centroid[rng.uniform(size=(B, V)) < 0.01] = np.nan
+        count = rng.integers(0, 12, (B, V)).astype(np.int32)
+        valid = rng.uniform(size=(B, V)) < 0.8
+        gcent = rng.uniform(-1, 1, (B, 3)).astype(np.float32)
+        return ("plane_fit", tuple(torch.from_numpy(x).to(dev) for x in (
+            cov, centroid, count, valid, gcent)) + (5, 0.04))
+
+    for kind in range(9):
+        cases.append(plane(1, 1, [kind]))
+    cases.append(plane(4, 2000))
+
+    def stats(B, V, kind):
+        valid = rng.uniform(size=(B, V)) < 0.85
+        if kind == "random":
+            labels = np.minimum(rng.integers(0, max(V // 7, 1), (B, V)),
+                                np.arange(V))
+        elif kind == "singletons":
+            labels = np.broadcast_to(np.arange(V), (B, V)).copy()
+        elif kind == "one":
+            labels = np.zeros((B, V), np.int64)
+            valid[:] = True
+        else:
+            labels = rng.integers(0, 2 * V, (B, V))
+        labels = np.where(valid, labels, 2**30).astype(np.int64)
+        count = rng.integers(0, 40, (B, V)).astype(np.int32)
+        centroid = rng.normal(size=(B, V, 3)).astype(np.float32)
+        normal = rng.normal(size=(B, V, 3)).astype(np.float32)
+        for x in (centroid, normal):
+            x[rng.uniform(size=x.shape) < 0.05] = -0.0
+            x[rng.uniform(size=x.shape) < 0.002] = np.nan
+        values = centroid[..., 0].copy()
+        values[..., ::5] = -0.0
+        values[..., 1::97] = -np.nan
+        t = [torch.from_numpy(x).to(dev) for x in (
+            labels, valid, count, centroid, normal, values)]
+        seg_s, order = fk.sorted_labels(t[0], t[1], V)
+        return [("face_stats", (seg_s, order, t[2], t[3], t[4], t[1], V)),
+                ("values", (seg_s, order, t[5], V))]
+
+    for B, V, kind in ((1, 1, "random"), (1, 1, "one"), (3, 300, "singletons"),
+                       (2, 300, "wide"), (2, 1537, "random"),
+                       (4, 12000, "random"), (1, 40000, "one"),
+                       (1, 40000, "singletons")):
+        cases += stats(B, V, kind)
+    return cases
+
+
+def faces_replays(cases):
+    """Every F1 and F2 form of ``cases`` called twice inside one captured
+    CUDA graph, the graph replayed twice: each replay's outputs equal the
+    eager calls'. Returns the kernel calls the graph holds."""
+    import torch
+
+    forms = [faces_forms(form, a)[0] for form, a in cases]
+    want = [f() for f in forms]
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        outs = [f() for f in forms for _ in range(2)]
+    for _ in range(2):
+        g.replay()
+        torch.cuda.synchronize()
+        for i, w in enumerate(want):
+            for o in outs[2 * i:2 * i + 2]:
+                check(faces_equal(o, w), f"{cases[i][0]} called twice in a "
+                      "replayed graph differs from its eager call")
+    del g
+    return len(outs)
+
+
+def phase_faces(steps, eager, dev):
+    """Phase 23: F1 and F2 against their plain versions on the card, bit
+    for bit: F1's math functions against torch's (``faces_math_sweep``);
+    every F1 and F2 input of the heritage and office batch-8 eager steps
+    (``record_faces``: one F1 call, two face statistics and one roughness
+    sum a step) and the edge cases (``faces_edge_cases``); each form
+    twice in one replayed graph; at each step's inputs the device time a
+    call (``graph_ms``) of the kernel, the plain version and the library
+    call beside the bound."""
+    shape = {"plane_fit": lambda a: tuple(a[3].shape),
+             "face_stats": lambda a: tuple(a[0].shape),
+             "values": lambda a: tuple(a[0].shape)}
+    out = {"F1": {}, "F2": {}, "edge_cases": 0, "differ": 0,
+           "math_inputs": faces_math_sweep(dev)}
+    for name in ("heritage", "office"):
+        fn, args = steps[name]
+        calls = record_faces(eager[name], args)
+        forms = collections.Counter(form for form, _ in calls)
+        check(forms == {"plane_fit": 1, "face_stats": 2, "values": 1},
+              f"{name}: the eager step's F1 / F2 calls are {dict(forms)} "
+              "(want one F1, two face statistics, one roughness sum)")
+        for kernel in ("F1", "F2"):
+            out[kernel][name] = dict(calls=[], ms=0.0, plain_ms=0.0,
+                                     library_ms=0.0, bound_ms=0.0)
+        for form, a in calls:
+            kernel = "F1" if form == "plane_fit" else "F2"
+            k, plain, lib = faces_forms(form, a)
+            ok = faces_equal(k(), plain())
+            out["differ"] += not ok
+            check(ok, f"{name}: {kernel} {form} {shape[form](a)} differs "
+                  "from plain")
+            bound_ms, bound_by = faces_bound(form, a)
+            # eigh reads its error flags back, which a capture refuses: it
+            # is timed by CUDA events around 5 calls instead.
+            c = dict(what=form, shape=shape[form](a), ms=graph_ms(k),
+                     plain_ms=graph_ms(plain),
+                     library_ms=(cuda_ms(lib, 5) if kernel == "F1"
+                                 else graph_ms(lib)),
+                     library_calls=getattr(lib, "calls", 1),
+                     bound_ms=bound_ms, bound_by=bound_by)
+            t = out[kernel][name]
+            t["calls"].append(c)
+            for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+                t[key] += c[key]
+            t["bound_by"] = bound_by
+    cases = faces_edge_cases(dev)
+    for form, a in cases:
+        k, plain, _ = faces_forms(form, a)
+        ok = faces_equal(k(), plain())
+        out["differ"] += not ok
+        check(ok, f"edge case: {form} {shape[form](a)} differs from plain")
+        out["edge_cases"] += 1
+    out["replayed_calls"] = faces_replays([
+        (form, a) for form, a in cases if shape[form](a)[-1] in (1, 2000)
+        or (form != "plane_fit" and shape[form](a)[-1] in (12000, 40000))])
+    return out
+
+
 def phase_graph_configs(dev, counters):
     """Every golden config's seeds as one batch through the step graph
     (make_register_fn) and the eager step in turns, every field bitwise
@@ -3033,7 +3481,8 @@ def phase_graph_configs(dev, counters):
 def phase_profile(fn, args, eager):
     """One heritage batch-8 step through the step graph under
     utils.profiling.trace (its Chrome trace must name the propagation
-    kernel, C1 (the block scan), C2 and L1): the device kernels of the replay
+    kernel, C1 (the block scan), C2, L1, F1 and F2): the device kernels of
+    the replay
     and the device's busy share; then one eager step under the trace and
     a StageTimer: host time per stage (register.py's record_function
     ranges, which exist only in the eager step) and its busy share."""
@@ -3043,7 +3492,8 @@ def phase_profile(fn, args, eager):
 
     stages = STAGES
     ours = ("label_prop_propagate", "cluster_block_scan",
-            "cluster_floor_walk", "lm_refine")
+            "cluster_floor_walk", "lm_refine", "faces_plane_fit",
+            "faces_segment_sum")
     for form, call in (("graph", fn), ("eager", eager)):
         call(*args)  # the step graph may have been evicted: capture it first
         torch.cuda.synchronize()
@@ -3067,8 +3517,7 @@ def phase_profile(fn, args, eager):
         print(f"[profile] {form} step trace exported by "
               f"utils.profiling.trace: "
               f"{os.path.basename(prof.trace_path)}, {len(text)} bytes, "
-              f"names label_prop_propagate, cluster_block_scan, "
-              f"cluster_floor_walk and lm_refine", flush=True)
+              f"names {', '.join(ours)}", flush=True)
         if form == "eager":
             print(f"[profile] StageTimer report:\n{timer.report()}",
                   flush=True)
@@ -3098,12 +3547,16 @@ def phase_profile(fn, args, eager):
         for name, us in by_name.most_common(8):
             print(f"[profile] {form} kernel {us / 1e3:.1f} ms over "
                   f"{calls[name]} launches: {name[:90]}", flush=True)
-        for ours in ("label_prop_propagate_kernel", "label_prop_sweep_kernel",
-                     "gather_rows", "cluster_block_scan_kernel",
-                     "cluster_floor_walk_kernel", "lm_refine_kernel"):
+        # (its own name: the trace's check above reads ``ours`` again for
+        # the eager step)
+        for kname in ("label_prop_propagate_kernel",
+                      "label_prop_sweep_kernel", "gather_rows",
+                      "cluster_block_scan_kernel",
+                      "cluster_floor_walk_kernel", "lm_refine_kernel",
+                      "faces_plane_fit_kernel", "faces_segment_sum_kernel"):
             for name, us in by_name.items():
-                if ours in name:
-                    print(f"[profile] {form} {ours}: {us / 1e3:.3f} ms of "
+                if kname in name:
+                    print(f"[profile] {form} {kname}: {us / 1e3:.3f} ms of "
                           f"device time over {calls[name]} launches in the "
                           "step", flush=True)
 
@@ -3111,8 +3564,8 @@ def phase_profile(fn, args, eager):
 def drive_path(what, fn, counters, dev, registers=True):
     """``fn()`` as a path of the port: every kernel's launch count set to
     0 just before and read just after; the path must launch the
-    propagation kernel, C1 (the block scan), S1 and S2 (the scans), and
-    neither the one-sweep,
+    propagation kernel, C1 (the block scan), S1 and S2 (the scans), F1 and
+    F2 (the faces stage's), and neither the one-sweep,
     the gather nor the standalone block-seed kernel, and, where it
     ``registers`` (every path but
     measure_content, which stops at the seeds), replay a step graph and
@@ -3130,7 +3583,8 @@ def drive_path(what, fn, counters, dev, registers=True):
           f"{what}: the propagation kernel was not launched")
     for k in ("label_prop_sweep", "gather_rows", "cluster_block_seeds"):
         check(counts[k] == 0, f"{what}: the {k} kernel was launched")
-    for k in ("cluster_block_scan", "scan_int", "prefix_sum16"):
+    for k in ("cluster_block_scan", "scan_int", "prefix_sum16",
+              "faces_plane_fit", "faces_segment_sum"):
         check(counts[k] > 0, f"{what}: the {k} kernel was not launched")
     for k in ("step_graph_replays", "cluster_floor_walk", "lm_refine"):
         check(counts[k] > 0 or not registers, f"{what}: no {k}")
@@ -3447,6 +3901,7 @@ def main():
         from fccf_pcr_torch.evaluation import configs  # noqa: F401
         from fccf_pcr_torch.ops import cluster_kernels as ck
         from fccf_pcr_torch.ops import cuda_build
+        from fccf_pcr_torch.ops import faces_kernels as fk
         from fccf_pcr_torch.ops import gather as gt
         from fccf_pcr_torch.ops import label_prop as lp
         from fccf_pcr_torch.ops import scan as scn
@@ -3469,6 +3924,8 @@ def main():
                 "lm_refine": (lmk, "LAUNCHES"),
                 "scan_int": (scn, "INT_SCANS"),
                 "prefix_sum16": (scn, "PREFIX_SUMS"),
+                "faces_plane_fit": (fk, "PLANE_FITS"),
+                "faces_segment_sum": (fk, "SEGMENT_SUMS"),
                 "step_graph_captures": (STEP, "captures"),
                 "step_graph_replays": (STEP, "replays")}
     try:
@@ -3482,10 +3939,10 @@ def main():
               f"(count {torch.cuda.device_count()}) | {smi}", flush=True)
 
         t_start = time.perf_counter()
-        secs = phase_build([lp, gt, ck, lmk, scn])
+        secs = phase_build([lp, gt, ck, lmk, scn, fk])
         print(f"[build] label_prop.cu {secs[0]:.2f} s, gather.cu {secs[1]:.2f} s, "
               f"cluster.cu {secs[2]:.2f} s, lm.cu {secs[3]:.2f} s, scan.cu "
-              f"{secs[4]:.2f} s (in parallel, "
+              f"{secs[4]:.2f} s, faces.cu {secs[5]:.2f} s (in parallel, "
               f"{time.perf_counter() - t_start:.2f} s)", flush=True)
         ptxas = {"label_prop_propagate": ptxas_summary(lp, "propagate_kernel"),
                  "label_prop_sweep": ptxas_summary(lp, "sweep_kernel"),
@@ -3506,7 +3963,13 @@ def main():
                      f"{k} " + ptxas_summary(scn, f"prefix16_{k}_kernel"
                                              + ("" if k == "top" else
                                                 "INS_7Moments"))
-                     for k in ("up", "top", "down"))}
+                     for k in ("up", "top", "down")),
+                 "faces_plane_fit": ptxas_summary(fk, "plane_fit_kernel"),
+                 # the face statistics' and the values' forms, rows in
+                 # shared memory (the main path's)
+                 "faces_segment_sum": ptxas_summary(
+                     fk, "segment_sum_kernelILi1ELb1") + " | values "
+                 + ptxas_summary(fk, "segment_sum_kernelILi0ELb1")}
         for name, info in ptxas.items():
             check(info, f"no ptxas lines for {name}")
             print(f"[build] ptxas {name}: {info}", flush=True)
@@ -3648,6 +4111,10 @@ def main():
             check(t["scan_int"] > 0 and t["prefix_sum16"] > 0,
                   f"{name} timing: {t['scan_int']} S1 and "
                   f"{t['prefix_sum16']} S2 calls a step")
+            check(t["faces_plane_fit"] == 1 and t["faces_segment_sum"] == 3,
+                  f"{name} timing: {t['faces_plane_fit']} F1 and "
+                  f"{t['faces_segment_sum']} F2 launches a step (want 1 and "
+                  "3)")
             check(t["cluster_block_scan"] == 1
                   and t["cluster_block_seeds"] == 0,
                   f"{name} timing: {t['cluster_block_scan']} block-scan and "
@@ -3664,7 +4131,8 @@ def main():
                   f"{t['cluster_floor_walk']:g} floor-walk launches, "
                   f"{t['lm_refine']:g} L1 launches, "
                   f"{t['scan_int']:g} S1 and {t['prefix_sum16']:g} S2 "
-                  "calls, "
+                  f"calls, {t['faces_plane_fit']:g} F1 and "
+                  f"{t['faces_segment_sum']:g} F2 launches, "
                   f"{t['step_graph_replays']:g} step graph replays and "
                   f"{t['step_graph_captures']:g} captures, "
                   f"{t['host_launches']} host launches "
@@ -3760,6 +4228,32 @@ def main():
                       f" | {smi}", flush=True)
         print(f"[scan] {sc['edge_cases']} edge cases equal to plain; "
               f"{sc['replayed_calls']} kernel calls in one graph, replayed "
+              f"twice, equal to their eager calls; phase "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        fc = phase_faces(steps, eager, dev)
+        print(f"[faces] F1's cosf and atan2f equal to torch.cos and "
+              f"torch.atan2 at {fc['math_inputs']} inputs", flush=True)
+        for kernel in ("F1", "F2"):
+            for name, t in fc[kernel].items():
+                for c in t["calls"]:
+                    print(f"[faces] {kernel} {name} step, {c['what']} "
+                          f"{c['shape']}: {c['ms'] * 1e3:.2f} us device vs "
+                          f"plain {c['plain_ms'] * 1e3:.2f} us, library "
+                          f"{c['library_ms'] * 1e3:.2f} us "
+                          f"({c['library_calls']} calls); bound "
+                          f"{c['bound_ms'] * 1e3:.3f} us ({c['bound_by']}), "
+                          f"{c['ms'] / c['bound_ms']:.1f}x it", flush=True)
+                ptx = ptxas["faces_plane_fit" if kernel == "F1"
+                            else "faces_segment_sum"]
+                print(f"[faces] {kernel} {name} batch-8 step: "
+                      f"{len(t['calls'])} calls, each equal to plain bit for "
+                      f"bit; {t['ms']:.4f} ms device vs plain "
+                      f"{t['plain_ms']:.4f} ms, library {t['library_ms']:.4f} "
+                      f"ms; bound {t['bound_ms'] * 1e3:.3f} us "
+                      f"({t['bound_by']}) | ptxas {ptx} | {smi}", flush=True)
+        print(f"[faces] {fc['edge_cases']} edge cases equal to plain; "
+              f"{fc['replayed_calls']} kernel calls in one graph, replayed "
               f"twice, equal to their eager calls; phase "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
         t0 = time.perf_counter()
@@ -3980,6 +4474,31 @@ def main():
                         "the leaf and moment columns formed in the kernel")
                      + "; max_abs_err the most outputs that differ")
           for name, kernel in (("scan_int", "S1"), ("prefix_sum16", "S2"))),
+        *(dict(KERNELS[name], launches=launches[name],
+               max_abs_err=fc["differ"], ms=fc[kernel]["heritage"]["ms"],
+               plain_ms=fc[kernel]["heritage"]["plain_ms"],
+               bound_ms=fc[kernel]["heritage"]["bound_ms"],
+               bound_by=fc[kernel]["heritage"]["bound_by"],
+               library_ms=fc[kernel]["heritage"]["library_ms"],
+               launches_per_step=per_step_of(name),
+               by_config={k: {f: v for f, v in t.items() if f != "calls"}
+                          for k, t in fc[kernel].items()},
+               calls=fc[kernel]["heritage"]["calls"],
+               faces_chains={k: stage_tables[k]["faces_chains"]
+                             for k in stage_tables},
+               launches_by_path={k: v[name] for k, v in paths.items()},
+               ptxas=ptxas[name],
+               shape=f"the {len(fc[kernel]['heritage']['calls'])} {kernel} "
+                     "calls of the heritage batch-8 step, summed; ms, "
+                     "plain_ms and library_ms device time a call by CUDA "
+                     "events over a graph of 10 calls; library_ms "
+                     + ("torch.linalg.eigh of the covariances"
+                        if kernel == "F1" else
+                        "Tensor.index_add_ of the same rows (atomics, "
+                        "another order)")
+                     + "; max_abs_err the most outputs that differ")
+          for name, kernel in (("faces_plane_fit", "F1"),
+                               ("faces_segment_sum", "F2"))),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -37,7 +37,13 @@ voxelization's leaf and moment columns formed in the kernel from their
 sources against the plain prefix sum of the concatenated columns, at
 lengths around its blocks of 256 and its levels' rows (4096, 65536), with
 -0.0, inf, NaN and masked rows;
-every scan kernel called twice in one captured graph replayed twice.
+every scan kernel called twice in one captured graph replayed twice; the
+faces stage's kernels F1 (the plane fit, its gates and orientation) and
+F2 (the label segment sums, face statistics and values) against their
+plain versions bit for bit (covariances of every kind, -0.0 and NaN
+sources, V = 1 to 40000, inside a capture, one F1 and three F2 launches
+in the face stage), and F1's cosf / atan2f against torch.cos /
+torch.atan2 at every float32 of their domains in the plane fit.
 
 This file imports no jax, so it runs on a machine without it (the
 repository's conftest.py imports jax, hence --noconftest):
@@ -58,6 +64,7 @@ from fccf_pcr_torch import TEST_CAPS, FCCFParams, make_register_fn
 from fccf_pcr_torch import registration_errors
 from fccf_pcr_torch.io import synthetic
 from fccf_pcr_torch.ops import cluster_kernels as ck
+from fccf_pcr_torch.ops import faces_kernels as fk
 from fccf_pcr_torch.ops import gather as gt
 from fccf_pcr_torch.ops import graph
 from fccf_pcr_torch.ops import label_prop as lp
@@ -1516,3 +1523,244 @@ def test_scan_kernels_in_a_capture(cuda):
         assert torch.equal(a, b)
     assert torch.equal(got[3].view(torch.int32), want[3].view(torch.int32))
     graphs.clear()
+
+
+def _bits(t):
+    """A float tensor's bits (signed zeros and the card's NaNs apart)."""
+    return t.contiguous().view(torch.int32) if t.is_floating_point() else t
+
+
+def _all_equal(got, want):
+    return all(a.dtype == b.dtype and a.shape == b.shape
+               and torch.equal(_bits(a), _bits(b)) for a, b in zip(got, want))
+
+
+def test_faces_math_matches_torch(cuda):
+    """F1's cosf and atan2f (faces_kernels.math_probe) == torch.cos and
+    torch.atan2 on the card, bit for bit: cos at every float32 in [0, pi]
+    (the plane fit's phases) and atan2 at every r in [-1, 1] with y =
+    sqrt((1 - r)(1 + r)) as eigen3 forms it, then random float32 pairs of
+    any magnitude, inf and NaN."""
+    step = 1 << 26
+    top = int(np.array(np.pi, np.float32).view(np.int32))
+    for lo in range(0, top + 1, step):
+        x = torch.arange(lo, min(lo + step, top + 1), dtype=torch.int32,
+                         device=cuda).view(torch.float32)
+        got, _ = fk.math_probe(x, x)
+        assert torch.equal(_bits(got), _bits(torch.cos(x))), lo
+    one = int(np.array(1.0, np.float32).view(np.int32))
+    for sign in (0, -(1 << 31)):
+        for lo in range(0, one + 1, step):
+            bits = torch.arange(lo, min(lo + step, one + 1), dtype=torch.int32,
+                                device=cuda) + sign
+            r = bits.view(torch.float32)
+            y = torch.sqrt(((1.0 - r) * (r + 1.0)).double()).float()
+            _, got = fk.math_probe(r, y)
+            assert torch.equal(_bits(got), _bits(torch.atan2(y, r))), lo
+    g = torch.Generator(device=cuda).manual_seed(3)
+    bits = torch.randint(-2**31, 2**31 - 1, (2, 1 << 24), generator=g,
+                         device=cuda, dtype=torch.int64).to(torch.int32)
+    x, y = bits.view(torch.float32)
+    c, a = fk.math_probe(x, y)
+    assert torch.equal(_bits(c), _bits(torch.cos(x)))
+    assert torch.equal(_bits(a), _bits(torch.atan2(y, x)))
+
+
+def _covariances(rng, n):
+    """n covariances of every kind the plane fit meets: random planar and
+    not, zero, isotropic, rank-1 and rank-2, -0.0 off-diagonals with a
+    negative eigenvalue, tiny and huge scales, NaN and inf entries."""
+    R = np.linalg.qr(rng.normal(size=(n, 3, 3)))[0]
+    ev = rng.uniform(0.01, 1.0, (n, 3))
+    ev[: n // 2, 0] = rng.uniform(1e-6, 1e-3, n // 2)
+    cov = np.einsum("nij,nj,nkj->nik", R, ev, R).astype(np.float32)
+    kinds = rng.integers(0, 10, n)
+    u = rng.normal(size=(n, 3)).astype(np.float32)
+    for i in np.flatnonzero(kinds == 0):
+        cov[i] = 0.0
+    for i in np.flatnonzero(kinds == 1):
+        cov[i] = np.eye(3, dtype=np.float32) * rng.uniform(0.1, 2.0)
+    for i in np.flatnonzero(kinds == 2):
+        cov[i] = np.outer(u[i], u[i])
+    for i in np.flatnonzero(kinds == 3):
+        v = rng.normal(size=3).astype(np.float32)
+        cov[i] = np.outer(u[i], u[i]) + np.outer(v, v)
+    for i in np.flatnonzero(kinds == 4):
+        cov[i] = np.diag(rng.uniform(-1.0, 1.0, 3)).astype(np.float32)
+        cov[i][~np.eye(3, dtype=bool)] = -0.0
+    for i in np.flatnonzero(kinds == 5):
+        cov[i] *= np.float32(10.0 ** rng.choice([-30, -20, -8, 8, 20]))
+    for i in np.flatnonzero(kinds == 6):
+        cov[i].flat[rng.integers(0, 9)] = rng.choice([np.nan, np.inf, -np.inf])
+    return cov
+
+
+def _plane_inputs(B, V, seed):
+    rng = np.random.default_rng(seed)
+    cov = _covariances(rng, B * V).reshape(B, V, 3, 3)
+    centroid = rng.uniform(-5, 5, (B, V, 3)).astype(np.float32)
+    centroid[rng.uniform(size=(B, V)) < 0.01] = np.nan
+    count = rng.integers(0, 12, (B, V)).astype(np.int32)
+    valid = rng.uniform(size=(B, V)) < 0.8
+    gcent = rng.uniform(-1, 1, (B, 3)).astype(np.float32)
+    return [torch.from_numpy(a) for a in (cov, centroid, count, valid, gcent)]
+
+
+@pytest.mark.parametrize("B,V", [(1, 1), (2, 37), (16, 1536), (16, 9216),
+                                 (1, 40000)])
+def test_plane_fit_kernel_matches_plain(cuda, B, V):
+    """F1 == plane_fit_plain on the card, every output bit for bit, one
+    launch a call: covariances of every kind (_covariances), counts
+    around the threshold, invalid voxels, NaN centroids."""
+    args = [t.to(cuda) for t in _plane_inputs(B, V, B + V)]
+    before = fk.PLANE_FITS
+    got = fk.plane_fit(*args, 5, 0.04)
+    assert fk.PLANE_FITS == before + 1
+    want = fk.plane_fit_plain(*args, 5, 0.04)
+    assert _all_equal(got, want)
+
+
+def _stat_inputs(B, V, seed, kind="random"):
+    """Face-stat sources: labels (component min slots, _BIG where
+    invalid; ``kind`` "random", "singletons" (one-voxel faces), "one"
+    (one face of every voxel) or "wide" (labels past V)), valid, counts
+    (0 in places, so negative coordinates give -0.0 columns), centroids
+    and normals with -0.0 and NaN."""
+    rng = np.random.default_rng(seed)
+    valid = rng.uniform(size=(B, V)) < 0.85
+    if kind == "random":
+        labels = np.minimum(rng.integers(0, max(V // 7, 1), (B, V)),
+                            np.arange(V))
+    elif kind == "singletons":
+        labels = np.broadcast_to(np.arange(V), (B, V)).copy()
+    elif kind == "one":
+        labels = np.zeros((B, V), np.int64)
+        valid[:] = True
+    else:
+        labels = rng.integers(0, 2 * V, (B, V))
+    labels = np.where(valid, labels, 2**30).astype(np.int64)
+    count = rng.integers(0, 40, (B, V)).astype(np.int32)
+    centroid = rng.normal(size=(B, V, 3)).astype(np.float32)
+    normal = rng.normal(size=(B, V, 3)).astype(np.float32)
+    for a in (centroid, normal):
+        a[rng.uniform(size=a.shape) < 0.05] = -0.0
+        a[rng.uniform(size=a.shape) < 0.002] = np.nan
+    return [torch.from_numpy(a) for a in (labels, valid, count, centroid,
+                                          normal)]
+
+
+FACE_CASES = [(1, 1, "random"), (1, 1, "one"), (2, 37, "random"),
+              (3, 300, "singletons"), (2, 300, "wide"), (16, 1536, "random"),
+              (16, 9216, "random"), (4, 12000, "random"),
+              (1, 40000, "one"), (1, 40000, "random")]
+
+
+@pytest.mark.parametrize("B,V,kind", FACE_CASES)
+def test_face_stats_kernel_matches_plain(cuda, B, V, kind):
+    """F2's face statistics == face_stats_plain on the card, every output
+    bit for bit, one launch a call: -0.0 and NaN sources, invalid rows,
+    one-voxel faces, one face of every voxel (V = 40000: the rows do not
+    fit in shared memory), labels past V, V not a power of two."""
+    labels, valid, count, centroid, normal = (
+        t.to(cuda) for t in _stat_inputs(B, V, B * V, kind))
+    before = fk.SEGMENT_SUMS
+    got = fk.face_stats(labels, valid, count, centroid, normal, V)
+    assert fk.SEGMENT_SUMS == before + 1
+    seg_s, order = fk.sorted_labels(labels, valid, V)
+    want = fk.face_stats_plain(seg_s, order, count, centroid, normal, valid,
+                               V)
+    assert _all_equal(got, want)
+
+
+@pytest.mark.parametrize("B,V,kind", FACE_CASES)
+def test_segment_sum_kernel_matches_plain(cuda, B, V, kind):
+    """F2's values form == values_sum_plain on the card, bit for bit:
+    angles with -0.0 (kept only where no add touches the row) and NaN
+    with its sign bit set."""
+    labels, valid, _, centroid, _ = (
+        t.to(cuda) for t in _stat_inputs(B, V, B + V, kind))
+    values = centroid[..., 0].contiguous()
+    values[..., ::5] = -0.0
+    values[..., 1::97] = -float("nan")
+    before = fk.SEGMENT_SUMS
+    got = fk.label_segment_sum(values, labels, valid, V)
+    assert fk.SEGMENT_SUMS == before + 1
+    seg_s, order = fk.sorted_labels(labels, valid, V)
+    assert _all_equal((got,), (fk.values_sum_plain(seg_s, order, values,
+                                                   V),))
+
+
+def test_faces_kernels_in_a_capture(cuda):
+    """F1 and both forms of F2 captured in a CUDA graph (each twice),
+    replayed twice: every replay equals the eager calls and the launches
+    count at each replay."""
+    fit_args = [t.to(cuda) for t in _plane_inputs(4, 1536, 1)]
+    labels, valid, count, centroid, normal = (
+        t.to(cuda) for t in _stat_inputs(4, 1536, 2))
+    big = [t.to(cuda) for t in _stat_inputs(1, 20000, 3)]
+    ang = centroid[..., 1].contiguous()
+
+    def fn(*a):
+        fit = a[:5]
+        lab, val, cnt, cen, nrm, ang, blab, bval, bcnt, bcen, bnrm = a[5:]
+        out = []
+        for _ in range(2):
+            out += [*fk.plane_fit(*fit, 5, 0.04),
+                    *fk.face_stats(lab, val, cnt, cen, nrm, 1536),
+                    fk.label_segment_sum(ang, lab, val, 1536),
+                    *fk.face_stats(blab, bval, bcnt, bcen, bnrm, 20000)]
+        return tuple(out)
+
+    args = (*fit_args, labels, valid, count, centroid, normal, ang, *big)
+    want = fn(*args)
+    graphs = graph.Graphs(max_graphs=1)
+    graphs.replay(fn, args)  # the capture
+    fits, sums = fk.PLANE_FITS, fk.SEGMENT_SUMS
+    for _ in range(2):
+        got = graphs.replay(fn, args)
+        torch.cuda.synchronize()
+        assert _all_equal(got, want)
+    assert fk.PLANE_FITS == fits + 4 and fk.SEGMENT_SUMS == sums + 12
+    graphs.clear()
+
+
+def test_faces_kernels_reject_bad_inputs(cuda):
+    fit_args = [t.to(cuda) for t in _plane_inputs(2, 64, 4)]
+    with pytest.raises(ValueError):
+        fk.plane_fit(fit_args[0].double(), *fit_args[1:], 5, 0.04)
+    with pytest.raises(ValueError):
+        fk.plane_fit(*fit_args[:2], fit_args[2].long(), *fit_args[3:], 5,
+                     0.04)
+    labels, valid, count, centroid, normal = (
+        t.to(cuda) for t in _stat_inputs(2, 64, 5))
+    with pytest.raises(ValueError):
+        fk.face_stats(labels, valid, count.long(), centroid, normal, 64)
+    with pytest.raises(ValueError):
+        fk.label_segment_sum(centroid[..., 0].double(), labels, valid, 64)
+    with pytest.raises(ValueError):
+        fk.math_probe(centroid[..., 0].cpu(), centroid[..., 0].cpu())
+
+
+def test_faces_from_voxels_launches_f1_and_f2(cuda):
+    """The face stage on the card launches F1 once and F2 three times (the
+    two face statistics and the roughness) and runs no plain version."""
+    from fccf_pcr_torch.features import faces
+
+    src, _, _ = synthetic.make_pair(seed=1, points_per_plane=400,
+                                    clutter_points=200)
+    pts, mask = synthetic.pad_points(src, TEST_CAPS.max_points)
+    params = FCCFParams(leaf_size=0.25)
+    args = (torch.from_numpy(pts).to(cuda), torch.from_numpy(mask).to(cuda))
+    fits, sums = fk.PLANE_FITS, fk.SEGMENT_SUMS
+    plain = []
+    kept = (fk.plane_fit_plain, fk.face_stats_plain, fk.values_sum_plain)
+    fk.plane_fit_plain, fk.face_stats_plain, fk.values_sum_plain = (
+        (lambda *a: plain.append(a)),) * 3
+    try:
+        got = faces.extract_faces(*args, params, TEST_CAPS)
+    finally:
+        fk.plane_fit_plain, fk.face_stats_plain, fk.values_sum_plain = kept
+    torch.cuda.synchronize()
+    assert fk.PLANE_FITS == fits + 1 and fk.SEGMENT_SUMS == sums + 3
+    assert not plain
+    assert int(got[0].valid.sum()) > 0
