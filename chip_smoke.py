@@ -189,9 +189,11 @@ result:
      replay holds more or fewer than the eager step; a fourth time with
      F1 and F2 swapped for their plain versions (the port before them),
      against which the kernels' arm must hold no kernel but F1 in the
-     faces_kernels.plane_fit range (no eigen3 chain) and no
-     CatArrayBatchedCopy (the doubling steps) in the face_stats and
-     roughness ranges of F2 (faces_kernels.face_stats / .segment_sum);
+     faces_kernels.plane_fit range (no eigen3 chain), and no
+     CatArrayBatchedCopy (the doubling steps) and no sort kernel (F2
+     orders the rows itself) beside its three F2 launches in the
+     face_stats and roughness ranges of F2 (faces_kernels.face_stats /
+     .segment_sum);
  22. S1 and S2 against their plain versions on the card, bit for bit:
      every S1 and S2 input of the heritage and office batch-8 eager steps
      (the fused S2 calls by their sources) and the edge cases (S1: rows
@@ -219,16 +221,21 @@ result:
      F1, two face statistics and one roughness call a step) and the edge
      cases (zero, isotropic and rank-1 covariances, -0.0 off-diagonals
      around a negative eigenvalue, NaN and inf entries, V = 1; F2 at V =
-     1, one-voxel faces, labels past V, -0.0 and NaN sources, V = 40000
-     with one face of every voxel, which does not fit in shared memory);
-     every form called twice in one captured CUDA graph, replayed twice,
-     equal to the eager calls; at the steps' inputs each call's device
-     time (a graph of 10 calls) beside the plain version's, the library
-     call's (torch.linalg.eigh of the covariances for F1, in the fewest
-     equal slices cuSOLVER takes, by CUDA events around 5 calls since it
-     reads back its error flags;
-     Tensor.index_add_ of the same rows for F2, atomics in another order)
-     and the bound.
+     1, one-voxel faces, labels past V, every valid row labelled V or
+     above, negative labels, labels in sorted runs from the first row (a
+     -0.0 sum kept where no +0.0 reaches it), -0.0 and NaN sources, V =
+     16384, V = 40000 with one face of every voxel, which does not fit in
+     shared memory); F2's own stable order (faces_kernels.label_order)
+     against torch.sort(stable=True) on every F2 input; every form called
+     twice in one captured CUDA graph, replayed twice, equal to the eager
+     calls; at the steps' inputs each call's device time (a graph of 10
+     calls) beside the plain version's, the library call's
+     (torch.linalg.eigh of the covariances for F1, in the fewest equal
+     slices cuSOLVER takes, by CUDA events around 5 calls since it reads
+     back its error flags; Tensor.index_add_ of the columns as formed
+     into the slots of seg from the unsorted labels for F2, atomics in
+     another order) and the bound (F2: the labels, the valid flags and
+     the sources read once, the outputs written once).
 
 Phases 5-6 are the main path: their launch counts are the kernels'
 "launches". Every later in-process path (12-16) is driven with the
@@ -2621,6 +2628,8 @@ COLUMN_RANGES = ("voxelize.leaf", "voxelize.voxels")
 F1_RANGE = "faces_kernels.plane_fit"
 F2_RANGES = ("face_stats", "faces.roughness")
 CAT_KERNEL = re.compile(r"CatArrayBatchedCopy")
+# A kernel of torch.sort (cub's radix sort, or a small-row sort).
+SORT_KERNEL = re.compile(r"[Ss]ort")
 
 
 @contextlib.contextmanager
@@ -2631,8 +2640,8 @@ def plain_faces():
     from fccf_pcr_torch.ops import faces_kernels as fk
 
     with swapped(fk, _launch_plane_fit=fk.plane_fit_plain,
-                 _launch_face_stats=fk.face_stats_plain,
-                 _launch_segment_sum=fk.values_sum_plain):
+                 _launch_face_stats=fk.face_stats_by_label_plain,
+                 _launch_segment_sum=fk.values_sum_by_label_plain):
         yield
 
 
@@ -2646,13 +2655,15 @@ def faces_chains(ks):
     """In one eager step's kernels (``kernel_stages``): the kernels in
     F1's entry range (the eigen3 chain and the gates, or F1 alone), and
     those in F2's outer ranges with the CatArrayBatchedCopy kernels among
-    them (the doubling steps' cats)."""
+    them (the doubling steps' cats) and the sort kernels (torch.sort by
+    label before F2 formed its own order)."""
     f1 = collections.Counter(k for chain, k, _ in ks if F1_RANGE in chain)
     f2 = [k for chain, k, _ in ks if any(r in chain for r in F2_RANGES)]
     return dict(f1_kernels=sum(f1.values()),
                 f1_names=sorted(k[:60] for k in f1),
                 f2_kernels=len(f2),
                 f2_cats=sum(1 for k in f2 if CAT_KERNEL.search(k)),
+                f2_sorts=sum(1 for k in f2 if SORT_KERNEL.search(k)),
                 f2_launches=sum(1 for k in f2
                                 if "faces_segment_sum_kernel" in k))
 
@@ -2745,12 +2756,16 @@ def phase_stages(name, step, eager, graph_kernels):
     check(plain["f1_kernels"] > 100, f"{name}: the plain plane fit ran "
           f"{plain['f1_kernels']} kernels in {F1_RANGE}: the range misses "
           "its chain")
-    check(fc["f2_cats"] == 0 and fc["f2_launches"] == 3,
-          f"{name}: {F2_RANGES} hold {fc['f2_cats']} cat kernels and "
-          f"{fc['f2_launches']} F2 launches (want 0 and 3)")
-    check(plain["f2_cats"] > 0 and plain["f2_launches"] == 0,
+    check(fc["f2_cats"] == 0 and fc["f2_launches"] == 3
+          and fc["f2_sorts"] == 0,
+          f"{name}: {F2_RANGES} hold {fc['f2_cats']} cat kernels, "
+          f"{fc['f2_sorts']} sort kernels and {fc['f2_launches']} F2 "
+          "launches (want 0, 0 and 3)")
+    check(plain["f2_cats"] > 0 and plain["f2_launches"] == 0
+          and plain["f2_sorts"] > 0,
           f"{name}: the plain segment sums ran {plain['f2_cats']} cat "
-          f"kernels and {plain['f2_launches']} F2 launches in {F2_RANGES}")
+          f"kernels, {plain['f2_sorts']} sort kernels and "
+          f"{plain['f2_launches']} F2 launches in {F2_RANGES}")
     for r in COLUMN_RANGES:
         fused = out["column_cats"]["kernels"][r]
         cat = out["column_cats"]["concatenated columns"][r]
@@ -2801,7 +2816,8 @@ def print_stages(name, st, smi):
               f"kernel in a stage; {fc['f1_kernels']} kernels in {F1_RANGE}"
               f" ({len(set(fc['f1_names']))} names), {fc['f2_kernels']} in "
               f"{' / '.join(F2_RANGES)}, {fc['f2_cats']} of them "
-              f"CatArrayBatchedCopy, {fc['f2_launches']} F2 | {smi}",
+              f"CatArrayBatchedCopy, {fc['f2_sorts']} sort kernels, "
+              f"{fc['f2_launches']} F2 | {smi}",
               flush=True)
         for stage, b in t["stages"].items():
             top = "; ".join(f"{ms:.3f} ms {k[:70]}" for k, ms in b["top"])
@@ -3087,8 +3103,8 @@ def phase_scans(steps, eager, dev):
 def record_faces(eager, args):
     """The inputs of every F1 and F2 call of one eager step, in order:
     (form, args) with form "plane_fit", "face_stats" or "values" and args
-    those of its plain version (the F2 forms take the sorted labels and
-    the order)."""
+    those of its kernel's launch (the F2 forms take the labels as they
+    come and the valid flags)."""
     import torch
 
     from fccf_pcr_torch.ops import faces_kernels as fk
@@ -3117,12 +3133,14 @@ def faces_forms(form, a):
     """(kernel, plain, library) calls of one F1 or F2 input: the library
     call is torch.linalg.eigh of the covariances for F1 (their non-finite
     entries zeroed first: eigh raises on them; ``eigh_calls``), and for F2
-    Tensor.index_add_ of the same rows (the columns formed and gathered
-    beforehand) into their slots, with atomics in another order."""
+    Tensor.index_add_ of the columns as formed (the face statistics' eight
+    or the values) into the slots of seg, taken straight from the
+    unsorted labels (seg = valid ? min(label, V - 1) : V, a slot V + 1 a
+    cloud for the dropped rows; both made beforehand), with atomics in
+    another order: what a user calls for these sums."""
     import torch
 
     from fccf_pcr_torch.ops import faces_kernels as fk
-    from fccf_pcr_torch.ops.batch import take
 
     if form == "plane_fit":
         finite = torch.nan_to_num(a[0], nan=0.0, posinf=0.0,
@@ -3130,21 +3148,23 @@ def faces_forms(form, a):
         return (lambda: fk._launch_plane_fit(*a),
                 lambda: fk.plane_fit_plain(*a),
                 eigh_calls(finite))
-    seg_s, order = a[0], a[1]
     V = a[-1]
     if form == "face_stats":
-        cols = fk.stat_columns(a[2], a[3], a[4], a[5])
+        labels, valid = a[0], a[1]
+        cols = fk.stat_columns(a[2], a[3], a[4], valid)
         kernel = lambda: fk._launch_face_stats(*a)  # noqa: E731
-        plain = lambda: fk.face_stats_plain(*a)  # noqa: E731
+        plain = lambda: fk.face_stats_by_label_plain(*a)  # noqa: E731
     else:
-        cols = a[2][..., None]
+        labels, valid = a[1], a[2]
+        cols = a[0][..., None]
         kernel = lambda: fk._launch_segment_sum(*a)  # noqa: E731
-        plain = lambda: fk.values_sum_plain(*a)  # noqa: E731
-    rows = take(cols, order).reshape(-1, cols.shape[-1])
-    B = seg_s.numel() // seg_s.shape[-1]
-    base = torch.arange(B, device=seg_s.device)[:, None] * (V + 1)
-    idx = (seg_s.reshape(B, -1) + base).reshape(-1)
-    sums = torch.zeros(B * (V + 1), cols.shape[-1], device=seg_s.device)
+        plain = lambda: fk.values_sum_by_label_plain(*a)  # noqa: E731
+    seg = torch.where(valid, torch.clamp(labels, max=V - 1), V)
+    rows = cols.reshape(-1, cols.shape[-1]).contiguous()
+    B = seg.numel() // seg.shape[-1]
+    base = torch.arange(B, device=seg.device)[:, None] * (V + 1)
+    idx = (seg.reshape(B, -1) + base).reshape(-1)
+    sums = torch.zeros(B * (V + 1), cols.shape[-1], device=seg.device)
     return kernel, plain, lambda: sums.index_add_(0, idx, rows)
 
 
@@ -3192,8 +3212,11 @@ def faces_bound(form, a):
     """The least time the card could take for one F1 or F2 call, in ms,
     and what bounds it: each input byte read once and each output byte
     written once over the memory rate, against the operations over the
-    float32 rate (F1: F1_OPS a voxel; F2: an add a row and column, a
-    division a slot and statistics column)."""
+    float32 rate (F1: F1_OPS a voxel; F2: its inputs are the labels
+    (int64), the valid flags and the sources, its outputs the slots' sums
+    and statistics; an add a row and summed column (7 for face
+    statistics: centroid * w, normal * w and w; their count is the
+    label's length), and 6 divisions a face-statistics slot)."""
     nbytes = sum(t.numel() * t.element_size() for t in a
                  if hasattr(t, "numel"))
     if form == "plane_fit":
@@ -3201,10 +3224,11 @@ def faces_bound(form, a):
         nbytes += voxels * (12 + 4 + 1 + 1)
         ops = voxels * F1_OPS
     else:
-        slots = a[0].numel() // a[0].shape[-1] * a[-1]
-        D = 8 if form == "face_stats" else 1
-        nbytes += slots * (32 if D == 8 else 4)
-        ops = a[0].numel() * D + slots * (6 if D == 8 else 0)
+        labels = a[0] if form == "face_stats" else a[1]
+        slots = labels.numel() // labels.shape[-1] * a[-1]
+        D = 7 if form == "face_stats" else 1
+        nbytes += slots * (32 if D == 7 else 4)
+        ops = labels.numel() * D + slots * (6 if D == 7 else 0)
     t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
@@ -3249,14 +3273,17 @@ def faces_math_sweep(dev):
 
 
 def faces_edge_cases(dev):
-    """F1's and F2's edge inputs as (form, args) of their plain versions:
+    """F1's and F2's edge inputs as (form, args) of their launches:
     F1 on zero, isotropic, rank-1 and rank-2 covariances, -0.0
     off-diagonals around a negative eigenvalue, NaN and inf entries, tiny
     and huge scales, each kind alone (V = 1) and mixed (4 x 2000); F2's
     two forms at V = 1, one-voxel faces, one face of every voxel (V =
-    40000: the rows do not fit in shared memory), labels past V, -0.0,
-    NaN and -NaN sources, counts of 0 (a negative coordinate times w = 0
-    is -0.0) and invalid rows."""
+    40000: the rows do not fit in shared memory), labels past V, every
+    valid row labelled V or above, negative labels, labels in sorted runs
+    from the first row (a label that starts where no power of two lies
+    between its length and its end keeps a -0.0 sum), V = 16384 and 40000,
+    -0.0, NaN and -NaN sources, counts of 0 (a negative coordinate times w
+    = 0 is -0.0) and invalid rows."""
     import numpy as np
     import torch
 
@@ -3318,6 +3345,15 @@ def faces_edge_cases(dev):
         elif kind == "one":
             labels = np.zeros((B, V), np.int64)
             valid[:] = True
+        elif kind == "negative":
+            labels = rng.integers(-V, V, (B, V))
+        elif kind == "past":
+            labels = rng.integers(V, 3 * V, (B, V))
+        elif kind == "runs":
+            cuts = np.cumsum(rng.integers(1, 71, V))
+            labels = np.broadcast_to(np.searchsorted(
+                cuts, np.arange(V), side="right"), (B, V)).copy()
+            valid[:] = True
         else:
             labels = rng.integers(0, 2 * V, (B, V))
         labels = np.where(valid, labels, 2**30).astype(np.int64)
@@ -3325,23 +3361,43 @@ def faces_edge_cases(dev):
         centroid = rng.normal(size=(B, V, 3)).astype(np.float32)
         normal = rng.normal(size=(B, V, 3)).astype(np.float32)
         for x in (centroid, normal):
-            x[rng.uniform(size=x.shape) < 0.05] = -0.0
+            x[rng.uniform(size=x.shape) < (0.5 if kind == "runs"
+                                           else 0.05)] = -0.0
             x[rng.uniform(size=x.shape) < 0.002] = np.nan
         values = centroid[..., 0].copy()
-        values[..., ::5] = -0.0
+        values[..., ::2 if kind == "runs" else 5] = -0.0
         values[..., 1::97] = -np.nan
         t = [torch.from_numpy(x).to(dev) for x in (
             labels, valid, count, centroid, normal, values)]
-        seg_s, order = fk.sorted_labels(t[0], t[1], V)
-        return [("face_stats", (seg_s, order, t[2], t[3], t[4], t[1], V)),
-                ("values", (seg_s, order, t[5], V))]
+        return [("face_stats", (t[0], t[1], t[2], t[3], t[4], V)),
+                ("values", (t[5], t[0], t[1], V))]
 
     for B, V, kind in ((1, 1, "random"), (1, 1, "one"), (3, 300, "singletons"),
                        (2, 300, "wide"), (2, 1537, "random"),
-                       (4, 12000, "random"), (1, 40000, "one"),
-                       (1, 40000, "singletons")):
+                       (2, 700, "negative"), (2, 300, "past"),
+                       (2, 2100, "runs"), (4, 12000, "random"),
+                       (2, 16384, "random"), (1, 40000, "one"),
+                       (1, 40000, "singletons"), (1, 40000, "runs")):
         cases += stats(B, V, kind)
     return cases
+
+
+def faces_order_equal(form, a, what):
+    """F2's own stable order of one F2 input's labels
+    (faces_kernels.label_order) against torch.sort(seg, stable=True): the
+    same seg_s and order. Returns 1 for an F2 input, 0 for F1's."""
+    import torch
+
+    from fccf_pcr_torch.ops import faces_kernels as fk
+
+    if form == "plane_fit":
+        return 0
+    labels, valid = (a[0], a[1]) if form == "face_stats" else (a[1], a[2])
+    got = fk.label_order(labels, valid, a[-1])
+    want = fk.sorted_labels(labels, valid, a[-1])
+    check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),
+          f"{what}: F2's order differs from torch.sort(stable=True)")
+    return 1
 
 
 def faces_replays(cases):
@@ -3378,8 +3434,8 @@ def phase_faces(steps, eager, dev):
     call beside the bound."""
     shape = {"plane_fit": lambda a: tuple(a[3].shape),
              "face_stats": lambda a: tuple(a[0].shape),
-             "values": lambda a: tuple(a[0].shape)}
-    out = {"F1": {}, "F2": {}, "edge_cases": 0, "differ": 0,
+             "values": lambda a: tuple(a[1].shape)}
+    out = {"F1": {}, "F2": {}, "edge_cases": 0, "differ": 0, "orders": 0,
            "math_inputs": faces_math_sweep(dev)}
     for name in ("heritage", "office"):
         fn, args = steps[name]
@@ -3398,6 +3454,7 @@ def phase_faces(steps, eager, dev):
             out["differ"] += not ok
             check(ok, f"{name}: {kernel} {form} {shape[form](a)} differs "
                   "from plain")
+            out["orders"] += faces_order_equal(form, a, f"{name}: {form}")
             bound_ms, bound_by = faces_bound(form, a)
             # eigh reads its error flags back, which a capture refuses: it
             # is timed by CUDA events around 5 calls instead.
@@ -3418,6 +3475,8 @@ def phase_faces(steps, eager, dev):
         ok = faces_equal(k(), plain())
         out["differ"] += not ok
         check(ok, f"edge case: {form} {shape[form](a)} differs from plain")
+        out["orders"] += faces_order_equal(form, a, f"edge case {form} "
+                                           f"{shape[form](a)}")
         out["edge_cases"] += 1
     out["replayed_calls"] = faces_replays([
         (form, a) for form, a in cases if shape[form](a)[-1] in (1, 2000)
@@ -3964,12 +4023,13 @@ def main():
                                              + ("" if k == "top" else
                                                 "INS_7Moments"))
                      for k in ("up", "top", "down")),
-                 "faces_plane_fit": ptxas_summary(fk, "plane_fit_kernel"),
-                 # the face statistics' and the values' forms, rows in
-                 # shared memory (the main path's)
-                 "faces_segment_sum": ptxas_summary(
-                     fk, "segment_sum_kernelILi1ELb1") + " | values "
-                 + ptxas_summary(fk, "segment_sum_kernelILi0ELb1")}
+                 "faces_plane_fit": ptxas_summary(fk, "plane_fit_kernel")}
+        # F2's face statistics' and values' forms, 16-bit row indices in
+        # shared memory (the main path's)
+        f2_forms = [ptxas_summary(fk, f"segment_sum_kernelILi{form}EtLb1")
+                    for form in (1, 0)]
+        check(all(f2_forms), "no ptxas lines for an F2 form")
+        ptxas["faces_segment_sum"] = f2_forms[0] + " | values " + f2_forms[1]
         for name, info in ptxas.items():
             check(info, f"no ptxas lines for {name}")
             print(f"[build] ptxas {name}: {info}", flush=True)
@@ -4253,6 +4313,8 @@ def main():
                       f"ms; bound {t['bound_ms'] * 1e3:.3f} us "
                       f"({t['bound_by']}) | ptxas {ptx} | {smi}", flush=True)
         print(f"[faces] {fc['edge_cases']} edge cases equal to plain; "
+              f"F2's own order equal to torch.sort(stable=True) on "
+              f"{fc['orders']} F2 inputs; "
               f"{fc['replayed_calls']} kernel calls in one graph, replayed "
               f"twice, equal to their eager calls; phase "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
@@ -4494,8 +4556,9 @@ def main():
                      "events over a graph of 10 calls; library_ms "
                      + ("torch.linalg.eigh of the covariances"
                         if kernel == "F1" else
-                        "Tensor.index_add_ of the same rows (atomics, "
-                        "another order)")
+                        "Tensor.index_add_ of the columns as formed into "
+                        "the slots of seg from the unsorted labels "
+                        "(atomics, another order)")
                      + "; max_abs_err the most outputs that differ")
           for name, kernel in (("faces_plane_fit", "F1"),
                                ("faces_segment_sum", "F2"))),

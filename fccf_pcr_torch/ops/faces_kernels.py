@@ -11,21 +11,26 @@ kernel and its plain PyTorch version.
     segmented doubling scan whose last row of each label holds its sum,
     which the port uses in place of the JAX package's one-hot contraction
     (``fccf_pcr_tpu/features/faces.py:163-197``): no tensor is (V, V) and
-    a cloud sums alike in any batch. ``face_stats`` forms the eight
-    statistics columns from their sources and divides, rounds and casts
-    them in the kernel; ``label_segment_sum`` sums one column as it is.
+    a cloud sums alike in any batch. The kernel takes the labels as they
+    come and forms the stable order itself, on the card, in the same
+    launch (``label_order`` returns that order alone). ``face_stats``
+    forms the eight statistics columns from their sources and divides,
+    rounds and casts them in the kernel; ``label_segment_sum`` sums one
+    column as it is.
 
 CUDA tensors take the kernels of ``csrc/faces.cu`` on the current stream,
 with no host sync, so the register step's CUDA graph captures them; there
 is no fallback: a missing ``nvcc``, a failed build or a refused launch
-raises. CPU tensors take the plain versions (``plane_fit_plain``,
-``face_stats_plain``, ``segment_sum_plain``); any other device raises.
-Each kernel gives its plain version's bits on the card. The library is
-built with nvcc into ``fccf_pcr_torch/build/`` at first use and bound
-with ctypes (``ops.cuda_build``). ``PLANE_FITS`` and ``SEGMENT_SUMS``
-count the launches of F1 and F2 (``ops.graph.count_launch``: a launch
-captured into a CUDA graph counts at each replay). Every entry point runs
-inside a ``record_function`` range named ``faces_kernels.<entry>``.
+raises. CPU tensors take the plain versions (``plane_fit_plain``;
+``sorted_labels`` then ``face_stats_plain`` or ``values_sum_plain``,
+together ``face_stats_by_label_plain`` and ``values_sum_by_label_plain``);
+any other device raises. Each kernel gives its plain version's bits on
+the card. The library is built with nvcc into ``fccf_pcr_torch/build/``
+at first use and bound with ctypes (``ops.cuda_build``). ``PLANE_FITS``
+and ``SEGMENT_SUMS`` count the launches of F1 and F2, ``ORDERS`` those of
+F2's order alone (``ops.graph.count_launch``: a launch captured into a
+CUDA graph counts at each replay). Every entry point runs inside a
+``record_function`` range named ``faces_kernels.<entry>``.
 """
 
 from __future__ import annotations
@@ -42,12 +47,14 @@ from . import eigen3, graph
 from .batch import take
 from .cuda_build import CudaLibrary
 
-# Launches of F1 (the plane fit) and F2 (the segment sums, both forms).
+# Launches of F1 (the plane fit), F2 (the segment sums, both forms) and
+# F2's order alone (label_order, off the main path).
 PLANE_FITS = 0
 SEGMENT_SUMS = 0
+ORDERS = 0
 _THIS = sys.modules[__name__]
 # csrc/faces.cu's forms of F2.
-VALUES, FACE_STATS = 0, 1
+VALUES, FACE_STATS, ORDER = 0, 1, 2
 
 
 class PlaneFit(NamedTuple):
@@ -62,17 +69,24 @@ class PlaneFit(NamedTuple):
 def _bind(lib):
     fn = lib.fccf_faces_plane_fit
     fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_longlong] * 2 + [
-        ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    fn = lib.fccf_faces_segment_splits
+    fn.argtypes = [ctypes.c_longlong, ctypes.c_int]
     fn.restype = ctypes.c_int
     fn = lib.fccf_faces_segment_scratch
-    fn.argtypes = [ctypes.c_longlong] * 2 + [ctypes.c_int] * 2
+    fn.argtypes = [ctypes.c_longlong] * 3 + [ctypes.c_int] * 2
     fn.restype = ctypes.c_longlong
     fn = lib.fccf_faces_segment_sum
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 3 + [
-        ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     fn = lib.fccf_faces_face_stats
-    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_longlong] * 3 + [
+    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_longlong] * 3 + [
+        ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    fn = lib.fccf_faces_label_order
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 3 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     fn = lib.fccf_faces_math_probe
@@ -124,7 +138,8 @@ def segment_sum_plain(seg_s, order, values, V):
     segmented inclusive scan (log2 n doubling steps, each adding the
     partial sum d rows back where that row has the same label, +0.0
     elsewhere), and each run's total written to its label's slot; rows
-    labelled V are dropped and other slots are 0. Each row of the leading
+    labelled V or below 0 are dropped (as the one-hot contraction drops
+    them) and other slots are 0. Each row of the leading
     batch dims is summed alone with the same adds."""
     x = take(values, order)
     n = seg_s.shape[-1]
@@ -140,7 +155,7 @@ def segment_sum_plain(seg_s, order, values, V):
         [seg_s[..., 1:] != seg_s[..., :-1], torch.ones_like(seg_s[..., :1],
                                                              dtype=torch.bool)],
         dim=-1,
-    ) & (seg_s < V)
+    ) & (seg_s >= 0) & (seg_s < V)
     dest = torch.where(last, seg_s, V)[..., None].expand(x.shape)
     out = torch.zeros(tuple(x.shape[:-2]) + (V + 1, x.shape[-1]),
                       dtype=x.dtype, device=x.device)
@@ -180,6 +195,20 @@ def face_stats_plain(seg_s, order, count, centroid, normal, valid, V):
     return csum / denom, nsum / denom, psize, vcount
 
 
+def face_stats_by_label_plain(labels, valid, count, centroid, normal, V):
+    """``face_stats``' plain version from the labels (F2's signature): the
+    stable sort (``sorted_labels``), then ``face_stats_plain``."""
+    seg_s, order = sorted_labels(labels, valid, V)
+    return face_stats_plain(seg_s, order, count, centroid, normal, valid, V)
+
+
+def values_sum_by_label_plain(values, labels, valid, V):
+    """``label_segment_sum``'s plain version from the labels (F2's
+    signature): the stable sort, then ``values_sum_plain``."""
+    seg_s, order = sorted_labels(labels, valid, V)
+    return values_sum_plain(seg_s, order, values, V)
+
+
 # -------------------------------------------------------------- kernels --
 
 
@@ -199,8 +228,9 @@ def _check(what, tensors, dtypes, shapes):
 
 
 def _launch_plane_fit(cov, centroid, count, valid, global_centroid,
-                      point_threshold, curvature_threshold):
-    """F1 on CUDA tensors."""
+                      point_threshold, curvature_threshold, threads=None):
+    """F1 on CUDA tensors; ``threads`` a block (None: the kernel's
+    default)."""
     lead = tuple(valid.shape[:-1])
     V = valid.shape[-1]
     cov, centroid, count, valid, gc = _check(
@@ -224,7 +254,8 @@ def _launch_plane_fit(cov, centroid, count, valid, global_centroid,
             cov.data_ptr(), centroid.data_ptr(), count.data_ptr(),
             valid.data_ptr(), gc.data_ptr(),
             *(t.data_ptr() for t in out), math.prod(lead), V,
-            int(point_threshold), float(curvature_threshold), _stream(dev))
+            int(point_threshold), float(curvature_threshold), threads or 0,
+            _stream(dev))
     if rc != 0:
         raise RuntimeError(f"fccf_faces_plane_fit launch failed: CUDA error "
                            f"{rc}")
@@ -232,33 +263,40 @@ def _launch_plane_fit(cov, centroid, count, valid, global_centroid,
     return out
 
 
-def _segments(what, seg_s, order, form, D):
-    """The sorted labels and order checked (int64, one shape), made
-    contiguous, with (lead, n, B, scratch) of an F2 launch."""
-    if seg_s.dtype != torch.int64 or order.dtype != torch.int64 or tuple(
-            seg_s.shape) != tuple(order.shape) or seg_s.device != order.device:
-        raise ValueError(f"{what}: want int64 seg_s and order of one shape, "
-                         f"got {seg_s.dtype} {tuple(seg_s.shape)} and "
-                         f"{order.dtype} {tuple(order.shape)}")
-    lead, n = tuple(seg_s.shape[:-1]), seg_s.shape[-1]
+def _labels(what, labels, valid, V, form, splits):
+    """The labels (int64) and valid flags (bool) checked (one shape, one
+    device), made contiguous, with (lead, n, B, splits, scratch) of an F2
+    launch for V slots."""
+    if labels.dtype != torch.int64 or valid.dtype != torch.bool or tuple(
+            labels.shape) != tuple(valid.shape) or labels.device != valid.device:
+        raise ValueError(f"{what}: want int64 labels and bool valid of one "
+                         f"shape, got {labels.dtype} {tuple(labels.shape)} "
+                         f"and {valid.dtype} {tuple(valid.shape)}")
+    lead, n = tuple(labels.shape[:-1]), labels.shape[-1]
+    if n >= 1 << 24:
+        raise ValueError(f"{what}: {n} rows a cloud, want fewer than 2^24")
     B = math.prod(lead)
-    floats = int(build().fccf_faces_segment_scratch(B, n, D, form))
-    scratch = (torch.empty((floats,), dtype=torch.float32,
-                           device=seg_s.device) if floats else None)
-    return seg_s.contiguous(), order.contiguous(), lead, n, B, scratch
+    lib = build()
+    splits = int(lib.fccf_faces_segment_splits(max(n, 1), int(splits or 0)))
+    nbytes = int(lib.fccf_faces_segment_scratch(B, n, V, splits, form))
+    scratch = (torch.empty((nbytes,), dtype=torch.uint8, device=labels.device)
+               if nbytes else None)
+    return labels.contiguous(), valid.contiguous(), lead, n, B, splits, scratch
 
 
-def _launched(rc, entry):
+def _launched(rc, entry, counter="SEGMENT_SUMS"):
     if rc != 0:
         raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")
-    graph.count_launch(_THIS, "SEGMENT_SUMS")
+    graph.count_launch(_THIS, counter)
 
 
-def _launch_segment_sum(seg_s, order, values, V):
+def _launch_segment_sum(values, labels, valid, V, splits=None):
     """F2's values form on CUDA tensors: sums (..., V) of values (..., n)
-    float32."""
-    seg_s, order, lead, n, B, scratch = _segments(
-        "label_segment_sum", seg_s, order, VALUES, 1)
+    float32 by labels (..., n) int64 and valid (..., n) bool, ordered on
+    the card in the same launch; ``splits`` blocks a cloud (None: the
+    kernel's default)."""
+    labels, valid, lead, n, B, splits, scratch = _labels(
+        "label_segment_sum", labels, valid, V, VALUES, splits)
     (values,) = _check(("values",), (values,), (torch.float32,),
                        (lead + (n,),))
     dev = values.device
@@ -268,23 +306,24 @@ def _launch_segment_sum(seg_s, order, values, V):
     lib = build()
     with torch.cuda.device(dev):
         rc = lib.fccf_faces_segment_sum(
-            seg_s.data_ptr(), order.data_ptr(), values.data_ptr(),
+            labels.data_ptr(), valid.data_ptr(), values.data_ptr(),
             out.data_ptr(), 0 if scratch is None else scratch.data_ptr(),
-            B, n, V, _stream(dev))
+            B, n, V, splits, _stream(dev))
     _launched(rc, "fccf_faces_segment_sum")
     return out
 
 
-def _launch_face_stats(seg_s, order, count, centroid, normal, valid, V):
-    """F2's face statistics on CUDA tensors (``face_stats_plain``'s
-    signature)."""
-    seg_s, order, lead, n, B, scratch = _segments(
-        "face_stats", seg_s, order, FACE_STATS, 8)
-    count, centroid, normal, valid = _check(
-        ("count", "centroid", "normal", "valid"),
-        (count, centroid, normal, valid),
-        (torch.int32, torch.float32, torch.float32, torch.bool),
-        (lead + (n,), lead + (n, 3), lead + (n, 3), lead + (n,)))
+def _launch_face_stats(labels, valid, count, centroid, normal, V,
+                       splits=None):
+    """F2's face statistics on CUDA tensors (``face_stats``' signature),
+    ordered on the card in the same launch; ``splits`` as
+    ``_launch_segment_sum``'s."""
+    labels, valid, lead, n, B, splits, scratch = _labels(
+        "face_stats", labels, valid, V, FACE_STATS, splits)
+    count, centroid, normal = _check(
+        ("count", "centroid", "normal"), (count, centroid, normal),
+        (torch.int32, torch.float32, torch.float32),
+        (lead + (n,), lead + (n, 3), lead + (n, 3)))
     dev = centroid.device
     c = torch.empty(lead + (V, 3), dtype=torch.float32, device=dev)
     nrm = torch.empty(lead + (V, 3), dtype=torch.float32, device=dev)
@@ -295,13 +334,32 @@ def _launch_face_stats(seg_s, order, count, centroid, normal, valid, V):
     lib = build()
     with torch.cuda.device(dev):
         rc = lib.fccf_faces_face_stats(
-            seg_s.data_ptr(), order.data_ptr(), count.data_ptr(),
-            valid.data_ptr(), centroid.data_ptr(), normal.data_ptr(),
-            c.data_ptr(), nrm.data_ptr(), psize.data_ptr(), vcount.data_ptr(),
-            0 if scratch is None else scratch.data_ptr(), B, n, V,
+            labels.data_ptr(), valid.data_ptr(), count.data_ptr(),
+            centroid.data_ptr(), normal.data_ptr(), c.data_ptr(),
+            nrm.data_ptr(), psize.data_ptr(), vcount.data_ptr(),
+            0 if scratch is None else scratch.data_ptr(), B, n, V, splits,
             _stream(dev))
     _launched(rc, "fccf_faces_face_stats")
     return c, nrm, psize, vcount
+
+
+def _launch_label_order(labels, valid, V):
+    """F2's stable order on CUDA tensors: (seg_s, order), int64 (..., n),
+    one block a cloud."""
+    labels, valid, lead, n, B, _, scratch = _labels(
+        "label_order", labels, valid, V, ORDER, 1)
+    seg_s = torch.empty(lead + (n,), dtype=torch.int64, device=labels.device)
+    order = torch.empty_like(seg_s)
+    if seg_s.numel() == 0:
+        return seg_s, order
+    lib = build()
+    with torch.cuda.device(labels.device):
+        rc = lib.fccf_faces_label_order(
+            labels.data_ptr(), valid.data_ptr(), seg_s.data_ptr(),
+            order.data_ptr(), 0 if scratch is None else scratch.data_ptr(),
+            B, n, V, _stream(labels.device))
+    _launched(rc, "fccf_faces_label_order", "ORDERS")
+    return seg_s, order
 
 
 def math_probe(x, y):
@@ -350,25 +408,31 @@ def plane_fit(cov, centroid, count, valid, global_centroid, point_threshold,
 
 def face_stats(labels, valid, count, centroid, normal, V):
     """Point-count-weighted statistics of each face label (..., V):
-    (centroid, normal, psize, vcount) by slot (``face_stats_plain``), F2
-    on a card after the stable sort by label."""
+    (centroid, normal, psize, vcount) by slot (``face_stats_plain`` after
+    the stable sort by label), F2 on a card, its order formed in the
+    kernel."""
     with record_function("faces_kernels.face_stats"):
-        kind = _device(centroid, "face_stats")
-        seg_s, order = sorted_labels(labels, valid, V)
-        if kind == "cpu":
-            return face_stats_plain(seg_s, order, count, centroid, normal,
-                                    valid, V)
-        return _launch_face_stats(seg_s, order, count, centroid, normal,
-                                  valid, V)
+        if _device(centroid, "face_stats") == "cpu":
+            return face_stats_by_label_plain(labels, valid, count, centroid,
+                                             normal, V)
+        return _launch_face_stats(labels, valid, count, centroid, normal, V)
 
 
 def label_segment_sum(values, labels, valid, V):
     """Per-label sums (..., V) of ``values`` (..., V) over slot-index
-    labels; invalid rows add nothing (``values_sum_plain``): F2 on a card
-    after the stable sort by label."""
+    labels; invalid rows add nothing (``values_sum_plain`` after the
+    stable sort by label): F2 on a card, its order formed in the kernel."""
     with record_function("faces_kernels.segment_sum"):
-        kind = _device(values, "label_segment_sum")
-        seg_s, order = sorted_labels(labels, valid, V)
-        if kind == "cpu":
-            return values_sum_plain(seg_s, order, values, V)
-        return _launch_segment_sum(seg_s, order, values, V)
+        if _device(values, "label_segment_sum") == "cpu":
+            return values_sum_by_label_plain(values, labels, valid, V)
+        return _launch_segment_sum(values, labels, valid, V)
+
+
+def label_order(labels, valid, V):
+    """The rows sorted stably by label, (seg_s, order) as
+    ``sorted_labels`` (``torch.sort``) gives them: on a card F2's own
+    order, formed by the kernel as the segment sums form it."""
+    with record_function("faces_kernels.label_order"):
+        if _device(labels, "label_order") == "cpu":
+            return sorted_labels(labels, valid, V)
+        return _launch_label_order(labels, valid, V)

@@ -1623,12 +1623,25 @@ def test_plane_fit_kernel_matches_plain(cuda, B, V):
 def _stat_inputs(B, V, seed, kind="random"):
     """Face-stat sources: labels (component min slots, _BIG where
     invalid; ``kind`` "random", "singletons" (one-voxel faces), "one"
-    (one face of every voxel) or "wide" (labels past V)), valid, counts
-    (0 in places, so negative coordinates give -0.0 columns), centroids
-    and normals with -0.0 and NaN."""
+    (one face of every voxel), "wide" (labels past V), "negative" (labels
+    below 0), "past" (every valid row labelled V or above) or "runs"
+    (labels in sorted runs of 1-70 rows from the first row, so labels
+    start where no power of two lies between their length and their end:
+    their -0.0 sums stay -0.0)), valid, counts (0 in places, so negative
+    coordinates give -0.0 columns), centroids and normals with -0.0 and
+    NaN."""
     rng = np.random.default_rng(seed)
     valid = rng.uniform(size=(B, V)) < 0.85
-    if kind == "random":
+    if kind == "negative":
+        labels = rng.integers(-V, V, (B, V))
+    elif kind == "past":
+        labels = rng.integers(V, 3 * V, (B, V))
+    elif kind == "runs":
+        cuts = np.cumsum(rng.integers(1, 71, V))
+        labels = np.broadcast_to(np.searchsorted(cuts, np.arange(V),
+                                                 side="right"), (B, V)).copy()
+        valid[:] = True
+    elif kind == "random":
         labels = np.minimum(rng.integers(0, max(V // 7, 1), (B, V)),
                             np.arange(V))
     elif kind == "singletons":
@@ -1645,6 +1658,8 @@ def _stat_inputs(B, V, seed, kind="random"):
     for a in (centroid, normal):
         a[rng.uniform(size=a.shape) < 0.05] = -0.0
         a[rng.uniform(size=a.shape) < 0.002] = np.nan
+        if kind == "runs":
+            a[rng.uniform(size=a.shape) < 0.5] = -0.0
     return [torch.from_numpy(a) for a in (labels, valid, count, centroid,
                                           normal)]
 
@@ -1652,7 +1667,9 @@ def _stat_inputs(B, V, seed, kind="random"):
 FACE_CASES = [(1, 1, "random"), (1, 1, "one"), (2, 37, "random"),
               (3, 300, "singletons"), (2, 300, "wide"), (16, 1536, "random"),
               (16, 9216, "random"), (4, 12000, "random"),
-              (1, 40000, "one"), (1, 40000, "random")]
+              (1, 40000, "one"), (1, 40000, "random"), (2, 700, "negative"),
+              (2, 300, "past"), (2, 2100, "runs"), (2, 16384, "random"),
+              (1, 16384, "singletons"), (1, 40000, "runs")]
 
 
 @pytest.mark.parametrize("B,V,kind", FACE_CASES)
@@ -1682,12 +1699,46 @@ def test_segment_sum_kernel_matches_plain(cuda, B, V, kind):
     values = centroid[..., 0].contiguous()
     values[..., ::5] = -0.0
     values[..., 1::97] = -float("nan")
+    if kind == "runs":
+        values[..., ::2] = -0.0
     before = fk.SEGMENT_SUMS
     got = fk.label_segment_sum(values, labels, valid, V)
     assert fk.SEGMENT_SUMS == before + 1
     seg_s, order = fk.sorted_labels(labels, valid, V)
     assert _all_equal((got,), (fk.values_sum_plain(seg_s, order, values,
                                                    V),))
+
+
+@pytest.mark.parametrize("B,V,kind", FACE_CASES)
+def test_label_order_matches_torch_sort(cuda, B, V, kind):
+    """F2's own stable order (faces_kernels.label_order, one launch) ==
+    torch.sort(seg, stable=True): the same seg_s and the same position of
+    every row."""
+    labels, valid = (t.to(cuda) for t in _stat_inputs(B, V, B + 2 * V,
+                                                      kind)[:2])
+    before = fk.ORDERS
+    got = fk.label_order(labels, valid, V)
+    assert fk.ORDERS == before + 1
+    want = fk.sorted_labels(labels, valid, V)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 5, 8, 16, 32])
+def test_segment_sums_alike_at_any_split(cuda, splits):
+    """F2 split over any number of blocks a cloud gives the plain bits."""
+    for kind in ("random", "runs"):
+        labels, valid, count, centroid, normal = (
+            t.to(cuda) for t in _stat_inputs(3, 2100, splits, kind))
+        seg_s, order = fk.sorted_labels(labels, valid, 2100)
+        got = fk._launch_face_stats(labels, valid, count, centroid, normal,
+                                    2100, splits=splits)
+        assert _all_equal(got, fk.face_stats_plain(
+            seg_s, order, count, centroid, normal, valid, 2100))
+        values = centroid[..., 2].contiguous()
+        got = fk._launch_segment_sum(values, labels, valid, 2100,
+                                     splits=splits)
+        assert _all_equal((got,), (fk.values_sum_plain(seg_s, order, values,
+                                                        2100),))
 
 
 def test_faces_kernels_in_a_capture(cuda):
@@ -1738,12 +1789,17 @@ def test_faces_kernels_reject_bad_inputs(cuda):
     with pytest.raises(ValueError):
         fk.label_segment_sum(centroid[..., 0].double(), labels, valid, 64)
     with pytest.raises(ValueError):
+        fk.label_segment_sum(centroid[..., 0], labels.int(), valid, 64)
+    with pytest.raises(ValueError):
+        fk.face_stats(labels, valid[:, :32], count, centroid, normal, 64)
+    with pytest.raises(ValueError):
         fk.math_probe(centroid[..., 0].cpu(), centroid[..., 0].cpu())
 
 
 def test_faces_from_voxels_launches_f1_and_f2(cuda):
     """The face stage on the card launches F1 once and F2 three times (the
-    two face statistics and the roughness) and runs no plain version."""
+    two face statistics and the roughness) and runs no plain version and
+    no sort by label (F2 orders the rows itself)."""
     from fccf_pcr_torch.features import faces
 
     src, _, _ = synthetic.make_pair(seed=1, points_per_plane=400,
@@ -1753,13 +1809,15 @@ def test_faces_from_voxels_launches_f1_and_f2(cuda):
     args = (torch.from_numpy(pts).to(cuda), torch.from_numpy(mask).to(cuda))
     fits, sums = fk.PLANE_FITS, fk.SEGMENT_SUMS
     plain = []
-    kept = (fk.plane_fit_plain, fk.face_stats_plain, fk.values_sum_plain)
-    fk.plane_fit_plain, fk.face_stats_plain, fk.values_sum_plain = (
-        (lambda *a: plain.append(a)),) * 3
+    kept = (fk.plane_fit_plain, fk.face_stats_plain, fk.values_sum_plain,
+            fk.sorted_labels)
+    (fk.plane_fit_plain, fk.face_stats_plain, fk.values_sum_plain,
+     fk.sorted_labels) = ((lambda *a: plain.append(a)),) * 4
     try:
         got = faces.extract_faces(*args, params, TEST_CAPS)
     finally:
-        fk.plane_fit_plain, fk.face_stats_plain, fk.values_sum_plain = kept
+        (fk.plane_fit_plain, fk.face_stats_plain, fk.values_sum_plain,
+         fk.sorted_labels) = kept
     torch.cuda.synchronize()
     assert fk.PLANE_FITS == fits + 1 and fk.SEGMENT_SUMS == sums + 3
     assert not plain

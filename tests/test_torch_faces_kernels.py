@@ -12,6 +12,7 @@ equals that row alone bit for bit. The kernels themselves run only on a
 card (tests/test_torch_cuda.py holds them to these plain versions)."""
 
 import functools
+import hashlib
 
 import jax
 import jax.numpy as jnp
@@ -188,3 +189,245 @@ def test_cpu_calls_build_nothing_and_other_devices_raise():
     meta = [a.to("meta") for a in args]
     with pytest.raises(ValueError):
         _plane_fit(*meta)
+
+
+# PR 15's CPU outputs of face_stats and label_segment_sum on
+# ``_digest_inputs`` (sha256 of their bytes, first 16 hex digits): the CPU
+# path keeps its bits now that F2 takes the labels on the card.
+PR15_DIGESTS = {(2, 300, "random"): ("f5c1d27c135044d1", "0b1777fff0439d1b"),
+                (3, 1000, "wide"): ("2243396e9129e8f4", "21d4b55a017e08e0"),
+                (1, 257, "singletons"): ("1bcd549027971124",
+                                         "0fb2cf0c95a1192d")}
+
+
+def _digest_inputs(B, V, seed, kind):
+    rng = np.random.default_rng(seed)
+    valid = rng.uniform(size=(B, V)) < 0.8
+    if kind == "random":
+        labels = np.minimum(rng.integers(0, max(V // 7, 1), (B, V)),
+                            np.arange(V))
+    elif kind == "wide":
+        labels = rng.integers(0, 2 * V, (B, V))
+    else:
+        labels = np.broadcast_to(np.arange(V), (B, V)).copy()
+    labels = np.where(valid, labels, _BIG).astype(np.int64)
+    count = rng.integers(0, 40, (B, V)).astype(np.int32)
+    centroid = rng.normal(size=(B, V, 3)).astype(np.float32)
+    normal = rng.normal(size=(B, V, 3)).astype(np.float32)
+    for a in (centroid, normal):
+        a[rng.uniform(size=a.shape) < 0.05] = -0.0
+    return [torch.from_numpy(a) for a in (labels, valid, count, centroid,
+                                          normal)]
+
+
+def _digest(tensors):
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.contiguous().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+@pytest.mark.parametrize("B,V,kind", sorted(PR15_DIGESTS))
+def test_cpu_outputs_keep_pr15_bits(B, V, kind):
+    labels, valid, count, centroid, normal = _digest_inputs(B, V, B * V,
+                                                            kind)
+    values = centroid[..., 0].contiguous()
+    want = PR15_DIGESTS[(B, V, kind)]
+    assert _digest(fk.face_stats(labels, valid, count, centroid, normal,
+                                 V)) == want[0]
+    assert _digest([fk.label_segment_sum(values, labels, valid, V)]) == want[1]
+
+
+# ------------------------------------------- csrc/faces.cu's F2 in NumPy --
+
+
+def _radix_order(seg):
+    """F2's stable order of one cloud's seg (int64, n): the keys (seg as
+    int32, at least -2^31, sign flipped) sorted by least-significant-digit
+    passes over the 6-bit digits in which they differ. Returns (keys,
+    order)."""
+    key = (np.maximum(seg, -2**31) + 2**31).astype(np.uint32)
+    diff = np.bitwise_or.reduce(key) ^ np.bitwise_and.reduce(key)
+    order = np.arange(len(key))
+    for shift in range(0, 32, 6):
+        if (int(diff) >> shift) & 63:
+            digit = (key[order] >> np.uint32(shift)) & np.uint32(63)
+            order = order[np.argsort(digit, kind="stable")]
+    return key, order
+
+
+def _label_tree(rows, e):
+    """One label's sum as F2 forms it: ``rows`` (L, D) float32, row m the
+    label's m-th from its last, ``e`` the last row's sorted position. Node
+    c of a level is row m = c * stride: at step dd * stride node c adds
+    node c + dd where c = 0 mod 2 dd and that node is a row, +0.0 where it
+    is not and e - m >= the step. The first level takes 128 rows (4 a
+    lane: steps 1 to 64), the next ones 32 nodes (a warp's lanes); each
+    group's total is a node of the next level."""
+    L = len(rows)
+    nodes = [r.copy() for r in rows]
+    stride, group = 1, 128
+    while True:
+        for dd in [1 << k for k in range(group.bit_length() - 1)]:
+            step = dd * stride
+            for c in range(0, len(nodes), 2 * dd):
+                m = c * stride
+                if m + step <= L - 1:
+                    nodes[c] = nodes[c] + nodes[c + dd]
+                elif e - m >= step:
+                    nodes[c] = nodes[c] + np.float32(0.0)
+        nodes = nodes[::group]
+        stride *= group
+        group = 32
+        if len(nodes) == 1:
+            break
+    x = nodes[0]
+    return x + np.float32(0.0) if e >= stride else x
+
+
+def _f2_emulation(labels, valid, cols, V, S):
+    """F2's sums (B, V, D) and label lengths (B, V) of ``cols`` (B, n, D)
+    float32, block by block as csrc/faces.cu splits a cloud over S blocks:
+    bucket 0 holds the negative segs, bucket s + 1 slot s and bucket V + 1
+    the invalid rows; their counts, scanned, give each bucket's first
+    sorted row; block r takes the buckets of slots from the one that
+    starts at or after row r / S of the slots' rows, so whole labels,
+    balanced by rows, and the empty slots of the r-th S-th of the slots;
+    every slot is written once."""
+    B, n = labels.shape
+    D = cols.shape[-1]
+    sums = np.zeros((B, V, D), np.float32)
+    lengths = np.zeros((B, V), np.int64)
+    written = np.zeros((B, V), np.int64)
+    for b in range(B):
+        seg = np.where(valid[b], np.minimum(labels[b], V - 1), V)
+        key, order = _radix_order(seg)
+        bucket = np.where(seg < 0, 0, seg + 1)
+        start = np.concatenate([[0], np.cumsum(np.bincount(
+            bucket, minlength=V + 2))])
+        first, rows = start[1], start[V + 1] - start[1]
+
+        def bucket_at(pos):
+            return int(np.searchsorted(start[1:V + 2], pos, side="left")) + 1
+
+        for r in range(S):
+            k_lo = 1 if r == 0 else bucket_at(first + rows * r // S)
+            k_hi = V + 1 if r == S - 1 else bucket_at(
+                first + rows * (r + 1) // S)
+            for slot in range(V * r // S, V * (r + 1) // S):
+                if start[slot + 2] == start[slot + 1]:
+                    written[b, slot] += 1
+            for bk in range(k_lo, k_hi):
+                s0, e = start[bk], start[bk + 1] - 1
+                if e < s0:
+                    continue
+                rows_of = order[s0:e + 1]
+                assert np.all(seg[rows_of] == bk - 1)
+                sums[b, bk - 1] = _label_tree(cols[b, rows_of[::-1]], e)
+                lengths[b, bk - 1] = e - s0 + 1
+                written[b, bk - 1] += 1
+    assert np.all(written == 1)
+    return sums, lengths
+
+
+def _f2_inputs(B, V, seed, kind):
+    """Labels, valid flags and sources for the emulation: ``kind`` as
+    ``stat_inputs``' kinds, or "negative" (labels below 0, some below
+    -2^31), "past" (every valid row labelled V or above), "runs" (labels
+    in sorted runs from the first rows, lengths 1-70: labels that start
+    where no power of two lies between their length and their end keep a
+    -0.0 sum); -0.0 and -NaN sources."""
+    rng = np.random.default_rng(seed)
+    valid = rng.uniform(size=(B, V)) < 0.85
+    if kind == "negative":
+        labels = rng.integers(-V, V, (B, V))
+        labels[:, ::13] -= 2**33
+    elif kind == "past":
+        labels = rng.integers(V, 3 * V, (B, V))
+    elif kind == "runs":
+        cuts = np.cumsum(rng.integers(1, 71, V))
+        labels = np.broadcast_to(np.searchsorted(cuts, np.arange(V),
+                                                 side="right"), (B, V)).copy()
+        valid[:] = True
+    else:
+        labels, valid = stat_inputs(B, V, seed, kind)[:2]
+        valid = valid.copy()
+    labels = np.where(valid, labels, _BIG).astype(np.int64)
+    count = rng.integers(0, 40, (B, V)).astype(np.int32)
+    centroid = rng.normal(size=(B, V, 3)).astype(np.float32)
+    normal = rng.normal(size=(B, V, 3)).astype(np.float32)
+    for a in (centroid, normal):
+        a[rng.uniform(size=a.shape) < 0.3] = -0.0
+    values = centroid[..., 0].copy()
+    values[..., 1::37] = -np.nan
+    if kind == "runs":
+        values[:] = -0.0
+    return labels, valid, count, centroid, normal, values
+
+
+F2_CASES = [(1, 1, "random", 1), (1, 1, "one", 1), (2, 37, "random", 3),
+            (2, 300, "singletons", 8), (2, 300, "wide", 8),
+            (1, 1200, "one", 8), (2, 700, "negative", 5), (1, 300, "past", 4),
+            (1, 2100, "runs", 8), (1, 2100, "random", 2)]
+
+
+def _bits(a):
+    return np.ascontiguousarray(a).view(np.int32)
+
+
+@pytest.mark.parametrize("B,V,kind,S", F2_CASES)
+def test_f2_emulation_matches_plain(B, V, kind, S):
+    """The order F2 forms equals torch.sort(stable=True) for labels of
+    int32 range, and F2's trees, block by block, give the plain versions'
+    bits: values (with -0.0 and -NaN) and face statistics."""
+    labels, valid, count, centroid, normal, values = _f2_inputs(B, V, V + S,
+                                                               kind)
+    t = [torch.from_numpy(a) for a in (labels, valid, count, centroid,
+                                       normal, values)]
+    seg_s, order = fk.sorted_labels(t[0], t[1], V)
+    for b in range(B):
+        seg = seg_s.new_tensor(np.where(valid[b], np.minimum(labels[b], V - 1),
+                                        V))
+        key, got = _radix_order(seg.numpy())
+        if kind != "negative":
+            np.testing.assert_array_equal(got, order[b].numpy())
+        np.testing.assert_array_equal(np.sort(key), key[got])
+    sums, _ = _f2_emulation(labels, valid, values[..., None], V, S)
+    want = fk.values_sum_plain(seg_s, order, t[5], V).numpy()
+    np.testing.assert_array_equal(_bits(sums[..., 0]), _bits(want))
+    w = np.where(valid, count.astype(np.float32), np.float32(0.0))
+    cols = np.concatenate([centroid * w[..., None], normal * w[..., None],
+                           w[..., None]], axis=-1)
+    sums, lengths = _f2_emulation(labels, valid, cols, V, S)
+    den = np.where(np.isnan(sums[..., 6]), sums[..., 6],
+                   np.maximum(sums[..., 6], np.float32(1e-12)))[..., None]
+    got = (sums[..., 0:3] / den, sums[..., 3:6] / den, sums[..., 6],
+           lengths.astype(np.int32))
+    want = fk.face_stats_plain(seg_s, order, t[2], t[3], t[4], t[1], V)
+    for g, x in zip(got, want):
+        assert g.dtype == x.numpy().dtype
+        np.testing.assert_array_equal(_bits(g) if g.dtype == np.float32
+                                      else g, _bits(x.numpy())
+                                      if g.dtype == np.float32 else x.numpy())
+
+
+def test_negative_labels_are_dropped_as_jax_drops_them():
+    """Rows of a negative label add to no slot, in the plain version as in
+    the JAX package's one-hot contraction; the labels after them keep the
+    sums of their own rows."""
+    V = 6
+    labels = np.array([[-4, 0, 1, -7, 2, 0]], np.int64)
+    valid = np.ones((1, V), bool)
+    values = np.arange(1, V + 1, dtype=np.float32)[None]
+    j = jax.jit(jax.vmap(functools.partial(jfaces._label_segment_sum, V=V)))(
+        jnp.asarray(values), jnp.asarray(labels), jnp.asarray(valid))
+    t = fk.label_segment_sum(torch.from_numpy(values),
+                             torch.from_numpy(labels),
+                             torch.from_numpy(valid), V)
+    np.testing.assert_array_equal(t.numpy(), np.asarray(j))
+    np.testing.assert_array_equal(t.numpy(), [[8, 3, 5, 0, 0, 0]])
+    labels[0, 3] = -2**40  # past int32, which the JAX package's labels are
+    t = fk.label_segment_sum(torch.from_numpy(values),
+                             torch.from_numpy(labels),
+                             torch.from_numpy(valid), V)
+    np.testing.assert_array_equal(t.numpy(), [[8, 3, 5, 0, 0, 0]])

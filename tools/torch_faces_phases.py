@@ -1,16 +1,27 @@
 #!/usr/bin/env python3
 """Where F2's time goes on a CUDA card. The segment-sum kernel of
 ``fccf_pcr_torch/csrc/faces.cu`` is built whole and cut short after each
-of its phases (the labels, the sort's inverse and the zero fill; the
-sources; m and a; the scan's steps), each timed in both forms (face
-statistics and values) by CUDA events over a CUDA graph of 10 calls on
-inputs of the heritage step's shape (16 clouds of 9216 voxels, random
-component labels, 80% valid); then a diagnostic build stamps
-``clock64()`` at each barrier of block (0, 0) and the cycles between the
-stamps are printed (the first interval is the labels and the zero fill,
-then the sources, the chunks' carries, m and a, and one a step).
+of its phases (the keys and their buckets' counts, scanned; the block's
+rows compacted; their stable order; the zero fill of the slots no label
+runs to; the long labels' table; the windows' and the chunks' trees,
+with the sources gathered; the whole, with the long labels' chunk
+totals), each timed in both forms (face statistics and
+values) by CUDA events over a CUDA graph of 10 calls on inputs of the
+heritage step's shape (16 clouds of 9216 voxels, random component
+labels, 80% valid; with ``--step heritage`` or ``office`` the first face
+statistics call and the roughness call of that batch-8 eager step
+instead); then a diagnostic build stamps ``clock64()``
+in block (0, 0) at each barrier, after each radix pass and, after a
+barrier of its own, at the start of each numbered phase, and the cycles
+between the stamps are printed with the phase each ends in.
 
     python3 tools/torch_faces_phases.py [--clouds 16] [--voxels 9216]
+        [--splits S] [--step heritage] [--f1]
+
+With ``--f1`` it times F1 instead, whole and with its float64 steps
+(eigen3's _fma and _sqrt) done in float32 (other bits: for timing only),
+on random covariances of the same shape: what the float64 chain and its
+conversions cost.
 
 The variant sources and libraries are built with the package's nvcc
 flags into a temporary directory. Prints one line per form and cut, the
@@ -20,6 +31,7 @@ without a card, or where a phase mark is missing from the source.
 
 import argparse
 import ctypes
+import re
 import json
 import pathlib
 import subprocess
@@ -37,19 +49,38 @@ from fccf_pcr_torch.ops import cuda_build  # noqa: E402
 from fccf_pcr_torch.ops import faces_kernels as fk  # noqa: E402
 
 # The text each cut returns before, in the kernel's order.
-CUTS = {"labels and zero fill":
-        "#pragma unroll 4\n  for (int r = t; r < n; r += T) {",
-        "sources": "  // m and a: a thread's chunk",
-        "m and a": "  // The scan's steps on the rows",
-        "steps": "    // Each label's last row: its sum"}
+CUTS = {"counts": "  // 3. This block's buckets",
+        "rows": "  // 5. Their stable order",
+        "order": "  if constexpr (FORM == kOrder) {",
+        "zero fill": "  // 7. Window j is sorted rows",
+        "long labels' table": "  // 8. Work items",
+        "windows and chunks": "  // 9. A long label of more than"}
 STAMP = ("if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0) "
          "g_clk[g_n++] = clock64();")
+PASS = "radix_pass(key, in, spare, hist, s_red, m_rows, shift);"
+PHASE = re.compile(r"\n  // (\d)\. ")
+F1_SECTION = ("// ------------------------------------------------------------"
+              "------ F1 --", "// ----------------------------------------"
+              "-------------------------- F2 --")
+
+
+def f1_float32(src):
+    """The source with F1's float64 steps done in float32 (timing only)."""
+    a, b = (src.index(m) for m in F1_SECTION)
+    sec = src[a:b].replace(
+        "__double2float_rn(__dadd_rn(__dmul_rn(a, b), c))",
+        "__fadd_rn(__fmul_rn(a, b), c)").replace(
+        "__double2float_rn(__dsqrt_rn((double)x))", "__fsqrt_rn(x)")
+    if "__double2float_rn" in sec:
+        raise SystemExit("F1's float64 steps are not where the tool expects")
+    return src[:a] + sec.replace("double", "float") + src[b:]
 
 
 def kernel_body(src):
-    """(start, end) of the segment-sum kernel's text in ``src``."""
-    a = src.index("faces_segment_sum_kernel(const long long*")
-    return a, src.index("template <int FORM>\nint segment_sum(", a)
+    """(start, end) of the segment-sum kernel's text in ``src``: from its
+    parameters to its closing brace."""
+    a = src.index("faces_segment_sum_kernel(Sources src")
+    return a, src.rindex("}", a, src.index("// Blocks a cloud of n rows", a))
 
 
 def variant(src, cut):
@@ -59,9 +90,12 @@ def variant(src, cut):
     body = src[a:b]
     if cut == "clock":
         body = body.replace("__syncthreads();", "__syncthreads(); " + STAMP)
-        body = body.replace("  extern __shared__ float smem[];",
-                            "  extern __shared__ float smem[];\n  " + STAMP,
-                            1)
+        body = body.replace(PASS, PASS + " " + STAMP)
+        body = PHASE.sub(lambda m: "\n  __syncthreads(); " + STAMP
+                         + f" // phase {m.group(1)}\n  // {m.group(1)}. ", body)
+        body = body.replace("  const long long row0 = b * n;",
+                            "  const long long row0 = b * n;\n  " + STAMP, 1)
+        body += "  __syncthreads(); " + STAMP + "\n"
         text = src[:a] + body + src[b:]
         text = text.replace("namespace {", "__device__ long long g_clk[256];"
                             "\n__device__ int g_n;\nnamespace {", 1)
@@ -96,50 +130,127 @@ def inputs(B, V, dev, seed=0):
     count = rng.integers(1, 40, (B, V)).astype(np.int32)
     centroid = rng.normal(size=(B, V, 3)).astype(np.float32)
     normal = rng.normal(size=(B, V, 3)).astype(np.float32)
-    t = [torch.from_numpy(a).to(dev) for a in (labels, valid, count, centroid,
-                                               normal)]
-    seg_s, order = fk.sorted_labels(t[0], t[1], V)
-    return seg_s, order, t[2], t[3], t[4], t[1]
+    return [torch.from_numpy(a).to(dev) for a in (labels, valid, count,
+                                                  centroid, normal)]
 
 
-def calls(lib, B, V, dev, a):
-    """The face-statistics and values calls of ``lib`` on inputs ``a``."""
-    seg_s, order, count, centroid, normal, valid = a
+def step_inputs(name, dev):
+    """(B, V, inputs, values) of the batch-8 eager step ``name``: its first
+    face statistics call's labels, valid flags and sources, and the
+    roughness call's values (on its own labels: the same V)."""
+    from fccf_pcr_torch.evaluation import configs
+    from fccf_pcr_torch.models.fccf import get_model
+
+    model = get_model(configs.CONFIGS[name]["model"])
+    args, _ = cs.config_batch(name, list(range(8)), model.params, model.caps,
+                              dev)
+    calls = cs.record_faces(cs.eager_step(model.params, model.caps), args)
+    stats = next(a for form, a in calls if form == "face_stats")
+    vals = next(a for form, a in calls if form == "values")
+    labels = stats[0]
+    B, V = labels.numel() // labels.shape[-1], labels.shape[-1]
+    flat = [x.reshape(B, *x.shape[-1 - (x.dim() > labels.dim()):])
+            for x in stats[:5]]
+    return B, V, flat, (vals[0].reshape(B, V), vals[1].reshape(B, V),
+                        vals[2].reshape(B, V))
+
+
+def calls(lib, B, V, dev, a, splits, vals=None):
+    """The face-statistics and values calls of ``lib`` on inputs ``a``
+    (and ``vals``: values, labels and valid flags of the values call)."""
+    labels, valid, count, centroid, normal = a
     outs = [torch.empty((B, V, 3), device=dev),
             torch.empty((B, V, 3), device=dev), torch.empty((B, V), device=dev),
             torch.empty((B, V), dtype=torch.int32, device=dev)]
     values = centroid[..., 0].contiguous()
+    vlabels, vvalid = labels, valid
+    if vals is not None:
+        values, vlabels, vvalid = (x.contiguous() for x in vals)
     sums = torch.empty((B, V), device=dev)
-    floats = max(int(lib.fccf_faces_segment_scratch(B, V, 8, 1)),
-                 int(lib.fccf_faces_segment_scratch(B, V, 1, 0)))
-    scratch = torch.empty((max(floats, 1),), device=dev)
+    nbytes = max(int(lib.fccf_faces_segment_scratch(B, V, V, splits, 1)),
+                 int(lib.fccf_faces_segment_scratch(B, V, V, splits, 0)))
+    scratch = torch.empty((max(nbytes, 1),), dtype=torch.uint8, device=dev)
 
     def stream():
         return torch.cuda.current_stream(dev).cuda_stream
 
     def face_stats():
         rc = lib.fccf_faces_face_stats(
-            seg_s.data_ptr(), order.data_ptr(), count.data_ptr(),
-            valid.data_ptr(), centroid.data_ptr(), normal.data_ptr(),
+            labels.data_ptr(), valid.data_ptr(), count.data_ptr(),
+            centroid.data_ptr(), normal.data_ptr(),
             *(o.data_ptr() for o in outs), scratch.data_ptr(), B, V, V,
-            stream())
+            splits, stream())
         if rc:
             raise RuntimeError(f"face statistics launch: CUDA error {rc}")
 
     def values_sum():
         rc = lib.fccf_faces_segment_sum(
-            seg_s.data_ptr(), order.data_ptr(), values.data_ptr(),
-            sums.data_ptr(), scratch.data_ptr(), B, V, V, stream())
+            vlabels.data_ptr(), vvalid.data_ptr(), values.data_ptr(),
+            sums.data_ptr(), scratch.data_ptr(), B, V, V, splits, stream())
         if rc:
             raise RuntimeError(f"values launch: CUDA error {rc}")
 
     return {"face_stats": face_stats, "values": values_sum}
 
 
+def f1_main(B, V, dev, smi, src):
+    """F1 whole and in float32, in turns, a call by CUDA events over a
+    graph of 10 calls."""
+    rng = np.random.default_rng(1)
+    R = np.linalg.qr(rng.normal(size=(B * V, 3, 3)))[0]
+    ev = rng.uniform(0.0, 1.0, (B * V, 3))
+    cov = np.einsum("nij,nj,nkj->nik", R, ev, R).astype(np.float32)
+    a = [torch.from_numpy(x).to(dev) for x in (
+        cov.reshape(B, V, 3, 3),
+        rng.uniform(-5, 5, (B, V, 3)).astype(np.float32),
+        rng.integers(0, 12, (B, V)).astype(np.int32),
+        rng.uniform(size=(B, V)) < 0.8,
+        rng.uniform(-1, 1, (B, 3)).astype(np.float32))]
+    out = {"shape": [B, V], "device": smi, "f1_us": []}
+    with tempfile.TemporaryDirectory() as d:
+        tmp = pathlib.Path(d)
+        procs = {"whole": build(src, "fit_whole", tmp),
+                 "float32": build(f1_float32(src), "fit_f32", tmp)}
+        arms = {}
+        for name, (proc, so) in procs.items():
+            if proc.wait() != 0:
+                raise SystemExit(f"nvcc failed for {name}:\n"
+                                 f"{proc.stdout.read()[-3000:]}")
+            lib = ctypes.CDLL(str(so))
+            fk._bind(lib)
+
+            def call(lib=lib):
+                outs = (torch.empty((B, V, 3), device=dev),
+                        torch.empty((B, V), device=dev),
+                        torch.empty((B, V), dtype=torch.bool, device=dev),
+                        torch.empty((B, V), dtype=torch.bool, device=dev))
+                rc = lib.fccf_faces_plane_fit(
+                    *(x.data_ptr() for x in a), *(o.data_ptr() for o in outs),
+                    B, V, 5, 0.04, 0,
+                    torch.cuda.current_stream(dev).cuda_stream)
+                if rc:
+                    raise RuntimeError(f"F1 launch: CUDA error {rc}")
+            arms[name] = call
+        for name in ("whole", "float32", "float32", "whole"):
+            us = cs.graph_ms(arms[name]) * 1e3
+            out["f1_us"].append((name, us))
+            print(f"[phases] F1 ({B}, {V}) {name}: {us:.2f} us | {smi}",
+                  flush=True)
+    print(smi)
+    print(json.dumps(out))
+    return 0
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--clouds", type=int, default=16)
     ap.add_argument("--voxels", type=int, default=9216)
+    ap.add_argument("--splits", type=int, default=0,
+                    help="F2's blocks a cloud (0: the kernel's default)")
+    ap.add_argument("--step", choices=("heritage", "office"),
+                    help="the F2 inputs of that batch-8 eager step")
+    ap.add_argument("--f1", action="store_true",
+                    help="time F1 whole and in float32 instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("FAIL: no CUDA card", file=sys.stderr)
@@ -149,7 +260,10 @@ def main():
     dev = torch.device("cuda:0")
     B, V = args.clouds, args.voxels
     src = (ROOT / "fccf_pcr_torch" / "csrc" / "faces.cu").read_text()
-    out = {"shape": [B, V], "device": smi, "ms": {}, "cycles": {}}
+    if args.f1:
+        return f1_main(B, V, dev, smi, src)
+    out = {"shape": [B, V], "splits": args.splits, "device": smi, "ms": {},
+           "cycles": {}}
     with tempfile.TemporaryDirectory() as d:
         tmp = pathlib.Path(d)
         names = [*CUTS, "whole", "clock"]
@@ -162,16 +276,23 @@ def main():
                                  f"{proc.stdout.read()[-3000:]}")
             libs[name] = ctypes.CDLL(str(so))
             fk._bind(libs[name])
-        a = inputs(B, V, dev)
+        vals = None
+        if args.step:
+            B, V, a, vals = step_inputs(args.step, dev)
+            out["shape"] = [B, V]
+        else:
+            a = inputs(B, V, dev)
         for name in [*CUTS, "whole"]:
-            for form, fn in calls(libs[name], B, V, dev, a).items():
+            for form, fn in calls(libs[name], B, V, dev, a, args.splits,
+                                  vals).items():
                 ms = cs.graph_ms(fn)
                 out["ms"].setdefault(form, {})[name] = ms
                 print(f"[phases] {form} ({B}, {V}) cut after {name}: "
                       f"{ms * 1e3:.2f} us | {smi}", flush=True)
         lib = libs["clock"]
         lib.fccf_clock_read.argtypes = [ctypes.c_void_p]
-        for form, fn in calls(lib, B, V, dev, a).items():
+        for form, fn in calls(lib, B, V, dev, a, args.splits,
+                              vals).items():
             for _ in range(3):
                 lib.fccf_clock_reset()
                 fn()
@@ -182,7 +303,7 @@ def main():
             cycles = [b - a for a, b in zip(stamps, stamps[1:])]
             out["cycles"][form] = cycles
             print(f"[phases] {form} ({B}, {V}) block (0, 0): "
-                  f"{stamps[-1] - stamps[0]} cycles; between barriers "
+                  f"{stamps[-1] - stamps[0]} cycles; between stamps "
                   f"{cycles} | {smi}", flush=True)
     print(smi)
     print(json.dumps(out))

@@ -1,25 +1,35 @@
 #!/usr/bin/env python3
-"""A/B of the LM kernel L1, the floor walk C2 and the scans S1 and S2 of
-two checkouts on one CUDA card, in turns (old, new, new, old), at the
-inputs the batched main path gives them at batch 8 (heritage and office
-presets).
+"""A/B of the LM kernel L1, the floor walk C2, the scans S1 and S2 and
+the faces kernels F1 and F2 of two checkouts on one CUDA card, in turns
+(old, new, new, old), at the inputs the batched main path gives them at
+batch 8 (heritage and office presets).
 
     python3 tools/torch_kernel_ab.py --parent DIR [--reps N] [--turns K]
+        [--only lm,cluster,scan,faces] [--f2-splits 2,4,16]
+        [--f1-threads 32,128,256]
 
 ``DIR`` holds the other checkout (unpack it with ``git archive`` into
 the gitignored ``smoke_checkout/``); its ``fccf_pcr_torch/csrc/lm.cu``,
-``csrc/cluster.cu`` and ``csrc/scan.cu`` must export the same C entry
-points as this tree's (``fccf_lm_refine``, ``fccf_cluster_floor_walk``,
-``fccf_scan_int``, ``fccf_prefix_sum16``), each bound by the signature
-its source has. They are built with this tree's nvcc flags into
+``csrc/cluster.cu``, ``csrc/scan.cu`` and ``csrc/faces.cu`` must export
+the same C entry points as this tree's (``fccf_lm_refine``,
+``fccf_cluster_floor_walk``, ``fccf_scan_int``, ``fccf_prefix_sum16``,
+``fccf_faces_plane_fit``, ``fccf_faces_face_stats``,
+``fccf_faces_segment_sum``), each bound by the signature its source has
+(a ``faces.cu`` without ``fccf_faces_label_order`` takes the sorted
+labels and the order: its arm runs ``torch.sort`` by label first, as
+that tree's step does). They are built with this tree's nvcc flags into
 ``fccf_pcr_torch/build/``. The inputs are recorded from this tree's
 eager batch-8 step (``chip_smoke.py``'s ``lm_inputs`` /
 ``cluster_inputs`` / ``record_scans``). This tree's L1 must equal
 ``lm_loop`` run to its cap, its C2 the plain walk and its S1 / S2 their
 plain versions, bit for bit; the other tree's outputs are compared and
 reported. L1 is timed by CUDA events over ``--reps`` launches back to
-back (both instantiations), C2 by its device time (CUPTI), S1 and S2 a
-call by CUDA events over a graph of 10 calls (``chip_smoke.graph_ms``;
+back (both instantiations), C2 by its device time (CUPTI), S1, S2, F1
+and F2 a call by CUDA events over a graph of 10 calls
+(``chip_smoke.graph_ms``; F1 and F2 on the calls ``chip_smoke.
+record_faces`` records, each held to its plain version; ``--f2-splits``
+and ``--f1-threads`` add this tree's kernels at other blocks a cloud /
+threads a block as further arms of the same turns;
 a fused S2 call of this tree against the other tree's S2 on the columns
 concatenated first, the concatenation timed with it, as that tree's step
 runs it), each in ``--turns`` rounds of old, new, new, old (2K pairs); a
@@ -76,12 +86,194 @@ def bind_scan(lib, source):
     fn.restype = ctypes.c_longlong
 
 
+def bind_faces(lib, source):
+    """Bind F1's and F2's C entries by the signatures their source has: a
+    source with ``fccf_faces_label_order`` takes the labels (this tree's),
+    one without takes the sorted labels and the order, and an F1 without
+    a ``threads`` argument (PR 15's)."""
+    text = source.read_text()
+    lib.from_labels = "fccf_faces_label_order" in text
+    lib.fit_threads = "int threads, void* stream" in text
+    if lib.from_labels:
+        from fccf_pcr_torch.ops import faces_kernels as fk
+        fk._bind(lib)
+        return
+    fn = lib.fccf_faces_plane_fit
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_longlong] * 2 + [
+        ctypes.c_int, ctypes.c_float] + ([ctypes.c_int] if lib.fit_threads
+                                         else []) + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    fn = lib.fccf_faces_segment_scratch
+    fn.argtypes = [ctypes.c_longlong] * 2 + [ctypes.c_int] * 2
+    fn.restype = ctypes.c_longlong
+    fn = lib.fccf_faces_segment_sum
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 3 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    fn = lib.fccf_faces_face_stats
+    fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_longlong] * 3 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+
+def old_faces(lib, form, a, dev):
+    """The other tree's F1 or F2 call on one recorded input (this tree's
+    launch arguments): F2 of a tree that takes the sorted labels runs
+    torch.sort by label first, as that tree's step does."""
+    import math
+
+    import torch
+
+    from fccf_pcr_torch.ops import faces_kernels as fk
+
+    stream = lambda: torch.cuda.current_stream(dev).cuda_stream  # noqa: E731
+    if lib.from_labels:
+        # The other tree's library behind this tree's wrappers.
+        launch = {"plane_fit": fk._launch_plane_fit,
+                  "face_stats": fk._launch_face_stats,
+                  "values": fk._launch_segment_sum}[form]
+
+        def call():
+            kept = fk._LIBRARY._lib
+            fk._LIBRARY._lib = lib
+            try:
+                return launch(*a)
+            finally:
+                fk._LIBRARY._lib = kept
+        return call
+    if form == "plane_fit":
+        cov, centroid, count, valid, gc, pt, ct = a
+        lead, V = tuple(valid.shape[:-1]), valid.shape[-1]
+
+        def fit():
+            out = [torch.empty(lead + (V, 3), device=dev),
+                   torch.empty(lead + (V,), device=dev),
+                   torch.empty(lead + (V,), dtype=torch.bool, device=dev),
+                   torch.empty(lead + (V,), dtype=torch.bool, device=dev)]
+            rc = lib.fccf_faces_plane_fit(
+                cov.data_ptr(), centroid.data_ptr(), count.data_ptr(),
+                valid.data_ptr(), gc.data_ptr(), *(o.data_ptr() for o in out),
+                math.prod(lead), V, int(pt), float(ct),
+                *([0] if lib.fit_threads else []), stream())
+            if rc:
+                raise RuntimeError(f"the parent's F1 launch failed: {rc}")
+            return tuple(out)
+        return fit
+    if form == "face_stats":
+        labels, valid, count, centroid, normal, V = a
+        D, kind = 8, 1
+    else:
+        values, labels, valid, V = a
+        D, kind = 1, 0
+    lead, n = tuple(labels.shape[:-1]), labels.shape[-1]
+    B = math.prod(lead)
+    floats = int(lib.fccf_faces_segment_scratch(B, n, D, kind))
+    scratch = torch.empty((max(floats, 1),), device=dev)
+
+    def f2():
+        seg_s, order = fk.sorted_labels(labels, valid, V)
+        if form == "values":
+            out = torch.empty(lead + (V,), device=dev)
+            rc = lib.fccf_faces_segment_sum(
+                seg_s.data_ptr(), order.data_ptr(), values.data_ptr(),
+                out.data_ptr(), scratch.data_ptr(), B, n, V, stream())
+            outs = out
+        else:
+            outs = (torch.empty(lead + (V, 3), device=dev),
+                    torch.empty(lead + (V, 3), device=dev),
+                    torch.empty(lead + (V,), device=dev),
+                    torch.empty(lead + (V,), dtype=torch.int32, device=dev))
+            rc = lib.fccf_faces_face_stats(
+                seg_s.data_ptr(), order.data_ptr(), count.data_ptr(),
+                valid.data_ptr(), centroid.data_ptr(), normal.data_ptr(),
+                *(o.data_ptr() for o in outs), scratch.data_ptr(), B, n, V,
+                stream())
+        if rc:
+            raise RuntimeError(f"the parent's F2 launch failed: {rc}")
+        return outs
+    return f2
+
+
+def faces_ab(a, old, dev, order, medians, smi, res):
+    """F1 and F2 of both trees in turns on the eager batch-8 steps' own
+    calls, with this tree's variants (--f1-threads, --f2-splits) as
+    further arms."""
+    import torch
+
+    import chip_smoke as cs
+    from fccf_pcr_torch.evaluation import configs
+    from fccf_pcr_torch.models.fccf import get_model
+    from fccf_pcr_torch.ops import faces_kernels as fk
+
+    threads = [int(x) for x in a.f1_threads.split(",") if x]
+    splits = [int(x) for x in a.f2_splits.split(",") if x]
+    for name in ("heritage", "office"):
+        model = get_model(configs.CONFIGS[name]["model"])
+        args, _ = cs.config_batch(name, list(range(8)), model.params,
+                                  model.caps, dev)
+        calls = cs.record_faces(cs.eager_step(model.params, model.caps),
+                                args)
+        r = res.setdefault(name, {})
+        r["faces"] = []
+        for form, x in calls:
+            kernel, plain, _ = cs.faces_forms(form, x)
+            got = kernel()
+            cs.check(cs.faces_equal(got, plain()),
+                     f"{name}: {form} differs from plain")
+            arms = {"old": old_faces(old, form, x, dev), "new": kernel}
+            knob, values = (("threads", threads) if form == "plane_fit"
+                            else ("splits", splits))
+            for v in values:
+                if form == "plane_fit":
+                    variant = (lambda v=v: fk._launch_plane_fit(
+                        *x, threads=v))
+                elif form == "face_stats":
+                    variant = (lambda v=v: fk._launch_face_stats(
+                        *x, splits=v))
+                else:
+                    variant = (lambda v=v: fk._launch_segment_sum(
+                        *x, splits=v))
+                cs.check(cs.faces_equal(variant(), got),
+                         f"{name}: {form} at {knob} {v} differs")
+                arms[f"{knob} {v}"] = variant
+            names = list(arms)
+            turns = (names + names[::-1]) * a.turns
+            shape = list((x[3] if form == "plane_fit" else
+                          x[0] if form == "face_stats" else x[1]).shape)
+            c = dict(what=form, shape=shape,
+                     parent_equal=cs.faces_equal(arms["old"](), got),
+                     us=[(arm, cs.graph_ms(arms[arm]) * 1e3)
+                         for arm in turns])
+            r["faces"].append(c)
+            meds = ", ".join(
+                f"median {arm} "
+                f"{statistics.median([us for y, us in c['us'] if y == arm]):.2f} us"
+                for arm in names)
+            print(f"[ab] {'F1' if form == 'plane_fit' else 'F2'} {name} "
+                  f"{form} {shape} (parent's output equal: "
+                  f"{c['parent_equal']}), a call: "
+                  + ", ".join(f"{arm} {us:.2f} us" for arm, us in c["us"])
+                  + f"; {meds} | {smi}", flush=True)
+        f2 = [c for c in r["faces"] if c["what"] != "plane_fit"]
+        step = [(arm, sum(c["us"][i][1] for c in f2))
+                for i, (arm, _) in enumerate(f2[0]["us"])]
+        r["F2_step_us"] = step
+        print(f"[ab] F2 {name} batch-8 step, {len(f2)} calls summed: "
+              + ", ".join(f"{arm} {us:.2f} us" for arm, us in step)
+              + f" | {smi}", flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", required=True, type=pathlib.Path)
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--turns", type=int, default=1)
+    ap.add_argument("--only", default="lm,cluster,scan,faces",
+                    help="comma-separated: lm, cluster, scan, faces")
+    ap.add_argument("--f2-splits", default="")
+    ap.add_argument("--f1-threads", default="")
     a = ap.parse_args()
+    only = set(a.only.split(","))
     import torch
 
     if not torch.cuda.is_available():
@@ -92,6 +284,7 @@ def main():
     from fccf_pcr_torch.models.fccf import get_model
     from fccf_pcr_torch.ops import cluster_kernels as ck
     from fccf_pcr_torch.ops import cuda_build
+    from fccf_pcr_torch.ops import faces_kernels as fk
     from fccf_pcr_torch.ops import gather as gt
     from fccf_pcr_torch.ops import label_prop as lp
     from fccf_pcr_torch.ops import scan
@@ -107,14 +300,16 @@ def main():
     builds = {}
     for src, bind in (("lm.cu", bind_lm),
                       ("cluster.cu", lambda lib, _: ck._bind(lib)),
-                      ("scan.cu", bind_scan)):
+                      ("scan.cu", bind_scan), ("faces.cu", bind_faces)):
+        if src[:-3] not in only:
+            continue
         out = cuda_build.BUILD_DIR / f"ab_parent_{src[:-3]}.so"
         path = a.parent / "fccf_pcr_torch" / "csrc" / src
         builds[src] = (subprocess.Popen(
             [cuda_build.nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(out),
              str(path)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True), out, lambda lib, b=bind, p=path: b(lib, p))
-    cs.phase_build([lp, gt, ck, lmk, scan])
+    cs.phase_build([lp, gt, ck, lmk, scan, fk])
     old = {}
     for src, (proc, out, bind) in builds.items():
         log = proc.communicate()[0]
@@ -207,7 +402,9 @@ def main():
             for arm in ("old", "new"))
 
     res = {"card": smi, "parent": str(a.parent)}
-    for name in ("heritage", "office"):
+    if "faces" in only:
+        faces_ab(a, old["faces.cu"], dev, order, medians, smi, res)
+    for name in ("heritage", "office") if {"lm", "cluster"} <= only else ():
         kw = cs.lm_inputs(name, list(range(8)), dev)
         planes = tuple(kw[k].contiguous() for k in ("n1", "p1", "n2", "p2",
                                                    "w"))
@@ -217,11 +414,12 @@ def main():
         cs.check(torch.equal(lmk.refine_lm(*planes, iters),
                              gn.lm_loop(*planes, iters, early_exit=False)),
                  f"{name}: L1 differs from lm_loop")
-        r = res[name] = {
+        r = res.setdefault(name, {})
+        r.update({
             "lanes": int(planes[0].shape[0]), "planes": int(planes[0].shape[1]),
             "steps": int(new[2].sum()), "most_steps": int(new[2].max()),
             "l1_parent_equal": all(torch.equal(x, y) for x, y in zip(
-                old_l1(planes, iters, True), new))}
+                old_l1(planes, iters, True), new))})
         for regs in (True, False):
             arms = {"old": lambda: old_l1(planes, iters, regs),
                     "new": lambda: lmk.lm_solve(*planes, iters,
@@ -251,12 +449,12 @@ def main():
               + f"; {medians(r['c2_us'])} | {smi}", flush=True)
     names = {0: "cumsum", 1: "cummax", 2: "rev_cummin", None: "prefix_sum",
              "leaf": "leaf_prefix_sums", "moments": "moment_prefix_sums"}
-    for name in ("heritage", "office"):
+    for name in ("heritage", "office") if "scan" in only else ():
         model = get_model(configs.CONFIGS[name]["model"])
         args, _ = cs.config_batch(name, list(range(8)), model.params,
                                   model.caps, dev)
         calls = cs.record_scans(cs.eager_step(model.params, model.caps), args)
-        r = res[name]
+        r = res.setdefault(name, {})
         r["scans"] = []
         for kernel, x, op in calls:
             arms = {"old": old_scan(kernel, x, op),

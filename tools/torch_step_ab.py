@@ -8,8 +8,10 @@ change, change, parent), so that both meet the same card and host.
 
 ``--change`` defaults to this checkout. Each subprocess builds the kernels
 from its own sources, runs one warm-up step per preset, then times
-``--reps`` steps (host clock around work that ends in a synchronize) and
-prints one JSON line; this script prints one line per run with the card's
+``--reps`` steps (host clock around work that ends in a synchronize) and,
+with ``--eager``, the device time of one eager step (the sum of its
+kernels' durations, CUPTI, the mean of three: ``chip_smoke.device_ms``
+on ``chip_smoke.eager_step``), and prints one JSON line; this script prints one line per run with the card's
 name and power limit, and the whole as JSON last. Exits non-zero without
 a card or when a run fails.
 """
@@ -49,6 +51,9 @@ for name in ("office", "heritage"):
     torch.cuda.synchronize()
     dt = (time.perf_counter() - t0) / {reps}
     out[name] = dict(step_ms=dt * 1e3, pairs_per_s=8 / dt)
+    if {eager}:
+        eager = cs.eager_step(model.params, model.caps)
+        out[name]["eager_device_ms"] = cs.device_ms(lambda: eager(*args), 3)
 print(json.dumps(out))
 """
 
@@ -58,6 +63,8 @@ def main():
     ap.add_argument("--parent", required=True, type=pathlib.Path)
     ap.add_argument("--change", default=ROOT, type=pathlib.Path)
     ap.add_argument("--reps", type=int, default=2)
+    ap.add_argument("--eager", action="store_true",
+                    help="also the eager step's device time")
     args = ap.parse_args()
 
     import torch
@@ -72,7 +79,8 @@ def main():
     for which in ("parent", "change", "change", "parent"):
         tree = getattr(args, which).resolve()
         proc = subprocess.run(
-            [sys.executable, "-c", _RUN.format(tree=str(tree), reps=args.reps)],
+            [sys.executable, "-c", _RUN.format(tree=str(tree), reps=args.reps,
+                                               eager=args.eager)],
             cwd=tree, capture_output=True, text=True, timeout=900)
         if proc.returncode != 0:
             print(f"FAIL: the {which} run exited {proc.returncode}:\n"
@@ -81,7 +89,9 @@ def main():
         res = json.loads(proc.stdout.strip().splitlines()[-1])
         runs.append(dict(tree=which, **res))
         print(f"[step-ab] {which}: " + ", ".join(
-            f"{k} {v['step_ms']:.1f} ms/step ({v['pairs_per_s']:.2f} pairs/s)"
+            f"{k} {v['step_ms']:.1f} ms/step ({v['pairs_per_s']:.2f} pairs/s"
+            + (f", eager step {v['eager_device_ms']:.3f} ms of device time"
+               if "eager_device_ms" in v else "") + ")"
             for k, v in res.items()) + f" | {smi}", flush=True)
     print(json.dumps({"device": smi, "runs": runs}))
     return 0
