@@ -225,8 +225,10 @@ result:
      above, negative labels, labels in sorted runs from the first row (a
      -0.0 sum kept where no +0.0 reaches it), -0.0 and NaN sources, V =
      16384, V = 40000 with one face of every voxel, which does not fit in
-     shared memory); F2's own stable order (faces_kernels.label_order)
-     against torch.sort(stable=True) on every F2 input; every form called
+     shared memory, labels below -2^31); F2's own stable order
+     (faces_kernels.label_order: the sum forms' blocks, each sorting its
+     range of slots) against torch.sort(stable=True) on every F2 input,
+     refused where a valid label is below -2^31; every form called
      twice in one captured CUDA graph, replayed twice, equal to the eager
      calls; at the steps' inputs each call's device time (a graph of 10
      calls) beside the plain version's, the library call's
@@ -3279,9 +3281,10 @@ def faces_edge_cases(dev):
     and huge scales, each kind alone (V = 1) and mixed (4 x 2000); F2's
     two forms at V = 1, one-voxel faces, one face of every voxel (V =
     40000: the rows do not fit in shared memory), labels past V, every
-    valid row labelled V or above, negative labels, labels in sorted runs
-    from the first row (a label that starts where no power of two lies
-    between its length and its end keeps a -0.0 sum), V = 16384 and 40000,
+    valid row labelled V or above, negative labels (some below -2^31),
+    labels in sorted runs from the first row (a label that starts where no
+    power of two lies between its length and its end keeps a -0.0 sum), V
+    = 16384 and 40000,
     -0.0, NaN and -NaN sources, counts of 0 (a negative coordinate times w
     = 0 is -0.0) and invalid rows."""
     import numpy as np
@@ -3345,8 +3348,10 @@ def faces_edge_cases(dev):
         elif kind == "one":
             labels = np.zeros((B, V), np.int64)
             valid[:] = True
-        elif kind == "negative":
+        elif kind in ("negative", "below"):
             labels = rng.integers(-V, V, (B, V))
+            if kind == "below":
+                labels[:, ::13] -= 2**33
         elif kind == "past":
             labels = rng.integers(V, 3 * V, (B, V))
         elif kind == "runs":
@@ -3374,7 +3379,8 @@ def faces_edge_cases(dev):
 
     for B, V, kind in ((1, 1, "random"), (1, 1, "one"), (3, 300, "singletons"),
                        (2, 300, "wide"), (2, 1537, "random"),
-                       (2, 700, "negative"), (2, 300, "past"),
+                       (2, 700, "negative"), (2, 700, "below"),
+                       (2, 300, "past"),
                        (2, 2100, "runs"), (4, 12000, "random"),
                        (2, 16384, "random"), (1, 40000, "one"),
                        (1, 40000, "singletons"), (1, 40000, "runs")):
@@ -3385,7 +3391,9 @@ def faces_edge_cases(dev):
 def faces_order_equal(form, a, what):
     """F2's own stable order of one F2 input's labels
     (faces_kernels.label_order) against torch.sort(seg, stable=True): the
-    same seg_s and order. Returns 1 for an F2 input, 0 for F1's."""
+    same seg_s and order; refused (ValueError) where a valid label is
+    below -2^31, which F2's 32-bit keys do not order. Returns 1 for an F2
+    input held to torch.sort, 0 otherwise."""
     import torch
 
     from fccf_pcr_torch.ops import faces_kernels as fk
@@ -3393,6 +3401,12 @@ def faces_order_equal(form, a, what):
     if form == "plane_fit":
         return 0
     labels, valid = (a[0], a[1]) if form == "face_stats" else (a[1], a[2])
+    if bool((valid & (labels < -2**31)).any()):
+        try:
+            fk.label_order(labels, valid, a[-1])
+        except ValueError:
+            return 0
+        check(False, f"{what}: label_order took a label below -2^31")
     got = fk.label_order(labels, valid, a[-1])
     want = fk.sorted_labels(labels, valid, a[-1])
     check(torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]),

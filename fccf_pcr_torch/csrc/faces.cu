@@ -24,14 +24,14 @@
 //     tools/torch_sum_order.py probes it).
 // Bound: the bytes (53 read and 18 written a voxel); its ~420 operations
 // a voxel (float64 ones counted twice) take less at the card's rate. Its
-// time goes to instructions: the float64 chain (its ~100 float32 <->
-// float64 conversions issue at an eighth of float32's rate) and the
-// float32 rest (19 IEEE divisions, cosf, atan2f). Each float operand is
-// converted to float64 once and reused (the chosen normal's squared
-// length is the sum of squares already formed), the cloud's index is a
-// 32-bit division, and the blocks are 64 threads, the fastest of 64-256
-// in turns; staging the loads through shared memory was slower (PERF.md
-// section 6).
+// time goes to instructions, most of it to the float64 chain (its ~100
+// float32 <-> float64 conversions issue at an eighth of float32's rate),
+// less to the float32 divisions, cosf and atan2f (timing builds without
+// either, PERF.md section 6). Each float operand is converted to float64
+// once and reused (the chosen normal's squared length is the sum of
+// squares already formed), the cloud's index is a 32-bit division, and
+// the blocks are 64 threads, with 128 the fastest of 32-256 in turns;
+// staging the loads through shared memory was slower.
 //
 // F2, fccf_faces_segment_sum / fccf_faces_face_stats: the per-label sums
 // of features/faces.py's face statistics and roughness, from the labels
@@ -54,8 +54,9 @@
 // position among all of the cloud's sorted rows, nothing else.
 //
 // One launch a call: a grid of (S, B) blocks of 1024 threads, S blocks
-// a cloud (fccf_faces_segment_splits; 8 at the presets' 9216 and 1536
-// rows: one wave on the card's 132 SMs):
+// a cloud, one a kSplitRows = 1152 rows up to kMaxSplits = 8 (8 at
+// heritage's 9216 rows, one wave of 128 blocks on the card's 132 SMs; 2
+// at office's 1536):
 //   1. every block reads its cloud's labels and valid flags (through L2
 //      after the first block) into 32-bit keys (seg as int32, at least
 //      -2^31, sign flipped, so their unsigned order is seg's) and counts
@@ -72,8 +73,8 @@
 //      (digit, warp) counts scanned digit-major and the rows placed. Row q
 //      of that order is row start[k_lo] + q of the cloud's: torch.sort's
 //      stable order (a seg below -2^31 sorts as -2^31, among its peers by
-//      row; those rows are dropped, as are the negative and invalid ones,
-//      so no sum depends on it, and the sum forms never sort them);
+//      row; the sum forms drop the negative and the invalid rows and never
+//      sort them, so no sum depends on it);
 //   3. a label inside the 32-row aligned window of its last row is summed
 //      by the window's warp, all such labels of a window at once by
 //      shuffles; a longer one is cut into 128-row chunks from its end,
@@ -94,9 +95,12 @@
 // of 1/S of them; a label is summed whole by one block, so a face that
 // covers most of a cloud sets its block's time. The bound counts the
 // labels, the valid flags and the sources read once and the outputs
-// written once (PERF.md section 6). A form with S = 1 sorts every bucket
-// and writes the order and seg_s instead of sums
-// (fccf_faces_label_order), for tests to hold to torch.sort.
+// written once (PERF.md section 6). The order form
+// (fccf_faces_label_order), for tests to hold to torch.sort, writes the
+// order and seg_s instead of sums: each block its range of slots as the
+// sum forms sort it, then the rows they drop, the negative segs sorted
+// by the first block and the invalid rows by the last, each bucket's
+// rows at its start.
 //
 // Every entry launches on the given stream, allocates nothing and
 // returns cudaGetLastError() after its launch. Built with nvcc
@@ -118,9 +122,7 @@ constexpr float kEps = static_cast<float>(1e-20);
 constexpr float kNormalFloor = static_cast<float>(1e-12);
 constexpr float kPsizeFloor = static_cast<float>(1e-12);
 
-// F1's block size: at most kFitMaxThreads, fccf_faces_plane_fit's
-// ``threads`` or this.
-constexpr int kFitMaxThreads = 256;
+// F1's block size: with 128 the fastest of 32-256 in turns.
 constexpr int kFitThreads = 64;
 
 // ------------------------------------------------------------------ F1 --
@@ -173,7 +175,7 @@ __device__ __forceinline__ float tsum3(float a0, float a1, float a2) {
 }
 
 // A thread a voxel.
-__global__ void __launch_bounds__(kFitMaxThreads)
+__global__ void __launch_bounds__(kFitThreads)
 faces_plane_fit_kernel(const float* __restrict__ cov,
                        const float* __restrict__ centroid,
                        const int* __restrict__ count,
@@ -338,10 +340,8 @@ constexpr int kBuckets = 1 << kDigitBits;
 // warps' columns fall in different banks.
 constexpr int kHistStride = kSegWarps + 1;
 constexpr int kHistWords = kBuckets * kHistStride;
-// Blocks a cloud: at most kMaxSplits, by default one a kSplitRows rows up
-// to kDefaultSplits.
-constexpr int kMaxSplits = 32;
-constexpr int kDefaultSplits = 8;
+// Blocks a cloud: one a kSplitRows rows, up to kMaxSplits.
+constexpr int kMaxSplits = 8;
 constexpr int kSplitRows = 1152;
 constexpr unsigned kFlip = 0x80000000u;
 // Rows of a long label's chunk: 4 a lane.
@@ -491,6 +491,79 @@ __device__ void radix_pass(const unsigned* key, const IDX* in, IDX* out,
     if (p < hi) out[base + __popc(peers & lower)] = row;
   }
   __syncthreads();
+}
+
+// The cloud's rows of buckets [k_lo, k_hi) in row order, to ``rows``: a
+// stable compaction, warp w a chunk of the n rows, 32 at a time, placed
+// by ballots. Returns the bits in which their keys differ.
+template <typename IDX>
+__device__ unsigned compact_rows(const unsigned* key, int n, int k_lo,
+                                 int k_hi, IDX* rows, unsigned* hist,
+                                 unsigned* s_red) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  unsigned kor = 0, kand = ~0u;
+  {
+    const int C = ((n + kSegWarps - 1) / kSegWarps + 31) & ~31;
+    const int lo = min(w * C, n), hi = min(lo + C, n);
+    const unsigned lower = (1u << lane) - 1u;
+    unsigned mine = 0, total;
+    for (int p0 = lo; p0 < hi; p0 += 32) {
+      const int i = p0 + lane;
+      const int bk = i < hi ? bucket_of(key[i]) : -1;
+      mine += __popc(__ballot_sync(kFull, bk >= k_lo && bk < k_hi));
+    }
+    // mine is the warp's count on every lane; lane 0 speaks for it.
+    unsigned at = block_exclusive(lane == 0 ? mine : 0u, s_red, &total);
+    at = __shfl_sync(kFull, at, 0);
+    for (int p0 = lo; p0 < hi; p0 += 32) {
+      const int i = p0 + lane;
+      const unsigned k = i < hi ? key[i] : 0u;
+      const int bk = i < hi ? bucket_of(k) : -1;
+      const bool in = bk >= k_lo && bk < k_hi;
+      const unsigned ballot = __ballot_sync(kFull, in);
+      if (in) {
+        rows[at + __popc(ballot & lower)] = (IDX)i;
+        kor |= k;
+        kand &= k;
+      }
+      at += __popc(ballot);
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    kor |= __shfl_xor_sync(kFull, kor, o);
+    kand &= __shfl_xor_sync(kFull, kand, o);
+  }
+  if (lane == 0) {
+    hist[w] = kor;
+    hist[kSegWarps + w] = kand;
+  }
+  __syncthreads();
+  unsigned o_all = 0, a_all = ~0u;
+#pragma unroll 8
+  for (int k = 0; k < kSegWarps; ++k) {
+    o_all |= hist[k];
+    a_all &= hist[kSegWarps + k];
+  }
+  __syncthreads();
+  return o_all ^ a_all;
+}
+
+// The m entries of ``rows`` sorted stably by key: LSD passes over the
+// digits in which the keys differ (``diff``), ``spare`` the other buffer.
+// Returns the buffer that holds them.
+template <typename IDX>
+__device__ const IDX* sort_rows(const unsigned* key, IDX* rows, IDX* spare,
+                                unsigned* hist, unsigned* s_red, int m,
+                                unsigned diff) {
+  for (int shift = 0; shift < 32; shift += kDigitBits) {
+    if (((diff >> shift) & (kBuckets - 1)) == 0) continue;
+    radix_pass(key, rows, spare, hist, s_red, m, shift);
+    IDX* x = rows;
+    rows = spare;
+    spare = x;
+  }
+  return rows;
 }
 
 // The columns of source row r (a row of a slot, so valid): the value, or
@@ -663,13 +736,11 @@ faces_segment_sum_kernel(Sources src, Outputs out, unsigned char* scratch,
   }
   __syncthreads();
 
-  // 3. This block's buckets [k_lo, k_hi): the sum forms split the rows of
-  // the slots (buckets 1 .. V) into S ranges of whole slots, balanced by
-  // rows (a range starts at the first bucket that starts at or after its
-  // share of the rows, found by warp 0 in 32-way steps); the order takes
-  // every bucket.
-  int k_lo = 0, k_hi = nb;
-  if (FORM != kOrder) {
+  // 3. This block's buckets [k_lo, k_hi): the rows of the slots (buckets
+  // 1 .. V) split into S ranges of whole slots, balanced by rows (a range
+  // starts at the first bucket that starts at or after its share of the
+  // rows, found by warp 0 in 32-way steps).
+  {
     const long long first = start[1], rows = (long long)start[V + 1] - first;
     auto bucket_at = [&](long long pos) {
       int a = 1, c = V + 1;  // the bucket is in [a, c]; start[c] >= pos
@@ -694,83 +765,41 @@ faces_segment_sum_kernel(Sources src, Outputs out, unsigned char* scratch,
       }
     }
     __syncthreads();
-    k_lo = s_range[0];
-    k_hi = s_range[1];
   }
+  const int k_lo = s_range[0], k_hi = s_range[1];
   const int P0 = (int)start[k_lo], P1 = (int)start[k_hi];
   const int m_rows = P1 - P0;
 
-  // 4. The block's rows in row order: a stable compaction (warp w a chunk
-  // of rows, 32 at a time, placed by ballots); with the bits in which
-  // their keys differ.
-  unsigned kor = 0, kand = ~0u;
-  {
-    const int C = ((n + kSegWarps - 1) / kSegWarps + 31) & ~31;
-    const int lo = min(w * C, n), hi = min(lo + C, n);
-    const unsigned lower = (1u << lane) - 1u;
-    unsigned mine = 0, total;
-    for (int p0 = lo; p0 < hi; p0 += 32) {
-      const int i = p0 + lane;
-      const int bk = i < hi ? bucket_of(key[i]) : -1;
-      mine += __popc(__ballot_sync(kFull, bk >= k_lo && bk < k_hi));
-    }
-    // mine is the warp's count on every lane; lane 0 speaks for it.
-    unsigned at = block_exclusive(lane == 0 ? mine : 0u, s_red, &total);
-    at = __shfl_sync(kFull, at, 0);
-    for (int p0 = lo; p0 < hi; p0 += 32) {
-      const int i = p0 + lane;
-      const unsigned k = i < hi ? key[i] : 0u;
-      const int bk = i < hi ? bucket_of(k) : -1;
-      const bool in = bk >= k_lo && bk < k_hi;
-      const unsigned ballot = __ballot_sync(kFull, in);
-      if (in) {
-        sub0[at + __popc(ballot & lower)] = (IDX)i;
-        kor |= k;
-        kand &= k;
-      }
-      at += __popc(ballot);
-    }
-  }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    kor |= __shfl_xor_sync(kFull, kor, o);
-    kand &= __shfl_xor_sync(kFull, kand, o);
-  }
-  if (lane == 0) {
-    hist[w] = kor;
-    hist[kSegWarps + w] = kand;
-  }
-  __syncthreads();
-  unsigned diff = 0;
-  {
-    unsigned o_all = 0, a_all = ~0u;
-#pragma unroll 8
-    for (int k = 0; k < kSegWarps; ++k) {
-      o_all |= hist[k];
-      a_all &= hist[kSegWarps + k];
-    }
-    diff = o_all ^ a_all;
-  }
-  __syncthreads();
+  // 4. The block's rows in row order, with the bits in which their keys
+  // differ.
+  const unsigned diff =
+      compact_rows(key, n, k_lo, k_hi, sub0, hist, s_red);
 
   // 5. Their stable order: LSD passes over the digits that differ.
-  IDX* in = sub0;
-  IDX* spare = sub1;
-  for (int shift = 0; shift < 32; shift += kDigitBits) {
-    if (((diff >> shift) & (kBuckets - 1)) == 0) continue;
-    radix_pass(key, in, spare, hist, s_red, m_rows, shift);
-    IDX* x = in;
-    in = spare;
-    spare = x;
-  }
-  const IDX* ord = in;  // sorted row P0 + q is ord[q]
+  const IDX* ord = sort_rows(key, sub0, sub1, hist, s_red, m_rows, diff);
   auto skey = [&](int p) { return key[ord[p - P0]]; };
 
   if constexpr (FORM == kOrder) {
-    for (int q = t; q < m_rows; q += kSegThreads) {
-      const int i = (int)ord[q];
-      out.order[row0 + P0 + q] = i;
-      out.seg_s[row0 + P0 + q] = seg_of(src, row0 + i, V);
+    // The block's sorted rows, then the rows the sum forms drop: the
+    // negative segs (bucket 0) sorted by the first block, the invalid rows
+    // (bucket V + 1) by the last; each bucket's rows from its start.
+    for (int part = 0; part < 3; ++part) {
+      int lo = k_lo, hi = k_hi;
+      const IDX* o = ord;
+      if (part > 0) {
+        lo = part == 1 ? 0 : V + 1;
+        hi = lo + 1;
+        if (r != (part == 1 ? 0 : S - 1) || start[hi] == start[lo]) continue;
+        const unsigned d = compact_rows(key, n, lo, hi, sub0, hist, s_red);
+        o = sort_rows(key, sub0, sub1, hist, s_red,
+                      (int)(start[hi] - start[lo]), d);
+      }
+      const int at = (int)start[lo], m = (int)start[hi] - at;
+      for (int q = t; q < m; q += kSegThreads) {
+        const int i = (int)o[q];
+        out.order[row0 + at + q] = i;
+        out.seg_s[row0 + at + q] = seg_of(src, row0 + i, V);
+      }
     }
     return;
   }
@@ -970,26 +999,21 @@ faces_segment_sum_kernel(Sources src, Outputs out, unsigned char* scratch,
   }
 }
 
-// Blocks a cloud of n rows: ``splits`` where given, else one a kSplitRows
-// rows up to kDefaultSplits; at most kMaxSplits and n.
-int segment_splits(long long n, int splits) {
-  long long S = splits > 0 ? splits : (n + kSplitRows - 1) / kSplitRows;
-  if (splits <= 0 && S > kDefaultSplits) S = kDefaultSplits;
-  if (S > kMaxSplits) S = kMaxSplits;
-  if (S > n) S = n;
-  return S < 1 ? 1 : (int)S;
+// Blocks a cloud of n rows: one a kSplitRows rows, up to kMaxSplits.
+int segment_splits(long long n) {
+  const long long S = (n + kSplitRows - 1) / kSplitRows;
+  return S < 1 ? 1 : (S > kMaxSplits ? kMaxSplits : (int)S);
 }
 
 int form_columns(int form) { return form == kFaceStats ? kStatSums : 1; }
 
 template <int FORM>
 int segment_sum(const Sources& src, const Outputs& out, void* scratch,
-                long long B, long long n, long long V, int splits,
-                cudaStream_t stream) {
+                long long B, long long n, long long V, cudaStream_t stream) {
   if (B <= 0 || n <= 0 || V <= 0) return 0;
   if (B > 65535 || n >= (1LL << 24) || V >= (1LL << 30))
     return (int)cudaErrorInvalidValue;
-  const int S = FORM == kOrder ? 1 : segment_splits(n, splits);
+  const int S = segment_splits(n);
   const int D = form_columns(FORM);
   const long long bytes = layout_bytes(n, V, D, 2);
   const dim3 grid(S, (unsigned)B);
@@ -1018,22 +1042,18 @@ extern "C" {
 // F1 over B clouds of V voxels: cov (B, V, 3, 3), centroid (B, V, 3)
 // float32, count (B, V) int32, valid (B, V) bool, gcent (B, 3) float32,
 // all contiguous; out normal (B, V, 3), curvature (B, V) float32, vvalid
-// and the residual gate (B, V) bool. ``threads`` a block: 1 to 256, or 0
-// for kFitThreads.
+// and the residual gate (B, V) bool.
 int fccf_faces_plane_fit(const void* cov, const void* centroid,
                          const void* count, const void* valid,
                          const void* gcent, void* normal, void* curvature,
                          void* vvalid, void* gate, long long B, long long V,
                          int point_threshold, float curvature_threshold,
-                         int threads, void* stream) {
+                         void* stream) {
   if (B <= 0 || V <= 0) return 0;
-  if (threads == 0) threads = kFitThreads;
-  if (threads < 1 || threads > kFitMaxThreads)
-    return (int)cudaErrorInvalidValue;
   const long long total = B * V;
-  const long long blocks = (total + threads - 1) / threads;
+  const long long blocks = (total + kFitThreads - 1) / kFitThreads;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  faces_plane_fit_kernel<<<(unsigned)blocks, threads, 0,
+  faces_plane_fit_kernel<<<(unsigned)blocks, kFitThreads, 0,
                            (cudaStream_t)stream>>>(
       (const float*)cov, (const float*)centroid, (const int*)count,
       (const unsigned char*)valid, (const float*)gcent, (float*)normal,
@@ -1042,17 +1062,12 @@ int fccf_faces_plane_fit(const void* cov, const void* centroid,
   return (int)cudaGetLastError();
 }
 
-// F2's blocks a cloud of n rows for ``splits`` (0: the default).
-int fccf_faces_segment_splits(long long n, int splits) {
-  return segment_splits(n, splits);
-}
-
 // Bytes of F2's scratch for B clouds of n rows and V slots: 0 where a
 // block's words fit in shared memory. form 0: values, 1: face
 // statistics, 2: the order.
 long long fccf_faces_segment_scratch(long long B, long long n, long long V,
-                                     int splits, int form) {
-  const int S = form == kOrder ? 1 : segment_splits(n, splits);
+                                     int form) {
+  const int S = segment_splits(n);
   const int D = form_columns(form);
   if (layout_bytes(n, V, D, 2) <= kMaxSmem) return 0;
   return B * S * layout_bytes(n, V, D, 4);
@@ -1062,13 +1077,13 @@ long long fccf_faces_segment_scratch(long long B, long long n, long long V,
 // and valid (B, n) bool, contiguous.
 int fccf_faces_segment_sum(const void* labels, const void* valid,
                            const void* values, void* sums, void* scratch,
-                           long long B, long long n, long long V, int splits,
+                           long long B, long long n, long long V,
                            void* stream) {
   Sources src{(const long long*)labels, (const unsigned char*)valid,
               (const float*)values, nullptr, nullptr, nullptr};
   Outputs out{(float*)sums, nullptr, nullptr, nullptr, nullptr, nullptr,
               nullptr};
-  return segment_sum<kValues>(src, out, scratch, B, n, V, splits,
+  return segment_sum<kValues>(src, out, scratch, B, n, V,
                               (cudaStream_t)stream);
 }
 
@@ -1079,19 +1094,21 @@ int fccf_faces_face_stats(const void* labels, const void* valid,
                           const void* count, const void* centroid,
                           const void* normal, void* c, void* nrm,
                           void* psize, void* vcount, void* scratch,
-                          long long B, long long n, long long V, int splits,
+                          long long B, long long n, long long V,
                           void* stream) {
   Sources src{(const long long*)labels, (const unsigned char*)valid, nullptr,
               (const int*)count, (const float*)centroid,
               (const float*)normal};
   Outputs out{nullptr, (float*)c, (float*)nrm, (float*)psize, (int*)vcount,
               nullptr, nullptr};
-  return segment_sum<kFaceStats>(src, out, scratch, B, n, V, splits,
+  return segment_sum<kFaceStats>(src, out, scratch, B, n, V,
                                  (cudaStream_t)stream);
 }
 
-// F2's stable order alone: seg_s and order (B, n) int64 of labels (B, n)
-// int64 and valid (B, n) bool, as torch.sort(seg, stable=True) gives them.
+// F2's stable order alone, as the sum forms' blocks form it: seg_s and
+// order (B, n) int64 of labels (B, n) int64 and valid (B, n) bool, as
+// torch.sort(seg, stable=True) gives them where no valid label is below
+// -2^31.
 int fccf_faces_label_order(const void* labels, const void* valid,
                            void* seg_s, void* order, void* scratch,
                            long long B, long long n, long long V,
@@ -1100,7 +1117,7 @@ int fccf_faces_label_order(const void* labels, const void* valid,
               nullptr, nullptr, nullptr};
   Outputs out{nullptr, nullptr, nullptr, nullptr, nullptr, (long long*)seg_s,
               (long long*)order};
-  return segment_sum<kOrder>(src, out, scratch, B, n, V, 1,
+  return segment_sum<kOrder>(src, out, scratch, B, n, V,
                              (cudaStream_t)stream);
 }
 

@@ -13,7 +13,8 @@ kernel and its plain PyTorch version.
     (``fccf_pcr_tpu/features/faces.py:163-197``): no tensor is (V, V) and
     a cloud sums alike in any batch. The kernel takes the labels as they
     come and forms the stable order itself, on the card, in the same
-    launch (``label_order`` returns that order alone). ``face_stats``
+    launch (``label_order`` returns that order alone, formed by the same
+    blocks). ``face_stats``
     forms the eight statistics columns from their sources and divides,
     rounds and casts them in the kernel; ``label_segment_sum`` sums one
     column as it is.
@@ -69,21 +70,18 @@ class PlaneFit(NamedTuple):
 def _bind(lib):
     fn = lib.fccf_faces_plane_fit
     fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_longlong] * 2 + [
-        ctypes.c_int, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    fn = lib.fccf_faces_segment_splits
-    fn.argtypes = [ctypes.c_longlong, ctypes.c_int]
+        ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     fn = lib.fccf_faces_segment_scratch
-    fn.argtypes = [ctypes.c_longlong] * 3 + [ctypes.c_int] * 2
+    fn.argtypes = [ctypes.c_longlong] * 3 + [ctypes.c_int]
     fn.restype = ctypes.c_longlong
     fn = lib.fccf_faces_segment_sum
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 3 + [
-        ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_void_p]
     fn.restype = ctypes.c_int
     fn = lib.fccf_faces_face_stats
     fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_longlong] * 3 + [
-        ctypes.c_int, ctypes.c_void_p]
+        ctypes.c_void_p]
     fn.restype = ctypes.c_int
     fn = lib.fccf_faces_label_order
     fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 3 + [
@@ -228,9 +226,8 @@ def _check(what, tensors, dtypes, shapes):
 
 
 def _launch_plane_fit(cov, centroid, count, valid, global_centroid,
-                      point_threshold, curvature_threshold, threads=None):
-    """F1 on CUDA tensors; ``threads`` a block (None: the kernel's
-    default)."""
+                      point_threshold, curvature_threshold):
+    """F1 on CUDA tensors."""
     lead = tuple(valid.shape[:-1])
     V = valid.shape[-1]
     cov, centroid, count, valid, gc = _check(
@@ -254,8 +251,7 @@ def _launch_plane_fit(cov, centroid, count, valid, global_centroid,
             cov.data_ptr(), centroid.data_ptr(), count.data_ptr(),
             valid.data_ptr(), gc.data_ptr(),
             *(t.data_ptr() for t in out), math.prod(lead), V,
-            int(point_threshold), float(curvature_threshold), threads or 0,
-            _stream(dev))
+            int(point_threshold), float(curvature_threshold), _stream(dev))
     if rc != 0:
         raise RuntimeError(f"fccf_faces_plane_fit launch failed: CUDA error "
                            f"{rc}")
@@ -263,10 +259,10 @@ def _launch_plane_fit(cov, centroid, count, valid, global_centroid,
     return out
 
 
-def _labels(what, labels, valid, V, form, splits):
+def _labels(what, labels, valid, V, form):
     """The labels (int64) and valid flags (bool) checked (one shape, one
-    device), made contiguous, with (lead, n, B, splits, scratch) of an F2
-    launch for V slots."""
+    device), made contiguous, with (lead, n, B, scratch) of an F2 launch
+    for V slots."""
     if labels.dtype != torch.int64 or valid.dtype != torch.bool or tuple(
             labels.shape) != tuple(valid.shape) or labels.device != valid.device:
         raise ValueError(f"{what}: want int64 labels and bool valid of one "
@@ -276,12 +272,10 @@ def _labels(what, labels, valid, V, form, splits):
     if n >= 1 << 24:
         raise ValueError(f"{what}: {n} rows a cloud, want fewer than 2^24")
     B = math.prod(lead)
-    lib = build()
-    splits = int(lib.fccf_faces_segment_splits(max(n, 1), int(splits or 0)))
-    nbytes = int(lib.fccf_faces_segment_scratch(B, n, V, splits, form))
+    nbytes = int(build().fccf_faces_segment_scratch(B, n, V, form))
     scratch = (torch.empty((nbytes,), dtype=torch.uint8, device=labels.device)
                if nbytes else None)
-    return labels.contiguous(), valid.contiguous(), lead, n, B, splits, scratch
+    return labels.contiguous(), valid.contiguous(), lead, n, B, scratch
 
 
 def _launched(rc, entry, counter="SEGMENT_SUMS"):
@@ -290,13 +284,12 @@ def _launched(rc, entry, counter="SEGMENT_SUMS"):
     graph.count_launch(_THIS, counter)
 
 
-def _launch_segment_sum(values, labels, valid, V, splits=None):
+def _launch_segment_sum(values, labels, valid, V):
     """F2's values form on CUDA tensors: sums (..., V) of values (..., n)
     float32 by labels (..., n) int64 and valid (..., n) bool, ordered on
-    the card in the same launch; ``splits`` blocks a cloud (None: the
-    kernel's default)."""
-    labels, valid, lead, n, B, splits, scratch = _labels(
-        "label_segment_sum", labels, valid, V, VALUES, splits)
+    the card in the same launch."""
+    labels, valid, lead, n, B, scratch = _labels(
+        "label_segment_sum", labels, valid, V, VALUES)
     (values,) = _check(("values",), (values,), (torch.float32,),
                        (lead + (n,),))
     dev = values.device
@@ -308,18 +301,16 @@ def _launch_segment_sum(values, labels, valid, V, splits=None):
         rc = lib.fccf_faces_segment_sum(
             labels.data_ptr(), valid.data_ptr(), values.data_ptr(),
             out.data_ptr(), 0 if scratch is None else scratch.data_ptr(),
-            B, n, V, splits, _stream(dev))
+            B, n, V, _stream(dev))
     _launched(rc, "fccf_faces_segment_sum")
     return out
 
 
-def _launch_face_stats(labels, valid, count, centroid, normal, V,
-                       splits=None):
+def _launch_face_stats(labels, valid, count, centroid, normal, V):
     """F2's face statistics on CUDA tensors (``face_stats``' signature),
-    ordered on the card in the same launch; ``splits`` as
-    ``_launch_segment_sum``'s."""
-    labels, valid, lead, n, B, splits, scratch = _labels(
-        "face_stats", labels, valid, V, FACE_STATS, splits)
+    ordered on the card in the same launch."""
+    labels, valid, lead, n, B, scratch = _labels(
+        "face_stats", labels, valid, V, FACE_STATS)
     count, centroid, normal = _check(
         ("count", "centroid", "normal"), (count, centroid, normal),
         (torch.int32, torch.float32, torch.float32),
@@ -337,7 +328,7 @@ def _launch_face_stats(labels, valid, count, centroid, normal, V,
             labels.data_ptr(), valid.data_ptr(), count.data_ptr(),
             centroid.data_ptr(), normal.data_ptr(), c.data_ptr(),
             nrm.data_ptr(), psize.data_ptr(), vcount.data_ptr(),
-            0 if scratch is None else scratch.data_ptr(), B, n, V, splits,
+            0 if scratch is None else scratch.data_ptr(), B, n, V,
             _stream(dev))
     _launched(rc, "fccf_faces_face_stats")
     return c, nrm, psize, vcount
@@ -345,9 +336,13 @@ def _launch_face_stats(labels, valid, count, centroid, normal, V,
 
 def _launch_label_order(labels, valid, V):
     """F2's stable order on CUDA tensors: (seg_s, order), int64 (..., n),
-    one block a cloud."""
-    labels, valid, lead, n, B, _, scratch = _labels(
-        "label_order", labels, valid, V, ORDER, 1)
+    formed by the blocks of a sum form. Raises where a valid label is below
+    -2^31, which F2's 32-bit keys do not order (a host read)."""
+    labels, valid, lead, n, B, scratch = _labels(
+        "label_order", labels, valid, V, ORDER)
+    if bool((valid & (labels < -2**31)).any()):
+        raise ValueError("label_order: a valid label below -2^31; F2 orders "
+                         "labels of int32 range (its sums drop such rows)")
     seg_s = torch.empty(lead + (n,), dtype=torch.int64, device=labels.device)
     order = torch.empty_like(seg_s)
     if seg_s.numel() == 0:
@@ -431,7 +426,10 @@ def label_segment_sum(values, labels, valid, V):
 def label_order(labels, valid, V):
     """The rows sorted stably by label, (seg_s, order) as
     ``sorted_labels`` (``torch.sort``) gives them: on a card F2's own
-    order, formed by the kernel as the segment sums form it."""
+    order, formed by the blocks of the segment sums, each sorting its range
+    of slots as they do (the first also the negative labels, the last the
+    invalid rows, which the sums drop); a valid label below -2^31 raises
+    there."""
     with record_function("faces_kernels.label_order"):
         if _device(labels, "label_order") == "cpu":
             return sorted_labels(labels, valid, V)

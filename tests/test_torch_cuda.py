@@ -1711,9 +1711,9 @@ def test_segment_sum_kernel_matches_plain(cuda, B, V, kind):
 
 @pytest.mark.parametrize("B,V,kind", FACE_CASES)
 def test_label_order_matches_torch_sort(cuda, B, V, kind):
-    """F2's own stable order (faces_kernels.label_order, one launch) ==
-    torch.sort(seg, stable=True): the same seg_s and the same position of
-    every row."""
+    """F2's own stable order (faces_kernels.label_order, one launch, the
+    blocks of the sum forms) == torch.sort(seg, stable=True): the same
+    seg_s and the same position of every row."""
     labels, valid = (t.to(cuda) for t in _stat_inputs(B, V, B + 2 * V,
                                                       kind)[:2])
     before = fk.ORDERS
@@ -1723,22 +1723,41 @@ def test_label_order_matches_torch_sort(cuda, B, V, kind):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
-@pytest.mark.parametrize("splits", [1, 2, 3, 5, 8, 16, 32])
+def test_label_order_refuses_labels_below_int32(cuda):
+    """A valid label below -2^31, which F2's 32-bit keys do not order,
+    raises in label_order; the sums drop its row and stay the plain bits."""
+    labels, valid, count, centroid, normal = (
+        t.to(cuda) for t in _stat_inputs(2, 700, 5, "negative"))
+    labels[:, ::13] -= 2**33
+    valid[:, ::13] = True
+    with pytest.raises(ValueError, match="below -2"):
+        fk.label_order(labels, valid, 700)
+    seg_s, order = fk.sorted_labels(labels, valid, 700)
+    assert _all_equal(fk.face_stats(labels, valid, count, centroid, normal,
+                                    700),
+                      fk.face_stats_plain(seg_s, order, count, centroid,
+                                          normal, valid, 700))
+
+
+@pytest.mark.parametrize("splits", [1, 2, 3, 4, 5, 6, 7, 8])
 def test_segment_sums_alike_at_any_split(cuda, splits):
-    """F2 split over any number of blocks a cloud gives the plain bits."""
-    for kind in ("random", "runs"):
+    """F2 on clouds of n = 1152 S - 52 rows, which it splits over S blocks
+    (one a 1152 rows, up to 8), gives the plain bits, and its order there
+    is torch.sort's."""
+    n = 1152 * splits - 52
+    for kind in ("random", "runs", "negative"):
         labels, valid, count, centroid, normal = (
-            t.to(cuda) for t in _stat_inputs(3, 2100, splits, kind))
-        seg_s, order = fk.sorted_labels(labels, valid, 2100)
-        got = fk._launch_face_stats(labels, valid, count, centroid, normal,
-                                    2100, splits=splits)
+            t.to(cuda) for t in _stat_inputs(3, n, splits, kind))
+        seg_s, order = fk.sorted_labels(labels, valid, n)
+        got = fk.face_stats(labels, valid, count, centroid, normal, n)
         assert _all_equal(got, fk.face_stats_plain(
-            seg_s, order, count, centroid, normal, valid, 2100))
+            seg_s, order, count, centroid, normal, valid, n))
         values = centroid[..., 2].contiguous()
-        got = fk._launch_segment_sum(values, labels, valid, 2100,
-                                     splits=splits)
+        got = fk.label_segment_sum(values, labels, valid, n)
         assert _all_equal((got,), (fk.values_sum_plain(seg_s, order, values,
-                                                        2100),))
+                                                        n),))
+        got = fk.label_order(labels, valid, n)
+        assert torch.equal(got[0], seg_s) and torch.equal(got[1], order)
 
 
 def test_faces_kernels_in_a_capture(cuda):

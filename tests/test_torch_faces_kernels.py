@@ -241,18 +241,59 @@ def test_cpu_outputs_keep_pr15_bits(B, V, kind):
 # ------------------------------------------- csrc/faces.cu's F2 in NumPy --
 
 
-def _radix_order(seg):
-    """F2's stable order of one cloud's seg (int64, n): the keys (seg as
-    int32, at least -2^31, sign flipped) sorted by least-significant-digit
-    passes over the 6-bit digits in which they differ. Returns (keys,
-    order)."""
+def _buckets(seg, V):
+    """One cloud's keys (seg as int32, at least -2^31, sign flipped), their
+    buckets (0 a negative seg, s + 1 slot s, V + 1 the invalid rows) and
+    each bucket's first sorted row (V + 3 entries, the last n)."""
     key = (np.maximum(seg, -2**31) + 2**31).astype(np.uint32)
-    diff = np.bitwise_or.reduce(key) ^ np.bitwise_and.reduce(key)
-    order = np.arange(len(key))
-    for shift in range(0, 32, 6):
-        if (int(diff) >> shift) & 63:
-            digit = (key[order] >> np.uint32(shift)) & np.uint32(63)
-            order = order[np.argsort(digit, kind="stable")]
+    bucket = np.where(seg < 0, 0, seg + 1)
+    start = np.concatenate([[0], np.cumsum(np.bincount(bucket,
+                                                       minlength=V + 2))])
+    return key, bucket, start
+
+
+def _block_slots(start, V, S):
+    """(r, k_lo, k_hi) of each of a cloud's S blocks: from the bucket of
+    the slot whose rows start at or after the r-th S-th of the slots' rows,
+    so whole labels, balanced by rows."""
+    first, rows = start[1], start[V + 1] - start[1]
+
+    def bucket_at(pos):
+        return int(np.searchsorted(start[1:V + 2], pos, side="left")) + 1
+
+    for r in range(S):
+        yield (r, 1 if r == 0 else bucket_at(first + rows * r // S),
+               V + 1 if r == S - 1 else bucket_at(first + rows * (r + 1) // S))
+
+
+def _range_order(key, bucket, lo, hi):
+    """The rows of buckets [lo, hi) as a block orders them: in row order,
+    then least-significant-digit passes over the 6-bit digits in which
+    their keys differ."""
+    rows = np.flatnonzero((bucket >= lo) & (bucket < hi))
+    if len(rows):
+        k = key[rows]
+        diff = int(np.bitwise_or.reduce(k) ^ np.bitwise_and.reduce(k))
+        for shift in range(0, 32, 6):
+            if (diff >> shift) & 63:
+                digit = (key[rows] >> np.uint32(shift)) & np.uint32(63)
+                rows = rows[np.argsort(digit, kind="stable")]
+    return rows
+
+
+def _f2_order(seg, V, S):
+    """F2's stable order of one cloud's seg (int64, n) over S blocks, as
+    its order form writes it: each block its slots' rows, the first block
+    also the negative segs, the last the invalid rows, each bucket's rows
+    from its start. Returns (keys, order)."""
+    key, bucket, start = _buckets(seg, V)
+    order = np.full(len(seg), -1)
+    for r, k_lo, k_hi in _block_slots(start, V, S):
+        parts = [(k_lo, k_hi)] + [(0, 1)] * (r == 0) + [(V + 1, V + 2)] * (
+            r == S - 1)
+        for lo, hi in parts:
+            order[start[lo]:start[hi]] = _range_order(key, bucket, lo, hi)
+    assert np.all(order >= 0)
     return key, order
 
 
@@ -301,19 +342,9 @@ def _f2_emulation(labels, valid, cols, V, S):
     written = np.zeros((B, V), np.int64)
     for b in range(B):
         seg = np.where(valid[b], np.minimum(labels[b], V - 1), V)
-        key, order = _radix_order(seg)
-        bucket = np.where(seg < 0, 0, seg + 1)
-        start = np.concatenate([[0], np.cumsum(np.bincount(
-            bucket, minlength=V + 2))])
-        first, rows = start[1], start[V + 1] - start[1]
-
-        def bucket_at(pos):
-            return int(np.searchsorted(start[1:V + 2], pos, side="left")) + 1
-
-        for r in range(S):
-            k_lo = 1 if r == 0 else bucket_at(first + rows * r // S)
-            k_hi = V + 1 if r == S - 1 else bucket_at(
-                first + rows * (r + 1) // S)
+        key, bucket, start = _buckets(seg, V)
+        for r, k_lo, k_hi in _block_slots(start, V, S):
+            order = _range_order(key, bucket, k_lo, k_hi)
             for slot in range(V * r // S, V * (r + 1) // S):
                 if start[slot + 2] == start[slot + 1]:
                     written[b, slot] += 1
@@ -321,7 +352,7 @@ def _f2_emulation(labels, valid, cols, V, S):
                 s0, e = start[bk], start[bk + 1] - 1
                 if e < s0:
                     continue
-                rows_of = order[s0:e + 1]
+                rows_of = order[s0 - start[k_lo]:e + 1 - start[k_lo]]
                 assert np.all(seg[rows_of] == bk - 1)
                 sums[b, bk - 1] = _label_tree(cols[b, rows_of[::-1]], e)
                 lengths[b, bk - 1] = e - s0 + 1
@@ -388,7 +419,7 @@ def test_f2_emulation_matches_plain(B, V, kind, S):
     for b in range(B):
         seg = seg_s.new_tensor(np.where(valid[b], np.minimum(labels[b], V - 1),
                                         V))
-        key, got = _radix_order(seg.numpy())
+        key, got = _f2_order(seg.numpy(), V, S)
         if kind != "negative":
             np.testing.assert_array_equal(got, order[b].numpy())
         np.testing.assert_array_equal(np.sort(key), key[got])
@@ -409,6 +440,29 @@ def test_f2_emulation_matches_plain(B, V, kind, S):
         np.testing.assert_array_equal(_bits(g) if g.dtype == np.float32
                                       else g, _bits(x.numpy())
                                       if g.dtype == np.float32 else x.numpy())
+
+
+@pytest.mark.parametrize("S", range(1, 9))
+def test_f2_order_by_block_is_torch_sort(S):
+    """F2's order over the S blocks csrc/faces.cu gives a cloud of n = 1152
+    S - 52 rows (one a 1152 rows, up to 8) equals torch.sort(seg,
+    stable=True)'s, with negative labels, labels past V and invalid
+    rows."""
+    n = 1152 * S - 52
+    assert min(-(-n // 1152), 8) == S
+    rng = np.random.default_rng(S)
+    labels = np.minimum(rng.integers(0, n // 7, (2, n)), np.arange(n))
+    odd = rng.uniform(size=(2, n))
+    labels = np.where(odd < 0.05, rng.integers(-n, 0, (2, n)), labels)
+    labels = np.where(odd > 0.95, rng.integers(n, 2 * n, (2, n)), labels)
+    valid = rng.uniform(size=(2, n)) < 0.8
+    seg_s, order = fk.sorted_labels(torch.from_numpy(labels),
+                                    torch.from_numpy(valid), n)
+    for b in range(2):
+        seg = np.where(valid[b], np.minimum(labels[b], n - 1), n)
+        _, got = _f2_order(seg, n, S)
+        np.testing.assert_array_equal(got, order[b].numpy())
+        np.testing.assert_array_equal(seg[got], seg_s[b].numpy())
 
 
 def test_negative_labels_are_dropped_as_jax_drops_them():

@@ -16,12 +16,14 @@ barrier of its own, at the start of each numbered phase, and the cycles
 between the stamps are printed with the phase each ends in.
 
     python3 tools/torch_faces_phases.py [--clouds 16] [--voxels 9216]
-        [--splits S] [--step heritage] [--f1]
+        [--step heritage] [--f1]
 
-With ``--f1`` it times F1 instead, whole and with its float64 steps
-(eigen3's _fma and _sqrt) done in float32 (other bits: for timing only),
-on random covariances of the same shape: what the float64 chain and its
-conversions cost.
+With ``--f1`` it times F1 instead, on random covariances of the same
+shape, in turns: whole; with its float64 steps (eigen3's _fma and
+_sqrt) done in float32; with its float32 divisions made products and
+``cosf`` / ``atan2f`` a move and an add; and with both (other bits: for
+timing only). What each class of instructions costs, and what is left
+without them.
 
 The variant sources and libraries are built with the package's nvcc
 flags into a temporary directory. Prints one line per form and cut, the
@@ -57,30 +59,54 @@ CUTS = {"counts": "  // 3. This block's buckets",
         "windows and chunks": "  // 9. A long label of more than"}
 STAMP = ("if (blockIdx.x == 0 && blockIdx.y == 0 && threadIdx.x == 0) "
          "g_clk[g_n++] = clock64();")
-PASS = "radix_pass(key, in, spare, hist, s_red, m_rows, shift);"
+PASS = "radix_pass(key, rows, spare, hist, s_red, m, shift);"
 PHASE = re.compile(r"\n  // (\d)\. ")
 F1_SECTION = ("// ------------------------------------------------------------"
               "------ F1 --", "// ----------------------------------------"
               "-------------------------- F2 --")
 
 
-def f1_float32(src):
-    """The source with F1's float64 steps done in float32 (timing only)."""
+CHEAP = """
+__device__ __forceinline__ float cheap_div(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ float cheap_cos(float x) { return x; }
+__device__ __forceinline__ float cheap_atan2(float y, float x) {
+  return __fadd_rn(y, x);
+}
+"""
+
+
+def f1_variant(src, float32, cheap):
+    """The source with F1's float64 steps done in float32 (``float32``)
+    and its divisions, cosf and atan2f replaced by a product, the argument
+    and a sum (``cheap``): for timing only."""
     a, b = (src.index(m) for m in F1_SECTION)
-    sec = src[a:b].replace(
-        "__double2float_rn(__dadd_rn(__dmul_rn(a, b), c))",
-        "__fadd_rn(__fmul_rn(a, b), c)").replace(
-        "__double2float_rn(__dsqrt_rn((double)x))", "__fsqrt_rn(x)")
-    if "__double2float_rn" in sec:
-        raise SystemExit("F1's float64 steps are not where the tool expects")
-    return src[:a] + sec.replace("double", "float") + src[b:]
+    sec = src[a:b]
+    if float32:
+        sec = sec.replace(
+            "__double2float_rn(__dadd_rn(__dmul_rn(a, b), c))",
+            "__fadd_rn(__fmul_rn(a, b), c)").replace(
+            "__double2float_rn(__dsqrt_rn((double)x))", "__fsqrt_rn(x)")
+        if "__double2float_rn" in sec:
+            raise SystemExit("F1's float64 steps are not where the tool "
+                             "expects")
+        sec = sec.replace("double", "float")
+    if cheap:
+        if not all(f in sec for f in ("__fdiv_rn(", "cosf(", "atan2f(")):
+            raise SystemExit("F1's divisions and trig are not where the tool "
+                             "expects")
+        sec = CHEAP + sec.replace("__fdiv_rn(", "cheap_div(").replace(
+            "cosf(", "cheap_cos(").replace("atan2f(", "cheap_atan2(")
+    return src[:a] + sec + src[b:]
 
 
 def kernel_body(src):
-    """(start, end) of the segment-sum kernel's text in ``src``: from its
-    parameters to its closing brace."""
-    a = src.index("faces_segment_sum_kernel(Sources src")
-    return a, src.rindex("}", a, src.index("// Blocks a cloud of n rows", a))
+    """(start, end) of F2's block code in ``src``: from the row
+    compaction's helper to the segment-sum kernel's closing brace."""
+    a = src.index("__device__ unsigned compact_rows(")
+    k = src.index("faces_segment_sum_kernel(Sources src")
+    return a, src.rindex("}", k, src.index("// Blocks a cloud of n rows", k))
 
 
 def variant(src, cut):
@@ -155,7 +181,7 @@ def step_inputs(name, dev):
                         vals[2].reshape(B, V))
 
 
-def calls(lib, B, V, dev, a, splits, vals=None):
+def calls(lib, B, V, dev, a, vals=None):
     """The face-statistics and values calls of ``lib`` on inputs ``a``
     (and ``vals``: values, labels and valid flags of the values call)."""
     labels, valid, count, centroid, normal = a
@@ -167,8 +193,8 @@ def calls(lib, B, V, dev, a, splits, vals=None):
     if vals is not None:
         values, vlabels, vvalid = (x.contiguous() for x in vals)
     sums = torch.empty((B, V), device=dev)
-    nbytes = max(int(lib.fccf_faces_segment_scratch(B, V, V, splits, 1)),
-                 int(lib.fccf_faces_segment_scratch(B, V, V, splits, 0)))
+    nbytes = max(int(lib.fccf_faces_segment_scratch(B, V, V, 1)),
+                 int(lib.fccf_faces_segment_scratch(B, V, V, 0)))
     scratch = torch.empty((max(nbytes, 1),), dtype=torch.uint8, device=dev)
 
     def stream():
@@ -179,14 +205,14 @@ def calls(lib, B, V, dev, a, splits, vals=None):
             labels.data_ptr(), valid.data_ptr(), count.data_ptr(),
             centroid.data_ptr(), normal.data_ptr(),
             *(o.data_ptr() for o in outs), scratch.data_ptr(), B, V, V,
-            splits, stream())
+            stream())
         if rc:
             raise RuntimeError(f"face statistics launch: CUDA error {rc}")
 
     def values_sum():
         rc = lib.fccf_faces_segment_sum(
             vlabels.data_ptr(), vvalid.data_ptr(), values.data_ptr(),
-            sums.data_ptr(), scratch.data_ptr(), B, V, V, splits, stream())
+            sums.data_ptr(), scratch.data_ptr(), B, V, V, stream())
         if rc:
             raise RuntimeError(f"values launch: CUDA error {rc}")
 
@@ -194,8 +220,8 @@ def calls(lib, B, V, dev, a, splits, vals=None):
 
 
 def f1_main(B, V, dev, smi, src):
-    """F1 whole and in float32, in turns, a call by CUDA events over a
-    graph of 10 calls."""
+    """F1 whole and its timing variants (``f1_variant``), in turns, a call
+    by CUDA events over a graph of 10 calls."""
     rng = np.random.default_rng(1)
     R = np.linalg.qr(rng.normal(size=(B * V, 3, 3)))[0]
     ev = rng.uniform(0.0, 1.0, (B * V, 3))
@@ -210,7 +236,12 @@ def f1_main(B, V, dev, smi, src):
     with tempfile.TemporaryDirectory() as d:
         tmp = pathlib.Path(d)
         procs = {"whole": build(src, "fit_whole", tmp),
-                 "float32": build(f1_float32(src), "fit_f32", tmp)}
+                 "float32": build(f1_variant(src, True, False), "fit_f32",
+                                  tmp),
+                 "no div/trig": build(f1_variant(src, False, True),
+                                      "fit_cheap", tmp),
+                 "float32, no div/trig": build(f1_variant(src, True, True),
+                                               "fit_f32_cheap", tmp)}
         arms = {}
         for name, (proc, so) in procs.items():
             if proc.wait() != 0:
@@ -226,12 +257,12 @@ def f1_main(B, V, dev, smi, src):
                         torch.empty((B, V), dtype=torch.bool, device=dev))
                 rc = lib.fccf_faces_plane_fit(
                     *(x.data_ptr() for x in a), *(o.data_ptr() for o in outs),
-                    B, V, 5, 0.04, 0,
-                    torch.cuda.current_stream(dev).cuda_stream)
+                    B, V, 5, 0.04, torch.cuda.current_stream(dev).cuda_stream)
                 if rc:
                     raise RuntimeError(f"F1 launch: CUDA error {rc}")
             arms[name] = call
-        for name in ("whole", "float32", "float32", "whole"):
+        names = list(procs)
+        for name in names + names[::-1]:
             us = cs.graph_ms(arms[name]) * 1e3
             out["f1_us"].append((name, us))
             print(f"[phases] F1 ({B}, {V}) {name}: {us:.2f} us | {smi}",
@@ -245,12 +276,10 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--clouds", type=int, default=16)
     ap.add_argument("--voxels", type=int, default=9216)
-    ap.add_argument("--splits", type=int, default=0,
-                    help="F2's blocks a cloud (0: the kernel's default)")
     ap.add_argument("--step", choices=("heritage", "office"),
                     help="the F2 inputs of that batch-8 eager step")
     ap.add_argument("--f1", action="store_true",
-                    help="time F1 whole and in float32 instead")
+                    help="time F1 whole and its timing variants instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("FAIL: no CUDA card", file=sys.stderr)
@@ -262,7 +291,7 @@ def main():
     src = (ROOT / "fccf_pcr_torch" / "csrc" / "faces.cu").read_text()
     if args.f1:
         return f1_main(B, V, dev, smi, src)
-    out = {"shape": [B, V], "splits": args.splits, "device": smi, "ms": {},
+    out = {"shape": [B, V], "device": smi, "ms": {},
            "cycles": {}}
     with tempfile.TemporaryDirectory() as d:
         tmp = pathlib.Path(d)
@@ -283,16 +312,14 @@ def main():
         else:
             a = inputs(B, V, dev)
         for name in [*CUTS, "whole"]:
-            for form, fn in calls(libs[name], B, V, dev, a, args.splits,
-                                  vals).items():
+            for form, fn in calls(libs[name], B, V, dev, a, vals).items():
                 ms = cs.graph_ms(fn)
                 out["ms"].setdefault(form, {})[name] = ms
                 print(f"[phases] {form} ({B}, {V}) cut after {name}: "
                       f"{ms * 1e3:.2f} us | {smi}", flush=True)
         lib = libs["clock"]
         lib.fccf_clock_read.argtypes = [ctypes.c_void_p]
-        for form, fn in calls(lib, B, V, dev, a, args.splits,
-                              vals).items():
+        for form, fn in calls(lib, B, V, dev, a, vals).items():
             for _ in range(3):
                 lib.fccf_clock_reset()
                 fn()

@@ -15,10 +15,10 @@ the same C entry points as this tree's (``fccf_lm_refine``,
 ``fccf_cluster_floor_walk``, ``fccf_scan_int``, ``fccf_prefix_sum16``,
 ``fccf_faces_plane_fit``, ``fccf_faces_face_stats``,
 ``fccf_faces_segment_sum``), each bound by the signature its source has
-(a ``faces.cu`` without ``fccf_faces_label_order`` takes the sorted
-labels and the order: its arm runs ``torch.sort`` by label first, as
-that tree's step does). They are built with this tree's nvcc flags into
-``fccf_pcr_torch/build/``. The inputs are recorded from this tree's
+(a ``faces.cu`` with ``fccf_faces_label_order`` takes this tree's
+arguments; one without takes the sorted labels and the order: its arm
+runs ``torch.sort`` by label first, as that tree's step does). They are
+built with this tree's nvcc flags into ``fccf_pcr_torch/build/``. The inputs are recorded from this tree's
 eager batch-8 step (``chip_smoke.py``'s ``lm_inputs`` /
 ``cluster_inputs`` / ``record_scans``). This tree's L1 must equal
 ``lm_loop`` run to its cap, its C2 the plain walk and its S1 / S2 their
@@ -28,8 +28,11 @@ back (both instantiations), C2 by its device time (CUPTI), S1, S2, F1
 and F2 a call by CUDA events over a graph of 10 calls
 (``chip_smoke.graph_ms``; F1 and F2 on the calls ``chip_smoke.
 record_faces`` records, each held to its plain version; ``--f2-splits``
-and ``--f1-threads`` add this tree's kernels at other blocks a cloud /
-threads a block as further arms of the same turns;
+and ``--f1-threads`` add copies of this tree's ``faces.cu`` patched to
+split every cloud over that many blocks (``kMaxSplits``, with
+``kSplitRows`` 1) / to launch F1 in blocks of that many threads
+(``kFitThreads``), each held to this tree's bits, as further arms of the
+same turns;
 a fused S2 call of this tree against the other tree's S2 on the columns
 concatenated first, the concatenation timed with it, as that tree's step
 runs it), each in ``--turns`` rounds of old, new, new, old (2K pairs); a
@@ -89,19 +92,15 @@ def bind_scan(lib, source):
 def bind_faces(lib, source):
     """Bind F1's and F2's C entries by the signatures their source has: a
     source with ``fccf_faces_label_order`` takes the labels (this tree's),
-    one without takes the sorted labels and the order, and an F1 without
-    a ``threads`` argument (PR 15's)."""
-    text = source.read_text()
-    lib.from_labels = "fccf_faces_label_order" in text
-    lib.fit_threads = "int threads, void* stream" in text
+    one without takes the sorted labels and the order (PR 15's)."""
+    lib.from_labels = "fccf_faces_label_order" in source.read_text()
     if lib.from_labels:
         from fccf_pcr_torch.ops import faces_kernels as fk
         fk._bind(lib)
         return
     fn = lib.fccf_faces_plane_fit
     fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_longlong] * 2 + [
-        ctypes.c_int, ctypes.c_float] + ([ctypes.c_int] if lib.fit_threads
-                                         else []) + [ctypes.c_void_p]
+        ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     fn = lib.fccf_faces_segment_scratch
     fn.argtypes = [ctypes.c_longlong] * 2 + [ctypes.c_int] * 2
@@ -116,6 +115,50 @@ def bind_faces(lib, source):
     fn.restype = ctypes.c_int
 
 
+def faces_variants(a):
+    """This tree's ``csrc/faces.cu`` patched for ``--f1-threads`` and
+    ``--f2-splits``: {arm: (the form it takes, source text)}."""
+    src = (ROOT / "fccf_pcr_torch" / "csrc" / "faces.cu").read_text()
+
+    def patch(text, old, new):
+        if old not in text:
+            raise SystemExit(f"{old!r} is not in csrc/faces.cu")
+        return text.replace(old, new, 1)
+
+    out = {}
+    for v in (int(x) for x in a.f1_threads.split(",") if x):
+        out[f"threads {v}"] = ("F1", patch(
+            src, "constexpr int kFitThreads = 64;",
+            f"constexpr int kFitThreads = {v};"))
+    for v in (int(x) for x in a.f2_splits.split(",") if x):
+        out[f"splits {v}"] = ("F2", patch(patch(
+            src, "constexpr int kMaxSplits = 8;",
+            f"constexpr int kMaxSplits = {v};"),
+            "constexpr int kSplitRows = 1152;",
+            "constexpr int kSplitRows = 1;"))
+    return out
+
+
+def behind_wrappers(lib, form, a):
+    """The call of ``form`` on ``a`` through this tree's launcher, with
+    ``lib`` (built from another ``faces.cu`` with this tree's entries) in
+    place of this tree's library."""
+    from fccf_pcr_torch.ops import faces_kernels as fk
+
+    launch = {"plane_fit": fk._launch_plane_fit,
+              "face_stats": fk._launch_face_stats,
+              "values": fk._launch_segment_sum}[form]
+
+    def call():
+        kept = fk._LIBRARY._lib
+        fk._LIBRARY._lib = lib
+        try:
+            return launch(*a)
+        finally:
+            fk._LIBRARY._lib = kept
+    return call
+
+
 def old_faces(lib, form, a, dev):
     """The other tree's F1 or F2 call on one recorded input (this tree's
     launch arguments): F2 of a tree that takes the sorted labels runs
@@ -128,19 +171,7 @@ def old_faces(lib, form, a, dev):
 
     stream = lambda: torch.cuda.current_stream(dev).cuda_stream  # noqa: E731
     if lib.from_labels:
-        # The other tree's library behind this tree's wrappers.
-        launch = {"plane_fit": fk._launch_plane_fit,
-                  "face_stats": fk._launch_face_stats,
-                  "values": fk._launch_segment_sum}[form]
-
-        def call():
-            kept = fk._LIBRARY._lib
-            fk._LIBRARY._lib = lib
-            try:
-                return launch(*a)
-            finally:
-                fk._LIBRARY._lib = kept
-        return call
+        return behind_wrappers(lib, form, a)
     if form == "plane_fit":
         cov, centroid, count, valid, gc, pt, ct = a
         lead, V = tuple(valid.shape[:-1]), valid.shape[-1]
@@ -153,8 +184,7 @@ def old_faces(lib, form, a, dev):
             rc = lib.fccf_faces_plane_fit(
                 cov.data_ptr(), centroid.data_ptr(), count.data_ptr(),
                 valid.data_ptr(), gc.data_ptr(), *(o.data_ptr() for o in out),
-                math.prod(lead), V, int(pt), float(ct),
-                *([0] if lib.fit_threads else []), stream())
+                math.prod(lead), V, int(pt), float(ct), stream())
             if rc:
                 raise RuntimeError(f"the parent's F1 launch failed: {rc}")
             return tuple(out)
@@ -194,19 +224,14 @@ def old_faces(lib, form, a, dev):
     return f2
 
 
-def faces_ab(a, old, dev, order, medians, smi, res):
+def faces_ab(old, variants, dev, smi, res, turns):
     """F1 and F2 of both trees in turns on the eager batch-8 steps' own
-    calls, with this tree's variants (--f1-threads, --f2-splits) as
-    further arms."""
-    import torch
-
+    calls, with the patched copies of this tree's ``faces.cu``
+    (``variants``: {arm: (form, library)}) as further arms."""
     import chip_smoke as cs
     from fccf_pcr_torch.evaluation import configs
     from fccf_pcr_torch.models.fccf import get_model
-    from fccf_pcr_torch.ops import faces_kernels as fk
 
-    threads = [int(x) for x in a.f1_threads.split(",") if x]
-    splits = [int(x) for x in a.f2_splits.split(",") if x]
     for name in ("heritage", "office"):
         model = get_model(configs.CONFIGS[name]["model"])
         args, _ = cs.config_batch(name, list(range(8)), model.params,
@@ -221,29 +246,20 @@ def faces_ab(a, old, dev, order, medians, smi, res):
             cs.check(cs.faces_equal(got, plain()),
                      f"{name}: {form} differs from plain")
             arms = {"old": old_faces(old, form, x, dev), "new": kernel}
-            knob, values = (("threads", threads) if form == "plane_fit"
-                            else ("splits", splits))
-            for v in values:
-                if form == "plane_fit":
-                    variant = (lambda v=v: fk._launch_plane_fit(
-                        *x, threads=v))
-                elif form == "face_stats":
-                    variant = (lambda v=v: fk._launch_face_stats(
-                        *x, splits=v))
-                else:
-                    variant = (lambda v=v: fk._launch_segment_sum(
-                        *x, splits=v))
-                cs.check(cs.faces_equal(variant(), got),
-                         f"{name}: {form} at {knob} {v} differs")
-                arms[f"{knob} {v}"] = variant
+            kind = "F1" if form == "plane_fit" else "F2"
+            for arm, (k, lib) in variants.items():
+                if k == kind:
+                    arms[arm] = behind_wrappers(lib, form, x)
+                    cs.check(cs.faces_equal(arms[arm](), got),
+                             f"{name}: {form} at {arm} differs")
             names = list(arms)
-            turns = (names + names[::-1]) * a.turns
+            order = (names + names[::-1]) * turns
             shape = list((x[3] if form == "plane_fit" else
                           x[0] if form == "face_stats" else x[1]).shape)
             c = dict(what=form, shape=shape,
                      parent_equal=cs.faces_equal(arms["old"](), got),
                      us=[(arm, cs.graph_ms(arms[arm]) * 1e3)
-                         for arm in turns])
+                         for arm in order])
             r["faces"].append(c)
             meds = ", ".join(
                 f"median {arm} "
@@ -309,6 +325,16 @@ def main():
             [cuda_build.nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(out),
              str(path)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True), out, lambda lib, b=bind, p=path: b(lib, p))
+    variant_builds = {}
+    for i, (arm, (kind, text)) in enumerate(
+            faces_variants(a).items() if "faces" in only else ()):
+        cu = cuda_build.BUILD_DIR / f"ab_variant_{i}.cu"
+        cu.write_text(text)
+        out = cu.with_suffix(".so")
+        variant_builds[arm] = (subprocess.Popen(
+            [cuda_build.nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(out),
+             str(cu)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True), out, kind)
     cs.phase_build([lp, gt, ck, lmk, scan, fk])
     old = {}
     for src, (proc, out, bind) in builds.items():
@@ -318,6 +344,14 @@ def main():
             return 1
         old[src] = ctypes.CDLL(str(out))
         bind(old[src])
+    variants = {}
+    for arm, (proc, out, kind) in variant_builds.items():
+        log = proc.communicate()[0]
+        if proc.returncode:
+            print(f"FAIL: nvcc faces.cu at {arm}:\n{log}", file=sys.stderr)
+            return 1
+        variants[arm] = (kind, ctypes.CDLL(str(out)))
+        fk._bind(variants[arm][1])
     stream = lambda: torch.cuda.current_stream(dev).cuda_stream  # noqa: E731
 
     def old_l1(planes, iters, regs):
@@ -403,7 +437,7 @@ def main():
 
     res = {"card": smi, "parent": str(a.parent)}
     if "faces" in only:
-        faces_ab(a, old["faces.cu"], dev, order, medians, smi, res)
+        faces_ab(old["faces.cu"], variants, dev, smi, res, a.turns)
     for name in ("heritage", "office") if {"lm", "cluster"} <= only else ():
         kw = cs.lm_inputs(name, list(range(8)), dev)
         planes = tuple(kw[k].contiguous() for k in ("n1", "p1", "n2", "p2",
