@@ -8,7 +8,7 @@ result:
 
   1. environment: torch / CUDA / nvcc versions and the card's name and
      power limit (nvidia-smi); no card -> fail (never a CPU fallback);
-  2. build the six sources with nvcc, in parallel: csrc/label_prop.cu
+  2. build the seven sources with nvcc, in parallel: csrc/label_prop.cu
      (the label-propagation kernels: the propagation entry, one
      cooperative launch a propagation, and the one-sweep entry K1),
      csrc/gather.cu (the per-row gather P1), csrc/cluster.cu (the
@@ -16,7 +16,9 @@ result:
      the floor walk C2), csrc/lm.cu (the LM solve L1), csrc/scan.cu
      (the integer scans S1 and the blocked prefix sum S2) and
      csrc/faces.cu (the faces stage's plane fit F1 and label segment sums
-     F2); ptxas's registers, shared memory and spills of each kernel;
+     F2) and csrc/hypotheses.cu (the hypotheses stage's H1, H2 and H3 and
+     its bases form); ptxas's registers, shared memory and spills of each
+     kernel;
   3. label propagation vs its plain PyTorch version on the card, through
      the propagation kernel and through the per-sweep host loop (K1 +
      P1 launches): clustered voxel stats at V=1536 (office), V=1000 (a
@@ -71,8 +73,9 @@ result:
      sweeps the propagation kernel ran (at most 4 propagation launches a
      step, no one-sweep, gather or standalone block-seed launch; one
      block-scan launch, whatever H / 512 is, one floor walk and one L1
-     launch, S1 and S2 called, one F1 and three F2 launches), and per
-     step: every kernel
+     launch, 10 S1 calls and S2 called, one F1 and three F2 launches,
+     one each of H1, H2 and H3 and no bases form), and per step: every
+     kernel
      launched, as host
      launches (the CUDA runtime's launch calls, cudaGraphLaunch
      included) and as device kernels (the kernels CUPTI saw run, those
@@ -193,7 +196,11 @@ result:
      CatArrayBatchedCopy (the doubling steps) and no sort kernel (F2
      orders the rows itself) beside its three F2 launches in the
      face_stats and roughness ranges of F2 (faces_kernels.face_stats /
-     .segment_sum);
+     .segment_sum); a fifth time with H1-H3 swapped for their plain
+     versions (the port before them), against which the kernels' arm
+     must hold in the hypotheses stage no sort kernel, one launch each of
+     H1, H2 and H3 and at most 6 kernels in all (the plain arm's sort
+     kernels there prove the check);
  22. S1 and S2 against their plain versions on the card, bit for bit:
      every S1 and S2 input of the heritage and office batch-8 eager steps
      (the fused S2 calls by their sources) and the edge cases (S1: rows
@@ -237,7 +244,21 @@ result:
      back its error flags; Tensor.index_add_ of the columns as formed
      into the slots of seg from the unsorted labels for F2, atomics in
      another order) and the bound (F2: the labels, the valid flags and
-     the sources read once, the outputs written once).
+     the sources read once, the outputs written once);
+ 24. H1, H2 and H3 (the hypotheses stage) and its bases form against
+     their plain versions on the card, bit for bit (NaN-aware): first
+     CUDA's acosf against torch.arccos at every float32 in [-1, 1] and
+     at random float32 of any magnitude; then every H1, H2 and H3 input
+     of the heritage and office batch-8 eager steps (one call each a
+     step; the bases form on the steps' 2P face sets) and the edge cases
+     (random faces at F = 16, 5, 24 and 64, PER_MATCH 16 and 48 and above F *
+     F + 1, each overflow (M, H and a row's PER_MATCH), no valid face,
+     zero normals, NaN normals, centroids and point sizes, one face, the
+     bases given; a lane alone against a batch of 8); the stage called
+     twice in one captured CUDA graph, replayed twice, equal to the eager
+     calls; at the steps' inputs each call's device time (a graph of 10
+     calls) beside the plain version's and the bound (no one PyTorch call
+     computes any of them).
 
 Phases 5-6 are the main path: their launch counts are the kernels'
 "launches". Every later in-process path (12-16) is driven with the
@@ -246,10 +267,12 @@ must launch the propagation kernel, C1 (the block scan), S1, S2, F1 and
 F2, and neither
 the one-sweep, the gather nor the standalone block-seed kernel, and
 each but the content measurement (which
-stops at the seeds) must replay a step graph and launch C2 and L1. A path's
+stops at the seeds and takes the bases form) must replay a step graph
+and launch H1, H2, H3, C2 and L1. A path's
 kernels launched inside a captured step graph count at each replay
 (ops/graph.py's count_launch); the hooks that record a kernel's inputs
-(phases 3, 18, 19, 20, 22, 23) drive the eager step, where Python runs.
+(phases 3, 18, 19, 20, 22, 23, 24) drive the eager step, where Python
+runs.
 
 Then one JSON line describing the kernels, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
@@ -362,6 +385,35 @@ KERNELS = {
         source="fccf_pcr_torch/csrc/faces.cu",
         replaces="fccf_pcr_tpu/features/faces.py:163",
         also_replaces=["fccf_pcr_tpu/features/faces.py:200"],
+    ),
+    # The hypotheses stage: no Pallas kernel, fused loops of the JAX
+    # package's compiled program. H1 forms the bases with the matches on
+    # the main path; the bases form alone is select_bases on a card.
+    "hyp_matches": dict(
+        name="hyp_matches",
+        route="cuda",
+        source="fccf_pcr_torch/csrc/hypotheses.cu",
+        replaces="fccf_pcr_tpu/hypotheses/transforms.py:161",
+        also_replaces=["fccf_pcr_tpu/hypotheses/bases.py:40"],
+    ),
+    "hyp_slots": dict(
+        name="hyp_slots",
+        route="cuda",
+        source="fccf_pcr_torch/csrc/hypotheses.cu",
+        replaces="fccf_pcr_tpu/hypotheses/transforms.py:78",
+    ),
+    "hyp_emit": dict(
+        name="hyp_emit",
+        route="cuda",
+        source="fccf_pcr_torch/csrc/hypotheses.cu",
+        replaces="fccf_pcr_tpu/hypotheses/transforms.py:217",
+        also_replaces=["fccf_pcr_tpu/hypotheses/transforms.py:230"],
+    ),
+    "hyp_bases": dict(
+        name="hyp_bases",
+        route="cuda",
+        source="fccf_pcr_torch/csrc/hypotheses.cu",
+        replaces="fccf_pcr_tpu/hypotheses/bases.py:40",
     ),
 }
 _BIG = 2**30
@@ -1671,13 +1723,15 @@ def phase_path(name, counters, dev):
     launches = read_counts(counters, dev)
     check(launches["label_prop_propagate"] > 0 and launches["sweeps"] > 0,
           f"the {name} path launched no propagation kernel")
-    for k in ("label_prop_sweep", "gather_rows", "cluster_block_seeds"):
+    for k in ("label_prop_sweep", "gather_rows", "cluster_block_seeds",
+              "hyp_bases"):
         check(launches[k] == 0, f"the {name} path launched the {k} kernel "
-              f"{launches[k]} times (it runs inside the propagation kernel "
-              "or the block scan)")
+              f"{launches[k]} times (it runs inside the propagation kernel, "
+              "the block scan or H1)")
     for k in ("cluster_block_scan", "cluster_floor_walk", "lm_refine",
               "scan_int", "prefix_sum16", "faces_plane_fit",
-              "faces_segment_sum", "step_graph_replays"):
+              "faces_segment_sum", "hyp_matches", "hyp_slots", "hyp_emit",
+              "step_graph_replays"):
         check(launches[k] > 0, f"the {name} path made no {k}")
 
     T = res.transform
@@ -2647,10 +2701,40 @@ def plain_faces():
         yield
 
 
+@contextlib.contextmanager
+def plain_hypotheses():
+    """ops/hypotheses_kernels.py's H1, H2 and H3 replaced by their plain
+    versions for the duration: the hypotheses stage as the port ran it on
+    the card before them (the compactions, the (M, F, F) grids and the
+    stable sort of each match's slots)."""
+    from fccf_pcr_torch.ops import hypotheses_kernels as hk
+
+    with swapped(hk, _launch_matches=hk.matches_plain,
+                 _launch_slots=hk.slots_plain, _launch_emit=hk.emit_plain):
+        yield
+
+
 STAGE_ARMS = {"plain scans": plain_scans,
               "concatenated columns": concatenated_columns,
               "plain faces": plain_faces,
+              "plain hypotheses": plain_hypotheses,
               "kernels": contextlib.nullcontext}
+# H1, H2 and H3's kernels, and the most kernels the hypotheses stage may
+# hold besides them.
+HYP_KERNELS = ("hyp_matches_kernel", "hyp_slots_kernel", "hyp_emit_kernel")
+HYP_STAGE_MOST = 6
+
+
+def hyp_chains(ks):
+    """In one eager step's kernels (``kernel_stages``): those of the
+    hypotheses stage, their sort kernels and the launches of each of H1,
+    H2 and H3 there."""
+    ks = [k for chain, k, _ in ks if chain and chain[0] == "hypotheses"]
+    return dict(kernels=len(ks),
+                sorts=sum(1 for k in ks if SORT_KERNEL.search(k)),
+                launches={n: sum(1 for k in ks if n in k)
+                          for n in HYP_KERNELS},
+                names=sorted({k[:60] for k in ks})[:8])
 
 
 def faces_chains(ks):
@@ -2721,7 +2805,10 @@ def phase_stages(name, step, eager, graph_kernels):
     ``COLUMN_RANGES`` the fused arm must make no concatenation of the
     clouds' float32 columns (``column_cats``), the concatenated arm must
     make one at least in each range, and the fused arm's 3-D float32 cat
-    kernels (``CAT_3D_FLOAT``) must be fewer by as many. Beside it the
+    kernels (``CAT_3D_FLOAT``) must be fewer by as many. The arms with
+    F1 / F2 (``plain_faces``) and with H1-H3 (``plain_hypotheses``)
+    swapped for their plain versions prove the faces and hypotheses
+    stages' checks (``faces_chains``, ``hyp_chains``). Beside it the
     graph step's kernels (phase 8's
     count, and the kernel names one capture of the replay holds more or
     fewer than the eager step: the graph replays the same program)."""
@@ -2730,7 +2817,8 @@ def phase_stages(name, step, eager, graph_kernels):
     fn, args = step
     n = next(x[-1].shape[-1] for _, x, op in record_scans(eager, args)
              if op == "moments")
-    out = {"column_cats": {}, "cat_kernels": {}, "faces_chains": {}}
+    out = {"column_cats": {}, "cat_kernels": {}, "faces_chains": {},
+           "hyp_chains": {}}
     for arm, ctx in STAGE_ARMS.items():
         with ctx():
             eager(*args)  # warm up
@@ -2740,6 +2828,7 @@ def phase_stages(name, step, eager, graph_kernels):
             calls = column_cats(eager, args, n)
         out[arm] = stage_table(name, ks)
         out["faces_chains"][arm] = faces_chains(ks)
+        out["hyp_chains"][arm] = hyp_chains(ks)
         out["column_cats"][arm] = {r: [c for c in calls if c[0] == r]
                                    for r in COLUMN_RANGES}
         out["cat_kernels"][arm] = {
@@ -2768,6 +2857,17 @@ def phase_stages(name, step, eager, graph_kernels):
           f"{name}: the plain segment sums ran {plain['f2_cats']} cat "
           f"kernels, {plain['f2_sorts']} sort kernels and "
           f"{plain['f2_launches']} F2 launches in {F2_RANGES}")
+    hc, hplain = out["hyp_chains"]["kernels"], out["hyp_chains"][
+        "plain hypotheses"]
+    check(hc["sorts"] == 0 and all(n == 1 for n in hc["launches"].values())
+          and hc["kernels"] <= HYP_STAGE_MOST,
+          f"{name}: the hypotheses stage holds {hc['kernels']} kernels, "
+          f"{hc['sorts']} sort kernels and H1-H3 launches {hc['launches']} "
+          f"(want at most {HYP_STAGE_MOST}, no sort, one each): "
+          f"{hc['names']}")
+    check(hplain["sorts"] > 0 and not any(hplain["launches"].values()),
+          f"{name}: the plain hypotheses stage ran {hplain['sorts']} sort "
+          f"kernels and H1-H3 launches {hplain['launches']}")
     for r in COLUMN_RANGES:
         fused = out["column_cats"]["kernels"][r]
         cat = out["column_cats"]["concatenated columns"][r]
@@ -2819,7 +2919,8 @@ def print_stages(name, st, smi):
               f" ({len(set(fc['f1_names']))} names), {fc['f2_kernels']} in "
               f"{' / '.join(F2_RANGES)}, {fc['f2_cats']} of them "
               f"CatArrayBatchedCopy, {fc['f2_sorts']} sort kernels, "
-              f"{fc['f2_launches']} F2 | {smi}",
+              f"{fc['f2_launches']} F2; hypotheses stage "
+              f"{st['hyp_chains'][arm]} | {smi}",
               flush=True)
         for stage, b in t["stages"].items():
             top = "; ".join(f"{ms:.3f} ms {k[:70]}" for k, ms in b["top"])
@@ -3498,6 +3599,377 @@ def phase_faces(steps, eager, dev):
     return out
 
 
+# Operations of H1 and H2 (csrc/hypotheses.cu), a 3-entry sum as 2 adds,
+# sqrtf, acosf, a clamp, a compare and a division as one each: a base's
+# angle, gates and type (30); an entry of the B x B mask (5); a match's
+# prelude: R = R2 R1 with R1 m2, the normals of n1 x m1 and n2 x m2r, the
+# two offsets, the fallback translation and the quaternion (384); a
+# source face's test, offset d13 and P = inv(A^T A) A^T (154); a target
+# face's rotation, test and offset d23 (51); a slot's angle test (12); a
+# kept hit's translation (16). H2's are counted for every face and slot of
+# a valid match, the most its data can need (its bound is its bytes).
+HYP_BASE_OPS = 30
+HYP_MASK_OPS = 5
+HYP_MATCH_OPS = 384
+HYP_SOURCE_OPS = 154
+HYP_TARGET_OPS = 51
+HYP_SLOT_OPS = 12
+HYP_HIT_OPS = 16
+# The kernels of the hypotheses stage by the form phase 24 names them in,
+# and their plain versions in ops/hypotheses_kernels.py.
+HYP_FORMS = {"bases": "bases_plain", "matches": "matches_plain",
+             "slots": "slots_plain", "emit": "emit_plain"}
+# Phase 24's kernels and their names in KERNELS.
+HYP_PTXAS = {"H1": "hyp_matches", "H2": "hyp_slots", "H3": "hyp_emit",
+             "bases": "hyp_bases"}
+
+
+def cloned(x):
+    """A copy of ``x``: tensors cloned, tuples and NamedTuples of them
+    copied item by item, anything else as it is."""
+    import torch
+
+    if torch.is_tensor(x):
+        return x.clone()
+    if isinstance(x, tuple):
+        items = [cloned(v) for v in x]
+        return type(x)(*items) if hasattr(x, "_fields") else tuple(items)
+    return x
+
+
+def record_hypotheses(eager, args):
+    """The inputs of the H1, H2 and H3 calls of one eager step, in order:
+    (form, args) with form "matches", "slots" or "emit" and args those of
+    its kernel's launch."""
+    import torch
+
+    from fccf_pcr_torch.ops import hypotheses_kernels as hk
+
+    seen = []
+    kept = {form: getattr(hk, f"_launch_{form}")
+            for form in ("matches", "slots", "emit")}
+
+    def recorded(form):
+        def run(*a):
+            seen.append((form, cloned(a)))
+            return kept[form](*a)
+        return run
+
+    with swapped(hk, **{f"_launch_{form}": recorded(form) for form in kept}):
+        eager(*args)
+    torch.cuda.synchronize()
+    return seen
+
+
+def hyp_forms(form, a):
+    """(kernel, plain) calls of one input of H1 ("matches"), H2 ("slots"),
+    H3 ("emit") or the bases form ("bases"), in their launch's
+    signature."""
+    from fccf_pcr_torch.ops import hypotheses_kernels as hk
+
+    return (lambda: getattr(hk, f"_launch_{form}")(*a),
+            lambda: getattr(hk, HYP_FORMS[form])(*a))
+
+
+def tensor_bytes(x):
+    """The bytes of the tensors in ``x`` (a tensor or nested tuples)."""
+    import torch
+
+    if torch.is_tensor(x):
+        return x.numel() * x.element_size()
+    if isinstance(x, tuple):
+        return sum(tensor_bytes(v) for v in x)
+    return 0
+
+
+def hyp_bound(form, a, out):
+    """The least time the card could take for one call of a hypotheses
+    kernel, in ms, and what bounds it: the inputs it needs read once and
+    its outputs written once over the memory rate, against its
+    operations (HYP_*_OPS) over the float32 rate. ``out`` is the call's
+    result (its data-dependent counts)."""
+    fields = {"bases": ("normal", "theta", "valid"),
+              "matches": ("normal", "theta", "valid"),
+              "slots": ("normal", "centroid", "point_size", "valid")}
+    if form == "bases":
+        faces = a[0]
+        F = faces.valid.shape[-1]
+        C = faces.valid.numel() // F
+        nbytes = sum(tensor_bytes(getattr(faces, f)) for f in fields[form])
+        ops = C * F * (F - 1) // 2 * HYP_BASE_OPS
+    elif form == "matches":
+        f1, f2, b1, b2 = a[:4]
+        F = f1.valid.shape[-1]
+        P = f1.valid.numel() // F
+        B = F * (F - 1) // 2
+        nbytes = sum(tensor_bytes(b) if b is not None else sum(
+            tensor_bytes(getattr(f, k)) for k in fields[form])
+            for f, b in ((f1, b1), (f2, b2)))
+        ops = P * (2 * B * HYP_BASE_OPS + B * B * HYP_MASK_OPS)
+    elif form == "slots":
+        f1, f2, m = a[:3]
+        F = f1.valid.shape[-1]
+        nbytes = sum(tensor_bytes(getattr(f, k)) for f in (f1, f2)
+                     for k in fields[form])
+        nbytes += tensor_bytes((m.count, m.i1, m.j1, m.i2, m.j2))
+        ops = (int(m.count.sum()) * (HYP_MATCH_OPS + F * HYP_SOURCE_OPS
+                                      + F * HYP_TARGET_OPS
+                                      + F * F * HYP_SLOT_OPS)
+               + int(out.count.sum()) * HYP_HIT_OPS)
+    else:
+        s, m = a[:2]
+        emitted = int(out[4].sum())
+        nbytes = tensor_bytes((s.count, s.row_overflow, m.type_, m.overflow))
+        nbytes += emitted * (16 + 12)
+        ops = s.count.numel()
+    nbytes += tensor_bytes(tuple(out))
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def acos_sweep(dev):
+    """CUDA's acosf (hypotheses_kernels.acos_probe) against torch.arccos,
+    bit for bit, at every float32 in [-1, 1], then 2^24 random float32 of
+    any magnitude with inf, -inf, NaN and -0.0. Returns the count of
+    inputs held."""
+    import numpy as np
+    import torch
+
+    from fccf_pcr_torch.ops import hypotheses_kernels as hk
+
+    step, held = 1 << 26, 0
+    one = int(np.array(1.0, np.float32).view(np.int32))
+    for sign in (0, -(1 << 31)):
+        for lo in range(0, one + 1, step):
+            x = (torch.arange(lo, min(lo + step, one + 1), dtype=torch.int32,
+                              device=dev) + sign).view(torch.float32)
+            check(faces_equal(hk.acos_probe(x), torch.arccos(x)),
+                  f"acosf differs from torch.arccos from bits {lo + sign}")
+            held += x.numel()
+    g = torch.Generator(device=dev).manual_seed(24)
+    x = torch.randint(-2**31, 2**31 - 1, (1 << 24,), generator=g, device=dev,
+                      dtype=torch.int64).to(torch.int32).view(torch.float32)
+    x[:4] = torch.tensor([float("inf"), -float("inf"), float("nan"), -0.0])
+    check(faces_equal(hk.acos_probe(x), torch.arccos(x)),
+          "acosf differs from torch.arccos on random float32")
+    return held + x.numel()
+
+
+def hyp_faces(seed, P, F, kinds, dev):
+    """P pairs of face sets (f1, f2 = f1 rotated, translated and a little
+    perturbed, so bases match); ``kinds[k]`` makes pair k an edge case:
+    "none" (no valid face), "zero" (every normal zero), "nan" (a NaN
+    normal, centroid and point size), "one" (one valid face)."""
+    import numpy as np
+    import torch
+
+    from fccf_pcr_torch.features.faces import Faces
+
+    rng = np.random.default_rng(seed)
+    f1s, f2s = [], []
+    for k in range(P):
+        n = int(rng.integers(max(F - 4, 2), F + 1))
+        normal = rng.normal(size=(n, 3))
+        normal /= np.linalg.norm(normal, axis=1, keepdims=True)
+        normal *= rng.uniform(0.97, 1.0, (n, 1))
+        pad = F - n
+        a = dict(
+            centroid=np.concatenate([rng.uniform(-8, 8, (n, 3)),
+                                     np.zeros((pad, 3))]),
+            normal=np.concatenate([normal, np.zeros((pad, 3))]),
+            point_size=np.concatenate([rng.uniform(50, 4000, n),
+                                       np.zeros(pad)]),
+            voxel_count=np.concatenate([np.ones(n), np.zeros(pad)]),
+            theta=np.concatenate([rng.uniform(0.2, 4.0, n), np.zeros(pad)]),
+            valid=np.arange(F) < n)
+        axis = rng.normal(size=3)
+        axis /= np.linalg.norm(axis)
+        K = np.array([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]],
+                      [-axis[1], axis[0], 0]])
+        th = np.deg2rad(rng.uniform(5, 40))
+        R = np.eye(3) + np.sin(th) * K + (1 - np.cos(th)) * K @ K
+        v = a["valid"][:, None]
+        b = dict(a)
+        b["normal"] = np.where(v, a["normal"] @ R.T + rng.normal(
+            scale=0.002, size=(F, 3)), 0.0)
+        b["centroid"] = np.where(v, a["centroid"] @ R.T + rng.normal(size=3),
+                                 0.0)
+        kind = kinds[k] if k < len(kinds) else "plain"
+        if kind == "none":
+            a["valid"] = np.zeros(F, bool)
+        elif kind == "zero":
+            a["normal"] = np.zeros((F, 3))
+            b["normal"] = np.zeros((F, 3))
+        elif kind == "nan":
+            a["normal"][0] = np.nan
+            b["centroid"][1] = np.nan
+            a["point_size"][2] = np.nan
+        elif kind == "one":
+            a["valid"] = np.arange(F) < 1
+        f1s.append(a)
+        f2s.append(b)
+
+    def stack(fs):
+        dtype = dict(voxel_count=np.int32, valid=bool)
+        return Faces(**{k: torch.from_numpy(np.stack([f[k] for f in fs])
+                                            .astype(dtype.get(k, np.float32)))
+                        .to(dev) for k in Faces._fields})
+    return stack(f1s), stack(f2s)
+
+
+def hyp_edge_cases(dev):
+    """The stage's edge inputs: (what, f1, f2, caps, bases given)."""
+    from fccf_pcr_torch import TEST_CAPS
+
+    cases = []
+    for F, K in ((16, 16), (16, 48), (5, 16), (24, 16), (24, 48),
+                 (16, 300), (64, 16)):
+        cases.append((f"F {F} PER_MATCH {K}", *hyp_faces(F + K, 4, F, (), dev),
+                      TEST_CAPS.replace(per_match_hits=K), False))
+    for what, over in (("M overflow", dict(max_matches=64)),
+                       ("H overflow", dict(max_hypotheses=256)),
+                       ("row overflow", dict(per_match_hits=2))):
+        cases.append((what, *hyp_faces(31, 3, 16, (), dev),
+                      TEST_CAPS.replace(**over), True))
+    cases.append(("no valid face, zero normals, NaN entries, one face",
+                  *hyp_faces(41, 4, 16, ("none", "zero", "nan", "one"), dev),
+                  TEST_CAPS, False))
+    return cases
+
+
+def hyp_stage_equal(what, f1, f2, caps, given):
+    """The bases form, H1, H2 and H3 against their plain versions on one
+    case, each on the same inputs, bit for bit; then the stage through
+    the kernels against the plain chain. Returns the kernel calls held."""
+    from fccf_pcr_torch import FCCFParams
+    from fccf_pcr_torch.hypotheses.transforms import generate_hypotheses
+    from fccf_pcr_torch.ops import hypotheses_kernels as hk
+
+    def held(form, *a):
+        k, plain = hyp_forms(form, a)
+        want = plain()
+        check(faces_equal(k(), want), f"edge case {what}: {form} differs "
+              "from plain")
+        return want
+
+    params = FCCFParams()
+    bases = [held("bases", f, params) for f in (f1, f2)]
+    b1, b2 = bases if given else (None, None)
+    m = held("matches", f1, f2, b1, b2, params, caps.max_matches)
+    sl = held("slots", f1, f2, m, params, caps.per_match_hits)
+    final = held("emit", sl, m, caps.max_hypotheses,
+                 f1.valid.shape[-1] ** 2 + 1)
+    got = generate_hypotheses(f1, f2, b1, b2, params, caps)
+    check(faces_equal(tuple(got), final), f"edge case {what}: the stage "
+          "through H1-H3 differs from the plain chain")
+    return 8
+
+
+def hyp_lane_alone(dev):
+    """A pair alone against the same pair in a batch of 8, through the
+    kernels at heritage-like capacities: every field bitwise equal."""
+    from fccf_pcr_torch import FCCFParams, TEST_CAPS
+    from fccf_pcr_torch.features.faces import Faces
+    from fccf_pcr_torch.hypotheses.transforms import generate_hypotheses
+
+    caps = TEST_CAPS.replace(max_matches=2048, max_hypotheses=3072,
+                             per_match_hits=48)
+    f1, f2 = hyp_faces(51, 8, 16, ("plain", "nan", "zero", "one"), dev)
+    batch = generate_hypotheses(f1, f2, None, None, FCCFParams(), caps)
+    for k in range(8):
+        alone = generate_hypotheses(Faces(*(x[k:k + 1] for x in f1)),
+                                    Faces(*(x[k:k + 1] for x in f2)), None,
+                                    None, FCCFParams(), caps)
+        check(faces_equal(tuple(x[0] for x in alone),
+                          tuple(x[k] for x in batch)),
+              f"hypotheses: pair {k} alone differs from its row of 8")
+    return 8
+
+
+def hyp_replays(cases):
+    """The stage (H1, H2, H3) of each case called twice inside one captured
+    CUDA graph, the graph replayed twice: each replay's outputs equal the
+    eager calls'. Returns the kernel calls the graph holds."""
+    import torch
+
+    from fccf_pcr_torch import FCCFParams
+    from fccf_pcr_torch.hypotheses.transforms import generate_hypotheses
+
+    def run(f1, f2, caps):
+        return tuple(generate_hypotheses(f1, f2, None, None, FCCFParams(),
+                                         caps))
+
+    want = [run(f1, f2, caps) for _, f1, f2, caps, _ in cases]
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        outs = [run(f1, f2, caps) for _, f1, f2, caps, _ in cases
+                for _ in range(2)]
+    for _ in range(2):
+        g.replay()
+        torch.cuda.synchronize()
+        for i, w in enumerate(want):
+            for o in outs[2 * i:2 * i + 2]:
+                check(faces_equal(o, w), f"hypotheses {cases[i][0]} called "
+                      "twice in a replayed graph differs from its eager call")
+    del g
+    return 3 * len(outs)
+
+
+def phase_hypotheses(steps, eager, dev):
+    """Phase 24: the hypotheses stage's kernels against their plain
+    versions on the card, bit for bit: acosf against torch.arccos
+    (``acos_sweep``); every H1, H2 and H3 input of the heritage and
+    office batch-8 eager steps (``record_hypotheses``: one call each a
+    step) and the bases form on the steps' 2P face sets; the edge cases
+    (``hyp_edge_cases``), a pair alone against a batch of 8
+    (``hyp_lane_alone``) and the stage twice in one replayed graph
+    (``hyp_replays``); at each step's inputs the device time a call
+    (``graph_ms``) of the kernel and the plain version beside the
+    bound."""
+    import torch
+
+    names = {"matches": "H1", "slots": "H2", "emit": "H3", "bases": "bases"}
+    out = {k: {} for k in names.values()}
+    out.update(edge_calls=0, differ=0, acos_inputs=acos_sweep(dev))
+    for name in ("heritage", "office"):
+        fn, args = steps[name]
+        calls = record_hypotheses(eager[name], args)
+        forms = [form for form, _ in calls]
+        check(forms == ["matches", "slots", "emit"],
+              f"{name}: the eager step's hypotheses calls are {forms} (want "
+              "one H1, H2 and H3)")
+        f1, f2 = calls[0][1][:2]
+        both = type(f1)(*(torch.cat([x, y]) for x, y in zip(f1, f2)))
+        calls.append(("bases", (both, calls[0][1][4])))
+        for form, a in calls:
+            kernel = names[form]
+            k, plain = hyp_forms(form, a)
+            got, want = k(), plain()
+            ok = faces_equal(got, want)
+            out["differ"] += not ok
+            check(ok, f"{name}: {kernel} differs from plain")
+            bound_ms, bound_by = hyp_bound(form, a, want)
+            shape = tuple((a[2] if form == "slots" else a[0]).valid.shape)
+            out[kernel][name] = dict(
+                shape=shape, ms=graph_ms(k), plain_ms=graph_ms(plain),
+                library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
+            if form == "slots":
+                out[kernel][name].update(
+                    matches=int(a[2].count.sum()),
+                    hits=int(want.count.sum()),
+                    row_overflows=int(want.row_overflow.sum()))
+            elif form == "emit":
+                out[kernel][name]["hypotheses"] = int(want[4].sum())
+    cases = hyp_edge_cases(dev)
+    for what, f1, f2, caps, given in cases:
+        out["edge_calls"] += hyp_stage_equal(what, f1, f2, caps, given)
+    out["edge_cases"] = len(cases)
+    out["lane_alone"] = hyp_lane_alone(dev)
+    out["replayed_calls"] = hyp_replays(cases[:3] + cases[-1:])
+    return out
+
+
 def phase_graph_configs(dev, counters):
     """Every golden config's seeds as one batch through the step graph
     (make_register_fn) and the eager step in turns, every field bitwise
@@ -3626,7 +4098,8 @@ def phase_profile(fn, args, eager):
                       "label_prop_sweep_kernel", "gather_rows",
                       "cluster_block_scan_kernel",
                       "cluster_floor_walk_kernel", "lm_refine_kernel",
-                      "faces_plane_fit_kernel", "faces_segment_sum_kernel"):
+                      "faces_plane_fit_kernel", "faces_segment_sum_kernel",
+                      *HYP_KERNELS):
             for name, us in by_name.items():
                 if kname in name:
                     print(f"[profile] {form} {kname}: {us / 1e3:.3f} ms of "
@@ -3642,8 +4115,8 @@ def drive_path(what, fn, counters, dev, registers=True):
     the gather nor the standalone block-seed kernel, and, where it
     ``registers`` (every path but
     measure_content, which stops at the seeds), replay a step graph and
-    launch C2 (the floor walk) and L1 (the LM). Returns (result, counts,
-    wall s)."""
+    launch H1, H2 and H3 (the hypotheses stage's), C2 (the floor walk)
+    and L1 (the LM). Returns (result, counts, wall s)."""
     import torch
 
     zero_counts(counters, dev)
@@ -3659,7 +4132,8 @@ def drive_path(what, fn, counters, dev, registers=True):
     for k in ("cluster_block_scan", "scan_int", "prefix_sum16",
               "faces_plane_fit", "faces_segment_sum"):
         check(counts[k] > 0, f"{what}: the {k} kernel was not launched")
-    for k in ("step_graph_replays", "cluster_floor_walk", "lm_refine"):
+    for k in ("step_graph_replays", "cluster_floor_walk", "lm_refine",
+              "hyp_matches", "hyp_slots", "hyp_emit"):
         check(counts[k] > 0 or not registers, f"{what}: no {k}")
     return out, counts, secs
 
@@ -3976,6 +4450,7 @@ def main():
         from fccf_pcr_torch.ops import cuda_build
         from fccf_pcr_torch.ops import faces_kernels as fk
         from fccf_pcr_torch.ops import gather as gt
+        from fccf_pcr_torch.ops import hypotheses_kernels as hk
         from fccf_pcr_torch.ops import label_prop as lp
         from fccf_pcr_torch.ops import scan as scn
         from fccf_pcr_torch.pipeline.register import STEP
@@ -3999,6 +4474,10 @@ def main():
                 "prefix_sum16": (scn, "PREFIX_SUMS"),
                 "faces_plane_fit": (fk, "PLANE_FITS"),
                 "faces_segment_sum": (fk, "SEGMENT_SUMS"),
+                "hyp_matches": (hk, "MATCHES"),
+                "hyp_slots": (hk, "SLOTS"),
+                "hyp_emit": (hk, "EMITS"),
+                "hyp_bases": (hk, "BASES"),
                 "step_graph_captures": (STEP, "captures"),
                 "step_graph_replays": (STEP, "replays")}
     try:
@@ -4012,10 +4491,11 @@ def main():
               f"(count {torch.cuda.device_count()}) | {smi}", flush=True)
 
         t_start = time.perf_counter()
-        secs = phase_build([lp, gt, ck, lmk, scn, fk])
+        secs = phase_build([lp, gt, ck, lmk, scn, fk, hk])
         print(f"[build] label_prop.cu {secs[0]:.2f} s, gather.cu {secs[1]:.2f} s, "
               f"cluster.cu {secs[2]:.2f} s, lm.cu {secs[3]:.2f} s, scan.cu "
-              f"{secs[4]:.2f} s, faces.cu {secs[5]:.2f} s (in parallel, "
+              f"{secs[4]:.2f} s, faces.cu {secs[5]:.2f} s, hypotheses.cu "
+              f"{secs[6]:.2f} s (in parallel, "
               f"{time.perf_counter() - t_start:.2f} s)", flush=True)
         ptxas = {"label_prop_propagate": ptxas_summary(lp, "propagate_kernel"),
                  "label_prop_sweep": ptxas_summary(lp, "sweep_kernel"),
@@ -4037,7 +4517,11 @@ def main():
                                              + ("" if k == "top" else
                                                 "INS_7Moments"))
                      for k in ("up", "top", "down")),
-                 "faces_plane_fit": ptxas_summary(fk, "plane_fit_kernel")}
+                 "faces_plane_fit": ptxas_summary(fk, "plane_fit_kernel"),
+                 "hyp_matches": ptxas_summary(hk, "hyp_matches_kernel"),
+                 "hyp_slots": ptxas_summary(hk, "hyp_slots_kernel"),
+                 "hyp_emit": ptxas_summary(hk, "hyp_emit_kernel"),
+                 "hyp_bases": ptxas_summary(hk, "hyp_bases_kernel")}
         # F2's face statistics' and values' forms, 16-bit row indices in
         # shared memory (the main path's)
         f2_forms = [ptxas_summary(fk, f"segment_sum_kernelILi{form}EtLb1")
@@ -4182,9 +4666,14 @@ def main():
                   "launches a step (at most 4)")
             check(t["lm_refine"] == 1,
                   f"{name} timing: {t['lm_refine']} L1 launches a step")
-            check(t["scan_int"] > 0 and t["prefix_sum16"] > 0,
+            check(t["scan_int"] == 10 and t["prefix_sum16"] > 0,
                   f"{name} timing: {t['scan_int']} S1 and "
-                  f"{t['prefix_sum16']} S2 calls a step")
+                  f"{t['prefix_sum16']} S2 calls a step (want 10 S1)")
+            check(t["hyp_matches"] == t["hyp_slots"] == t["hyp_emit"] == 1
+                  and t["hyp_bases"] == 0,
+                  f"{name} timing: {t['hyp_matches']} H1, {t['hyp_slots']} "
+                  f"H2, {t['hyp_emit']} H3 and {t['hyp_bases']} bases-form "
+                  "launches a step (want 1, 1, 1 and 0)")
             check(t["faces_plane_fit"] == 1 and t["faces_segment_sum"] == 3,
                   f"{name} timing: {t['faces_plane_fit']} F1 and "
                   f"{t['faces_segment_sum']} F2 launches a step (want 1 and "
@@ -4207,6 +4696,8 @@ def main():
                   f"{t['scan_int']:g} S1 and {t['prefix_sum16']:g} S2 "
                   f"calls, {t['faces_plane_fit']:g} F1 and "
                   f"{t['faces_segment_sum']:g} F2 launches, "
+                  f"{t['hyp_matches']:g} H1, {t['hyp_slots']:g} H2 and "
+                  f"{t['hyp_emit']:g} H3 launches, "
                   f"{t['step_graph_replays']:g} step graph replays and "
                   f"{t['step_graph_captures']:g} captures, "
                   f"{t['host_launches']} host launches "
@@ -4330,6 +4821,28 @@ def main():
               f"F2's own order equal to torch.sort(stable=True) on "
               f"{fc['orders']} F2 inputs; "
               f"{fc['replayed_calls']} kernel calls in one graph, replayed "
+              f"twice, equal to their eager calls; phase "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        hc = phase_hypotheses(steps, eager, dev)
+        print(f"[hypotheses] acosf equal to torch.arccos at "
+              f"{hc['acos_inputs']} inputs", flush=True)
+        for kernel, ptx in HYP_PTXAS.items():
+            for name, c in hc[kernel].items():
+                extra = "".join(f", {k} {c[k]}" for k in (
+                    "matches", "hits", "row_overflows", "hypotheses")
+                    if k in c)
+                print(f"[hypotheses] {kernel} {name} batch-8 step "
+                      f"{c['shape']}{extra}: equal to plain; "
+                      f"{c['ms'] * 1e3:.2f} us device vs plain "
+                      f"{c['plain_ms'] * 1e3:.2f} us; bound "
+                      f"{c['bound_ms'] * 1e3:.3f} us ({c['bound_by']}), "
+                      f"{c['ms'] / c['bound_ms']:.1f}x it | ptxas "
+                      f"{ptxas[ptx]} | {smi}", flush=True)
+        print(f"[hypotheses] {hc['edge_cases']} edge cases "
+              f"({hc['edge_calls']} kernel calls) equal to plain; a pair "
+              f"alone equal to its row of {hc['lane_alone']}; "
+              f"{hc['replayed_calls']} kernel calls in one graph, replayed "
               f"twice, equal to their eager calls; phase "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
         t0 = time.perf_counter()
@@ -4576,6 +5089,28 @@ def main():
                      + "; max_abs_err the most outputs that differ")
           for name, kernel in (("faces_plane_fit", "F1"),
                                ("faces_segment_sum", "F2"))),
+        *(dict(KERNELS[ptx], launches=launches[ptx],
+               max_abs_err=hc["differ"], ms=hc[kernel]["heritage"]["ms"],
+               plain_ms=hc[kernel]["heritage"]["plain_ms"],
+               bound_ms=hc[kernel]["heritage"]["bound_ms"],
+               bound_by=hc[kernel]["heritage"]["bound_by"], library_ms=None,
+               launches_per_step=per_step_of(ptx), by_config=hc[kernel],
+               hypotheses_stage={k: {arm: [round(b["ms"], 4), b["kernels"]]
+                                     for arm in STAGE_ARMS for b in [
+                                         stage_tables[k][arm]["stages"][
+                                             "hypotheses"]]}
+                                 for k in stage_tables},
+               launches_by_path={k: v[ptx] for k, v in paths.items()},
+               ptxas=ptxas[ptx],
+               shape=f"one call at the heritage batch-8 step's inputs "
+                     f"{hc[kernel]['heritage']['shape']}; ms and plain_ms "
+                     "device time a call by CUDA events over a graph of 10 "
+                     "calls; no one PyTorch call computes it; max_abs_err "
+                     "the calls that differ"
+                     + ("; off the main path (select_bases on a card), "
+                        "timed on the step's 2P face sets"
+                        if kernel == "bases" else ""))
+          for kernel, ptx in HYP_PTXAS.items()),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -30,9 +30,9 @@ from ..cluster.cluster import _greedy_seeds_all_types
 from ..config import Capacities, FCCFParams
 from ..features.faces import faces_from_voxels
 from ..hypotheses.bases import select_bases
-from ..hypotheses.transforms import _match_all
 from ..io import synthetic
 from ..ops import geometry
+from ..ops.hypotheses_kernels import match_all
 from ..ops.voxelize import compact, downsample_and_voxelize
 from ..pipeline.register import pre_downsample, resolve_device, set_precision
 
@@ -118,8 +118,8 @@ def measure_pair(src, tar, params: FCCFParams, caps: Capacities,
         match, M, b1.i[..., :, None].expand(sq), b1.j[..., :, None].expand(sq),
         b2.i[..., None, :].expand(sq), b2.j[..., None, :].expand(sq),
         b1.type_[..., :, None].expand(sq), batch_dims=1)
-    quat, T3, pair_ok, t_fb, fb = _match_all(f1, f2, mi1, mj1, mi2, mj2,
-                                             params)
+    quat, T3, pair_ok, t_fb, fb = match_all(f1, f2, mi1, mj1, mi2, mj2,
+                                            params)
     hit = pair_ok & m_valid[..., None, None]          # (1, M, F, F)
     hits = torch.sum(hit, dim=(-2, -1))
     out["per_match_hits"] = int(torch.amax(hits))

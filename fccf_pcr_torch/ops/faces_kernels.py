@@ -44,9 +44,9 @@ from typing import NamedTuple
 import torch
 from torch.profiler import record_function
 
-from . import eigen3, graph
+from . import eigen3
 from .batch import take
-from .cuda_build import CudaLibrary
+from .cuda_build import CudaLibrary, checked, device_type, launched, stream
 
 # Launches of F1 (the plane fit), F2 (the segment sums, both forms) and
 # F2's order alone (label_order, off the main path).
@@ -210,27 +210,12 @@ def values_sum_by_label_plain(values, labels, valid, V):
 # -------------------------------------------------------------- kernels --
 
 
-def _stream(dev):
-    return torch.cuda.current_stream(dev).cuda_stream
-
-
-def _check(what, tensors, dtypes, shapes):
-    """Raises unless each tensor has its dtype and shape and all lie on
-    the first one's device; returns them contiguous."""
-    dev = tensors[0].device
-    for name, t, dt, shape in zip(what, tensors, dtypes, shapes):
-        if t.dtype != dt or tuple(t.shape) != tuple(shape) or t.device != dev:
-            raise ValueError(f"{name}: want {dt} {tuple(shape)} on {dev}, got "
-                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
-    return tuple(t.contiguous() for t in tensors)
-
-
 def _launch_plane_fit(cov, centroid, count, valid, global_centroid,
                       point_threshold, curvature_threshold):
     """F1 on CUDA tensors."""
     lead = tuple(valid.shape[:-1])
     V = valid.shape[-1]
-    cov, centroid, count, valid, gc = _check(
+    cov, centroid, count, valid, gc = checked(
         ("cov", "centroid", "count", "valid", "global_centroid"),
         (cov, centroid, count, valid, global_centroid),
         (torch.float32, torch.float32, torch.int32, torch.bool,
@@ -251,11 +236,8 @@ def _launch_plane_fit(cov, centroid, count, valid, global_centroid,
             cov.data_ptr(), centroid.data_ptr(), count.data_ptr(),
             valid.data_ptr(), gc.data_ptr(),
             *(t.data_ptr() for t in out), math.prod(lead), V,
-            int(point_threshold), float(curvature_threshold), _stream(dev))
-    if rc != 0:
-        raise RuntimeError(f"fccf_faces_plane_fit launch failed: CUDA error "
-                           f"{rc}")
-    graph.count_launch(_THIS, "PLANE_FITS")
+            int(point_threshold), float(curvature_threshold), stream(dev))
+    launched(rc, "fccf_faces_plane_fit", _THIS, "PLANE_FITS")
     return out
 
 
@@ -278,20 +260,14 @@ def _labels(what, labels, valid, V, form):
     return labels.contiguous(), valid.contiguous(), lead, n, B, scratch
 
 
-def _launched(rc, entry, counter="SEGMENT_SUMS"):
-    if rc != 0:
-        raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")
-    graph.count_launch(_THIS, counter)
-
-
 def _launch_segment_sum(values, labels, valid, V):
     """F2's values form on CUDA tensors: sums (..., V) of values (..., n)
     float32 by labels (..., n) int64 and valid (..., n) bool, ordered on
     the card in the same launch."""
     labels, valid, lead, n, B, scratch = _labels(
         "label_segment_sum", labels, valid, V, VALUES)
-    (values,) = _check(("values",), (values,), (torch.float32,),
-                       (lead + (n,),))
+    (values,) = checked(("values",), (values,), (torch.float32,),
+                        (lead + (n,),))
     dev = values.device
     out = torch.empty(lead + (V,), dtype=torch.float32, device=dev)
     if out.numel() == 0 or n == 0:
@@ -301,8 +277,8 @@ def _launch_segment_sum(values, labels, valid, V):
         rc = lib.fccf_faces_segment_sum(
             labels.data_ptr(), valid.data_ptr(), values.data_ptr(),
             out.data_ptr(), 0 if scratch is None else scratch.data_ptr(),
-            B, n, V, _stream(dev))
-    _launched(rc, "fccf_faces_segment_sum")
+            B, n, V, stream(dev))
+    launched(rc, "fccf_faces_segment_sum", _THIS, "SEGMENT_SUMS")
     return out
 
 
@@ -311,7 +287,7 @@ def _launch_face_stats(labels, valid, count, centroid, normal, V):
     ordered on the card in the same launch."""
     labels, valid, lead, n, B, scratch = _labels(
         "face_stats", labels, valid, V, FACE_STATS)
-    count, centroid, normal = _check(
+    count, centroid, normal = checked(
         ("count", "centroid", "normal"), (count, centroid, normal),
         (torch.int32, torch.float32, torch.float32),
         (lead + (n,), lead + (n, 3), lead + (n, 3)))
@@ -329,8 +305,8 @@ def _launch_face_stats(labels, valid, count, centroid, normal, V):
             centroid.data_ptr(), normal.data_ptr(), c.data_ptr(),
             nrm.data_ptr(), psize.data_ptr(), vcount.data_ptr(),
             0 if scratch is None else scratch.data_ptr(), B, n, V,
-            _stream(dev))
-    _launched(rc, "fccf_faces_face_stats")
+            stream(dev))
+    launched(rc, "fccf_faces_face_stats", _THIS, "SEGMENT_SUMS")
     return c, nrm, psize, vcount
 
 
@@ -352,8 +328,8 @@ def _launch_label_order(labels, valid, V):
         rc = lib.fccf_faces_label_order(
             labels.data_ptr(), valid.data_ptr(), seg_s.data_ptr(),
             order.data_ptr(), 0 if scratch is None else scratch.data_ptr(),
-            B, n, V, _stream(labels.device))
-    _launched(rc, "fccf_faces_label_order", "ORDERS")
+            B, n, V, stream(labels.device))
+    launched(rc, "fccf_faces_label_order", _THIS, "ORDERS")
     return seg_s, order
 
 
@@ -361,8 +337,8 @@ def math_probe(x, y):
     """(cosf(x), atan2f(y, x)) of float32 CUDA tensors of one shape, by the
     CUDA math functions F1 calls: held to ``torch.cos`` / ``torch.atan2``,
     which the plain version calls on the card."""
-    x, y = _check(("x", "y"), (x, y), (torch.float32,) * 2,
-                  (tuple(x.shape),) * 2)
+    x, y = checked(("x", "y"), (x, y), (torch.float32,) * 2,
+                   (tuple(x.shape),) * 2)
     if x.device.type != "cuda":
         raise ValueError(f"math_probe: want CUDA tensors, got {x.device}")
     cos_out, atan2_out = torch.empty_like(x), torch.empty_like(x)
@@ -371,7 +347,7 @@ def math_probe(x, y):
         rc = lib.fccf_faces_math_probe(x.data_ptr(), y.data_ptr(),
                                        cos_out.data_ptr(),
                                        atan2_out.data_ptr(), x.numel(),
-                                       _stream(x.device))
+                                       stream(x.device))
     if rc != 0:
         raise RuntimeError(f"fccf_faces_math_probe launch failed: CUDA error "
                            f"{rc}")
@@ -381,18 +357,12 @@ def math_probe(x, y):
 # -------------------------------------------------------------- entries --
 
 
-def _device(t, what):
-    if t.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{what}: unsupported device {t.device}")
-    return t.device.type
-
-
 def plane_fit(cov, centroid, count, valid, global_centroid, point_threshold,
               curvature_threshold):
     """Each voxel's oriented unit normal, curvature, planar gate and
     residual gate (``plane_fit_plain``): F1 on a card."""
     with record_function("faces_kernels.plane_fit"):
-        if _device(cov, "plane_fit") == "cpu":
+        if device_type(cov, "plane_fit") == "cpu":
             return plane_fit_plain(cov, centroid, count, valid,
                                    global_centroid, point_threshold,
                                    curvature_threshold)
@@ -407,7 +377,7 @@ def face_stats(labels, valid, count, centroid, normal, V):
     the stable sort by label), F2 on a card, its order formed in the
     kernel."""
     with record_function("faces_kernels.face_stats"):
-        if _device(centroid, "face_stats") == "cpu":
+        if device_type(centroid, "face_stats") == "cpu":
             return face_stats_by_label_plain(labels, valid, count, centroid,
                                              normal, V)
         return _launch_face_stats(labels, valid, count, centroid, normal, V)
@@ -418,7 +388,7 @@ def label_segment_sum(values, labels, valid, V):
     labels; invalid rows add nothing (``values_sum_plain`` after the
     stable sort by label): F2 on a card, its order formed in the kernel."""
     with record_function("faces_kernels.segment_sum"):
-        if _device(values, "label_segment_sum") == "cpu":
+        if device_type(values, "label_segment_sum") == "cpu":
             return values_sum_by_label_plain(values, labels, valid, V)
         return _launch_segment_sum(values, labels, valid, V)
 
@@ -431,6 +401,6 @@ def label_order(labels, valid, V):
     invalid rows, which the sums drop); a valid label below -2^31 raises
     there."""
     with record_function("faces_kernels.label_order"):
-        if _device(labels, "label_order") == "cpu":
+        if device_type(labels, "label_order") == "cpu":
             return sorted_labels(labels, valid, V)
         return _launch_label_order(labels, valid, V)

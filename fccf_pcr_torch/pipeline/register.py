@@ -47,7 +47,6 @@ from ..cluster.cluster import cluster_hypotheses
 from ..config import Capacities, FCCFParams
 from ..features.faces import extract_faces, faces_from_voxels
 from ..fuse.fuse import fuse_transforms
-from ..hypotheses.bases import select_bases
 from ..hypotheses.transforms import generate_hypotheses
 from ..ops import geometry, graph
 from ..ops.batch import take
@@ -192,8 +191,9 @@ def _register_batch(src_pts, src_mask, tar_pts, tar_mask, params, caps):
         f1, f2 = _split(faces, P)
 
     with record_function("hypotheses"):
-        b1, b2 = _split(select_bases(faces, params), P)
-        hyp = generate_hypotheses(f1, f2, b1, b2, params, caps)
+        # Both face sets' bases are formed with the matches (in H1 on a
+        # card).
+        hyp = generate_hypotheses(f1, f2, None, None, params, caps)
     with record_function("cluster"):
         reps = cluster_hypotheses(hyp, params, caps)
 

@@ -1841,3 +1841,275 @@ def test_faces_from_voxels_launches_f1_and_f2(cuda):
     assert fk.PLANE_FITS == fits + 1 and fk.SEGMENT_SUMS == sums + 3
     assert not plain
     assert int(got[0].valid.sum()) > 0
+
+
+# ------------------------------------------- hypotheses: H1, H2 and H3 --
+
+
+def _hyp_face_set(rng, F, n):
+    normals = rng.normal(size=(n, 3))
+    normals /= np.linalg.norm(normals, axis=1, keepdims=True)
+    normals *= rng.uniform(0.97, 1.0, (n, 1))
+    pad = F - n
+    return dict(
+        centroid=np.concatenate([rng.uniform(-8, 8, (n, 3)),
+                                 np.zeros((pad, 3))]),
+        normal=np.concatenate([normals, np.zeros((pad, 3))]),
+        point_size=np.concatenate([rng.uniform(50, 4000, n), np.zeros(pad)]),
+        voxel_count=np.concatenate([np.ones(n), np.zeros(pad)]),
+        theta=np.concatenate([rng.uniform(0.2, 4.0, n), np.zeros(pad)]),
+        valid=np.arange(F) < n)
+
+
+def _hyp_faces(seed, P, F, kinds=(), dev="cpu"):
+    """P pairs of face sets (f1, f2 = f1 rotated, translated and a little
+    perturbed, so bases match); ``kinds[k]`` makes pair k an edge case:
+    "none" (no valid face), "zero" (zero normals on valid faces), "nan" (a
+    NaN normal, centroid and point size)."""
+    from fccf_pcr_torch.features.faces import Faces
+
+    rng = np.random.default_rng(seed)
+    f1s, f2s = [], []
+    for k in range(P):
+        a = _hyp_face_set(rng, F, int(rng.integers(max(F - 4, 2), F + 1)))
+        axis = rng.normal(size=3)
+        axis /= np.linalg.norm(axis)
+        K = np.array([[0, -axis[2], axis[1]], [axis[2], 0, -axis[0]],
+                      [-axis[1], axis[0], 0]])
+        th = np.deg2rad(rng.uniform(5, 40))
+        R = np.eye(3) + np.sin(th) * K + (1 - np.cos(th)) * K @ K
+        v = a["valid"][:, None]
+        b = dict(a)
+        b["normal"] = np.where(v, a["normal"] @ R.T + rng.normal(
+            scale=0.002, size=(F, 3)), 0.0)
+        b["centroid"] = np.where(v, a["centroid"] @ R.T + rng.normal(size=3),
+                                 0.0)
+        kind = kinds[k] if k < len(kinds) else "plain"
+        if kind == "none":
+            a["valid"] = np.zeros(F, bool)
+        elif kind == "zero":
+            a["normal"][1] = 0.0
+            b["normal"][2] = 0.0
+        elif kind == "nan":
+            a["normal"][0] = np.nan
+            b["centroid"][1] = np.nan
+            a["point_size"][2] = np.nan
+        f1s.append(a)
+        f2s.append(b)
+
+    def stack(fs):
+        dtype = dict(voxel_count=np.int32, valid=bool)
+        return Faces(**{k: torch.from_numpy(np.stack([f[k] for f in fs])
+                                            .astype(dtype.get(k, np.float32)))
+                        .to(dev) for k in Faces._fields})
+    return stack(f1s), stack(f2s)
+
+
+def _hyp_stage_equal(f1, f2, caps, bases=False):
+    """H1, H2 and H3 against their plain versions on the same CUDA inputs,
+    each stage bit for bit (NaN-aware), then generate_hypotheses (the
+    kernels) against the plain chain. Returns the plain hypotheses."""
+    from fccf_pcr_torch.hypotheses.transforms import Hypotheses
+    from fccf_pcr_torch.hypotheses.transforms import generate_hypotheses
+    from fccf_pcr_torch.ops import hypotheses_kernels as hk
+
+    params = FCCFParams()
+    pb1, pb2 = hk.bases_plain(f1, params), hk.bases_plain(f2, params)
+    kb1, kb2 = hk._launch_bases(f1, params), hk._launch_bases(f2, params)
+    assert _all_equal(kb1, pb1) and _all_equal(kb2, pb2)
+    b1, b2 = (kb1, kb2) if bases else (None, None)
+    pm = hk.matches_plain(f1, f2, b1, b2, params, caps.max_matches)
+    km = hk._launch_matches(f1, f2, b1, b2, params, caps.max_matches)
+    assert _all_equal(km, pm)
+    ps = hk.slots_plain(f1, f2, pm, params, caps.per_match_hits)
+    ks = hk._launch_slots(f1, f2, pm, params, caps.per_match_hits)
+    assert _all_equal(ks, ps)
+    S = f1.valid.shape[-1] ** 2 + 1
+    pe = hk.emit_plain(ps, pm, caps.max_hypotheses, S)
+    ke = hk._launch_emit(ps, pm, caps.max_hypotheses, S)
+    assert _all_equal(ke, pe)
+    got = generate_hypotheses(f1, f2, b1, b2, params, caps)
+    assert _all_equal(got, pe)
+    return Hypotheses(*pe)
+
+
+def test_acos_matches_torch(cuda):
+    """CUDA's acosf (the function H1 and H2 call) == torch.arccos on the
+    card at every float32 in [-1, 1], and at random float32 of any
+    magnitude, inf and NaN."""
+    from fccf_pcr_torch.ops import hypotheses_kernels as hk
+
+    step = 1 << 26
+    one = int(np.array(1.0, np.float32).view(np.int32))
+    for sign in (0, -(1 << 31)):
+        for lo in range(0, one + 1, step):
+            x = (torch.arange(lo, min(lo + step, one + 1), dtype=torch.int32,
+                              device=cuda) + sign).view(torch.float32)
+            assert torch.equal(_bits(hk.acos_probe(x)),
+                               _bits(torch.arccos(x))), lo + sign
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randint(-2**31, 2**31 - 1, (1 << 24,), generator=g, device=cuda,
+                      dtype=torch.int64).to(torch.int32).view(torch.float32)
+    x[:4] = torch.tensor([float("inf"), -float("inf"), float("nan"), -0.0])
+    assert torch.equal(_bits(hk.acos_probe(x)), _bits(torch.arccos(x)))
+
+
+@pytest.mark.parametrize("F,per_match,kinds", [
+    (16, 16, ()), (16, 48, ()), (5, 16, ()), (24, 16, ()), (24, 48, ()),
+    (64, 16, ()), (16, 16, ("nan", "zero", "none", "plain")),
+])
+def test_hypotheses_kernels_match_plain(cuda, F, per_match, kinds):
+    """At F = 64 H1 keeps its 2016 bases a cloud in 100 KB of dynamic
+    shared memory and H2 walks 4096 slots 256 at a time."""
+    f1, f2 = _hyp_faces(F * 10 + per_match, 4, F, kinds, cuda)
+    h = _hyp_stage_equal(f1, f2, TEST_CAPS.replace(per_match_hits=per_match))
+    assert int(h.count.sum()) > 0
+
+
+@pytest.mark.parametrize("over", [dict(max_matches=64),
+                                  dict(max_hypotheses=256),
+                                  dict(per_match_hits=2),
+                                  dict(per_match_hits=1000)])
+def test_hypotheses_kernels_overflow(cuda, over):
+    """Each overflow (matches past M, hits past H, a row's hits past
+    PER_MATCH) and PER_MATCH above F * F + 1, with the bases given."""
+    f1, f2 = _hyp_faces(31, 3, 16, (), cuda)
+    h = _hyp_stage_equal(f1, f2, TEST_CAPS.replace(**over), bases=True)
+    assert bool(h.overflow.all()) == (over != dict(per_match_hits=1000))
+
+
+def test_hypotheses_kernels_edge_faces(cuda):
+    """No valid face, every normal zero, a NaN in every field, and one
+    face: each pair of the batch its own case."""
+    f1, f2 = _hyp_faces(41, 4, 16, ("none", "zero", "nan", "plain"), cuda)
+    f1.normal[1].zero_()
+    f2.normal[1].zero_()
+    f1.valid[3, 1:] = False
+    h = _hyp_stage_equal(f1, f2, TEST_CAPS)
+    assert int(h.count[0]) == 0 and bool(torch.isnan(h.t[2]).any())
+
+
+def test_hypotheses_lane_alone_equals_batch(cuda):
+    from fccf_pcr_torch.features.faces import Faces
+    from fccf_pcr_torch.hypotheses.transforms import generate_hypotheses
+
+    caps = TEST_CAPS.replace(max_matches=2048, max_hypotheses=3072,
+                             per_match_hits=48)
+    f1, f2 = _hyp_faces(51, 8, 16, ("plain", "nan", "zero"), cuda)
+    batch = generate_hypotheses(f1, f2, None, None, FCCFParams(), caps)
+    for k in (0, 1, 2, 7):
+        alone = generate_hypotheses(Faces(*(x[k:k + 1] for x in f1)),
+                                    Faces(*(x[k:k + 1] for x in f2)), None,
+                                    None, FCCFParams(), caps)
+        assert _all_equal([a[0] for a in alone], [b[k] for b in batch])
+
+
+def test_hypotheses_kernels_in_a_capture(cuda):
+    """The stage captured in a CUDA graph (twice), replayed twice: every
+    replay equals the eager calls and H1-H3 count at each replay."""
+    from fccf_pcr_torch.hypotheses.transforms import generate_hypotheses
+    from fccf_pcr_torch.ops import hypotheses_kernels as hk
+
+    f1, f2 = _hyp_faces(61, 4, 16, ("nan",), cuda)
+
+    def fn(*a):
+        F1, F2 = type(f1)(*a[:6]), type(f2)(*a[6:])
+        return (tuple(generate_hypotheses(F1, F2, None, None, FCCFParams(),
+                                          TEST_CAPS))
+                + tuple(generate_hypotheses(F2, F1, None, None, FCCFParams(),
+                                            TEST_CAPS)))
+
+    args = tuple(f1) + tuple(f2)
+    want = fn(*args)
+    graphs = graph.Graphs(max_graphs=1)
+    graphs.replay(fn, args)  # the capture
+    counts = (hk.MATCHES, hk.SLOTS, hk.EMITS)
+    for _ in range(2):
+        got = graphs.replay(fn, args)
+        torch.cuda.synchronize()
+        assert _all_equal(got, want)
+    assert (hk.MATCHES, hk.SLOTS, hk.EMITS) == tuple(c + 4 for c in counts)
+    graphs.clear()
+
+
+def test_hypotheses_kernels_reject_bad_inputs(cuda):
+    from fccf_pcr_torch.ops import hypotheses_kernels as hk
+
+    f1, f2 = _hyp_faces(71, 2, 16, (), cuda)
+    params = FCCFParams()
+    with pytest.raises(ValueError):
+        hk.matches(f1._replace(normal=f1.normal.double()), f2, None, None,
+                   params, 64)
+    with pytest.raises(ValueError):
+        hk.matches(f1, f2._replace(valid=f2.valid[:, :8]), None, None,
+                   params, 64)
+    b1 = hk.bases(f1, params)
+    with pytest.raises(ValueError):
+        hk.matches(f1, f2, (b1[0].int(),) + b1[1:], None, params, 64)
+    m = hk.matches(f1, f2, None, None, params, 64)
+    with pytest.raises(ValueError):
+        hk.slots(f1, f2, m._replace(i1=m.i1.int()), params, 16)
+    s = hk.slots(f1, f2, m, params, 16)
+    with pytest.raises(ValueError):
+        hk.emit(s._replace(count=s.count.long()), m, 128, 257)
+    with pytest.raises(ValueError):
+        hk.acos_probe(f1.theta.cpu())
+
+
+def test_register_pair_launches_h1_h3_and_no_sort(cuda):
+    """register_pair on the card launches H1, H2 and H3 once each a step
+    (the step graph's replay), and the stage (the eager step) runs no
+    torch.sort and no plain version."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from fccf_pcr_torch import register_pair
+    from fccf_pcr_torch.ops import hypotheses_kernels as hk
+    from fccf_pcr_torch.pipeline import register
+
+    params = FCCFParams(leaf_size=0.25)
+    src, tar, _ = synthetic.make_pair(seed=3, points_per_plane=1500,
+                                      clutter_points=900)
+    sp, sm = synthetic.pad_points(src, TEST_CAPS.max_points)
+    tp, tm = synthetic.pad_points(tar, TEST_CAPS.max_points)
+    register_pair(sp, sm, tp, tm, params, TEST_CAPS)  # warm: the capture
+    torch.cuda.synchronize()
+    counts = (hk.MATCHES, hk.SLOTS, hk.EMITS, hk.BASES)
+    res = register_pair(sp, sm, tp, tm, params, TEST_CAPS)
+    torch.cuda.synchronize()
+    assert (hk.MATCHES, hk.SLOTS, hk.EMITS, hk.BASES) == (
+        counts[0] + 1, counts[1] + 1, counts[2] + 1, counts[3])
+    assert int(res.n_hypotheses) > 0
+
+    inside, sorts = [False], []
+    real = register.generate_hypotheses
+
+    def stage(*a):
+        inside[0] = True
+        try:
+            return real(*a)
+        finally:
+            inside[0] = False
+
+    class Sorts(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if inside[0] and "sort" in str(func):
+                sorts.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    def refused(*a):
+        raise AssertionError("a plain version ran on the card")
+
+    args = [torch.from_numpy(x)[None].to(cuda) for x in (sp, sm, tp, tm)]
+    kept = (hk.matches_plain, hk.slots_plain, hk.emit_plain, hk.bases_plain)
+    (hk.matches_plain, hk.slots_plain, hk.emit_plain,
+     hk.bases_plain) = (refused,) * 4
+    register.generate_hypotheses = stage
+    try:
+        with Sorts():
+            register._register_batch(*args, params, TEST_CAPS)
+        torch.cuda.synchronize()
+    finally:
+        register.generate_hypotheses = real
+        (hk.matches_plain, hk.slots_plain, hk.emit_plain,
+         hk.bases_plain) = kept
+    assert not sorts
