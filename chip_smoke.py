@@ -253,8 +253,9 @@ result:
      step; the bases form on the steps' 2P face sets) and the edge cases
      (random faces at F = 16, 5, 24 and 64, PER_MATCH 16 and 48 and above F *
      F + 1, each overflow (M, H and a row's PER_MATCH), no valid face,
-     zero normals, NaN normals, centroids and point sizes, one face, the
-     bases given; a lane alone against a batch of 8); the stage called
+     zero normals, NaN normals, centroids and point sizes, one face; a
+     lane alone against a batch of 8; H2's hits compared where kept, H3
+     also on H2's own slots); the stage called
      twice in one captured CUDA graph, replayed twice, equal to the eager
      calls; at the steps' inputs each call's device time (a graph of 10
      calls) beside the plain version's and the bound (no one PyTorch call
@@ -3606,8 +3607,9 @@ def phase_faces(steps, eager, dev):
 # two offsets, the fallback translation and the quaternion (384); a
 # source face's test, offset d13 and P = inv(A^T A) A^T (154); a target
 # face's rotation, test and offset d23 (51); a slot's angle test (12); a
-# kept hit's translation (16). H2's are counted for every face and slot of
-# a valid match, the most its data can need (its bound is its bytes).
+# kept hit's translation (16). H2's are counted for every face of a valid
+# match and for the slots it tests: its rounds of 32 slots until more than
+# PER_MATCH are valid (``hyp_slots_tested``).
 HYP_BASE_OPS = 30
 HYP_MASK_OPS = 5
 HYP_MATCH_OPS = 384
@@ -3671,6 +3673,17 @@ def hyp_forms(form, a):
             lambda: getattr(hk, HYP_FORMS[form])(*a))
 
 
+def hyp_equal(form, got, want):
+    """A hypotheses kernel's outputs against its plain version's, bitwise
+    and NaN-aware; H2's translations only where its hits are kept (a
+    row's others are no output)."""
+    from fccf_pcr_torch.ops import hypotheses_kernels as hk
+
+    if form == "slots":
+        got = hk.kept_hits(got)
+    return faces_equal(got, want)
+
+
 def tensor_bytes(x):
     """The bytes of the tensors in ``x`` (a tensor or nested tuples)."""
     import torch
@@ -3682,12 +3695,36 @@ def tensor_bytes(x):
     return 0
 
 
+def hyp_slots_tested(f1, f2, m, params, per_match_hits):
+    """The (s, t) slots H2 tests on these inputs: for each valid match,
+    its rounds of 32 slots in slot order up to the first after which
+    more than PER_MATCH slots are valid (``match_all``'s pair tests)."""
+    import torch
+
+    from fccf_pcr_torch.ops import hypotheses_kernels as hk
+
+    _, _, pair_ok, _, _ = hk.match_all(f1, f2, m.i1, m.j1, m.i2, m.j2,
+                                       params)
+    F = f1.valid.shape[-1]
+    K = min(per_match_hits, F * F + 1)
+    FF = F * F
+    rounds = -(-FF // 32)
+    ok = torch.nn.functional.pad(pair_ok.flatten(-2), (0, rounds * 32 - FF))
+    done = torch.cumsum(ok.reshape(ok.shape[:-1] + (rounds, 32)).sum(-1),
+                        -1)
+    # A round runs while the valid slots before it are at most K.
+    ran = torch.cat([torch.ones_like(done[..., :1], dtype=torch.bool),
+                     done[..., :-1] <= K], -1).sum(-1)
+    tested = torch.clamp(ran * 32, max=FF)
+    return int(torch.where(m.valid, tested, 0).sum())
+
+
 def hyp_bound(form, a, out):
     """The least time the card could take for one call of a hypotheses
     kernel, in ms, and what bounds it: the inputs it needs read once and
-    its outputs written once over the memory rate, against its
-    operations (HYP_*_OPS) over the float32 rate. ``out`` is the call's
-    result (its data-dependent counts)."""
+    its outputs written once (H2's kept hits only) over the memory rate,
+    against its operations (HYP_*_OPS) over the float32 rate. ``out`` is
+    the call's result (its data-dependent counts)."""
     fields = {"bases": ("normal", "theta", "valid"),
               "matches": ("normal", "theta", "valid"),
               "slots": ("normal", "centroid", "point_size", "valid")}
@@ -3698,24 +3735,28 @@ def hyp_bound(form, a, out):
         nbytes = sum(tensor_bytes(getattr(faces, f)) for f in fields[form])
         ops = C * F * (F - 1) // 2 * HYP_BASE_OPS
     elif form == "matches":
-        f1, f2, b1, b2 = a[:4]
+        f1, f2 = a[:2]
         F = f1.valid.shape[-1]
         P = f1.valid.numel() // F
         B = F * (F - 1) // 2
-        nbytes = sum(tensor_bytes(b) if b is not None else sum(
-            tensor_bytes(getattr(f, k)) for k in fields[form])
-            for f, b in ((f1, b1), (f2, b2)))
+        nbytes = sum(tensor_bytes(getattr(f, k)) for f in (f1, f2)
+                     for k in fields[form])
         ops = P * (2 * B * HYP_BASE_OPS + B * B * HYP_MASK_OPS)
     elif form == "slots":
-        f1, f2, m = a[:3]
+        f1, f2, m, params, per_match_hits = a
         F = f1.valid.shape[-1]
         nbytes = sum(tensor_bytes(getattr(f, k)) for f in (f1, f2)
                      for k in fields[form])
         nbytes += tensor_bytes((m.count, m.i1, m.j1, m.i2, m.j2))
+        hits = int(out.count.sum())
         ops = (int(m.count.sum()) * (HYP_MATCH_OPS + F * HYP_SOURCE_OPS
-                                      + F * HYP_TARGET_OPS
-                                      + F * F * HYP_SLOT_OPS)
-               + int(out.count.sum()) * HYP_HIT_OPS)
+                                      + F * HYP_TARGET_OPS)
+               + hyp_slots_tested(f1, f2, m, params, per_match_hits)
+               * HYP_SLOT_OPS
+               + hits * HYP_HIT_OPS)
+        nbytes += (tensor_bytes((out.quat, out.count, out.row_overflow))
+                   + hits * 12)
+        out = ()
     else:
         s, m = a[:2]
         emitted = int(out[4].sum())
@@ -3818,51 +3859,53 @@ def hyp_faces(seed, P, F, kinds, dev):
 
 
 def hyp_edge_cases(dev):
-    """The stage's edge inputs: (what, f1, f2, caps, bases given)."""
+    """The stage's edge inputs: (what, f1, f2, caps)."""
     from fccf_pcr_torch import TEST_CAPS
 
     cases = []
     for F, K in ((16, 16), (16, 48), (5, 16), (24, 16), (24, 48),
                  (16, 300), (64, 16)):
         cases.append((f"F {F} PER_MATCH {K}", *hyp_faces(F + K, 4, F, (), dev),
-                      TEST_CAPS.replace(per_match_hits=K), False))
+                      TEST_CAPS.replace(per_match_hits=K)))
     for what, over in (("M overflow", dict(max_matches=64)),
                        ("H overflow", dict(max_hypotheses=256)),
                        ("row overflow", dict(per_match_hits=2))):
         cases.append((what, *hyp_faces(31, 3, 16, (), dev),
-                      TEST_CAPS.replace(**over), True))
+                      TEST_CAPS.replace(**over)))
     cases.append(("no valid face, zero normals, NaN entries, one face",
                   *hyp_faces(41, 4, 16, ("none", "zero", "nan", "one"), dev),
-                  TEST_CAPS, False))
+                  TEST_CAPS))
     return cases
 
 
-def hyp_stage_equal(what, f1, f2, caps, given):
+def hyp_stage_equal(what, f1, f2, caps):
     """The bases form, H1, H2 and H3 against their plain versions on one
-    case, each on the same inputs, bit for bit; then the stage through
-    the kernels against the plain chain. Returns the kernel calls held."""
+    case, each on the same inputs, bit for bit (``hyp_equal``), H3 also on
+    H2's own slots; then the stage through the kernels against the plain
+    chain. Returns the kernel calls held."""
     from fccf_pcr_torch import FCCFParams
     from fccf_pcr_torch.hypotheses.transforms import generate_hypotheses
     from fccf_pcr_torch.ops import hypotheses_kernels as hk
 
     def held(form, *a):
         k, plain = hyp_forms(form, a)
-        want = plain()
-        check(faces_equal(k(), want), f"edge case {what}: {form} differs "
-              "from plain")
-        return want
+        want, got = plain(), k()
+        check(hyp_equal(form, got, want), f"edge case {what}: {form} "
+              "differs from plain")
+        return want, got
 
     params = FCCFParams()
-    bases = [held("bases", f, params) for f in (f1, f2)]
-    b1, b2 = bases if given else (None, None)
-    m = held("matches", f1, f2, b1, b2, params, caps.max_matches)
-    sl = held("slots", f1, f2, m, params, caps.per_match_hits)
-    final = held("emit", sl, m, caps.max_hypotheses,
-                 f1.valid.shape[-1] ** 2 + 1)
-    got = generate_hypotheses(f1, f2, b1, b2, params, caps)
+    for f in (f1, f2):
+        held("bases", f, params)
+    m, _ = held("matches", f1, f2, params, caps.max_matches)
+    sl, ksl = held("slots", f1, f2, m, params, caps.per_match_hits)
+    final, _ = held("emit", sl, m, caps.max_hypotheses)
+    check(faces_equal(hk._launch_emit(ksl, m, caps.max_hypotheses), final),
+          f"edge case {what}: H3 on H2's slots differs from plain")
+    got = generate_hypotheses(f1, f2, params, caps)
     check(faces_equal(tuple(got), final), f"edge case {what}: the stage "
           "through H1-H3 differs from the plain chain")
-    return 8
+    return 9
 
 
 def hyp_lane_alone(dev):
@@ -3875,11 +3918,11 @@ def hyp_lane_alone(dev):
     caps = TEST_CAPS.replace(max_matches=2048, max_hypotheses=3072,
                              per_match_hits=48)
     f1, f2 = hyp_faces(51, 8, 16, ("plain", "nan", "zero", "one"), dev)
-    batch = generate_hypotheses(f1, f2, None, None, FCCFParams(), caps)
+    batch = generate_hypotheses(f1, f2, FCCFParams(), caps)
     for k in range(8):
         alone = generate_hypotheses(Faces(*(x[k:k + 1] for x in f1)),
-                                    Faces(*(x[k:k + 1] for x in f2)), None,
-                                    None, FCCFParams(), caps)
+                                    Faces(*(x[k:k + 1] for x in f2)),
+                                    FCCFParams(), caps)
         check(faces_equal(tuple(x[0] for x in alone),
                           tuple(x[k] for x in batch)),
               f"hypotheses: pair {k} alone differs from its row of 8")
@@ -3896,14 +3939,13 @@ def hyp_replays(cases):
     from fccf_pcr_torch.hypotheses.transforms import generate_hypotheses
 
     def run(f1, f2, caps):
-        return tuple(generate_hypotheses(f1, f2, None, None, FCCFParams(),
-                                         caps))
+        return tuple(generate_hypotheses(f1, f2, FCCFParams(), caps))
 
-    want = [run(f1, f2, caps) for _, f1, f2, caps, _ in cases]
+    want = [run(f1, f2, caps) for _, f1, f2, caps in cases]
     torch.cuda.synchronize()
     g = torch.cuda.CUDAGraph()
     with torch.cuda.graph(g):
-        outs = [run(f1, f2, caps) for _, f1, f2, caps, _ in cases
+        outs = [run(f1, f2, caps) for _, f1, f2, caps in cases
                 for _ in range(2)]
     for _ in range(2):
         g.replay()
@@ -3941,16 +3983,17 @@ def phase_hypotheses(steps, eager, dev):
               "one H1, H2 and H3)")
         f1, f2 = calls[0][1][:2]
         both = type(f1)(*(torch.cat([x, y]) for x, y in zip(f1, f2)))
-        calls.append(("bases", (both, calls[0][1][4])))
+        calls.append(("bases", (both, calls[0][1][2])))
         for form, a in calls:
             kernel = names[form]
             k, plain = hyp_forms(form, a)
             got, want = k(), plain()
-            ok = faces_equal(got, want)
+            ok = hyp_equal(form, got, want)
             out["differ"] += not ok
             check(ok, f"{name}: {kernel} differs from plain")
             bound_ms, bound_by = hyp_bound(form, a, want)
-            shape = tuple((a[2] if form == "slots" else a[0]).valid.shape)
+            shape = tuple((a[2].valid if form == "slots" else a[0].count
+                           if form == "emit" else a[0].valid).shape)
             out[kernel][name] = dict(
                 shape=shape, ms=graph_ms(k), plain_ms=graph_ms(plain),
                 library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
@@ -3962,8 +4005,8 @@ def phase_hypotheses(steps, eager, dev):
             elif form == "emit":
                 out[kernel][name]["hypotheses"] = int(want[4].sum())
     cases = hyp_edge_cases(dev)
-    for what, f1, f2, caps, given in cases:
-        out["edge_calls"] += hyp_stage_equal(what, f1, f2, caps, given)
+    for what, f1, f2, caps in cases:
+        out["edge_calls"] += hyp_stage_equal(what, f1, f2, caps)
     out["edge_cases"] = len(cases)
     out["lane_alone"] = hyp_lane_alone(dev)
     out["replayed_calls"] = hyp_replays(cases[:3] + cases[-1:])

@@ -7,36 +7,38 @@
 // fused XLA loops, where the port ran it as some 450 PyTorch kernels a
 // step, a stable sort of every match's F * F + 1 slots among them.
 //
-// H1, fccf_hyp_matches, one block a pair: both clouds' bases (the face
-// pairs i < j in triu_indices order, their angle, type and validity:
-// formed from the faces, or read from given bases), the B x B
-// compatibility mask in b1-major order (both valid, |angle difference| <
-// angle_same, the same type) and its stable compaction to M matches: each
-// thread counts a contiguous run of the mask, an exclusive scan of the
-// counts gives each run its first place, and the entries past M are
-// dropped (overflow). fccf_hyp_bases writes the bases alone (select_bases
-// on a card), one block a face set, with the same device code.
+// H1, fccf_hyp_matches, one block a pair: both clouds' bases formed from
+// their faces (the face pairs i < j in triu_indices order, their angle,
+// type and validity), the B x B compatibility mask in b1-major order (both
+// valid, |angle difference| < angle_same, the same type) and its stable
+// compaction to M matches: each thread counts a contiguous run of the
+// mask, an exclusive scan of the counts gives each run its first place,
+// and the entries past M are dropped (overflow). fccf_hyp_bases writes
+// the bases alone (select_bases on a card), one block a face set, with
+// the same device code.
 //
-// H2, fccf_hyp_slots, one block a match of every pair (a grid of (M,
-// P)): blocks past the pair's match count write their empty outputs and
-// return. Thread 0 forms the match's rotation R = R2 R1 (with R1 m2), its
-// quaternion, the fallback translation and the two fixed offsets d11 -
-// d21 and d12 - d22 into shared memory; threads s < F form source face
-// s's third-plane test, its offset d13 and P = inv(A^T A) A^T, threads F
-// + t target face t's rotated normal, its test and offset d23. Then a
-// thread a (s, t) slot, 256 at a time, tests the slot (pair_ok) and block
-// ballots and popcounts rank the valid slots in slot order: the first
-// PER_MATCH are written to (M, PER_MATCH) with their flat index m * S +
-// slot and their translation T3, formed only for them; the fallback slot
-// F * F is valid where no slot is. No sort: the per-match hit count and
-// the row's overflow bit go beside them, and entries past the count are
-// zeros.
+// H2, fccf_hyp_slots, one warp a match, up to eight matches a block (a
+// grid of (M / 8, P)): warps past the pair's match count write their
+// empty outputs and return. Lane 0 forms the match's rotation R = R2 R1
+// (with R1 m2), its quaternion, the fallback translation and the two
+// fixed offsets d11 - d21 and d12 - d22 into the warp's shared memory;
+// lanes then form, a face each, source face s's third-plane test, its
+// offset d13 and P = inv(A^T A) A^T, and target face t's rotated normal,
+// its test and offset d23. Then a lane a (s, t) slot, 32 at a time, tests
+// the slot (pair_ok) and the warp's ballot ranks the valid slots in slot
+// order: the first PER_MATCH have their translation T3 formed and written
+// to (M, PER_MATCH); the fallback slot F * F is valid where no slot is.
+// No sort, and the loop stops once PER_MATCH + 1 slots are valid: the
+// per-match hit count and the row's overflow bit go beside the hits, and
+// a row's entries past its count are not written (H3 reads none).
 //
-// H3, fccf_hyp_emit, one block a pair: an exclusive scan of the per-match
-// hit counts over M (a run of matches a thread) gives each hit its place
-// in H; a hit's quaternion, translation and type are written there, the
-// slots past the count hold +0.0 and 0, and the overflow is H's, the
-// matches' or any row's.
+// H3, fccf_hyp_emit, one thread a place of H (a grid of (H / 256, P)):
+// each block scans the pair's per-match hit counts over M into shared
+// memory (a run of matches a thread), and place e takes hit k of the
+// first match whose scanned end is past e (a binary search); its
+// quaternion, translation and type are written there, the places past
+// the count hold +0.0 and 0, and the overflow is H's, the matches' or any
+// row's.
 //
 // Bit for bit the plain versions' operations on the card, in their order
 // (ops/hypotheses_kernels.py; ops/geometry.py, ops/batch.py):
@@ -58,9 +60,9 @@
 //     the first largest;
 //   - built with nvcc --fmad=false and no fast math; the arithmetic is
 //     written with the _rn intrinsics besides.
-// Bound: H2's outputs, (M, PER_MATCH) hits a pair written whole, and its
-// operations (~15 a slot, ~900 a match for the prelude and the faces'
-// parts); H1 the mask's few operations an entry; H3 the bytes of H.
+// Bound: H2's operations (a slot's test ~12, a source face's ~150, a
+// target face's ~50, a match's prelude ~400); H1 the mask's few
+// operations an entry; H3 the bytes of H.
 //
 // Every entry launches on the given stream, allocates nothing and returns
 // cudaGetLastError() after its launch.
@@ -77,8 +79,10 @@ constexpr float kDegrees = static_cast<float>(180.0 / 3.141592653589793);
 
 constexpr int kBasesThreads = 128;
 constexpr int kMatchThreads = 1024;
-constexpr int kSlotThreads = 256;
-constexpr int kEmitThreads = 1024;
+// H2's matches a block (a warp each), fewer where F needs more shared
+// memory.
+constexpr int kSlotWarps = 8;
+constexpr int kEmitThreads = 256;
 // Dynamic shared memory a block may have on the card.
 constexpr long long kMaxShared = 232448;
 
@@ -354,50 +358,34 @@ hyp_bases_kernel(const float* __restrict__ normal,
 
 // ---------------------------------------------------------------- H1 --
 
-struct CloudBases {
-  // The faces (used where the bases are formed) ...
-  const float* normal;
-  const float* theta;
+struct CloudFaces {
+  const float* normal;  // (P, F, 3)
+  const float* theta;   // (P, F)
   const unsigned char* valid;
-  // ... or the given bases (null: formed from the faces).
-  const long long* bi;
-  const long long* bj;
-  const float* angle;
-  const int* type;
-  const unsigned char* bvalid;
 };
 
-// One cloud's B bases of pair p into shared memory.
-__device__ void load_bases(const CloudBases& cb, long long p, int F, int B,
+// One cloud's B bases of pair p, formed from its faces into shared memory.
+__device__ void load_bases(const CloudFaces& cf, long long p, int F, int B,
                            float angle_min, float angle_max,
                            float rough_threshold, long long* si,
                            long long* sj, float* sa, int* st,
                            unsigned char* sv) {
   for (int b = threadIdx.x; b < B; b += blockDim.x) {
-    if (cb.bi != nullptr) {
-      const long long at = p * B + b;
-      si[b] = cb.bi[at];
-      sj[b] = cb.bj[at];
-      sa[b] = cb.angle[at];
-      st[b] = cb.type[at];
-      sv[b] = cb.bvalid[at];
-    } else {
-      int i, j;
-      base_pair(b, F, &i, &j);
-      const BaseOut o = form_base(cb.normal + p * F * 3, cb.theta + p * F,
-                                  cb.valid + p * F, i, j, angle_min,
-                                  angle_max, rough_threshold);
-      si[b] = i;
-      sj[b] = j;
-      sa[b] = o.angle;
-      st[b] = o.type;
-      sv[b] = o.valid;
-    }
+    int i, j;
+    base_pair(b, F, &i, &j);
+    const BaseOut o = form_base(cf.normal + p * F * 3, cf.theta + p * F,
+                                cf.valid + p * F, i, j, angle_min, angle_max,
+                                rough_threshold);
+    si[b] = i;
+    sj[b] = j;
+    sa[b] = o.angle;
+    st[b] = o.type;
+    sv[b] = o.valid;
   }
 }
 
 __global__ void __launch_bounds__(kMatchThreads)
-hyp_matches_kernel(CloudBases c1, CloudBases c2, int F, int B, long long M,
+hyp_matches_kernel(CloudFaces c1, CloudFaces c2, int F, int B, long long M,
                    float angle_min, float angle_max, float rough_threshold,
                    float angle_same, int* count, unsigned char* overflow,
                    unsigned char* mvalid, long long* mi1, long long* mj1,
@@ -475,7 +463,7 @@ struct Faces {
   const unsigned char* valid;
 };
 
-// The per-match values thread 0 forms, in shared memory.
+// The per-match values lane 0 forms, in the warp's shared memory.
 struct MatchPrelude {
   float R[9];
   float quat[4];
@@ -488,42 +476,42 @@ struct MatchPrelude {
   int i1, j1, i2, j2;
 };
 
-__global__ void __launch_bounds__(kSlotThreads)
+constexpr long long kPreludeBytes = (sizeof(MatchPrelude) + 15) / 16 * 16;
+
+// A warp's shared memory: the prelude, then per source face s its normal,
+// |normal|, d13, P (row-major) and test, per target face t its rotated
+// normal, its norm, d23 and test; a multiple of 16 bytes.
+long long slot_warp_bytes(int F) {
+  return kPreludeBytes + ((long long)F * (4 * 19 + 2) + 15) / 16 * 16;
+}
+
+__global__ void __launch_bounds__(kSlotWarps * 32)
 hyp_slots_kernel(Faces f1, Faces f2, const int* __restrict__ mcount,
                  const long long* __restrict__ mi1,
                  const long long* __restrict__ mj1,
                  const long long* __restrict__ mi2,
                  const long long* __restrict__ mj2, int F, long long M, int K,
                  float plane_threshold, float normal_threshold,
-                 float* quat_out, long long* flat_out, float* t_out,
-                 unsigned char* hit_valid, int* hit_count,
-                 unsigned char* row_overflow) {
-  const long long m = blockIdx.x, p = blockIdx.y;
+                 long long warp_bytes, float* quat_out, float* t_out,
+                 int* hit_count, unsigned char* row_overflow) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const long long m = (long long)blockIdx.x * (blockDim.x >> 5) + w;
+  const long long p = blockIdx.y;
+  if (m >= M) return;
   const long long pm = p * M + m;
-  const int tid = threadIdx.x;
-  long long* fo = flat_out + pm * K;
-  float* to = t_out + pm * K * 3;
-  unsigned char* vo = hit_valid + pm * K;
   if (m >= mcount[p]) {  // no match: the empty outputs
-    for (int k = tid; k < K; k += blockDim.x) {
-      fo[k] = 0;
-      vo[k] = 0;
-    }
-    for (int k = tid; k < 3 * K; k += blockDim.x) to[k] = 0.0f;
-    if (tid < 4) quat_out[pm * 4 + tid] = 0.0f;
-    if (tid == 0) {
+    if (lane < 4) quat_out[pm * 4 + lane] = 0.0f;
+    if (lane == 0) {
       hit_count[pm] = 0;
       row_overflow[pm] = 0;
     }
     return;
   }
 
-  __shared__ MatchPrelude pre;
-  __shared__ int wcount[kSlotThreads / 32];
-  // Per source face s: normal, |normal|, d13, P (row-major), the test;
-  // per target face t: rotated normal, its norm, d23, the test.
-  extern __shared__ float sh[];
-  float* s_n = sh;
+  extern __shared__ __align__(16) unsigned char shm[];
+  unsigned char* region = shm + w * warp_bytes;
+  MatchPrelude& pre = *reinterpret_cast<MatchPrelude*>(region);
+  float* s_n = reinterpret_cast<float*>(region + kPreludeBytes);
   float* s_norm = s_n + 3 * F;
   float* s_d13 = s_norm + F;
   float* s_P = s_d13 + F;
@@ -538,7 +526,7 @@ hyp_slots_kernel(Faces f1, Faces f2, const int* __restrict__ mcount,
   const float* N2 = f2.normal + p * F * 3;
   const float* C2 = f2.centroid + p * F * 3;
 
-  if (tid == 0) {
+  if (lane == 0) {
     const int i1 = (int)mi1[pm], j1 = (int)mj1[pm];
     const int i2 = (int)mi2[pm], j2 = (int)mj2[pm];
     float n1[3], m1[3], n2[3], m2[3], c11[3], c12[3], c21[3], c22[3];
@@ -588,9 +576,9 @@ hyp_slots_kernel(Faces f1, Faces f2, const int* __restrict__ mcount,
     pre.i2 = i2;
     pre.j2 = j2;
   }
-  __syncthreads();
+  __syncwarp();
 
-  for (int x = tid; x < 2 * F; x += blockDim.x) {
+  for (int x = lane; x < 2 * F; x += 32) {
     if (x < F) {  // source face s
       const int s = x;
       float ns[3], cs[3];
@@ -664,15 +652,16 @@ hyp_slots_kernel(Faces f1, Faces f2, const int* __restrict__ mcount,
       }
     }
   }
-  __syncthreads();
+  __syncwarp();
 
-  // The (s, t) slots in slot order, a thread each, ranked by ballots.
-  const int lane = tid & 31, w = tid >> 5, nw = blockDim.x >> 5;
+  // The (s, t) slots in slot order, a lane each, 32 at a time, ranked by
+  // the warp's ballot; past K + 1 valid slots the rest cannot change the
+  // kept hits or the overflow.
+  float* to = t_out + pm * K * 3;
   const int FF = F * F;
-  const long long S = FF + 1;
   int running = 0;
-  for (int first = 0; first < FF; first += blockDim.x) {
-    const int slot = first + tid;
+  for (int first = 0; first < FF && running <= K; first += 32) {
+    const int slot = first + lane;
     bool ok = false;
     int s = 0, t = 0;
     if (slot < FF) {
@@ -685,50 +674,29 @@ hyp_slots_kernel(Faces f1, Faces f2, const int* __restrict__ mcount,
       }
     }
     const unsigned bal = __ballot_sync(0xffffffffu, ok);
-    if (lane == 0) wcount[w] = __popc(bal);
-    __syncthreads();
-    int before = 0, all = 0;
-    for (int u = 0; u < nw; ++u) {
-      const int cnt = wcount[u];
-      before += u < w ? cnt : 0;
-      all += cnt;
-    }
-    const int rank = running + before + __popc(bal & ((1u << lane) - 1u));
+    const int rank = running + __popc(bal & ((1u << lane) - 1u));
     if (ok && rank < K) {
       const float* P = s_P + 9 * s;
       const float D2 = sub(s_d13[s], t_d23[t]);
-      fo[rank] = m * S + slot;
-      vo[rank] = 1;
 #pragma unroll
       for (int r = 0; r < 3; ++r)
         to[3 * rank + r] =
             add(add(mul(pre.D0, P[3 * r]), mul(pre.D1, P[3 * r + 1])),
                 mul(D2, P[3 * r + 2]));
     }
-    running += all;
-    __syncthreads();
+    running += __popc(bal);
   }
   // The fallback slot F * F: valid where no (s, t) slot is.
   const int total = running + (running == 0);
-  const int kept = total < K ? total : K;
-  if (tid == 0) {
+  if (lane == 0) {
     if (running == 0 && K > 0) {
-      fo[0] = m * S + FF;
-      vo[0] = 1;
 #pragma unroll
       for (int r = 0; r < 3; ++r) to[r] = pre.t_fb[r];
     }
-    hit_count[pm] = kept;
+    hit_count[pm] = total < K ? total : K;
     row_overflow[pm] = total > K;
   }
-  if (tid < 4) quat_out[pm * 4 + tid] = pre.quat[tid];
-  for (int k = kept + tid; k < K; k += blockDim.x) {
-    fo[k] = 0;
-    vo[k] = 0;
-    to[3 * k] = 0.0f;
-    to[3 * k + 1] = 0.0f;
-    to[3 * k + 2] = 0.0f;
-  }
+  if (lane < 4) quat_out[pm * 4 + lane] = pre.quat[lane];
 }
 
 // ---------------------------------------------------------------- H3 --
@@ -743,10 +711,11 @@ hyp_emit_kernel(const int* __restrict__ hit_count,
                 int K, long long H, float* q_out, float* t_out, int* type_out,
                 unsigned char* valid_out, int* count_out,
                 unsigned char* overflow_out) {
+  extern __shared__ int ends[];  // (M) each match's last place + 1
   __shared__ int wsum[32];
-  const long long p = blockIdx.x;
+  const long long p = blockIdx.y;
   const int* cnt = hit_count + p * M;
-  // A contiguous run of matches a thread.
+  // A contiguous run of matches a thread, scanned over the block.
   const long long run = (M + blockDim.x - 1) / blockDim.x;
   const long long lo = threadIdx.x * run;
   const long long hi = lo + run < M ? lo + run : M;
@@ -758,12 +727,25 @@ hyp_emit_kernel(const int* __restrict__ hit_count,
   }
   const bool any_row = __syncthreads_or(over);
   int total;
-  long long at = block_exclusive_scan(n, wsum, &total);
-  for (long long m = lo; m < hi && at < H; ++m) {
-    const long long pm = p * M + m;
-    const int c = cnt[m];
-    for (int k = 0; k < c && at < H; ++k, ++at) {
-      const long long h = p * H + at;
+  int end = block_exclusive_scan(n, wsum, &total);
+  for (long long m = lo; m < hi; ++m) {
+    end += cnt[m];
+    ends[m] = end;
+  }
+  __syncthreads();
+  const long long kept = total < H ? total : H;
+  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (e < H) {
+    const long long h = p * H + e;
+    if (e < kept) {
+      // Place e is hit k of the first match whose end is past e.
+      long long a = 0, b = M - 1;
+      while (a < b) {
+        const long long mid = (a + b) >> 1;
+        if (ends[mid] > e) b = mid; else a = mid + 1;
+      }
+      const long long pm = p * M + a;
+      const long long k = e - (ends[a] - cnt[a]);
 #pragma unroll
       for (int r = 0; r < 4; ++r) q_out[4 * h + r] = quat[4 * pm + r];
 #pragma unroll
@@ -771,19 +753,16 @@ hyp_emit_kernel(const int* __restrict__ hit_count,
         t_out[3 * h + r] = hit_t[(pm * K + k) * 3 + r];
       type_out[h] = mtype[pm];
       valid_out[h] = 1;
+    } else {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) q_out[4 * h + r] = 0.0f;
+#pragma unroll
+      for (int r = 0; r < 3; ++r) t_out[3 * h + r] = 0.0f;
+      type_out[h] = 0;
+      valid_out[h] = 0;
     }
   }
-  const long long kept = total < H ? total : H;
-  for (long long e = kept + threadIdx.x; e < H; e += blockDim.x) {
-    const long long h = p * H + e;
-#pragma unroll
-    for (int r = 0; r < 4; ++r) q_out[4 * h + r] = 0.0f;
-#pragma unroll
-    for (int r = 0; r < 3; ++r) t_out[3 * h + r] = 0.0f;
-    type_out[h] = 0;
-    valid_out[h] = 0;
-  }
-  if (threadIdx.x == 0) {
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
     count_out[p] = (int)kept;
     overflow_out[p] = total > H || m_overflow[p] != 0 || any_row;
   }
@@ -796,8 +775,6 @@ __global__ void hyp_acos_probe_kernel(const float* __restrict__ x,
 }
 
 long long match_shared_bytes(int B) { return (long long)B * 50; }
-
-long long slot_shared_bytes(int F) { return (long long)F * (4 * 19 + 2); }
 
 // Raises the block's dynamic shared memory where it needs more than 48 KB.
 template <typename Kernel>
@@ -830,35 +807,28 @@ int fccf_hyp_bases(const void* normal, const void* theta, const void* valid,
   return (int)cudaGetLastError();
 }
 
-// H1 over P pairs. Each cloud c = 1, 2: its faces (normal (P, F, 3), theta
-// (P, F) float32, valid (P, F) bool), or, where bi_c is not null, its
-// given bases (bi, bj (P, B) int64, angle (P, B) float32, type (P, B)
-// int32, valid (P, B) bool). Out: count (P) int32, overflow (P) bool,
-// valid (P, M) bool, i1, j1, i2, j2 (P, M) int64, type (P, M) int32.
+// H1 over P pairs. Each cloud c = 1, 2: its faces, normal (P, F, 3),
+// theta (P, F) float32, valid (P, F) bool. Out: count (P) int32, overflow
+// (P) bool, valid (P, M) bool, i1, j1, i2, j2 (P, M) int64, type (P, M)
+// int32.
 int fccf_hyp_matches(const void* n1, const void* th1, const void* v1,
-                     const void* bi1, const void* bj1, const void* ba1,
-                     const void* bt1, const void* bv1, const void* n2,
-                     const void* th2, const void* v2, const void* bi2,
-                     const void* bj2, const void* ba2, const void* bt2,
-                     const void* bv2, void* count, void* overflow,
-                     void* mvalid, void* mi1, void* mj1, void* mi2,
-                     void* mj2, void* mtype, long long P, int F, int B,
-                     long long M, float angle_min, float angle_max,
-                     float rough_threshold, float angle_same, void* stream) {
+                     const void* n2, const void* th2, const void* v2,
+                     void* count, void* overflow, void* mvalid, void* mi1,
+                     void* mj1, void* mi2, void* mj2, void* mtype,
+                     long long P, int F, long long M, float angle_min,
+                     float angle_max, float rough_threshold, float angle_same,
+                     void* stream) {
+  const int B = F * (F - 1) / 2;
   if (P <= 0) return 0;
   if (P > 0x7fffffffLL || (long long)B * B > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   const long long bytes = match_shared_bytes(B);
   cudaError_t err = allow_shared(hyp_matches_kernel, bytes);
   if (err != cudaSuccess) return (int)err;
-  const CloudBases c1{(const float*)n1,      (const float*)th1,
-                      (const unsigned char*)v1, (const long long*)bi1,
-                      (const long long*)bj1, (const float*)ba1,
-                      (const int*)bt1,       (const unsigned char*)bv1};
-  const CloudBases c2{(const float*)n2,      (const float*)th2,
-                      (const unsigned char*)v2, (const long long*)bi2,
-                      (const long long*)bj2, (const float*)ba2,
-                      (const int*)bt2,       (const unsigned char*)bv2};
+  const CloudFaces c1{(const float*)n1, (const float*)th1,
+                      (const unsigned char*)v1};
+  const CloudFaces c2{(const float*)n2, (const float*)th2,
+                      (const unsigned char*)v2};
   hyp_matches_kernel<<<(unsigned)P, kMatchThreads, bytes,
                        (cudaStream_t)stream>>>(
       c1, c2, F, B, M, angle_min, angle_max, rough_threshold, angle_same,
@@ -870,34 +840,37 @@ int fccf_hyp_matches(const void* n1, const void* th1, const void* v1,
 
 // H2 over P pairs of M matches: faces 1 and 2 (normal, centroid (P, F, 3),
 // point_size (P, F) float32, valid (P, F) bool), the matches' count (P)
-// int32 and i1, j1, i2, j2 (P, M) int64; out quat (P, M, 4), flat (P, M,
-// K) int64, t (P, M, K, 3) float32, hit_valid (P, M, K) bool, hit_count
-// (P, M) int32, row_overflow (P, M) bool. K = PER_MATCH <= F * F + 1.
+// int32 and i1, j1, i2, j2 (P, M) int64; out quat (P, M, 4), t (P, M, K,
+// 3) float32 (a row's first hit_count entries), hit_count (P, M) int32,
+// row_overflow (P, M) bool. K = PER_MATCH <= F * F + 1.
 int fccf_hyp_slots(const void* n1, const void* c1, const void* w1,
                    const void* v1, const void* n2, const void* c2,
                    const void* w2, const void* v2, const void* mcount,
                    const void* mi1, const void* mj1, const void* mi2,
-                   const void* mj2, void* quat, void* flat, void* t,
-                   void* hit_valid, void* hit_count, void* row_overflow,
-                   long long P, int F, long long M, int K,
+                   const void* mj2, void* quat, void* t, void* hit_count,
+                   void* row_overflow, long long P, int F, long long M, int K,
                    float plane_threshold, float normal_threshold,
                    void* stream) {
   if (P <= 0 || M <= 0) return 0;
-  if (P > 65535 || M > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const long long bytes = slot_shared_bytes(F);
+  const long long warp_bytes = slot_warp_bytes(F);
+  long long warps = kMaxShared / warp_bytes;
+  warps = warps < kSlotWarps ? warps : kSlotWarps;
+  const long long blocks = (M + warps - 1) / (warps > 0 ? warps : 1);
+  if (P > 65535 || warps < 1 || blocks > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  const long long bytes = warps * warp_bytes;
   cudaError_t err = allow_shared(hyp_slots_kernel, bytes);
   if (err != cudaSuccess) return (int)err;
   const Faces f1{(const float*)n1, (const float*)c1, (const float*)w1,
                  (const unsigned char*)v1};
   const Faces f2{(const float*)n2, (const float*)c2, (const float*)w2,
                  (const unsigned char*)v2};
-  hyp_slots_kernel<<<dim3((unsigned)M, (unsigned)P), kSlotThreads, bytes,
-                     (cudaStream_t)stream>>>(
+  hyp_slots_kernel<<<dim3((unsigned)blocks, (unsigned)P),
+                     (unsigned)(32 * warps), bytes, (cudaStream_t)stream>>>(
       f1, f2, (const int*)mcount, (const long long*)mi1,
       (const long long*)mj1, (const long long*)mi2, (const long long*)mj2, F,
-      M, K, plane_threshold, normal_threshold, (float*)quat,
-      (long long*)flat, (float*)t, (unsigned char*)hit_valid,
-      (int*)hit_count, (unsigned char*)row_overflow);
+      M, K, plane_threshold, normal_threshold, warp_bytes, (float*)quat,
+      (float*)t, (int*)hit_count, (unsigned char*)row_overflow);
   return (int)cudaGetLastError();
 }
 
@@ -912,9 +885,14 @@ int fccf_hyp_emit(const void* hit_count, const void* row_overflow,
                   void* overflow_out, long long P, long long M, int K,
                   long long H, void* stream) {
   if (P <= 0) return 0;
-  if (P > 0x7fffffffLL || M * K > 0x7fffffffLL)
+  const long long blocks = H > 0 ? (H + kEmitThreads - 1) / kEmitThreads : 1;
+  const long long bytes = M * (long long)sizeof(int);
+  if (P > 65535 || M <= 0 || M * K > 0x7fffffffLL || blocks > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
-  hyp_emit_kernel<<<(unsigned)P, kEmitThreads, 0, (cudaStream_t)stream>>>(
+  cudaError_t err = allow_shared(hyp_emit_kernel, bytes);
+  if (err != cudaSuccess) return (int)err;
+  hyp_emit_kernel<<<dim3((unsigned)blocks, (unsigned)P), kEmitThreads, bytes,
+                    (cudaStream_t)stream>>>(
       (const int*)hit_count, (const unsigned char*)row_overflow,
       (const float*)quat, (const float*)hit_t, (const int*)mtype,
       (const unsigned char*)m_overflow, M, K, H, (float*)q_out,

@@ -29,7 +29,6 @@ import torch
 from ..config import Capacities, FCCFParams
 from ..features.faces import Faces
 from ..ops import hypotheses_kernels as hk
-from .bases import Bases
 
 
 class Hypotheses(NamedTuple):
@@ -43,13 +42,11 @@ class Hypotheses(NamedTuple):
     overflow: torch.Tensor  # (...) bool
 
 
-def generate_hypotheses(f1: Faces, f2: Faces, b1: Bases | None,
-                        b2: Bases | None, params: FCCFParams,
+def generate_hypotheses(f1: Faces, f2: Faces, params: FCCFParams,
                         caps: Capacities) -> Hypotheses:
-    """Hypotheses of each face-set pair of the leading batch dims. ``b1``
-    / ``b2`` are the bases of ``f1`` / ``f2`` (``select_bases``), or None
-    for the faces' own, which H1 forms with the matches on a card."""
-    m = hk.matches(f1, f2, b1, b2, params, caps.max_matches)
+    """Hypotheses of each face-set pair of the leading batch dims, from
+    the faces' own bases (``select_bases``), which H1 forms with the
+    matches on a card."""
+    m = hk.matches(f1, f2, params, caps.max_matches)
     s = hk.slots(f1, f2, m, params, caps.per_match_hits)
-    F = f1.valid.shape[-1]
-    return Hypotheses(*hk.emit(s, m, caps.max_hypotheses, F * F + 1))
+    return Hypotheses(*hk.emit(s, m, caps.max_hypotheses))

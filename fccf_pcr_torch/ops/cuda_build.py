@@ -5,9 +5,7 @@ ctypes. Each library is built at its first use in a process when it is
 missing or older than its source, or always with ``force``. A missing
 nvcc or a failed build raises. ``CudaLibrary.build_log`` keeps nvcc's
 output of the last build, with ptxas's registers, shared memory and
-spills of each kernel (``-Xptxas -v``). Beside it, what the kernel
-wrappers share around a launch: the input checks, the stream, the
-device dispatch and the launch's count.
+spills of each kernel (``-Xptxas -v``).
 """
 
 from __future__ import annotations
@@ -18,10 +16,6 @@ import pathlib
 import shutil
 import subprocess
 import threading
-
-import torch
-
-from . import graph
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
@@ -90,35 +84,3 @@ class CudaLibrary:
                 self._bind(lib)
                 self._lib = lib
             return self._lib
-
-
-def stream(dev):
-    """The current CUDA stream of ``dev`` as the integer a C entry
-    takes."""
-    return torch.cuda.current_stream(dev).cuda_stream
-
-
-def checked(what, tensors, dtypes, shapes):
-    """Raises unless each tensor has its dtype and shape and all lie on
-    the first one's device; returns them contiguous."""
-    dev = tensors[0].device
-    for name, t, dt, shape in zip(what, tensors, dtypes, shapes):
-        if t.dtype != dt or tuple(t.shape) != tuple(shape) or t.device != dev:
-            raise ValueError(f"{name}: want {dt} {tuple(shape)} on {dev}, got "
-                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
-    return tuple(t.contiguous() for t in tensors)
-
-
-def device_type(t, what):
-    """"cpu" or "cuda", the device type of ``t``; any other raises."""
-    if t.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{what}: unsupported device {t.device}")
-    return t.device.type
-
-
-def launched(rc, entry, owner, counter):
-    """Raises unless the C entry returned 0, else counts one launch of
-    ``owner.counter`` (``graph.count_launch``)."""
-    if rc != 0:
-        raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")
-    graph.count_launch(owner, counter)

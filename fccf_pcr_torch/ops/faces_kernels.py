@@ -46,7 +46,8 @@ from torch.profiler import record_function
 
 from . import eigen3
 from .batch import take
-from .cuda_build import CudaLibrary, checked, device_type, launched, stream
+from .cuda_build import CudaLibrary
+from .launch import checked, device_type, launched, stream
 
 # Launches of F1 (the plane fit), F2 (the segment sums, both forms) and
 # F2's order alone (label_order, off the main path).

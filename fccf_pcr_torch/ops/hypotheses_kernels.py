@@ -4,17 +4,17 @@ emission of the hypotheses (port of ``fccf_pcr_tpu/hypotheses/bases.py:40``
 ``select_bases`` and ``fccf_pcr_tpu/hypotheses/transforms.py:161``
 ``generate_hypotheses``, with ``_match_one`` at ``:78``).
 
-  - H1, ``matches``: both clouds' bases (the face pairs i < j in
-    ``triu_indices`` order, their angle, type and validity; formed from
-    the faces, or the given ones), the (B1 x B2) compatibility mask in
-    b1-major order and its stable compaction to M matches. ``bases`` is
-    its bases alone (``select_bases``).
+  - H1, ``matches``: both clouds' bases formed from their faces (the
+    face pairs i < j in ``triu_indices`` order, their angle, type and
+    validity), the (B1 x B2) compatibility mask in b1-major order and its
+    stable compaction to M matches. ``bases`` is its bases alone
+    (``select_bases``).
   - H2, ``slots``: for each match the closed-form rotation R = R2 R1,
     its quaternion, the third-plane fan-out over the (source face s,
     target face t) slots with the 3-plane translation solve, and the
     fallback slot F * F; each match's first ``PER_MATCH`` valid slots in
-    slot order, their flat index m * S + slot and translation, the
-    match's hit count and whether it had more (the row's overflow).
+    slot order and their translation, the match's hit count and whether
+    it had more (the row's overflow).
   - H3, ``emit``: each hit's place in H (the hit counts scanned over the
     matches), its quaternion, translation and type there, the count and
     the overflow of H, of the matches or of any row.
@@ -50,7 +50,8 @@ from torch.profiler import record_function
 
 from . import geometry
 from .batch import small_matmul, take
-from .cuda_build import CudaLibrary, checked, device_type, launched, stream
+from .cuda_build import CudaLibrary
+from .launch import checked, device_type, launched, stream
 from .voxelize import compact
 
 # Launches of the bases form (select_bases on a card), H1, H2 and H3.
@@ -75,13 +76,14 @@ class Matches(NamedTuple):
 
 
 class Slots(NamedTuple):
-    """H2's outputs: each match's first K = PER_MATCH hits, 0 past them
-    and for the matches past the count."""
+    """H2's outputs: each match's first K = PER_MATCH hits (hit k of match
+    m is valid where k < count[m]), 0 for the matches past the count. A
+    row's translations past its count are no output: the plain version
+    writes zeros there, H2 leaves them unwritten, and H3 reads only the
+    hits (``kept_hits`` zeroes them, to compare the two)."""
 
     quat: torch.Tensor          # (..., M, 4) the match's rotation
-    flat: torch.Tensor          # (..., M, K) int64 m * S + slot
-    t: torch.Tensor             # (..., M, K, 3) the slot's translation
-    valid: torch.Tensor         # (..., M, K) bool
+    t: torch.Tensor             # (..., M, K, 3) the hit's translation
     count: torch.Tensor         # (..., M) int32 hits kept
     row_overflow: torch.Tensor  # (..., M) bool more than K valid slots
 
@@ -92,12 +94,12 @@ def _bind(lib):
         ctypes.c_float] * 3 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     fn = lib.fccf_hyp_matches
-    fn.argtypes = [ctypes.c_void_p] * 24 + [
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_longlong] + [
+    fn.argtypes = [ctypes.c_void_p] * 14 + [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong] + [
         ctypes.c_float] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     fn = lib.fccf_hyp_slots
-    fn.argtypes = [ctypes.c_void_p] * 19 + [
+    fn.argtypes = [ctypes.c_void_p] * 17 + [
         ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
         ctypes.c_float, ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
@@ -153,13 +155,12 @@ def bases_plain(faces, params):
             valid)
 
 
-def matches_plain(f1, f2, b1, b2, params, max_matches) -> Matches:
+def matches_plain(f1, f2, params, max_matches) -> Matches:
     """H1's plain version: the bases (i, j, angle, type_, valid) of both
-    clouds (a cloud's ``bases_plain`` where they are None), their (B1 x
-    B2) compatibility (FCCF.cpp:1420), flattened b1-major, compacted to
-    ``max_matches``."""
-    i1, j1, a1, t1, v1 = bases_plain(f1, params) if b1 is None else b1
-    i2, j2, a2, t2, v2 = bases_plain(f2, params) if b2 is None else b2
+    clouds (``bases_plain``), their (B1 x B2) compatibility
+    (FCCF.cpp:1420), flattened b1-major, compacted to ``max_matches``."""
+    i1, j1, a1, t1, v1 = bases_plain(f1, params)
+    i2, j2, a2, t2, v2 = bases_plain(f2, params)
     angle_same = params.angle_same
     lead = tuple(v1.shape[:-1])
     B = v1.shape[-1]
@@ -300,7 +301,6 @@ def slots_plain(f1, f2, m: Matches, params, per_match_hits) -> Slots:
     is, and its first PER_MATCH valid slots in slot order (a stable
     descending sort of the negated slot index, whose valid entries are
     unique: the JAX package's ``lax.top_k``)."""
-    M = m.valid.shape[-1]
     F = f1.valid.shape[-1]
     dev = f1.valid.device
     quat, T3, pair_ok, t_fb, fb = match_all(f1, f2, m.i1, m.j1, m.i2, m.j2,
@@ -319,26 +319,35 @@ def slots_plain(f1, f2, m: Matches, params, per_match_hits) -> Slots:
     vals, idxs = vals[..., :K], idxs[..., :K]
     hit_valid = vals > -S - 1
     n_valid = torch.sum(slot_valid, dim=-1)
-    flat = torch.arange(M, device=dev)[:, None] * S + idxs  # (..., M, K)
     return Slots(
         quat=torch.where(m.valid[..., None], quat, 0.0),
-        flat=torch.where(hit_valid, flat, 0),
         t=torch.where(hit_valid[..., None], take(slot_t, idxs), 0.0),
-        valid=hit_valid,
         count=torch.clamp(n_valid, max=K).to(torch.int32),
         row_overflow=n_valid > K,
     )
 
 
-def emit_plain(s: Slots, m: Matches, max_hypotheses, slots_per_match):
-    """H3's plain version: the M * K hits compacted to ``max_hypotheses``
-    (each hit's flat index and translation), the quaternion and type
-    gathered from its match (flat // S). Returns (quat, t, type_, valid,
-    count, overflow) as ``Hypotheses``' fields."""
-    nb = s.valid.dim() - 2
-    (h_count, h_overflow, h_valid, hflat, ht) = compact(
-        s.valid, max_hypotheses, s.flat, s.t, batch_dims=nb)
-    hm = torch.div(hflat, slots_per_match, rounding_mode="floor")
+def kept_hits(s: Slots) -> Slots:
+    """``s`` with each row's translations past its count zeroed: the
+    plain version's, and a kernel's to compare with it."""
+    K = s.t.shape[-2]
+    hit = torch.arange(K, device=s.t.device) < s.count[..., None]
+    return s._replace(t=torch.where(hit[..., None], s.t, 0.0))
+
+
+def emit_plain(s: Slots, m: Matches, max_hypotheses):
+    """H3's plain version: the M * K hits (hit k of match m valid where k
+    < count[m]) compacted to ``max_hypotheses`` (each hit's match and
+    translation), the quaternion and type gathered from its match.
+    Returns (quat, t, type_, valid, count, overflow) as ``Hypotheses``'
+    fields."""
+    nb = s.count.dim() - 1
+    M, K = s.t.shape[-3:-1]
+    dev = s.count.device
+    hit = torch.arange(K, device=dev) < s.count[..., None]  # (..., M, K)
+    row = torch.arange(M, device=dev)[:, None].expand(hit.shape)
+    (h_count, h_overflow, h_valid, hm, ht) = compact(
+        hit, max_hypotheses, row, s.t, batch_dims=nb)
     hq = torch.where(h_valid[..., None], take(s.quat, hm), 0.0)
     htype = torch.where(h_valid, take(m.type_, hm), 0).to(torch.int32)
     overflow = h_overflow | m.overflow | torch.any(s.row_overflow, dim=-1)
@@ -367,14 +376,6 @@ def _faces(what, faces, lead, F, fields):
                    tuple(spec[f][1] for f in fields))
 
 
-def _bases_of(what, b, lead, B):
-    """Given bases (i, j, angle, type_, valid) checked and contiguous."""
-    return checked(tuple(f"{what}.{f}" for f in ("i", "j", "angle", "type_",
-                                                  "valid")),
-                   tuple(b), (torch.int64, torch.int64, torch.float32,
-                              torch.int32, torch.bool), (lead + (B,),) * 5)
-
-
 def _launch_bases(faces, params):
     """The bases form on CUDA tensors: (i, j, angle, type_, valid)."""
     lead, F = tuple(faces.valid.shape[:-1]), faces.valid.shape[-1]
@@ -399,25 +400,15 @@ def _launch_bases(faces, params):
     return out
 
 
-def _launch_matches(f1, f2, b1, b2, params, max_matches) -> Matches:
-    """H1 on CUDA tensors; a cloud whose bases are None has them formed
-    from its faces."""
+def _launch_matches(f1, f2, params, max_matches) -> Matches:
+    """H1 on CUDA tensors."""
     lead, F = tuple(f1.valid.shape[:-1]), f1.valid.shape[-1]
     B = F * (F - 1) // 2
-    given = [b for b in (b1, b2) if b is not None]
-    if given:
-        B = given[0][4].shape[-1]
-        if any(b is None for b in (b1, b2)) and B != F * (F - 1) // 2:
-            raise ValueError(f"matches: given bases of {B} pairs beside "
-                             f"bases formed from {F} faces")
     if B * B >= 2**31:
         raise ValueError(f"matches: {B} bases a cloud, want B * B < 2^31")
-    clouds = []
-    for name, f, b in (("f1", f1, b1), ("f2", f2, b2)):
-        faces = _faces(name, f, lead, F, ("normal", "theta", "valid"))
-        bases = ((None,) * 5 if b is None
-                 else _bases_of(name.replace("f", "b"), b, lead, B))
-        clouds.append(faces + bases)
+    fields = ("normal", "theta", "valid")
+    faces = _faces("f1", f1, lead, F, fields) + _faces("f2", f2, lead, F,
+                                                        fields)
     dev = f1.valid.device
     M = max_matches
     out = Matches(
@@ -434,10 +425,9 @@ def _launch_matches(f1, f2, b1, b2, params, max_matches) -> Matches:
     lib = build()
     with torch.cuda.device(dev):
         rc = lib.fccf_hyp_matches(
-            *(0 if t is None else t.data_ptr() for c in clouds for t in c),
-            *_ptrs(out), math.prod(lead), F, B, M, params.angle_min,
-            params.angle_max, params.rough_threshold, params.angle_same,
-            stream(dev))
+            *_ptrs(faces + tuple(out)), math.prod(lead), F, M,
+            params.angle_min, params.angle_max, params.rough_threshold,
+            params.angle_same, stream(dev))
     launched(rc, "fccf_hyp_matches", _THIS, "MATCHES")
     return out
 
@@ -460,9 +450,7 @@ def _launch_slots(f1, f2, m: Matches, params, per_match_hits) -> Slots:
     dev = f1.valid.device
     out = Slots(
         quat=torch.empty(lead + (M, 4), dtype=torch.float32, device=dev),
-        flat=torch.empty(lead + (M, K), dtype=torch.int64, device=dev),
         t=torch.empty(lead + (M, K, 3), dtype=torch.float32, device=dev),
-        valid=torch.empty(lead + (M, K), dtype=torch.bool, device=dev),
         count=torch.empty(lead + (M,), dtype=torch.int32, device=dev),
         row_overflow=torch.empty(lead + (M,), dtype=torch.bool, device=dev))
     if out.count.numel() == 0:
@@ -477,10 +465,9 @@ def _launch_slots(f1, f2, m: Matches, params, per_match_hits) -> Slots:
     return out
 
 
-def _launch_emit(s: Slots, m: Matches, max_hypotheses, slots_per_match):
-    """H3 on CUDA tensors (the flat indices and S are not read: a hit's
-    match is its row)."""
-    lead, (M, K) = tuple(s.count.shape[:-1]), tuple(s.valid.shape[-2:])
+def _launch_emit(s: Slots, m: Matches, max_hypotheses):
+    """H3 on CUDA tensors."""
+    lead, (M, K) = tuple(s.count.shape[:-1]), tuple(s.t.shape[-3:-1])
     st = checked(("slots.count", "slots.row_overflow", "slots.quat", "slots.t",
                   "matches.type_", "matches.overflow"),
                  (s.count, s.row_overflow, s.quat, s.t, m.type_, m.overflow),
@@ -537,15 +524,13 @@ def bases(faces, params):
         return _launch_bases(faces, params)
 
 
-def matches(f1, f2, b1, b2, params, max_matches) -> Matches:
-    """The matched base pairs of each pair of face sets
-    (``matches_plain``): H1 on a card. ``b1`` / ``b2`` are the bases of
-    ``f1`` / ``f2``, or None for the faces' own, formed in the kernel on a
-    card (``bases_plain`` on the CPU)."""
+def matches(f1, f2, params, max_matches) -> Matches:
+    """The matched base pairs of each pair of face sets, from the faces'
+    own bases (``matches_plain``): H1 on a card."""
     with record_function("hypotheses_kernels.matches"):
         if device_type(f1.valid, "matches") == "cpu":
-            return matches_plain(f1, f2, b1, b2, params, max_matches)
-        return _launch_matches(f1, f2, b1, b2, params, max_matches)
+            return matches_plain(f1, f2, params, max_matches)
+        return _launch_matches(f1, f2, params, max_matches)
 
 
 def slots(f1, f2, m: Matches, params, per_match_hits) -> Slots:
@@ -557,11 +542,10 @@ def slots(f1, f2, m: Matches, params, per_match_hits) -> Slots:
         return _launch_slots(f1, f2, m, params, per_match_hits)
 
 
-def emit(s: Slots, m: Matches, max_hypotheses, slots_per_match):
+def emit(s: Slots, m: Matches, max_hypotheses):
     """The hypotheses' fields (quat, t, type_, valid, count, overflow) of
-    each pair (``emit_plain``): H3 on a card. ``slots_per_match`` is S =
-    F * F + 1."""
+    each pair (``emit_plain``): H3 on a card."""
     with record_function("hypotheses_kernels.emit"):
-        if device_type(s.valid, "emit") == "cpu":
-            return emit_plain(s, m, max_hypotheses, slots_per_match)
-        return _launch_emit(s, m, max_hypotheses, slots_per_match)
+        if device_type(s.count, "emit") == "cpu":
+            return emit_plain(s, m, max_hypotheses)
+        return _launch_emit(s, m, max_hypotheses)

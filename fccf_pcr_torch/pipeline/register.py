@@ -193,7 +193,7 @@ def _register_batch(src_pts, src_mask, tar_pts, tar_mask, params, caps):
     with record_function("hypotheses"):
         # Both face sets' bases are formed with the matches (in H1 on a
         # card).
-        hyp = generate_hypotheses(f1, f2, None, None, params, caps)
+        hyp = generate_hypotheses(f1, f2, params, caps)
     with record_function("cluster"):
         reps = cluster_hypotheses(hyp, params, caps)
 

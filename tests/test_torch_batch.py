@@ -341,10 +341,8 @@ def test_bases_and_hypotheses_batch(jax_stages, params, caps):
 
     f1, f2 = (interop.from_numpy(tfaces.Faces, jax_stages[k])
               for k in ("f1", "f2"))
-    b1, b2 = (interop.from_numpy(tbases.Bases, jax.tree.map(
-        lambda x: x[s], jb)) for s in (slice(None, P), slice(P, None)))
-    th = rows_alone(lambda a, b, c, d: ttr.generate_hypotheses(
-        a, b, c, d, tparams, tcaps), f1, f2, b1, b2)
+    th = rows_alone(lambda a, b: ttr.generate_hypotheses(
+        a, b, tparams, tcaps), f1, f2)
     jh = jax_stages["hyp"]
     for f in ("valid", "type_", "count", "overflow"):
         _equal(getattr(th, f), getattr(jh, f))

@@ -1905,10 +1905,12 @@ def _hyp_faces(seed, P, F, kinds=(), dev="cpu"):
     return stack(f1s), stack(f2s)
 
 
-def _hyp_stage_equal(f1, f2, caps, bases=False):
+def _hyp_stage_equal(f1, f2, caps):
     """H1, H2 and H3 against their plain versions on the same CUDA inputs,
-    each stage bit for bit (NaN-aware), then generate_hypotheses (the
-    kernels) against the plain chain. Returns the plain hypotheses."""
+    each stage bit for bit (NaN-aware; H2's hits where kept, its other
+    outputs whole; H3 also on H2's own slots), then generate_hypotheses
+    (the kernels) against the plain chain. Returns the plain
+    hypotheses."""
     from fccf_pcr_torch.hypotheses.transforms import Hypotheses
     from fccf_pcr_torch.hypotheses.transforms import generate_hypotheses
     from fccf_pcr_torch.ops import hypotheses_kernels as hk
@@ -1917,18 +1919,16 @@ def _hyp_stage_equal(f1, f2, caps, bases=False):
     pb1, pb2 = hk.bases_plain(f1, params), hk.bases_plain(f2, params)
     kb1, kb2 = hk._launch_bases(f1, params), hk._launch_bases(f2, params)
     assert _all_equal(kb1, pb1) and _all_equal(kb2, pb2)
-    b1, b2 = (kb1, kb2) if bases else (None, None)
-    pm = hk.matches_plain(f1, f2, b1, b2, params, caps.max_matches)
-    km = hk._launch_matches(f1, f2, b1, b2, params, caps.max_matches)
+    pm = hk.matches_plain(f1, f2, params, caps.max_matches)
+    km = hk._launch_matches(f1, f2, params, caps.max_matches)
     assert _all_equal(km, pm)
     ps = hk.slots_plain(f1, f2, pm, params, caps.per_match_hits)
     ks = hk._launch_slots(f1, f2, pm, params, caps.per_match_hits)
-    assert _all_equal(ks, ps)
-    S = f1.valid.shape[-1] ** 2 + 1
-    pe = hk.emit_plain(ps, pm, caps.max_hypotheses, S)
-    ke = hk._launch_emit(ps, pm, caps.max_hypotheses, S)
-    assert _all_equal(ke, pe)
-    got = generate_hypotheses(f1, f2, b1, b2, params, caps)
+    assert _all_equal(hk.kept_hits(ks), ps)
+    pe = hk.emit_plain(ps, pm, caps.max_hypotheses)
+    assert _all_equal(hk._launch_emit(ps, pm, caps.max_hypotheses), pe)
+    assert _all_equal(hk._launch_emit(ks, km, caps.max_hypotheses), pe)
+    got = generate_hypotheses(f1, f2, params, caps)
     assert _all_equal(got, pe)
     return Hypotheses(*pe)
 
@@ -1960,7 +1960,7 @@ def test_acos_matches_torch(cuda):
 ])
 def test_hypotheses_kernels_match_plain(cuda, F, per_match, kinds):
     """At F = 64 H1 keeps its 2016 bases a cloud in 100 KB of dynamic
-    shared memory and H2 walks 4096 slots 256 at a time."""
+    shared memory and H2 walks 4096 slots 32 at a time."""
     f1, f2 = _hyp_faces(F * 10 + per_match, 4, F, kinds, cuda)
     h = _hyp_stage_equal(f1, f2, TEST_CAPS.replace(per_match_hits=per_match))
     assert int(h.count.sum()) > 0
@@ -1972,9 +1972,9 @@ def test_hypotheses_kernels_match_plain(cuda, F, per_match, kinds):
                                   dict(per_match_hits=1000)])
 def test_hypotheses_kernels_overflow(cuda, over):
     """Each overflow (matches past M, hits past H, a row's hits past
-    PER_MATCH) and PER_MATCH above F * F + 1, with the bases given."""
+    PER_MATCH) and PER_MATCH above F * F + 1."""
     f1, f2 = _hyp_faces(31, 3, 16, (), cuda)
-    h = _hyp_stage_equal(f1, f2, TEST_CAPS.replace(**over), bases=True)
+    h = _hyp_stage_equal(f1, f2, TEST_CAPS.replace(**over))
     assert bool(h.overflow.all()) == (over != dict(per_match_hits=1000))
 
 
@@ -1996,11 +1996,11 @@ def test_hypotheses_lane_alone_equals_batch(cuda):
     caps = TEST_CAPS.replace(max_matches=2048, max_hypotheses=3072,
                              per_match_hits=48)
     f1, f2 = _hyp_faces(51, 8, 16, ("plain", "nan", "zero"), cuda)
-    batch = generate_hypotheses(f1, f2, None, None, FCCFParams(), caps)
+    batch = generate_hypotheses(f1, f2, FCCFParams(), caps)
     for k in (0, 1, 2, 7):
         alone = generate_hypotheses(Faces(*(x[k:k + 1] for x in f1)),
-                                    Faces(*(x[k:k + 1] for x in f2)), None,
-                                    None, FCCFParams(), caps)
+                                    Faces(*(x[k:k + 1] for x in f2)),
+                                    FCCFParams(), caps)
         assert _all_equal([a[0] for a in alone], [b[k] for b in batch])
 
 
@@ -2014,10 +2014,8 @@ def test_hypotheses_kernels_in_a_capture(cuda):
 
     def fn(*a):
         F1, F2 = type(f1)(*a[:6]), type(f2)(*a[6:])
-        return (tuple(generate_hypotheses(F1, F2, None, None, FCCFParams(),
-                                          TEST_CAPS))
-                + tuple(generate_hypotheses(F2, F1, None, None, FCCFParams(),
-                                            TEST_CAPS)))
+        return (tuple(generate_hypotheses(F1, F2, FCCFParams(), TEST_CAPS))
+                + tuple(generate_hypotheses(F2, F1, FCCFParams(), TEST_CAPS)))
 
     args = tuple(f1) + tuple(f2)
     want = fn(*args)
@@ -2038,20 +2036,17 @@ def test_hypotheses_kernels_reject_bad_inputs(cuda):
     f1, f2 = _hyp_faces(71, 2, 16, (), cuda)
     params = FCCFParams()
     with pytest.raises(ValueError):
-        hk.matches(f1._replace(normal=f1.normal.double()), f2, None, None,
-                   params, 64)
+        hk.matches(f1._replace(normal=f1.normal.double()), f2, params, 64)
     with pytest.raises(ValueError):
-        hk.matches(f1, f2._replace(valid=f2.valid[:, :8]), None, None,
-                   params, 64)
-    b1 = hk.bases(f1, params)
+        hk.matches(f1, f2._replace(valid=f2.valid[:, :8]), params, 64)
     with pytest.raises(ValueError):
-        hk.matches(f1, f2, (b1[0].int(),) + b1[1:], None, params, 64)
-    m = hk.matches(f1, f2, None, None, params, 64)
+        hk.matches(f1, f2._replace(theta=f2.theta.cpu()), params, 64)
+    m = hk.matches(f1, f2, params, 64)
     with pytest.raises(ValueError):
         hk.slots(f1, f2, m._replace(i1=m.i1.int()), params, 16)
     s = hk.slots(f1, f2, m, params, 16)
     with pytest.raises(ValueError):
-        hk.emit(s._replace(count=s.count.long()), m, 128, 257)
+        hk.emit(s._replace(count=s.count.long()), m, 128)
     with pytest.raises(ValueError):
         hk.acos_probe(f1.theta.cpu())
 

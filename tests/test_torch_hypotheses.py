@@ -94,7 +94,7 @@ def check_hypotheses(f1, f2, params, caps):
                                    atol=1e-3)
     jh = jax.jit(lambda a, b, c, d: jtr.generate_hypotheses(
         a, b, c, d, params, caps))(f1, f2, jb1, jb2)
-    th = ttr.generate_hypotheses(tf1, tf2, tb1, tb2, tparams, tcaps)
+    th = ttr.generate_hypotheses(tf1, tf2, tparams, tcaps)
     for f in ("valid", "type_", "count", "overflow"):
         np.testing.assert_array_equal(getattr(th, f).numpy(),
                                       np.asarray(getattr(jh, f)))

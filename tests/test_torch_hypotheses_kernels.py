@@ -11,10 +11,11 @@ bases, H1's matches, H2's slots and H3's emission) on the CPU.
     1e-4 (a 3x3 normal-equation inverse can amplify float32 rounding by
     its condition number).
   - A NumPy emulation of the kernels' selection (H1's runs of the mask a
-    thread and their exclusive scan, H2's block ballots over 256 slots at
-    a time, H3's runs of matches a thread) equals the plain versions'
-    stable sort and ``compact``, on rows with no hit, exactly PER_MATCH
-    hits, more than PER_MATCH, more than M matches and more than H hits.
+    thread and their exclusive scan, H2's warp ballots over 32 slots at a
+    time, H3's scan of the hit counts and a binary search a place) equals
+    the plain versions' stable sort and ``compact``, on rows with no hit,
+    exactly PER_MATCH hits, more than PER_MATCH, more than M matches and
+    more than H hits.
   - A pair alone equals the same pair in a batch of 4, bit for bit.
   - CPU calls build nothing and launch nothing.
 
@@ -149,11 +150,7 @@ def test_cpu_outputs_keep_their_bits(case):
     want = DIGESTS[case]
     assert _digest(list(b1) + list(b2)) == want[0]
     for caps, digest in ((TEST_CAPS, want[1]), (HERITAGE_LIKE, want[2])):
-        assert _digest(generate_hypotheses(f1, f2, b1, b2, PARAMS,
-                                           caps)) == digest
-        # The faces' own bases (None) are the bases given.
-        assert _digest(generate_hypotheses(f1, f2, None, None, PARAMS,
-                                           caps)) == digest
+        assert _digest(generate_hypotheses(f1, f2, PARAMS, caps)) == digest
 
 
 # --------------------------------------------------------- against JAX --
@@ -189,7 +186,7 @@ def test_plain_stage_matches_jax(F, per_match_hits):
                                           np.asarray(getattr(jb, f)))
         np.testing.assert_allclose(tb.angle.numpy(), np.asarray(jb.angle),
                                    atol=1e-3)
-    th = generate_hypotheses(tf1, tf2, None, None, PARAMS, caps)
+    th = generate_hypotheses(tf1, tf2, PARAMS, caps)
     for f in ("valid", "type_", "count", "overflow"):
         np.testing.assert_array_equal(getattr(th, f).numpy(),
                                       np.asarray(getattr(jh, f)))
@@ -227,49 +224,58 @@ def h1_compaction(mask, capacity, threads=1024):
     return src, min(total, capacity), total > capacity
 
 
-def h2_ranking(pair_ok, K, threads=256):
-    """H2's selection for one valid match: its F * F slot tests in chunks
-    of ``threads``, each chunk's valid slots ranked by warp ballots (a
-    lane's rank the popcount of its warp's ballot below it, plus the
-    counts of the warps before it and of the chunks before), the first K
-    kept; the fallback slot F * F at rank 0 where no slot is valid.
-    Returns (kept slots, total valid slots)."""
+def h2_ranking(pair_ok, K):
+    """H2's selection for one valid match: its F * F slot tests 32 at a
+    time (a warp), each round's valid slots ranked by the warp's ballot (a
+    lane's rank the popcount of the ballot below it, plus the valid slots
+    of the rounds before), the first K kept, no round begun once more than
+    K slots are valid; the fallback slot F * F at rank 0 where no slot is
+    valid. Returns (kept slots, valid slots counted)."""
     FF = len(pair_ok)
     kept, running = [], 0
-    for first in range(0, FF, threads):
-        ok = np.zeros(threads, bool)
-        ok[:min(threads, FF - first)] = pair_ok[first:first + threads]
-        ballots = [sum(1 << lane for lane in range(32) if ok[32 * w + lane])
-                   for w in range(threads // 32)]
-        counts = [bin(b).count("1") for b in ballots]
-        for tid in np.flatnonzero(ok):
-            w, lane = divmod(int(tid), 32)
-            rank = (running + sum(counts[:w])
-                    + bin(ballots[w] & ((1 << lane) - 1)).count("1"))
+    for first in range(0, FF, 32):
+        if running > K:
+            break
+        ok = np.zeros(32, bool)
+        ok[:min(32, FF - first)] = pair_ok[first:first + 32]
+        ballot = sum(1 << lane for lane in range(32) if ok[lane])
+        for lane in np.flatnonzero(ok):
+            rank = running + bin(ballot & ((1 << int(lane)) - 1)).count("1")
             if rank < K:
-                kept.append((rank, first + int(tid)))
-        running += sum(counts)
+                kept.append((rank, first + int(lane)))
+        running += bin(ballot).count("1")
     if running == 0 and K > 0:
         kept.append((0, FF))
     return [slot for _, slot in sorted(kept)], running + (running == 0)
 
 
-def h3_places(hit_count, H, threads=1024):
-    """H3's places of one pair's hits: a run of matches a thread, an
-    exclusive scan of the runs' hit counts, a hit's place its run's first
-    plus the hits before it. Returns ((match, k) of each place below H,
-    total hits)."""
-    runs = _runs(len(hit_count), threads)
+def h3_places(hit_count, H, threads=256):
+    """H3's places of one pair's hits: the hit counts scanned (a run of
+    matches a thread, an exclusive scan of the runs' sums, a match's end
+    its run's first place plus its own count and those before it in the
+    run), and each place e below the total takes hit e - (end - count)
+    of the first match whose end is past e (a binary search). Returns
+    ((match, k) of each place below H, total hits)."""
+    M = len(hit_count)
+    runs = _runs(M, threads)
     sums = [int(hit_count[lo:hi].sum()) for lo, hi in runs]
-    at = np.concatenate([[0], np.cumsum(sums)[:-1]])
-    places = {}
-    for (lo, hi), pos in zip(runs, at):
+    ends = np.zeros(M, np.int64)
+    for (lo, hi), pos in zip(runs, np.concatenate([[0], np.cumsum(sums)])):
         for m in range(lo, hi):
-            for k in range(int(hit_count[m])):
-                if pos < H:
-                    places[int(pos)] = (m, k)
-                pos += 1
-    return [places[h] for h in sorted(places)], int(sum(sums))
+            pos += int(hit_count[m])
+            ends[m] = pos
+    total = int(sum(sums))
+    places = []
+    for e in range(min(total, H)):
+        a, b = 0, M - 1
+        while a < b:
+            mid = (a + b) // 2
+            if ends[mid] > e:
+                b = mid
+            else:
+                a = mid + 1
+        places.append((a, e - int(ends[a] - hit_count[a])))
+    return places, total
 
 
 def _slot_masks(rng, M, F, kind):
@@ -292,8 +298,9 @@ def _slot_masks(rng, M, F, kind):
                                       (16, 48, "mixed"), (24, 48, "dense"),
                                       (5, 16, "mixed"), (16, 16, "dense")])
 def test_kernel_ranking_equals_sort_and_compact(F, K, kind):
-    """H2's ballots and H3's scan (NumPy) against the plain versions'
-    stable sort of the negated slot index and compact of the hits."""
+    """H2's ballots and H3's scan and search (NumPy) against the plain
+    versions' stable sort of the negated slot index and compact of the
+    hits."""
     rng = np.random.default_rng(F * 100 + K)
     M, H = 96, 700
     ok, m_valid = _slot_masks(rng, M, F, kind)
@@ -361,12 +368,11 @@ def test_match_compaction_equals_compact(B, M, density):
 def test_pair_alone_equals_its_batch_row():
     f1, f2 = face_pairs(7, 4, 16, ("plain", "nan", "zero", "none"))
     tf1, tf2 = to_port(f1), to_port(f2)
-    batch = generate_hypotheses(tf1, tf2, None, None, PARAMS, HERITAGE_LIKE)
+    batch = generate_hypotheses(tf1, tf2, PARAMS, HERITAGE_LIKE)
     for k in range(4):
         alone = generate_hypotheses(
             Faces(*(x[k:k + 1] for x in tf1)),
-            Faces(*(x[k:k + 1] for x in tf2)), None, None, PARAMS,
-            HERITAGE_LIKE)
+            Faces(*(x[k:k + 1] for x in tf2)), PARAMS, HERITAGE_LIKE)
         for a, b in zip(alone, batch):
             a, b = a[0], b[k]
             if a.is_floating_point():
@@ -380,14 +386,14 @@ def test_cpu_calls_build_nothing():
     f1, f2 = (to_port(a) for a in face_pairs(5, 2, 8))
     counts = (hk.BASES, hk.MATCHES, hk.SLOTS, hk.EMITS)
     kept = hk._LIBRARY._lib
-    b1 = hk.bases(f1, PARAMS)
-    m = hk.matches(f1, f2, b1, None, PARAMS, 64)
+    hk.bases(f1, PARAMS)
+    m = hk.matches(f1, f2, PARAMS, 64)
     s = hk.slots(f1, f2, m, PARAMS, 16)
-    hk.emit(s, m, 128, 65)
+    hk.emit(s, m, 128)
     assert (hk.BASES, hk.MATCHES, hk.SLOTS, hk.EMITS) == counts
     assert hk._LIBRARY._lib is kept
     meta = Faces(*(x.to("meta") for x in f1))
     with pytest.raises(ValueError):
         hk.bases(meta, PARAMS)
     with pytest.raises(ValueError):
-        hk.matches(meta, meta, None, None, PARAMS, 64)
+        hk.matches(meta, meta, PARAMS, 64)
