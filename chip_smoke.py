@@ -8,7 +8,7 @@ result:
 
   1. environment: torch / CUDA / nvcc versions and the card's name and
      power limit (nvidia-smi); no card -> fail (never a CPU fallback);
-  2. build the seven sources with nvcc, in parallel: csrc/label_prop.cu
+  2. build the eight sources with nvcc, in parallel: csrc/label_prop.cu
      (the label-propagation kernels: the propagation entry, one
      cooperative launch a propagation, and the one-sweep entry K1),
      csrc/gather.cu (the per-row gather P1), csrc/cluster.cu (the
@@ -16,9 +16,9 @@ result:
      the floor walk C2), csrc/lm.cu (the LM solve L1), csrc/scan.cu
      (the integer scans S1 and the blocked prefix sum S2) and
      csrc/faces.cu (the faces stage's plane fit F1 and label segment sums
-     F2) and csrc/hypotheses.cu (the hypotheses stage's H1, H2 and H3 and
-     its bases form); ptxas's registers, shared memory and spills of each
-     kernel;
+     F2), csrc/hypotheses.cu (the hypotheses stage's H1, H2 and H3 and
+     its bases form) and csrc/fine.cu (fine verify's lookup V1 and score
+     V2); ptxas's registers, shared memory and spills of each kernel;
   3. label propagation vs its plain PyTorch version on the card, through
      the propagation kernel and through the per-sweep host loop (K1 +
      P1 launches): clustered voxel stats at V=1536 (office), V=1000 (a
@@ -53,7 +53,8 @@ result:
      the one-sweep and gather kernels' must not (the main path launches
      neither); each pair registered alone (P = 1) must match its batch
      row (status, kept mask, hypothesis and face counts equal, transform
-     within 1e-3 deg / 1e-4 m); a second run, timed, must give
+     within 1e-3 deg / 1e-4 m); V1 and V2 must launch; a second run,
+     timed, must give
      bitwise-equal transforms; office, structured, resso and heritage
      also within tests/test_twin_production.py's bands of the NumPy
      twin's cached transforms (tests/golden/twin_production.json);
@@ -73,8 +74,9 @@ result:
      sweeps the propagation kernel ran (at most 4 propagation launches a
      step, no one-sweep, gather or standalone block-seed launch; one
      block-scan launch, whatever H / 512 is, one floor walk and one L1
-     launch, 10 S1 calls and S2 called, one F1 and three F2 launches,
-     one each of H1, H2 and H3 and no bases form), and per step: every
+     launch, 9 S1 calls and S2 called, one F1 and three F2 launches,
+     one each of H1, H2 and H3 and no bases form, one each of V1 and V2),
+     and per step: every
      kernel
      launched, as host
      launches (the CUDA runtime's launch calls, cudaGraphLaunch
@@ -200,7 +202,13 @@ result:
      versions (the port before them), against which the kernels' arm
      must hold in the hypotheses stage no sort kernel, one launch each of
      H1, H2 and H3 and at most 6 kernels in all (the plain arm's sort
-     kernels there prove the check);
+     kernels there prove the check); a sixth time with V1 and V2 swapped
+     for their plain versions (fine verify's searchsorted counts and dense
+     fold_sum), against which the kernels' arm must hold in the
+     fine_kernels.lookup / .score ranges one launch each of V1 and V2,
+     their counters' fill and nothing else, and no sort kernel in the
+     fine_verify stage outside its table's fine.table range (the plain
+     arm's kernels in those ranges prove the ranges catch them);
  22. S1 and S2 against their plain versions on the card, bit for bit:
      every S1 and S2 input of the heritage and office batch-8 eager steps
      (the fused S2 calls by their sources) and the edge cases (S1: rows
@@ -259,7 +267,20 @@ result:
      twice in one captured CUDA graph, replayed twice, equal to the eager
      calls; at the steps' inputs each call's device time (a graph of 10
      calls) beside the plain version's and the bound (no one PyTorch call
-     computes any of them).
+     computes any of them);
+ 25. V1 and V2 (fine verify's lookup and score) against their plain
+     versions on the card, bit for bit (NaN-aware): every V1 and V2 input
+     of the heritage and office batch-8 eager steps (one call each a
+     step) and the edge cases (an empty table and target, every point
+     outside the window, an overflowing and an aliased table, NaN and
+     huge translations, one live run, one cell, odd and even n, Vf = 1,
+     40000 slots, where V1 holds every second key and V2's first level
+     of fold_sum lies in global memory); both called twice in one
+     captured CUDA graph, replayed twice, equal to the eager calls; at
+     the steps' inputs each call's device time (a graph of 10 calls)
+     beside the plain version's and the bound (the points, mask, T and
+     table read once and the scores written once, against V1's
+     operations; no one PyTorch call computes either).
 
 Phases 5-6 are the main path: their launch counts are the kernels'
 "launches". Every later in-process path (12-16) is driven with the
@@ -269,11 +290,11 @@ F2, and neither
 the one-sweep, the gather nor the standalone block-seed kernel, and
 each but the content measurement (which
 stops at the seeds and takes the bases form) must replay a step graph
-and launch H1, H2, H3, C2 and L1. A path's
+and launch H1, H2, H3, C2, L1, V1 and V2. A path's
 kernels launched inside a captured step graph count at each replay
 (ops/graph.py's count_launch); the hooks that record a kernel's inputs
-(phases 3, 18, 19, 20, 22, 23, 24) drive the eager step, where Python
-runs.
+(phases 3, 18, 19, 20, 22, 23, 24, 25) drive the eager step, where
+Python runs.
 
 Then one JSON line describing the kernels, the nvidia-smi line, and last
 {"ok": true, "device": {...}}.
@@ -415,6 +436,22 @@ KERNELS = {
         route="cuda",
         source="fccf_pcr_torch/csrc/hypotheses.cu",
         replaces="fccf_pcr_tpu/hypotheses/bases.py:40",
+    ),
+    # Fine verify's per-candidate join: no Pallas kernel, the join sort,
+    # cummin and sum of the JAX package's compiled program.
+    "fine_lookup": dict(
+        name="fine_lookup",
+        route="cuda",
+        source="fccf_pcr_torch/csrc/fine.cu",
+        replaces="fccf_pcr_tpu/verify/fine.py:193",
+        also_replaces=["fccf_pcr_tpu/verify/fine.py:168"],
+    ),
+    "fine_score": dict(
+        name="fine_score",
+        route="cuda",
+        source="fccf_pcr_torch/csrc/fine.cu",
+        replaces="fccf_pcr_tpu/verify/fine.py:216",
+        also_replaces=["fccf_pcr_tpu/verify/fine.py:202"],
     ),
 }
 _BIG = 2**30
@@ -1732,7 +1769,7 @@ def phase_path(name, counters, dev):
     for k in ("cluster_block_scan", "cluster_floor_walk", "lm_refine",
               "scan_int", "prefix_sum16", "faces_plane_fit",
               "faces_segment_sum", "hyp_matches", "hyp_slots", "hyp_emit",
-              "step_graph_replays"):
+              "fine_lookup", "fine_score", "step_graph_replays"):
         check(launches[k] > 0, f"the {name} path made no {k}")
 
     T = res.transform
@@ -2715,15 +2752,35 @@ def plain_hypotheses():
         yield
 
 
+@contextlib.contextmanager
+def plain_fine():
+    """ops/fine_kernels.py's V1 and V2 replaced by their plain versions for
+    the duration: fine verify's join as searchsorted counts and a dense
+    fold_sum of the join's places."""
+    from fccf_pcr_torch.ops import fine_kernels as fnk
+
+    with swapped(fnk, _launch_lookup=fnk.lookup_plain,
+                 _launch_score=fnk.score_plain):
+        yield
+
+
 STAGE_ARMS = {"plain scans": plain_scans,
               "concatenated columns": concatenated_columns,
               "plain faces": plain_faces,
               "plain hypotheses": plain_hypotheses,
+              "plain fine": plain_fine,
               "kernels": contextlib.nullcontext}
 # H1, H2 and H3's kernels, and the most kernels the hypotheses stage may
 # hold besides them.
 HYP_KERNELS = ("hyp_matches_kernel", "hyp_slots_kernel", "hyp_emit_kernel")
 HYP_STAGE_MOST = 6
+# V1 and V2's kernels and their entries' ranges, the most kernels those
+# ranges may hold (V1, V2 and the fill of V1's counters) and the range of
+# the table's own sort in the fine_verify stage.
+FINE_KERNELS = ("fine_lookup_kernel", "fine_score_kernel")
+FINE_RANGES = ("fine_kernels.lookup", "fine_kernels.score")
+FINE_RANGE_MOST = 3
+FINE_TABLE_RANGE = "fine.table"
 
 
 def hyp_chains(ks):
@@ -2736,6 +2793,21 @@ def hyp_chains(ks):
                 launches={n: sum(1 for k in ks if n in k)
                           for n in HYP_KERNELS},
                 names=sorted({k[:60] for k in ks})[:8])
+
+
+def fine_chains(ks):
+    """In one eager step's kernels (``kernel_stages``): those in V1's and
+    V2's entry ranges and the launches of each there, and the sort
+    kernels of the fine_verify stage outside its table's range."""
+    inside = [k for chain, k, _ in ks if any(r in chain for r in FINE_RANGES)]
+    return dict(kernels=len(inside),
+                launches={n: sum(1 for k in inside if n in k)
+                          for n in FINE_KERNELS},
+                sorts=sum(1 for chain, k, _ in ks
+                          if chain and chain[0] == "fine_verify"
+                          and FINE_TABLE_RANGE not in chain
+                          and SORT_KERNEL.search(k)),
+                names=sorted({k[:60] for k in inside})[:8])
 
 
 def faces_chains(ks):
@@ -2819,7 +2891,7 @@ def phase_stages(name, step, eager, graph_kernels):
     n = next(x[-1].shape[-1] for _, x, op in record_scans(eager, args)
              if op == "moments")
     out = {"column_cats": {}, "cat_kernels": {}, "faces_chains": {},
-           "hyp_chains": {}}
+           "hyp_chains": {}, "fine_chains": {}}
     for arm, ctx in STAGE_ARMS.items():
         with ctx():
             eager(*args)  # warm up
@@ -2830,6 +2902,7 @@ def phase_stages(name, step, eager, graph_kernels):
         out[arm] = stage_table(name, ks)
         out["faces_chains"][arm] = faces_chains(ks)
         out["hyp_chains"][arm] = hyp_chains(ks)
+        out["fine_chains"][arm] = fine_chains(ks)
         out["column_cats"][arm] = {r: [c for c in calls if c[0] == r]
                                    for r in COLUMN_RANGES}
         out["cat_kernels"][arm] = {
@@ -2869,6 +2942,18 @@ def phase_stages(name, step, eager, graph_kernels):
     check(hplain["sorts"] > 0 and not any(hplain["launches"].values()),
           f"{name}: the plain hypotheses stage ran {hplain['sorts']} sort "
           f"kernels and H1-H3 launches {hplain['launches']}")
+    vc, vplain = out["fine_chains"]["kernels"], out["fine_chains"][
+        "plain fine"]
+    check(vc["sorts"] == 0 and all(n == 1 for n in vc["launches"].values())
+          and vc["kernels"] <= FINE_RANGE_MOST,
+          f"{name}: {FINE_RANGES} hold {vc['kernels']} kernels and V1 / V2 "
+          f"launches {vc['launches']}, and the fine_verify stage "
+          f"{vc['sorts']} sort kernels outside {FINE_TABLE_RANGE} (want at "
+          f"most {FINE_RANGE_MOST}, one each and no sort): {vc['names']}")
+    check(vplain["kernels"] > FINE_RANGE_MOST
+          and not any(vplain["launches"].values()),
+          f"{name}: the plain fine verify ran {vplain['kernels']} kernels and "
+          f"V1 / V2 launches {vplain['launches']} in {FINE_RANGES}")
     for r in COLUMN_RANGES:
         fused = out["column_cats"]["kernels"][r]
         cat = out["column_cats"]["concatenated columns"][r]
@@ -2921,7 +3006,8 @@ def print_stages(name, st, smi):
               f"{' / '.join(F2_RANGES)}, {fc['f2_cats']} of them "
               f"CatArrayBatchedCopy, {fc['f2_sorts']} sort kernels, "
               f"{fc['f2_launches']} F2; hypotheses stage "
-              f"{st['hyp_chains'][arm]} | {smi}",
+              f"{st['hyp_chains'][arm]}; fine verify "
+              f"{st['fine_chains'][arm]} | {smi}",
               flush=True)
         for stage, b in t["stages"].items():
             top = "; ".join(f"{ms:.3f} ms {k[:70]}" for k, ms in b["top"])
@@ -4013,6 +4099,219 @@ def phase_hypotheses(steps, eager, dev):
     return out
 
 
+# Operations of V1 (csrc/fine.cu), a floor, a cast, a compare and a select
+# as one each: for a (candidate, valid target point) the transform (9
+# products, 9 adds), the cells (3 products, floors and casts) and the
+# window (6 compares); for a key in the window besides, the packing (3
+# ands, 2 shifts, 2 ors), a step of the binary search (a compare and a
+# select) for each of ceil(log2(S + 1)) steps over the S occupied keys a
+# block holds, and the count. Of V2: a slot's place (2 adds) for each occupied
+# slot; a live slot's value (the conversion, a subtraction, an add, min,
+# max, the clamp, a product, a division) and its add into the sum; an add
+# a point of the mask's count, and the score's add, clamp and division.
+FINE_POINT_OPS = 33
+FINE_KEY_OPS = 8
+FINE_STEP_OPS = 2
+FINE_SLOT_OPS = 2
+FINE_LIVE_OPS = 9
+FINE_SCORE_OPS = 3
+# csrc/fine.cu's kTableSample: the table keys a V1 block holds.
+FINE_TABLE_SAMPLE = 32768
+# Phase 25's kernels by the form it names them in.
+FINE_FORMS = {"lookup": "V1", "score": "V2"}
+
+
+def record_fine(eager, args):
+    """The inputs of the V1 and V2 calls of one eager step, in order:
+    (form, args) with form "lookup" or "score" and args those of its
+    kernel's launch."""
+    import torch
+
+    from fccf_pcr_torch.ops import fine_kernels as fnk
+
+    seen = []
+    kept = {form: getattr(fnk, f"_launch_{form}") for form in FINE_FORMS}
+
+    def recorded(form):
+        def run(*a):
+            seen.append((form, cloned(a)))
+            return kept[form](*a)
+        return run
+
+    with swapped(fnk, **{f"_launch_{form}": recorded(form) for form in kept}):
+        eager(*args)
+    torch.cuda.synchronize()
+    return seen
+
+
+def fine_forms(form, a):
+    """(kernel, plain) calls of one input of V1 ("lookup") or V2
+    ("score"), in their launch's signature."""
+    from fccf_pcr_torch.ops import fine_kernels as fnk
+
+    return (lambda: getattr(fnk, f"_launch_{form}")(*a),
+            lambda: getattr(fnk, f"{form}_plain")(*a))
+
+
+def fine_bound(form, a, out):
+    """The least time the card could take for one call of V1 or V2, in ms,
+    and what bounds it. The bytes of the function the two make together:
+    V1 reads the candidates' poses (12 floats each), the valid points,
+    the mask, the occupied slots' keys and the window once; V2 the
+    occupied slots' counts, n_src and the mask once and writes the scores
+    once (the counters between them are no input or output of the join);
+    against their operations (FINE_*_OPS) on this call's data. ``out`` is
+    the plain version's result. Returns (ms, bound_by, details)."""
+    import torch
+
+    from fccf_pcr_torch.ops import fine_kernels as fnk
+
+    if form == "lookup":
+        T, table, pts, mask, params = a
+        P = mask.numel() // mask.shape[-1]
+        C, Vf = T.shape[-3], table.keys.shape[-1]
+        # Each pair's occupied slots, keys in the window and search steps
+        # (over the occupied keys its blocks hold).
+        occupied = (table.keys != fnk.SENTINEL).reshape(P, Vf).sum(-1)
+        keys = fnk.candidate_keys(T, table, pts, mask, params)
+        inside = (keys != fnk.SENTINEL).reshape(P, -1).sum(-1)
+        stride = -(-Vf // FINE_TABLE_SAMPLE)
+        steps = [math.ceil(math.log2(-(-int(r) // stride) + 1))
+                 for r in occupied]
+        valid = int(mask.sum())
+        nbytes = (P * C * 48 + valid * 12 + mask.numel()
+                  + int(occupied.sum()) * 8 + P * 24)
+        ops = C * valid * FINE_POINT_OPS + sum(
+            int(k) * (FINE_KEY_OPS + n * FINE_STEP_OPS)
+            for k, n in zip(inside, steps))
+        details = dict(points=tuple(pts.shape), valid_points=valid,
+                       keys_in_window=int(inside.sum()),
+                       counted=int(out[0].sum() + out[1].sum()),
+                       occupied=int(occupied.sum()), search_steps=steps,
+                       counter_bytes=2 * out[0].numel() * 4)
+    else:
+        hit, below, table, mask = a
+        C = hit.shape[-2]
+        occupied = int((table.keys != fnk.SENTINEL).sum())
+        live = int((hit > 0).sum())
+        nbytes = (occupied * 4 + table.n_src.numel() * 4 + mask.numel()
+                  + out.numel() * 4)
+        ops = (C * occupied * FINE_SLOT_OPS + live * FINE_LIVE_OPS
+               + mask.numel() + out.numel() * FINE_SCORE_OPS)
+        details = dict(live=live, occupied=occupied,
+                       places=hit.shape[-1] + mask.shape[-1])
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
+    details.update(bytes=nbytes, ops=ops)
+    return ((t_bytes, "bytes") if t_bytes >= t_ops
+            else (t_ops, "operations")) + (details,)
+
+
+def fine_edge_cases(dev):
+    """tests/test_torch_fine_kernels.py's cases (``fine_case``): (what, T,
+    table, tar_pts, tar_mask) on ``dev``."""
+    sys.path.insert(0, str(ROOT / "tests"))
+    from test_torch_fine_kernels import FINE_CASES, fine_case
+
+    cases = []
+    for what in FINE_CASES:
+        T, table, pts, mask = fine_case(what)
+        cases.append((what, T.to(dev), type(table)(*(x.to(dev)
+                                                     for x in table)),
+                      pts.to(dev), mask.to(dev)))
+    return cases
+
+
+def fine_equal(what, T, table, pts, mask):
+    """V1 and V2 against their plain versions on one case, each on the
+    same inputs (V2 also on V1's counts), then fine_verify through the
+    kernels against the plain chain, bit for bit. Returns the kernel calls
+    held."""
+    from fccf_pcr_torch import FCCFParams, TEST_CAPS
+    from fccf_pcr_torch.ops import fine_kernels as fnk
+    from fccf_pcr_torch.verify.fine import fine_verify
+
+    params = FCCFParams()
+    counts = fnk.lookup_plain(T, table, pts, mask, params)
+    got = fnk._launch_lookup(T, table, pts, mask, params)
+    check(faces_equal(got, counts), f"edge case {what}: V1 differs from "
+          "plain")
+    want = fnk.score_plain(*counts, table, mask)
+    for c in (counts, got):
+        check(faces_equal(fnk._launch_score(*c, table, mask), want),
+              f"edge case {what}: V2 differs from plain")
+    score, _ = fine_verify(T, table, pts, mask, params, TEST_CAPS)
+    check(faces_equal(score, want), f"edge case {what}: fine_verify "
+          "through V1 and V2 differs from the plain chain")
+    return 4
+
+
+def fine_replays(cases):
+    """fine_verify of each case called twice inside one captured CUDA
+    graph, the graph replayed twice: each replay's scores equal the eager
+    calls'. Returns the kernel calls the graph holds."""
+    import torch
+
+    from fccf_pcr_torch import FCCFParams, TEST_CAPS
+    from fccf_pcr_torch.verify.fine import fine_verify
+
+    def run(T, table, pts, mask):
+        return fine_verify(T, table, pts, mask, FCCFParams(), TEST_CAPS)[0]
+
+    want = [run(*c[1:]) for c in cases]
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        outs = [run(*c[1:]) for c in cases for _ in range(2)]
+    for _ in range(2):
+        g.replay()
+        torch.cuda.synchronize()
+        for i, w in enumerate(want):
+            for o in outs[2 * i:2 * i + 2]:
+                check(faces_equal(o, w), f"fine verify {cases[i][0]} called "
+                      "twice in a replayed graph differs from its eager call")
+    del g
+    return 2 * len(outs)
+
+
+def phase_fine(steps, eager, dev):
+    """Phase 25: fine verify's kernels against their plain versions on the
+    card, bit for bit: every V1 and V2 input of the heritage and office
+    batch-8 eager steps (``record_fine``: one call each a step), the edge
+    cases (``fine_edge_cases``) and fine_verify twice in one replayed
+    graph (``fine_replays``); at each step's inputs the device time a call
+    (``graph_ms``) of the kernel and the plain version beside the
+    bound."""
+    out = {kernel: {} for kernel in FINE_FORMS.values()}
+    out.update(edge_calls=0, differ=0)
+    for name in ("heritage", "office"):
+        fn, args = steps[name]
+        calls = record_fine(eager[name], args)
+        forms = [form for form, _ in calls]
+        check(forms == ["lookup", "score"],
+              f"{name}: the eager step's fine verify calls are {forms} (want "
+              "one V1 and one V2)")
+        for form, a in calls:
+            kernel = FINE_FORMS[form]
+            k, plain = fine_forms(form, a)
+            got, want = k(), plain()
+            ok = faces_equal(got, want)
+            out["differ"] += not ok
+            check(ok, f"{name}: {kernel} differs from plain")
+            bound_ms, bound_by, details = fine_bound(form, a, want)
+            out[kernel][name] = dict(
+                shape=tuple(a[0].shape), ms=graph_ms(k),
+                plain_ms=graph_ms(plain), library_ms=None,
+                bound_ms=bound_ms, bound_by=bound_by, **details)
+    cases = fine_edge_cases(dev)
+    for what, *a in cases:
+        out["edge_calls"] += fine_equal(what, *a)
+    out["edge_cases"] = len(cases)
+    out["replayed_calls"] = fine_replays(
+        [c for c in cases if c[0] in ("plain", "NaN and huge T",
+                                      "large table", "eight pairs")])
+    return out
+
+
 def phase_graph_configs(dev, counters):
     """Every golden config's seeds as one batch through the step graph
     (make_register_fn) and the eager step in turns, every field bitwise
@@ -4158,8 +4457,9 @@ def drive_path(what, fn, counters, dev, registers=True):
     the gather nor the standalone block-seed kernel, and, where it
     ``registers`` (every path but
     measure_content, which stops at the seeds), replay a step graph and
-    launch H1, H2 and H3 (the hypotheses stage's), C2 (the floor walk)
-    and L1 (the LM). Returns (result, counts, wall s)."""
+    launch H1, H2 and H3 (the hypotheses stage's), C2 (the floor walk),
+    L1 (the LM) and V1 and V2 (fine verify's). Returns (result, counts,
+    wall s)."""
     import torch
 
     zero_counts(counters, dev)
@@ -4176,7 +4476,8 @@ def drive_path(what, fn, counters, dev, registers=True):
               "faces_plane_fit", "faces_segment_sum"):
         check(counts[k] > 0, f"{what}: the {k} kernel was not launched")
     for k in ("step_graph_replays", "cluster_floor_walk", "lm_refine",
-              "hyp_matches", "hyp_slots", "hyp_emit"):
+              "hyp_matches", "hyp_slots", "hyp_emit", "fine_lookup",
+              "fine_score"):
         check(counts[k] > 0 or not registers, f"{what}: no {k}")
     return out, counts, secs
 
@@ -4492,6 +4793,7 @@ def main():
         from fccf_pcr_torch.ops import cluster_kernels as ck
         from fccf_pcr_torch.ops import cuda_build
         from fccf_pcr_torch.ops import faces_kernels as fk
+        from fccf_pcr_torch.ops import fine_kernels as fnk
         from fccf_pcr_torch.ops import gather as gt
         from fccf_pcr_torch.ops import hypotheses_kernels as hk
         from fccf_pcr_torch.ops import label_prop as lp
@@ -4521,6 +4823,8 @@ def main():
                 "hyp_slots": (hk, "SLOTS"),
                 "hyp_emit": (hk, "EMITS"),
                 "hyp_bases": (hk, "BASES"),
+                "fine_lookup": (fnk, "LOOKUPS"),
+                "fine_score": (fnk, "SCORES"),
                 "step_graph_captures": (STEP, "captures"),
                 "step_graph_replays": (STEP, "replays")}
     try:
@@ -4534,11 +4838,11 @@ def main():
               f"(count {torch.cuda.device_count()}) | {smi}", flush=True)
 
         t_start = time.perf_counter()
-        secs = phase_build([lp, gt, ck, lmk, scn, fk, hk])
+        secs = phase_build([lp, gt, ck, lmk, scn, fk, hk, fnk])
         print(f"[build] label_prop.cu {secs[0]:.2f} s, gather.cu {secs[1]:.2f} s, "
               f"cluster.cu {secs[2]:.2f} s, lm.cu {secs[3]:.2f} s, scan.cu "
               f"{secs[4]:.2f} s, faces.cu {secs[5]:.2f} s, hypotheses.cu "
-              f"{secs[6]:.2f} s (in parallel, "
+              f"{secs[6]:.2f} s, fine.cu {secs[7]:.2f} s (in parallel, "
               f"{time.perf_counter() - t_start:.2f} s)", flush=True)
         ptxas = {"label_prop_propagate": ptxas_summary(lp, "propagate_kernel"),
                  "label_prop_sweep": ptxas_summary(lp, "sweep_kernel"),
@@ -4564,7 +4868,9 @@ def main():
                  "hyp_matches": ptxas_summary(hk, "hyp_matches_kernel"),
                  "hyp_slots": ptxas_summary(hk, "hyp_slots_kernel"),
                  "hyp_emit": ptxas_summary(hk, "hyp_emit_kernel"),
-                 "hyp_bases": ptxas_summary(hk, "hyp_bases_kernel")}
+                 "hyp_bases": ptxas_summary(hk, "hyp_bases_kernel"),
+                 "fine_lookup": ptxas_summary(fnk, "fine_lookup_kernel"),
+                 "fine_score": ptxas_summary(fnk, "fine_score_kernel")}
         # F2's face statistics' and values' forms, 16-bit row indices in
         # shared memory (the main path's)
         f2_forms = [ptxas_summary(fk, f"segment_sum_kernelILi{form}EtLb1")
@@ -4709,9 +5015,12 @@ def main():
                   "launches a step (at most 4)")
             check(t["lm_refine"] == 1,
                   f"{name} timing: {t['lm_refine']} L1 launches a step")
-            check(t["scan_int"] == 10 and t["prefix_sum16"] > 0,
+            check(t["scan_int"] == 9 and t["prefix_sum16"] > 0,
                   f"{name} timing: {t['scan_int']} S1 and "
-                  f"{t['prefix_sum16']} S2 calls a step (want 10 S1)")
+                  f"{t['prefix_sum16']} S2 calls a step (want 9 S1)")
+            check(t["fine_lookup"] == t["fine_score"] == 1,
+                  f"{name} timing: {t['fine_lookup']} V1 and "
+                  f"{t['fine_score']} V2 launches a step (want 1 and 1)")
             check(t["hyp_matches"] == t["hyp_slots"] == t["hyp_emit"] == 1
                   and t["hyp_bases"] == 0,
                   f"{name} timing: {t['hyp_matches']} H1, {t['hyp_slots']} "
@@ -4741,6 +5050,8 @@ def main():
                   f"{t['faces_segment_sum']:g} F2 launches, "
                   f"{t['hyp_matches']:g} H1, {t['hyp_slots']:g} H2 and "
                   f"{t['hyp_emit']:g} H3 launches, "
+                  f"{t['fine_lookup']:g} V1 and {t['fine_score']:g} V2 "
+                  "launches, "
                   f"{t['step_graph_replays']:g} step graph replays and "
                   f"{t['step_graph_captures']:g} captures, "
                   f"{t['host_launches']} host launches "
@@ -4888,6 +5199,25 @@ def main():
               f"{hc['replayed_calls']} kernel calls in one graph, replayed "
               f"twice, equal to their eager calls; phase "
               f"{time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        vc = phase_fine(steps, eager, dev)
+        for form, kernel in FINE_FORMS.items():
+            ptx = ptxas[f"fine_{form}"]
+            for name, c in vc[kernel].items():
+                extra = ", ".join(f"{k} {v}" for k, v in c.items()
+                                  if k not in ("shape", "ms", "plain_ms",
+                                               "library_ms", "bound_ms",
+                                               "bound_by"))
+                print(f"[fine] {kernel} {name} batch-8 step {c['shape']} "
+                      f"({extra}): equal to plain; {c['ms'] * 1e3:.2f} us "
+                      f"device vs plain {c['plain_ms'] * 1e3:.2f} us; bound "
+                      f"{c['bound_ms'] * 1e3:.3f} us ({c['bound_by']}), "
+                      f"{c['ms'] / c['bound_ms']:.1f}x it | ptxas {ptx} | "
+                      f"{smi}", flush=True)
+        print(f"[fine] {vc['edge_cases']} edge cases ({vc['edge_calls']} "
+              f"kernel calls) equal to plain; {vc['replayed_calls']} kernel "
+              f"calls in one graph, replayed twice, equal to their eager "
+              f"calls; phase {time.perf_counter() - t0:.1f} s", flush=True)
         t0 = time.perf_counter()
         l1_err, l1 = phase_lm_vs_plain(
             lmk, {k: g["lm_inputs"] for k, g in graph_ab.items()}, dev)
@@ -5154,6 +5484,27 @@ def main():
                         "timed on the step's 2P face sets"
                         if kernel == "bases" else ""))
           for kernel, ptx in HYP_PTXAS.items()),
+        *(dict(KERNELS[f"fine_{form}"], launches=launches[f"fine_{form}"],
+               max_abs_err=vc["differ"], ms=vc[kernel]["heritage"]["ms"],
+               plain_ms=vc[kernel]["heritage"]["plain_ms"],
+               bound_ms=vc[kernel]["heritage"]["bound_ms"],
+               bound_by=vc[kernel]["heritage"]["bound_by"], library_ms=None,
+               launches_per_step=per_step_of(f"fine_{form}"),
+               by_config=vc[kernel],
+               fine_verify_stage={k: {arm: [round(b["ms"], 4), b["kernels"]]
+                                      for arm in STAGE_ARMS for b in [
+                                          stage_tables[k][arm]["stages"][
+                                              "fine_verify"]]}
+                                  for k in stage_tables},
+               launches_by_path={k: v[f"fine_{form}"]
+                                 for k, v in paths.items()},
+               ptxas=ptxas[f"fine_{form}"],
+               shape=f"one call at the heritage batch-8 step's inputs "
+                     f"{vc[kernel]['heritage']['shape']}; ms and plain_ms "
+                     "device time a call by CUDA events over a graph of 10 "
+                     "calls; no one PyTorch call computes it; max_abs_err "
+                     "the calls that differ")
+          for form, kernel in FINE_FORMS.items()),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -2,16 +2,18 @@
 (port of ``fccf_pcr_tpu/verify/fine.py``; ``fine_verify`` FCCF.cpp:785-839).
 
 The table cloud's (sorted unique key, count) table is built once per
-pair; every candidate transform then sorts [table keys ++ its transformed
-cloud keys] (a batch of join sorts, one row per candidate) and scores each
-voxel holding both labels with (s + t) * min(s, t) / max(s, t).
+pair (``build_source_table``); every candidate transform then joins its
+transformed cloud's keys with the table and scores each voxel holding
+both with (s + t) * min(s, t) / max(s, t). The JAX package sorts [table
+keys ++ candidate keys] a candidate; only the runs that begin with a
+table entry score, so the port looks each key up in the table and counts
+it at its slot (``ops/fine_kernels.py``: V1 and V2 on a card).
 
-Keys: 10 bits per axis with wraparound (30 bits), shifted left once to
-carry the label in the low bit, held in int64 (the JAX package's uint32
-order, with the all-ones sentinel still above every key). Target cells
-outside the table's bounding window are dropped before packing, so
-wrapped keys stay injective for any pose; the alias flag reports a table
-span of 1024 cells or more.
+Keys: 10 bits per axis with wraparound (30 bits) held in int64 (the JAX
+package's uint32 order, with the all-ones sentinel above every key).
+Target cells outside the table's bounding window are dropped before
+packing, so wrapped keys stay injective for any pose; the alias flag
+reports a table span of 1024 cells or more.
 
 Both functions take leading batch dims (a pair axis): one table per pair,
 and per pair its own candidates, scored against its own table and cloud.
@@ -25,12 +27,11 @@ import torch
 from torch.profiler import record_function
 
 from ..config import Capacities, FCCFParams
-from ..ops import scan
-from ..ops.batch import fold_sum, small_matmul
+from ..ops import fine_kernels, scan
+from ..ops.fine_kernels import SENTINEL as _SENTINEL
+from ..ops.fine_kernels import pack_cells as _pack_cells
 from ..ops.sorting import cosort
 from ..ops.voxelize import cell_index
-
-_SENTINEL = 0xFFFFFFFF
 
 
 def _cell_bounds(cells, mask):
@@ -39,14 +40,6 @@ def _cell_bounds(cells, mask):
     kmin = torch.amin(torch.where(mask[..., None], cells, big), dim=-2)
     kmax = torch.amax(torch.where(mask[..., None], cells, -big), dim=-2)
     return kmin, kmax
-
-
-def _pack_cells(cells, mask):
-    kx = (cells[..., 0] & 1023).to(torch.int64)
-    ky = (cells[..., 1] & 1023).to(torch.int64)
-    kz = (cells[..., 2] & 1023).to(torch.int64)
-    key = (kx << 20) | (ky << 10) | kz
-    return torch.where(mask, key, _SENTINEL)
 
 
 def _unique_counts(keys, cap):
@@ -117,72 +110,16 @@ def fine_verify(T, table: SourceTable, tar_pts, tar_mask, params, caps):
     tar_pts (..., M, 3). Returns (score (..., *cand), aliased (...,
     *cand)).
 
-    One join sort per candidate: table keys (label 0 in the low bit, so
-    they lead their cell's run) and the candidate's transformed keys
-    (label 1); each run is evaluated at its start, elementwise, with the
-    next run start found by a reverse running min.
+    The join of [table keys ++ a candidate's transformed keys] is a lookup
+    of each key in the table and two counts a table slot (V1,
+    ``fine_kernels.lookup``), then each scoring run's place and value and
+    their ``fold_sum`` (V2, ``fine_kernels.score``): kernels on a card,
+    their plain versions on the CPU.
     """
-    with record_function("fine.keys"):
-        lead = tuple(tar_mask.shape[:-1])
-        cand = tuple(T.shape[len(lead):-2])
-        T = T.reshape(lead + (-1, 4, 4))
-        C = T.shape[-3]
-        dev = T.device
-        R = T[..., :3, :3]
-        t = T[..., :3, 3]
-        tar_t = small_matmul(tar_pts[..., None, :, :], R.mT) + t[..., None, :]
-        cells_t = cell_index(tar_t, params.fine_voxel)
-        in_win = torch.all(
-            (cells_t >= table.cell_min[..., None, None, :])
-            & (cells_t <= table.cell_max[..., None, None, :]), dim=-1
-        )
-        keys_t = _pack_cells(cells_t, tar_mask[..., None, :] & in_win)
-
-    with record_function("fine.join"):
-        Vf = table.keys.shape[-1]
-        M = keys_t.shape[-1]
-        n = Vf + M
-        ks2 = torch.where(table.keys != _SENTINEL, table.keys << 1, _SENTINEL)
-        kt2 = torch.where(keys_t != _SENTINEL, (keys_t << 1) | 1, _SENTINEL)
-        keys = torch.cat([ks2[..., None, :].expand(lead + (C, Vf)), kt2],
-                         dim=-1)
-        vals = torch.cat(
-            [table.counts[..., None, :].expand(lead + (C, Vf)),
-             torch.ones(lead + (C, M), dtype=torch.float32, device=dev)],
-            dim=-1,
-        )
-        k_s, val_s = cosort((keys,), (vals,), dim=-1)
-        src_s = (k_s & 1) == 0
-
-    with record_function("fine.runs"):
-        pos = torch.arange(n, device=dev)
-        cell = k_s >> 1
-        start_flag = torch.cat(
-            [torch.ones_like(cell[..., :1], dtype=torch.bool),
-             cell[..., 1:] != cell[..., :-1]],
-            dim=-1,
-        )
-        marked = torch.where(start_flag, pos, n)
-        nxt = scan.rev_cummin(marked)
-        nxt = torch.cat([nxt[..., 1:], torch.full_like(nxt[..., :1], n)],
-                        dim=-1)
-
-    with record_function("fine.score"):
-        has_src = start_flag & src_s
-        s_cnt = torch.where(has_src, val_s, 0.0)
-        run_len = (nxt - pos).to(torch.float32)
-        t_cnt = run_len - has_src.to(torch.float32)
-        live = start_flag & has_src & (t_cnt >= 1.0) & (k_s != _SENTINEL)
-        mn = torch.minimum(s_cnt, t_cnt)
-        mx = torch.maximum(s_cnt, t_cnt)
-        # fold_sum: a library's long reduction splits its work by the number
-        # of outputs, so its rounding would depend on the batch.
-        similar = fold_sum(
-            torch.where(live,
-                        (s_cnt + t_cnt) * mn / torch.clamp(mx, min=1.0), 0.0),
-            dim=-1,
-        )
-        total = table.n_src + torch.sum(tar_mask.to(torch.float32), dim=-1)
-        score = similar / torch.clamp(total, min=1.0)[..., None]
-        aliased = table.aliased[..., None].expand(score.shape)
+    lead = tuple(tar_mask.shape[:-1])
+    cand = tuple(T.shape[len(lead):-2])
+    T = T.reshape(lead + (-1, 4, 4))
+    hit, below = fine_kernels.lookup(T, table, tar_pts, tar_mask, params)
+    score = fine_kernels.score(hit, below, table, tar_mask)
+    aliased = table.aliased[..., None].expand(score.shape)
     return score.reshape(lead + cand), aliased.reshape(lead + cand)

@@ -43,7 +43,11 @@ F2 (the label segment sums, face statistics and values) against their
 plain versions bit for bit (covariances of every kind, -0.0 and NaN
 sources, V = 1 to 40000, inside a capture, one F1 and three F2 launches
 in the face stage), and F1's cosf / atan2f against torch.cos /
-torch.atan2 at every float32 of their domains in the plane fit.
+torch.atan2 at every float32 of their domains in the plane fit; fine
+verify's V1 (lookup and count) and V2 (places and score) against their
+plain versions bit for bit on tests/test_torch_fine_kernels.py's cases, a
+pair alone against its row of 8, twice in a replayed graph, and once each
+a step of register_pair.
 
 This file imports no jax, so it runs on a machine without it (the
 repository's conftest.py imports jax, hence --noconftest):
@@ -2108,3 +2112,142 @@ def test_register_pair_launches_h1_h3_and_no_sort(cuda):
         (hk.matches_plain, hk.slots_plain, hk.emit_plain,
          hk.bases_plain) = kept
     assert not sorts
+
+
+# ----------------------------------------------- fine verify: V1 and V2 --
+
+
+def _fine_case_on(name, dev):
+    """test_torch_fine_kernels.fine_case's tensors on ``dev``."""
+    from test_torch_fine_kernels import fine_case
+
+    T, table, pts, mask = fine_case(name)
+    return (T.to(dev), type(table)(*(x.to(dev) for x in table)), pts.to(dev),
+            mask.to(dev))
+
+
+def _fine_equal(T, table, pts, mask):
+    """V1 and V2 against their plain versions on the same CUDA inputs: the
+    counts equal, the scores bit for bit (V2 on the plain counts and on
+    V1's). Returns the scores."""
+    from fccf_pcr_torch.ops import fine_kernels as fk
+
+    params = FCCFParams()
+    plain = fk.lookup_plain(T, table, pts, mask, params)
+    launches = (fk.LOOKUPS, fk.SCORES)
+    hit, below = fk.lookup(T, table, pts, mask, params)
+    assert torch.equal(hit, plain[0]) and torch.equal(below, plain[1])
+    want = fk.score_plain(*plain, table, mask)
+    assert _all_equal([fk.score(*plain, table, mask)], [want])
+    assert _all_equal([fk.score(hit, below, table, mask)], [want])
+    torch.cuda.synchronize()
+    assert (fk.LOOKUPS, fk.SCORES) == (launches[0] + 1, launches[1] + 2)
+    return want
+
+
+def test_fine_kernels_match_plain(cuda):
+    """Every case of tests/test_torch_fine_kernels.py's FINE_CASES: an empty
+    table and target, every point outside the window, an overflowing and an
+    aliased table, NaN and huge translations, one live run, one cell, odd
+    and even n, Vf = 1, 40000 slots (V1 holds every second key; V2's first
+    level in global memory) and the main path's 8 pairs of 12."""
+    from test_torch_fine_kernels import FINE_CASES
+
+    for name in FINE_CASES:
+        score = _fine_equal(*_fine_case_on(name, cuda))
+        assert bool(torch.isfinite(score).all()), name
+
+
+def test_fine_verify_pair_alone_equals_batch(cuda):
+    from fccf_pcr_torch.verify.fine import fine_verify
+
+    T, table, pts, mask = _fine_case_on("eight pairs", cuda)
+    params = FCCFParams()
+    batch = fine_verify(T, table, pts, mask, params, TEST_CAPS)
+    for k in range(8):
+        alone = fine_verify(T[k:k + 1], type(table)(*(x[k:k + 1]
+                                                      for x in table)),
+                            pts[k:k + 1], mask[k:k + 1], params, TEST_CAPS)
+        assert _all_equal([a[0] for a in alone], [b[k] for b in batch])
+    assert bool((batch[0] > 0).any())
+
+
+def test_fine_kernels_in_a_capture(cuda):
+    """fine_verify called twice in a captured CUDA graph, replayed twice:
+    every replay equals the eager calls and V1 and V2 count at each
+    replay."""
+    from fccf_pcr_torch.ops import fine_kernels as fk
+    from fccf_pcr_torch.verify.fine import fine_verify
+
+    T, table, pts, mask = _fine_case_on("NaN and huge T", cuda)
+    n = len(table)
+
+    def fn(T, pts, mask, *tab):
+        tab = type(table)(*tab)
+        return (fine_verify(T, tab, pts, mask, FCCFParams(), TEST_CAPS)
+                + fine_verify(T[:, :3], tab, pts, mask, FCCFParams(),
+                              TEST_CAPS))
+
+    args = (T, pts, mask) + tuple(table)
+    assert len(args) == 3 + n
+    want = fn(*args)
+    graphs = graph.Graphs(max_graphs=1)
+    graphs.replay(fn, args)  # the capture
+    counts = (fk.LOOKUPS, fk.SCORES)
+    for _ in range(2):
+        got = graphs.replay(fn, args)
+        torch.cuda.synchronize()
+        assert _all_equal(got, want)
+    assert (fk.LOOKUPS, fk.SCORES) == tuple(c + 4 for c in counts)
+    graphs.clear()
+
+
+def test_fine_kernels_reject_bad_inputs(cuda):
+    from fccf_pcr_torch.ops import fine_kernels as fk
+
+    T, table, pts, mask = _fine_case_on("plain", cuda)
+    params = FCCFParams()
+    with pytest.raises(ValueError):
+        fk.lookup(T.double(), table, pts, mask, params)
+    with pytest.raises(ValueError):
+        fk.lookup(T, table._replace(keys=table.keys.int()), pts, mask, params)
+    with pytest.raises(ValueError):
+        fk.lookup(T, table, pts.cpu(), mask, params)
+    hit, below = fk.lookup(T, table, pts, mask, params)
+    with pytest.raises(ValueError):
+        fk.score(hit.long(), below, table, mask)
+    with pytest.raises(ValueError):
+        fk.score(hit, below[..., :-1], table, mask)
+
+
+def test_register_pair_launches_v1_v2_and_no_plain_fine(cuda):
+    """register_pair on the card launches V1 and V2 once each a step (the
+    step graph's replay); the eager step runs neither plain version."""
+    from fccf_pcr_torch import register_pair
+    from fccf_pcr_torch.ops import fine_kernels as fk
+    from fccf_pcr_torch.pipeline import register
+
+    params = FCCFParams(leaf_size=0.25)
+    src, tar, _ = synthetic.make_pair(seed=3, points_per_plane=1500,
+                                      clutter_points=900)
+    sp, sm = synthetic.pad_points(src, TEST_CAPS.max_points)
+    tp, tm = synthetic.pad_points(tar, TEST_CAPS.max_points)
+    register_pair(sp, sm, tp, tm, params, TEST_CAPS)  # warm: the capture
+    torch.cuda.synchronize()
+    counts = (fk.LOOKUPS, fk.SCORES)
+    res = register_pair(sp, sm, tp, tm, params, TEST_CAPS)
+    torch.cuda.synchronize()
+    assert (fk.LOOKUPS, fk.SCORES) == (counts[0] + 1, counts[1] + 1)
+    assert bool((res.fine_score > 0).any())
+
+    def refused(*a):
+        raise AssertionError("a plain version ran on the card")
+
+    args = [torch.from_numpy(x)[None].to(cuda) for x in (sp, sm, tp, tm)]
+    kept = (fk.lookup_plain, fk.score_plain)
+    fk.lookup_plain, fk.score_plain = refused, refused
+    try:
+        register._register_batch(*args, params, TEST_CAPS)
+        torch.cuda.synchronize()
+    finally:
+        fk.lookup_plain, fk.score_plain = kept

@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
-"""A/B of the LM kernel L1, the floor walk C2, the scans S1 and S2 and
-the faces kernels F1 and F2 of two checkouts on one CUDA card, in turns
-(old, new, new, old), at the inputs the batched main path gives them at
-batch 8 (heritage and office presets).
+"""A/B of the LM kernel L1, the floor walk C2, the scans S1 and S2, the
+faces kernels F1 and F2 and fine verify's V1 and V2 of two checkouts on
+one CUDA card, in turns (old, new, new, old), at the inputs the batched
+main path gives them at batch 8 (heritage and office presets).
 
     python3 tools/torch_kernel_ab.py --parent DIR [--reps N] [--turns K]
-        [--only lm,cluster,scan,faces] [--f2-splits 2,4,16]
-        [--f1-threads 32,128,256]
+        [--only lm,cluster,scan,faces,fine] [--f2-splits 2,4,16]
+        [--f1-threads 32,128,256] [--fine-sources A.cu,B.cu]
 
 ``DIR`` holds the other checkout (unpack it with ``git archive`` into
 the gitignored ``smoke_checkout/``); its ``fccf_pcr_torch/csrc/lm.cu``,
@@ -35,7 +35,10 @@ split every cloud over that many blocks (``kMaxSplits``, with
 same turns;
 a fused S2 call of this tree against the other tree's S2 on the columns
 concatenated first, the concatenation timed with it, as that tree's step
-runs it), each in ``--turns`` rounds of old, new, new, old (2K pairs); a
+runs it; V1 and V2 on the calls ``chip_smoke.record_fine`` records,
+behind this tree's wrappers, with the other tree's ``csrc/fine.cu`` and
+each ``--fine-sources`` file (the same C entries) as further arms, each
+held to this tree's bits), each in ``--turns`` rounds of old, new, new, old (2K pairs); a
 line gives every time in order and each arm's median, and a step's sum
 of S1's and of S2's calls a turn. Prints one line a comparison with the
 card's name and power limit, and the whole as JSON last. Exits non-zero
@@ -279,15 +282,69 @@ def faces_ab(old, variants, dev, smi, res, turns):
               + f" | {smi}", flush=True)
 
 
+def fine_ab(sources, dev, smi, res, turns):
+    """V1 and V2 of other ``fine.cu`` sources (``sources``: {arm:
+    library}) against this tree's in turns on the eager batch-8 steps' own
+    calls, behind this tree's wrappers."""
+    import chip_smoke as cs
+    from fccf_pcr_torch.evaluation import configs
+    from fccf_pcr_torch.models.fccf import get_model
+    from fccf_pcr_torch.ops import fine_kernels as fnk
+
+    def behind(lib, form, x):
+        launch = getattr(fnk, f"_launch_{form}")
+
+        def call():
+            kept = fnk._LIBRARY._lib
+            fnk._LIBRARY._lib = lib
+            try:
+                return launch(*x)
+            finally:
+                fnk._LIBRARY._lib = kept
+        return call
+
+    for name in ("heritage", "office"):
+        model = get_model(configs.CONFIGS[name]["model"])
+        args, _ = cs.config_batch(name, list(range(8)), model.params,
+                                  model.caps, dev)
+        calls = cs.record_fine(cs.eager_step(model.params, model.caps), args)
+        r = res.setdefault(name, {})
+        r["fine"] = []
+        for form, x in calls:
+            kernel, plain = cs.fine_forms(form, x)
+            got = kernel()
+            cs.check(cs.faces_equal(got, plain()),
+                     f"{name}: {form} differs from plain")
+            arms = {"new": kernel}
+            for arm, lib in sources.items():
+                arms[arm] = behind(lib, form, x)
+                cs.check(cs.faces_equal(arms[arm](), got),
+                         f"{name}: {form} at {arm} differs")
+            names = list(arms)
+            order = (names + names[::-1]) * turns
+            c = dict(what=form, us=[(arm, cs.graph_ms(arms[arm]) * 1e3)
+                                    for arm in order])
+            r["fine"].append(c)
+            meds = ", ".join(
+                f"median {arm} "
+                f"{statistics.median([us for y, us in c['us'] if y == arm]):.2f} us"
+                for arm in names)
+            print(f"[ab] {cs.FINE_FORMS[form]} {name} {form} "
+                  f"{list(x[0].shape)}, a call: "
+                  + ", ".join(f"{arm} {us:.2f} us" for arm, us in c["us"])
+                  + f"; {meds} | {smi}", flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", required=True, type=pathlib.Path)
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--turns", type=int, default=1)
     ap.add_argument("--only", default="lm,cluster,scan,faces",
-                    help="comma-separated: lm, cluster, scan, faces")
+                    help="comma-separated: lm, cluster, scan, faces, fine")
     ap.add_argument("--f2-splits", default="")
     ap.add_argument("--f1-threads", default="")
+    ap.add_argument("--fine-sources", default="")
     a = ap.parse_args()
     only = set(a.only.split(","))
     import torch
@@ -301,6 +358,7 @@ def main():
     from fccf_pcr_torch.ops import cluster_kernels as ck
     from fccf_pcr_torch.ops import cuda_build
     from fccf_pcr_torch.ops import faces_kernels as fk
+    from fccf_pcr_torch.ops import fine_kernels as fnk
     from fccf_pcr_torch.ops import gather as gt
     from fccf_pcr_torch.ops import label_prop as lp
     from fccf_pcr_torch.ops import scan
@@ -314,13 +372,19 @@ def main():
     print(smi, flush=True)
     cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     builds = {}
-    for src, bind in (("lm.cu", bind_lm),
-                      ("cluster.cu", lambda lib, _: ck._bind(lib)),
-                      ("scan.cu", bind_scan), ("faces.cu", bind_faces)):
-        if src[:-3] not in only:
-            continue
-        out = cuda_build.BUILD_DIR / f"ab_parent_{src[:-3]}.so"
-        path = a.parent / "fccf_pcr_torch" / "csrc" / src
+    sources = [(src, a.parent / "fccf_pcr_torch" / "csrc" / src, bind)
+               for src, bind in (
+                   ("lm.cu", bind_lm),
+                   ("cluster.cu", lambda lib, _: ck._bind(lib)),
+                   ("scan.cu", bind_scan), ("faces.cu", bind_faces),
+                   ("fine.cu", lambda lib, _: fnk._bind(lib)))
+               if src[:-3] in only]
+    # More fine.cu arms, named by their file's stem.
+    sources += [(pathlib.Path(x).stem, pathlib.Path(x),
+                 lambda lib, _: fnk._bind(lib))
+                for x in a.fine_sources.split(",") if x and "fine" in only]
+    for src, path, bind in sources:
+        out = cuda_build.BUILD_DIR / f"ab_parent_{src.replace('.', '_')}.so"
         builds[src] = (subprocess.Popen(
             [cuda_build.nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(out),
              str(path)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
@@ -335,7 +399,7 @@ def main():
             [cuda_build.nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(out),
              str(cu)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True), out, kind)
-    cs.phase_build([lp, gt, ck, lmk, scan, fk])
+    cs.phase_build([lp, gt, ck, lmk, scan, fk, fnk])
     old = {}
     for src, (proc, out, bind) in builds.items():
         log = proc.communicate()[0]
@@ -438,6 +502,11 @@ def main():
     res = {"card": smi, "parent": str(a.parent)}
     if "faces" in only:
         faces_ab(old["faces.cu"], variants, dev, smi, res, a.turns)
+    if "fine" in only:
+        fine_ab({"old" if src == "fine.cu" else src: lib
+                 for src, lib in old.items()
+                 if src == "fine.cu" or not src.endswith(".cu")},
+                dev, smi, res, a.turns)
     for name in ("heritage", "office") if {"lm", "cluster"} <= only else ():
         kw = cs.lm_inputs(name, list(range(8)), dev)
         planes = tuple(kw[k].contiguous() for k in ("n1", "p1", "n2", "p2",
