@@ -17,8 +17,9 @@ result:
      (the integer scans S1 and the blocked prefix sum S2) and
      csrc/faces.cu (the faces stage's plane fit F1 and label segment sums
      F2), csrc/hypotheses.cu (the hypotheses stage's H1, H2 and H3 and
-     its bases form) and csrc/fine.cu (fine verify's lookup V1 and score
-     V2); ptxas's registers, shared memory and spills of each kernel;
+     its bases form) and csrc/fine.cu (fine verify's join V: the lookup,
+     counts, places and score in one launch); ptxas's registers, shared
+     memory and spills of each kernel;
   3. label propagation vs its plain PyTorch version on the card, through
      the propagation kernel and through the per-sweep host loop (K1 +
      P1 launches): clustered voxel stats at V=1536 (office), V=1000 (a
@@ -53,7 +54,7 @@ result:
      the one-sweep and gather kernels' must not (the main path launches
      neither); each pair registered alone (P = 1) must match its batch
      row (status, kept mask, hypothesis and face counts equal, transform
-     within 1e-3 deg / 1e-4 m); V1 and V2 must launch; a second run,
+     within 1e-3 deg / 1e-4 m); the join V must launch; a second run,
      timed, must give
      bitwise-equal transforms; office, structured, resso and heritage
      also within tests/test_twin_production.py's bands of the NumPy
@@ -75,7 +76,7 @@ result:
      step, no one-sweep, gather or standalone block-seed launch; one
      block-scan launch, whatever H / 512 is, one floor walk and one L1
      launch, 9 S1 calls and S2 called, one F1 and three F2 launches,
-     one each of H1, H2 and H3 and no bases form, one each of V1 and V2),
+     one each of H1, H2 and H3 and no bases form, one join V),
      and per step: every
      kernel
      launched, as host
@@ -202,11 +203,11 @@ result:
      versions (the port before them), against which the kernels' arm
      must hold in the hypotheses stage no sort kernel, one launch each of
      H1, H2 and H3 and at most 6 kernels in all (the plain arm's sort
-     kernels there prove the check); a sixth time with V1 and V2 swapped
-     for their plain versions (fine verify's searchsorted counts and dense
+     kernels there prove the check); a sixth time with the join V swapped
+     for its plain versions (fine verify's searchsorted counts and dense
      fold_sum), against which the kernels' arm must hold in the
-     fine_kernels.lookup / .score ranges one launch each of V1 and V2,
-     their counters' fill and nothing else, and no sort kernel in the
+     fine_kernels.join range one launch of V and nothing else (no
+     counters' fill), and no sort kernel in the
      fine_verify stage outside its table's fine.table range (the plain
      arm's kernels in those ranges prove the ranges catch them);
  22. S1 and S2 against their plain versions on the card, bit for bit:
@@ -268,19 +269,22 @@ result:
      calls; at the steps' inputs each call's device time (a graph of 10
      calls) beside the plain version's and the bound (no one PyTorch call
      computes any of them);
- 25. V1 and V2 (fine verify's lookup and score) against their plain
-     versions on the card, bit for bit (NaN-aware): every V1 and V2 input
-     of the heritage and office batch-8 eager steps (one call each a
-     step) and the edge cases (an empty table and target, every point
-     outside the window, an overflowing and an aliased table, NaN and
-     huge translations, one live run, one cell, odd and even n, Vf = 1,
-     40000 slots, where V1 holds every second key and V2's first level
-     of fold_sum lies in global memory); both called twice in one
-     captured CUDA graph, replayed twice, equal to the eager calls; at
-     the steps' inputs each call's device time (a graph of 10 calls)
-     beside the plain version's and the bound (the points, mask, T and
-     table read once and the scores written once, against V1's
-     operations; no one PyTorch call computes either).
+ 25. the join V (fine verify's lookup, counts and score in one launch)
+     against its plain versions on the card, bit for bit (NaN-aware): the
+     V input of the heritage and office batch-8 eager steps (one call a
+     step), each of their pairs alone against its row of 8, and the edge
+     cases (an empty table and target, every point outside the window, an
+     overflowing and an aliased table, NaN and huge translations, one
+     live run, one cell, odd and even n, Vf = 1, 13 slots, a hit count
+     past 65535; the sizes that choose clusters of 2, 4 and 8 blocks and
+     the scratch: default caps, 40000 slots, an escalation of auto caps,
+     --caps large, 270000 points), each in the cluster size the wrapper
+     picks for it, which must be the case's; fine_verify called twice in one captured CUDA
+     graph, replayed twice, equal to the eager calls; at the steps'
+     inputs the call's device time (a graph of 10 calls) beside the plain
+     version's and the bound (fine_bound's: the points, mask, T and
+     table read once and the scores written once, against the lookup's
+     operations; no one PyTorch call computes it).
 
 Phases 5-6 are the main path: their launch counts are the kernels'
 "launches". Every later in-process path (12-16) is driven with the
@@ -290,7 +294,7 @@ F2, and neither
 the one-sweep, the gather nor the standalone block-seed kernel, and
 each but the content measurement (which
 stops at the seeds and takes the bases form) must replay a step graph
-and launch H1, H2, H3, C2, L1, V1 and V2. A path's
+and launch H1, H2, H3, C2, L1 and V. A path's
 kernels launched inside a captured step graph count at each replay
 (ops/graph.py's count_launch); the hooks that record a kernel's inputs
 (phases 3, 18, 19, 20, 22, 23, 24, 25) drive the eager step, where
@@ -437,21 +441,16 @@ KERNELS = {
         source="fccf_pcr_torch/csrc/hypotheses.cu",
         replaces="fccf_pcr_tpu/hypotheses/bases.py:40",
     ),
-    # Fine verify's per-candidate join: no Pallas kernel, the join sort,
-    # cummin and sum of the JAX package's compiled program.
-    "fine_lookup": dict(
-        name="fine_lookup",
+    # Fine verify's per-candidate join: no Pallas kernel, the keys, join
+    # sort, cummin and sum of the JAX package's compiled program.
+    "fine_join": dict(
+        name="fine_join",
         route="cuda",
         source="fccf_pcr_torch/csrc/fine.cu",
         replaces="fccf_pcr_tpu/verify/fine.py:193",
-        also_replaces=["fccf_pcr_tpu/verify/fine.py:168"],
-    ),
-    "fine_score": dict(
-        name="fine_score",
-        route="cuda",
-        source="fccf_pcr_torch/csrc/fine.cu",
-        replaces="fccf_pcr_tpu/verify/fine.py:216",
-        also_replaces=["fccf_pcr_tpu/verify/fine.py:202"],
+        also_replaces=["fccf_pcr_tpu/verify/fine.py:168",
+                       "fccf_pcr_tpu/verify/fine.py:202",
+                       "fccf_pcr_tpu/verify/fine.py:216"],
     ),
 }
 _BIG = 2**30
@@ -1769,7 +1768,7 @@ def phase_path(name, counters, dev):
     for k in ("cluster_block_scan", "cluster_floor_walk", "lm_refine",
               "scan_int", "prefix_sum16", "faces_plane_fit",
               "faces_segment_sum", "hyp_matches", "hyp_slots", "hyp_emit",
-              "fine_lookup", "fine_score", "step_graph_replays"):
+              "fine_join", "step_graph_replays"):
         check(launches[k] > 0, f"the {name} path made no {k}")
 
     T = res.transform
@@ -2754,13 +2753,15 @@ def plain_hypotheses():
 
 @contextlib.contextmanager
 def plain_fine():
-    """ops/fine_kernels.py's V1 and V2 replaced by their plain versions for
-    the duration: fine verify's join as searchsorted counts and a dense
+    """ops/fine_kernels.py's join V replaced by its plain versions for the
+    duration: fine verify's join as searchsorted counts and a dense
     fold_sum of the join's places."""
     from fccf_pcr_torch.ops import fine_kernels as fnk
 
-    with swapped(fnk, _launch_lookup=fnk.lookup_plain,
-                 _launch_score=fnk.score_plain):
+    def plain(T, table, pts, mask, params):
+        return fnk.join_plain(T, table, pts, mask, params)
+
+    with swapped(fnk, _launch_join=plain):
         yield
 
 
@@ -2774,12 +2775,12 @@ STAGE_ARMS = {"plain scans": plain_scans,
 # hold besides them.
 HYP_KERNELS = ("hyp_matches_kernel", "hyp_slots_kernel", "hyp_emit_kernel")
 HYP_STAGE_MOST = 6
-# V1 and V2's kernels and their entries' ranges, the most kernels those
-# ranges may hold (V1, V2 and the fill of V1's counters) and the range of
-# the table's own sort in the fine_verify stage.
-FINE_KERNELS = ("fine_lookup_kernel", "fine_score_kernel")
-FINE_RANGES = ("fine_kernels.lookup", "fine_kernels.score")
-FINE_RANGE_MOST = 3
+# The join's kernel and its entry's range, the most kernels that range may
+# hold (the join alone: its counts need no fill) and the range of the
+# table's own sort in the fine_verify stage.
+FINE_KERNELS = ("fine_join_kernel",)
+FINE_RANGES = ("fine_kernels.join",)
+FINE_RANGE_MOST = 1
 FINE_TABLE_RANGE = "fine.table"
 
 
@@ -2796,9 +2797,9 @@ def hyp_chains(ks):
 
 
 def fine_chains(ks):
-    """In one eager step's kernels (``kernel_stages``): those in V1's and
-    V2's entry ranges and the launches of each there, and the sort
-    kernels of the fine_verify stage outside its table's range."""
+    """In one eager step's kernels (``kernel_stages``): those in the
+    join's entry range and its launches there, and the sort kernels of
+    the fine_verify stage outside its table's range."""
     inside = [k for chain, k, _ in ks if any(r in chain for r in FINE_RANGES)]
     return dict(kernels=len(inside),
                 launches={n: sum(1 for k in inside if n in k)
@@ -2946,14 +2947,14 @@ def phase_stages(name, step, eager, graph_kernels):
         "plain fine"]
     check(vc["sorts"] == 0 and all(n == 1 for n in vc["launches"].values())
           and vc["kernels"] <= FINE_RANGE_MOST,
-          f"{name}: {FINE_RANGES} hold {vc['kernels']} kernels and V1 / V2 "
+          f"{name}: {FINE_RANGES} hold {vc['kernels']} kernels and V "
           f"launches {vc['launches']}, and the fine_verify stage "
           f"{vc['sorts']} sort kernels outside {FINE_TABLE_RANGE} (want at "
           f"most {FINE_RANGE_MOST}, one each and no sort): {vc['names']}")
     check(vplain["kernels"] > FINE_RANGE_MOST
           and not any(vplain["launches"].values()),
           f"{name}: the plain fine verify ran {vplain['kernels']} kernels and "
-          f"V1 / V2 launches {vplain['launches']} in {FINE_RANGES}")
+          f"V launches {vplain['launches']} in {FINE_RANGES}")
     for r in COLUMN_RANGES:
         fused = out["column_cats"]["kernels"][r]
         cat = out["column_cats"]["concatenated columns"][r]
@@ -4115,42 +4116,42 @@ FINE_STEP_OPS = 2
 FINE_SLOT_OPS = 2
 FINE_LIVE_OPS = 9
 FINE_SCORE_OPS = 3
-# csrc/fine.cu's kTableSample: the table keys a V1 block holds.
+# fine_bound's search: a binary search over every ceil(Vf / 32768)-th
+# occupied key.
 FINE_TABLE_SAMPLE = 32768
-# Phase 25's kernels by the form it names them in.
-FINE_FORMS = {"lookup": "V1", "score": "V2"}
+# Phase 25's kernel by the form it names it in.
+FINE_FORMS = {"join": "V"}
+# Phase 25's edge cases timed besides the steps' inputs: the sizes that
+# take clusters of 8 blocks and the scratch.
+FINE_TIMED = ("escalated auto", "large caps")
 
 
 def record_fine(eager, args):
-    """The inputs of the V1 and V2 calls of one eager step, in order:
-    (form, args) with form "lookup" or "score" and args those of its
-    kernel's launch."""
+    """The inputs of the join's calls of one eager step, in order: (form,
+    args) with form "join" and args those of its launch."""
     import torch
 
     from fccf_pcr_torch.ops import fine_kernels as fnk
 
     seen = []
-    kept = {form: getattr(fnk, f"_launch_{form}") for form in FINE_FORMS}
+    kept = fnk._launch_join
 
-    def recorded(form):
-        def run(*a):
-            seen.append((form, cloned(a)))
-            return kept[form](*a)
-        return run
+    def recorded(*a):
+        seen.append(("join", cloned(a)))
+        return kept(*a)
 
-    with swapped(fnk, **{f"_launch_{form}": recorded(form) for form in kept}):
+    with swapped(fnk, _launch_join=recorded):
         eager(*args)
     torch.cuda.synchronize()
     return seen
 
 
 def fine_forms(form, a):
-    """(kernel, plain) calls of one input of V1 ("lookup") or V2
-    ("score"), in their launch's signature."""
+    """(kernel, plain) calls of one input of the join, in its launch's
+    signature."""
     from fccf_pcr_torch.ops import fine_kernels as fnk
 
-    return (lambda: getattr(fnk, f"_launch_{form}")(*a),
-            lambda: getattr(fnk, f"{form}_plain")(*a))
+    return (lambda: fnk._launch_join(*a), lambda: fnk.join_plain(*a[:5]))
 
 
 def fine_bound(form, a, out):
@@ -4206,6 +4207,27 @@ def fine_bound(form, a, out):
             else (t_ops, "operations")) + (details,)
 
 
+def join_bound(a):
+    """The least time the card could take for one call of the join, in ms,
+    and what bounds it: the larger of fine_bound's operations of the
+    lookup and its bytes of the lookup and the score together (the counts
+    between them are no input or output of the join). Returns (ms,
+    bound_by, details)."""
+    from fccf_pcr_torch.ops import fine_kernels as fnk
+
+    T, table, pts, mask, params = a[:5]
+    counts = fnk.lookup_plain(T, table, pts, mask, params)
+    score = fnk.score_plain(*counts, table, mask)
+    _, _, look = fine_bound("lookup", (T, table, pts, mask, params), counts)
+    _, _, sc = fine_bound("score", counts + (table, mask), score)
+    nbytes, ops = look["bytes"] + sc["bytes"], look["ops"]
+    t_bytes, t_ops = nbytes / PEAK_BYTES * 1e3, ops / PEAK_F32 * 1e3
+    details = dict(look, bytes=nbytes, ops=ops, live=sc["live"],
+                   places=sc["places"])
+    return ((t_bytes, "bytes") if t_bytes >= t_ops
+            else (t_ops, "operations")) + (details,)
+
+
 def fine_edge_cases(dev):
     """tests/test_torch_fine_kernels.py's cases (``fine_case``): (what, T,
     table, tar_pts, tar_mask) on ``dev``."""
@@ -4222,27 +4244,52 @@ def fine_edge_cases(dev):
 
 
 def fine_equal(what, T, table, pts, mask):
-    """V1 and V2 against their plain versions on one case, each on the
-    same inputs (V2 also on V1's counts), then fine_verify through the
-    kernels against the plain chain, bit for bit. Returns the kernel calls
-    held."""
+    """The join against its plain versions on one case, in the cluster
+    size the wrapper picks, which must be the case's (``FINE_CLUSTERS``,
+    else 1 block), then fine_verify through it against the plain chain,
+    bit for bit. Returns the kernel calls held."""
     from fccf_pcr_torch import FCCFParams, TEST_CAPS
     from fccf_pcr_torch.ops import fine_kernels as fnk
     from fccf_pcr_torch.verify.fine import fine_verify
+    from test_torch_fine_kernels import FINE_CLUSTERS
 
     params = FCCFParams()
-    counts = fnk.lookup_plain(T, table, pts, mask, params)
-    got = fnk._launch_lookup(T, table, pts, mask, params)
-    check(faces_equal(got, counts), f"edge case {what}: V1 differs from "
-          "plain")
-    want = fnk.score_plain(*counts, table, mask)
-    for c in (counts, got):
-        check(faces_equal(fnk._launch_score(*c, table, mask), want),
-              f"edge case {what}: V2 differs from plain")
+    want = fnk.join_plain(T, table, pts, mask, params)
+    K = join_cluster(table, mask)
+    check(K == FINE_CLUSTERS.get(what, 1), f"edge case {what}: V takes "
+          f"clusters of {K} (0: the scratch), want "
+          f"{FINE_CLUSTERS.get(what, 1)}")
+    check(faces_equal(fnk._launch_join(T, table, pts, mask, params), want),
+          f"edge case {what}: V in clusters of {K} differs from plain")
     score, _ = fine_verify(T, table, pts, mask, params, TEST_CAPS)
     check(faces_equal(score, want), f"edge case {what}: fine_verify "
-          "through V1 and V2 differs from the plain chain")
-    return 4
+          "through V differs from the plain chain")
+    return 2
+
+
+def join_cluster(table, mask):
+    """The cluster size the wrapper picks for the join of ``table`` and a
+    cloud of ``mask``'s points (0: none holds it, the scratch)."""
+    from fccf_pcr_torch.ops import fine_kernels as fnk
+
+    return fnk.cluster_size(fnk.build(), table.keys.shape[-1],
+                            mask.shape[-1])
+
+
+def fine_pair_alone(a):
+    """Each pair of a recorded join call alone (P = 1) against its row of
+    the batch, bit for bit. Returns the pairs held."""
+    from fccf_pcr_torch.ops import fine_kernels as fnk
+
+    T, table, pts, mask, params = a[:5]
+    batch = fnk._launch_join(T, table, pts, mask, params)
+    for k in range(T.shape[0]):
+        alone = fnk._launch_join(
+            T[k:k + 1], type(table)(*(x[k:k + 1] for x in table)),
+            pts[k:k + 1], mask[k:k + 1], params)
+        check(faces_equal(alone[0], batch[k]),
+              f"pair {k} alone differs from its row of the batch in V")
+    return T.shape[0]
 
 
 def fine_replays(cases):
@@ -4270,26 +4317,29 @@ def fine_replays(cases):
                 check(faces_equal(o, w), f"fine verify {cases[i][0]} called "
                       "twice in a replayed graph differs from its eager call")
     del g
-    return 2 * len(outs)
+    return len(outs)
 
 
 def phase_fine(steps, eager, dev):
-    """Phase 25: fine verify's kernels against their plain versions on the
-    card, bit for bit: every V1 and V2 input of the heritage and office
-    batch-8 eager steps (``record_fine``: one call each a step), the edge
-    cases (``fine_edge_cases``) and fine_verify twice in one replayed
-    graph (``fine_replays``); at each step's inputs the device time a call
-    (``graph_ms``) of the kernel and the plain version beside the
-    bound."""
+    """Phase 25: fine verify's join against its plain versions on the
+    card, bit for bit: its input of the heritage and office batch-8 eager
+    steps (``record_fine``: one call a step), each pair of it alone, the
+    edge cases (``fine_edge_cases``) and fine_verify twice in one replayed
+    graph (``fine_replays``); at each step's input the device time a call
+    (``graph_ms``) of the kernel and the plain version beside the bound
+    (``join_bound``), and the kernel's and plain version's time at the
+    edge cases of FINE_TIMED."""
+    from fccf_pcr_torch import FCCFParams
+
     out = {kernel: {} for kernel in FINE_FORMS.values()}
-    out.update(edge_calls=0, differ=0)
+    out.update(edge_calls=0, differ=0, pairs_alone=0)
     for name in ("heritage", "office"):
         fn, args = steps[name]
         calls = record_fine(eager[name], args)
         forms = [form for form, _ in calls]
-        check(forms == ["lookup", "score"],
+        check(forms == ["join"],
               f"{name}: the eager step's fine verify calls are {forms} (want "
-              "one V1 and one V2)")
+              "one V)")
         for form, a in calls:
             kernel = FINE_FORMS[form]
             k, plain = fine_forms(form, a)
@@ -4297,18 +4347,29 @@ def phase_fine(steps, eager, dev):
             ok = faces_equal(got, want)
             out["differ"] += not ok
             check(ok, f"{name}: {kernel} differs from plain")
-            bound_ms, bound_by, details = fine_bound(form, a, want)
+            clusters = join_cluster(a[1], a[3])
+            out["pairs_alone"] += fine_pair_alone(a)
+            bound_ms, bound_by, details = join_bound(a)
             out[kernel][name] = dict(
                 shape=tuple(a[0].shape), ms=graph_ms(k),
                 plain_ms=graph_ms(plain), library_ms=None,
-                bound_ms=bound_ms, bound_by=bound_by, **details)
+                bound_ms=bound_ms, bound_by=bound_by, clusters=clusters,
+                **details)
     cases = fine_edge_cases(dev)
+    out["timed"] = {}
     for what, *a in cases:
         out["edge_calls"] += fine_equal(what, *a)
+        if what in FINE_TIMED:
+            k, plain = fine_forms("join", (*a, FCCFParams()))
+            out["timed"][what] = dict(
+                shape=tuple(a[0].shape), points=a[3].shape[-1],
+                slots=a[1].keys.shape[-1], clusters=join_cluster(a[1], a[3]),
+                ms=graph_ms(k), plain_ms=graph_ms(plain))
     out["edge_cases"] = len(cases)
     out["replayed_calls"] = fine_replays(
         [c for c in cases if c[0] in ("plain", "NaN and huge T",
-                                      "large table", "eight pairs")])
+                                      "large table", "eight pairs",
+                                      "large caps")])
     return out
 
 
@@ -4458,7 +4519,7 @@ def drive_path(what, fn, counters, dev, registers=True):
     ``registers`` (every path but
     measure_content, which stops at the seeds), replay a step graph and
     launch H1, H2 and H3 (the hypotheses stage's), C2 (the floor walk),
-    L1 (the LM) and V1 and V2 (fine verify's). Returns (result, counts,
+    L1 (the LM) and V (fine verify's join). Returns (result, counts,
     wall s)."""
     import torch
 
@@ -4476,8 +4537,7 @@ def drive_path(what, fn, counters, dev, registers=True):
               "faces_plane_fit", "faces_segment_sum"):
         check(counts[k] > 0, f"{what}: the {k} kernel was not launched")
     for k in ("step_graph_replays", "cluster_floor_walk", "lm_refine",
-              "hyp_matches", "hyp_slots", "hyp_emit", "fine_lookup",
-              "fine_score"):
+              "hyp_matches", "hyp_slots", "hyp_emit", "fine_join"):
         check(counts[k] > 0 or not registers, f"{what}: no {k}")
     return out, counts, secs
 
@@ -4823,8 +4883,7 @@ def main():
                 "hyp_slots": (hk, "SLOTS"),
                 "hyp_emit": (hk, "EMITS"),
                 "hyp_bases": (hk, "BASES"),
-                "fine_lookup": (fnk, "LOOKUPS"),
-                "fine_score": (fnk, "SCORES"),
+                "fine_join": (fnk, "JOINS"),
                 "step_graph_captures": (STEP, "captures"),
                 "step_graph_replays": (STEP, "replays")}
     try:
@@ -4869,8 +4928,7 @@ def main():
                  "hyp_slots": ptxas_summary(hk, "hyp_slots_kernel"),
                  "hyp_emit": ptxas_summary(hk, "hyp_emit_kernel"),
                  "hyp_bases": ptxas_summary(hk, "hyp_bases_kernel"),
-                 "fine_lookup": ptxas_summary(fnk, "fine_lookup_kernel"),
-                 "fine_score": ptxas_summary(fnk, "fine_score_kernel")}
+                 "fine_join": ptxas_summary(fnk, "fine_join_kernel")}
         # F2's face statistics' and values' forms, 16-bit row indices in
         # shared memory (the main path's)
         f2_forms = [ptxas_summary(fk, f"segment_sum_kernelILi{form}EtLb1")
@@ -5018,9 +5076,9 @@ def main():
             check(t["scan_int"] == 9 and t["prefix_sum16"] > 0,
                   f"{name} timing: {t['scan_int']} S1 and "
                   f"{t['prefix_sum16']} S2 calls a step (want 9 S1)")
-            check(t["fine_lookup"] == t["fine_score"] == 1,
-                  f"{name} timing: {t['fine_lookup']} V1 and "
-                  f"{t['fine_score']} V2 launches a step (want 1 and 1)")
+            check(t["fine_join"] == 1,
+                  f"{name} timing: {t['fine_join']} V launches a step "
+                  "(want 1)")
             check(t["hyp_matches"] == t["hyp_slots"] == t["hyp_emit"] == 1
                   and t["hyp_bases"] == 0,
                   f"{name} timing: {t['hyp_matches']} H1, {t['hyp_slots']} "
@@ -5050,8 +5108,7 @@ def main():
                   f"{t['faces_segment_sum']:g} F2 launches, "
                   f"{t['hyp_matches']:g} H1, {t['hyp_slots']:g} H2 and "
                   f"{t['hyp_emit']:g} H3 launches, "
-                  f"{t['fine_lookup']:g} V1 and {t['fine_score']:g} V2 "
-                  "launches, "
+                  f"{t['fine_join']:g} V launches, "
                   f"{t['step_graph_replays']:g} step graph replays and "
                   f"{t['step_graph_captures']:g} captures, "
                   f"{t['host_launches']} host launches "
@@ -5214,8 +5271,15 @@ def main():
                       f"{c['bound_ms'] * 1e3:.3f} us ({c['bound_by']}), "
                       f"{c['ms'] / c['bound_ms']:.1f}x it | ptxas {ptx} | "
                       f"{smi}", flush=True)
+        for what, c in vc["timed"].items():
+            print(f"[fine] {kernel} edge case {what} {c['shape']}, "
+                  f"{c['points']} points, {c['slots']} slots, clusters "
+                  f"{c['clusters']} (0: the scratch): {c['ms'] * 1e3:.2f} us "
+                  f"device vs plain {c['plain_ms'] * 1e3:.2f} us | {smi}",
+                  flush=True)
         print(f"[fine] {vc['edge_cases']} edge cases ({vc['edge_calls']} "
-              f"kernel calls) equal to plain; {vc['replayed_calls']} kernel "
+              f"kernel calls) equal to plain; {vc['pairs_alone']} pairs alone "
+              f"equal to their rows; {vc['replayed_calls']} kernel "
               f"calls in one graph, replayed twice, equal to their eager "
               f"calls; phase {time.perf_counter() - t0:.1f} s", flush=True)
         t0 = time.perf_counter()

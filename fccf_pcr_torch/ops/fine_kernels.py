@@ -1,7 +1,7 @@
-"""Fine verify's per-candidate join: its kernels and their plain PyTorch
-versions (port of ``fccf_pcr_tpu/verify/fine.py:138`` ``fine_verify``: the
-join sort at ``:193-194``, the run ends' ``cummin`` at ``:202`` and the sum
-at ``:216``).
+"""Fine verify's per-candidate join: its kernel and its plain PyTorch
+version (port of ``fccf_pcr_tpu/verify/fine.py:138`` ``fine_verify``: the
+keys at ``:168-177``, the join sort at ``:193-194``, the run ends'
+``cummin`` at ``:202`` and the sum at ``:216``).
 
 A pair's table (``verify.fine.build_source_table``) holds its cloud's
 sorted unique voxel keys in its R occupied slots, then the sentinel, and
@@ -10,30 +10,35 @@ keys] only the runs that begin with a table entry and hold keys of the
 candidate score, and the run of occupied slot i starts at place
 ``i + sum(hit[:i] + below[:i]) + below[i]``, where ``hit[i]`` counts the
 candidate's keys equal to key i and ``below[i]`` those between keys i - 1
-and i. So a candidate's join is a lookup and two counts a slot:
+and i. So a candidate's join is a lookup and two counts a slot, then a
+score:
 
-  - V1, ``lookup``: each (candidate, target point)'s key as ``fine.keys``
-    forms it (``candidate_keys``: the transform, the cell, the window test,
-    the packing), its place in the table, and one count: ``hit`` where it
-    equals the key there, else ``below``. A key past the last occupied
-    slot is counted nowhere.
-  - V2, ``score``: each slot's place in the join, the value (s + t) *
+  - ``lookup_plain``: each (candidate, target point)'s key as
+    ``fine.keys`` forms it (``candidate_keys``: the transform, the cell,
+    the window test, the packing), its place in the table, and one count:
+    ``hit`` where it equals the key there, else ``below``. A key past the
+    last occupied slot is counted nowhere.
+  - ``score_plain``: each slot's place in the join, the value (s + t) *
     min(s, t) / max(max(s, t), 1) of each live slot (t = hit >= 1, s its
     count), ``ops.batch.fold_sum`` over the join's Vf + M places with +0.0
     at the others, and the score similar / max(n_src + sum(tar_mask), 1).
 
-CUDA tensors take the kernels of ``csrc/fine.cu`` on the current stream,
-with no host sync, so the register step's CUDA graph captures them; there
-is no fallback: a missing ``nvcc``, a failed build or a refused launch
-raises. CPU tensors take the plain versions (``lookup_plain``,
-``score_plain``): the join sort's float operations in its order, so the
-CPU's bits are those of the port's join sort before the kernels. Any other
-device raises. Each kernel gives its plain version's bits on the card. The
-library is built with nvcc into ``fccf_pcr_torch/build/`` at first use and
-bound with ctypes (``ops.cuda_build``). ``LOOKUPS`` and ``SCORES`` count
-the launches of V1 and V2 (``ops.graph.count_launch``: a launch captured
-into a CUDA graph counts at each replay). Every entry point runs inside a
-``record_function`` range named ``fine_kernels.<entry>``.
+``join`` is the two: on CUDA tensors one launch of the kernel of
+``csrc/fine.cu`` (a cluster of blocks a candidate, the counts in shared
+memory; where no cluster holds a candidate's share there, clusters of 8
+blocks a candidate with its share in a scratch the wrapper allocates) on the current
+stream, with no host sync, so the register step's CUDA graph captures it; there is no
+fallback: a missing ``nvcc``, a failed build, a refused launch or a shape
+the kernel does not take (2^31 places or more, 2^24 points or more)
+raises. CPU tensors take ``join_plain``,
+``score_plain(*lookup_plain(...))``: the join sort's float operations in
+its order, so the CPU's bits are those of the port's join sort. Any other
+device raises. The kernel gives its plain version's bits on the card.
+The library is built with nvcc into ``fccf_pcr_torch/build/`` at first use
+and bound with ctypes (``ops.cuda_build``). ``JOINS`` counts the launches
+(``ops.graph.count_launch``: a launch captured into a CUDA graph counts at
+each replay). ``join`` runs inside a ``record_function`` range named
+``fine_kernels.join``.
 
 The table is read by field (``keys``, ``counts``, ``n_src``, ``cell_min``,
 ``cell_max``). Leading batch dims (a pair axis) go first: T is (..., C, 4,
@@ -59,25 +64,25 @@ from .voxelize import _inv, cell_index
 # the all-ones uint32 sentinel sorts after every key.
 SENTINEL = 0xFFFFFFFF
 
-# Launches of V1 and V2.
-LOOKUPS = 0
-SCORES = 0
+# Launches of the join.
+JOINS = 0
 _THIS = sys.modules[__name__]
+# The cluster sizes the kernel takes, in the order it is offered them; 0
+# (no cluster holds the share) takes the scratch.
+CLUSTERS = (1, 2, 4, 8)
 
 
 def _bind(lib):
-    fn = lib.fccf_fine_lookup
-    fn.argtypes = [ctypes.c_void_p] * 8 + [
+    fn = lib.fccf_fine_join
+    fn.argtypes = [ctypes.c_void_p] * 10 + [
         ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-        ctypes.c_float, ctypes.c_void_p]
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    fn = lib.fccf_fine_score
-    fn.argtypes = [ctypes.c_void_p] * 7 + [
-        ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    fn = lib.fccf_fine_row_floats
-    fn.argtypes = []
+    fn = lib.fccf_fine_join_shared
+    fn.argtypes = [ctypes.c_int, ctypes.c_longlong, ctypes.c_int]
+    fn.restype = ctypes.c_longlong
+    fn = lib.fccf_fine_join_scratch
+    fn.argtypes = [ctypes.c_int, ctypes.c_longlong]
     fn.restype = ctypes.c_longlong
 
 
@@ -168,89 +173,72 @@ def score_plain(hit, below, table, tar_mask):
         return similar / torch.clamp(total, min=1.0)[..., None]
 
 
+def join_plain(T, table, tar_pts, tar_mask, params):
+    """The join's plain version: each candidate's score, (..., C)
+    float32."""
+    return score_plain(*lookup_plain(T, table, tar_pts, tar_mask, params),
+                       table, tar_mask)
+
+
 # -------------------------------------------------------------- kernels --
 
 
-def _ptrs(tensors):
-    return [t.data_ptr() for t in tensors]
+def cluster_size(lib, Vf, M):
+    """The least cluster size whose blocks hold a candidate's share of a
+    Vf-slot table and M points in shared memory; 0 where none does (the
+    share then goes to the scratch)."""
+    for K in CLUSTERS:
+        if lib.fccf_fine_join_shared(Vf, M, K) >= 0:
+            return K
+    return 0
 
 
-def _launch_lookup(T, table, tar_pts, tar_mask, params):
-    """V1 on CUDA tensors."""
+def _launch_join(T, table, tar_pts, tar_mask, params):
+    """The join on CUDA tensors, in clusters of the least number of blocks
+    that holds a candidate's share in shared memory, else with its share
+    in a scratch."""
     lead, M = tuple(tar_mask.shape[:-1]), tar_mask.shape[-1]
     C, Vf = T.shape[-3], table.keys.shape[-1]
     P = math.prod(lead)
     ins = checked(
-        ("T", "tar_pts", "tar_mask", "table.keys", "table.cell_min",
-         "table.cell_max"),
-        (T, tar_pts, tar_mask, table.keys, table.cell_min, table.cell_max),
-        (torch.float32, torch.float32, torch.bool, torch.int64, torch.int32,
-         torch.int32),
+        ("T", "tar_pts", "tar_mask", "table.keys", "table.counts",
+         "table.n_src", "table.cell_min", "table.cell_max"),
+        (T, tar_pts, tar_mask, table.keys, table.counts, table.n_src,
+         table.cell_min, table.cell_max),
+        (torch.float32, torch.float32, torch.bool, torch.int64,
+         torch.float32, torch.float32, torch.int32, torch.int32),
         (lead + (C, 4, 4), lead + (M, 3), lead + (M,), lead + (Vf,),
-         lead + (3,), lead + (3,)))
-    if P > 65535 or Vf < 1:
-        raise ValueError(f"lookup: {P} pairs of a {Vf}-slot table, want at "
-                         "most 65535 pairs and a slot")
-    counts = torch.zeros((2,) + lead + (C, Vf), dtype=torch.int32,
-                         device=T.device)
-    if counts.numel() == 0 or M == 0:
-        return counts[0], counts[1]
-    lib = build()
-    with torch.cuda.device(T.device):  # the C entry launches on it
-        rc = lib.fccf_fine_lookup(
-            *_ptrs(ins + (counts[0], counts[1])), P, C, M, Vf,
-            _inv(params.fine_voxel), stream(T.device))
-    launched(rc, "fccf_fine_lookup", _THIS, "LOOKUPS")
-    return counts[0], counts[1]
-
-
-def _launch_score(hit, below, table, tar_mask):
-    """V2 on CUDA tensors."""
-    lead, M = tuple(tar_mask.shape[:-1]), tar_mask.shape[-1]
-    C, Vf = hit.shape[-2:]
-    P = math.prod(lead)
-    ins = checked(
-        ("hit", "below", "table.counts", "table.n_src", "tar_mask"),
-        (hit, below, table.counts, table.n_src, tar_mask),
-        (torch.int32, torch.int32, torch.float32, torch.float32, torch.bool),
-        (lead + (C, Vf), lead + (C, Vf), lead + (Vf,), lead, lead + (M,)))
+         lead + (Vf,), lead, lead + (3,), lead + (3,)))
     # The mask's count is exact as a float32 sum below 2^24.
-    if P > 65535 or C > 65535 or Vf < 1 or M >= 2**24:
-        raise ValueError(f"score: {P} pairs of {C} candidates, {Vf} slots "
-                         f"and {M} points, want at most 65535 pairs and "
-                         "candidates, a slot and fewer than 2^24 points")
-    dev = hit.device
-    out = torch.empty(lead + (C,), dtype=torch.float32, device=dev)
+    if P > 65535 or C > 65535 or M >= 2**24 or Vf < 1:
+        raise ValueError(f"join: {P} pairs of {C} candidates, {M} points and "
+                         f"{Vf} slots, want at most 65535 pairs and "
+                         "candidates, fewer than 2^24 points and a slot")
+    out = torch.empty(lead + (C,), dtype=torch.float32, device=T.device)
     if out.numel() == 0:
         return out
     lib = build()
-    width = (Vf + M + 1) // 2
-    scratch = (torch.empty((P, C, width), dtype=torch.float32, device=dev)
-               if width > lib.fccf_fine_row_floats() else None)
-    with torch.cuda.device(dev):
-        rc = lib.fccf_fine_score(
-            *_ptrs(ins + (out,)), None if scratch is None else
-            scratch.data_ptr(), P, C, M, Vf, stream(dev))
-    launched(rc, "fccf_fine_score", _THIS, "SCORES")
+    K = cluster_size(lib, Vf, M)
+    scratch = None
+    if K == 0:
+        scratch = torch.empty(P * C * lib.fccf_fine_join_scratch(Vf, M),
+                              dtype=torch.int32, device=T.device)
+    with torch.cuda.device(T.device):  # the C entry launches on it
+        rc = lib.fccf_fine_join(
+            *(t.data_ptr() for t in ins + (out,)),
+            None if scratch is None else scratch.data_ptr(), P, C, M, Vf,
+            _inv(params.fine_voxel), K, stream(T.device))
+    launched(rc, "fccf_fine_join", _THIS, "JOINS")
     return out
 
 
 # -------------------------------------------------------------- entries --
 
 
-def lookup(T, table, tar_pts, tar_mask, params):
-    """(hit, below) of each candidate's keys in its pair's table
-    (``lookup_plain``): V1 on a card."""
-    with record_function("fine_kernels.lookup"):
-        if device_type(T, "lookup") == "cpu":
-            return lookup_plain(T, table, tar_pts, tar_mask, params)
-        return _launch_lookup(T, table, tar_pts, tar_mask, params)
-
-
-def score(hit, below, table, tar_mask):
-    """Each candidate's fine score from its counts (``score_plain``): V2
-    on a card."""
-    with record_function("fine_kernels.score"):
-        if device_type(hit, "score") == "cpu":
-            return score_plain(hit, below, table, tar_mask)
-        return _launch_score(hit, below, table, tar_mask)
+def join(T, table, tar_pts, tar_mask, params):
+    """Each candidate's fine score against its pair's table
+    (``join_plain``): the kernel on a card."""
+    with record_function("fine_kernels.join"):
+        if device_type(T, "join") == "cpu":
+            return join_plain(T, table, tar_pts, tar_mask, params)
+        return _launch_join(T, table, tar_pts, tar_mask, params)

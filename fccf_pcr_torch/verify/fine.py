@@ -7,7 +7,7 @@ transformed cloud's keys with the table and scores each voxel holding
 both with (s + t) * min(s, t) / max(s, t). The JAX package sorts [table
 keys ++ candidate keys] a candidate; only the runs that begin with a
 table entry score, so the port looks each key up in the table and counts
-it at its slot (``ops/fine_kernels.py``: V1 and V2 on a card).
+it at its slot (``ops/fine_kernels.py``: one kernel on a card).
 
 Keys: 10 bits per axis with wraparound (30 bits) held in int64 (the JAX
 package's uint32 order, with the all-ones sentinel above every key).
@@ -111,15 +111,14 @@ def fine_verify(T, table: SourceTable, tar_pts, tar_mask, params, caps):
     *cand)).
 
     The join of [table keys ++ a candidate's transformed keys] is a lookup
-    of each key in the table and two counts a table slot (V1,
-    ``fine_kernels.lookup``), then each scoring run's place and value and
-    their ``fold_sum`` (V2, ``fine_kernels.score``): kernels on a card,
-    their plain versions on the CPU.
+    of each key in the table and two counts a table slot, then each scoring
+    run's place and value and their ``fold_sum`` (``fine_kernels.join``:
+    one kernel on a card, the counts in its shared memory; its plain
+    version on the CPU).
     """
     lead = tuple(tar_mask.shape[:-1])
     cand = tuple(T.shape[len(lead):-2])
     T = T.reshape(lead + (-1, 4, 4))
-    hit, below = fine_kernels.lookup(T, table, tar_pts, tar_mask, params)
-    score = fine_kernels.score(hit, below, table, tar_mask)
+    score = fine_kernels.join(T, table, tar_pts, tar_mask, params)
     aliased = table.aliased[..., None].expand(score.shape)
     return score.reshape(lead + cand), aliased.reshape(lead + cand)

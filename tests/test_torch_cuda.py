@@ -44,10 +44,11 @@ plain versions bit for bit (covariances of every kind, -0.0 and NaN
 sources, V = 1 to 40000, inside a capture, one F1 and three F2 launches
 in the face stage), and F1's cosf / atan2f against torch.cos /
 torch.atan2 at every float32 of their domains in the plane fit; fine
-verify's V1 (lookup and count) and V2 (places and score) against their
-plain versions bit for bit on tests/test_torch_fine_kernels.py's cases, a
-pair alone against its row of 8, twice in a replayed graph, and once each
-a step of register_pair.
+verify's join (the lookup and counts, the places and the score, one
+kernel) against its plain versions bit for bit on
+tests/test_torch_fine_kernels.py's cases, each in the cluster size the
+wrapper picks for it (1, 2, 4, 8 blocks or the scratch), a pair alone against its row of 8, twice in a replayed graph, and
+once a step of register_pair.
 
 This file imports no jax, so it runs on a machine without it (the
 repository's conftest.py imports jax, hence --noconftest):
@@ -2114,7 +2115,7 @@ def test_register_pair_launches_h1_h3_and_no_sort(cuda):
     assert not sorts
 
 
-# ----------------------------------------------- fine verify: V1 and V2 --
+# ------------------------------------------------- fine verify: the join --
 
 
 def _fine_case_on(name, dev):
@@ -2126,22 +2127,21 @@ def _fine_case_on(name, dev):
             mask.to(dev))
 
 
-def _fine_equal(T, table, pts, mask):
-    """V1 and V2 against their plain versions on the same CUDA inputs: the
-    counts equal, the scores bit for bit (V2 on the plain counts and on
-    V1's). Returns the scores."""
+def _fine_equal(name, T, table, pts, mask):
+    """The join against its plain version on the same CUDA inputs, bit for
+    bit, in the cluster size the wrapper picks, which is the case's
+    (``FINE_CLUSTERS``, else 1 block). Returns the scores."""
     from fccf_pcr_torch.ops import fine_kernels as fk
+    from test_torch_fine_kernels import FINE_CLUSTERS
 
     params = FCCFParams()
-    plain = fk.lookup_plain(T, table, pts, mask, params)
-    launches = (fk.LOOKUPS, fk.SCORES)
-    hit, below = fk.lookup(T, table, pts, mask, params)
-    assert torch.equal(hit, plain[0]) and torch.equal(below, plain[1])
-    want = fk.score_plain(*plain, table, mask)
-    assert _all_equal([fk.score(*plain, table, mask)], [want])
-    assert _all_equal([fk.score(hit, below, table, mask)], [want])
+    want = fk.join_plain(T, table, pts, mask, params)
+    Vf, M = table.keys.shape[-1], mask.shape[-1]
+    assert fk.cluster_size(fk.build(), Vf, M) == FINE_CLUSTERS.get(name, 1)
+    launches = fk.JOINS
+    assert _all_equal([fk.join(T, table, pts, mask, params)], [want]), name
     torch.cuda.synchronize()
-    assert (fk.LOOKUPS, fk.SCORES) == (launches[0] + 1, launches[1] + 2)
+    assert fk.JOINS == launches + 1
     return want
 
 
@@ -2149,12 +2149,15 @@ def test_fine_kernels_match_plain(cuda):
     """Every case of tests/test_torch_fine_kernels.py's FINE_CASES: an empty
     table and target, every point outside the window, an overflowing and an
     aliased table, NaN and huge translations, one live run, one cell, odd
-    and even n, Vf = 1, 40000 slots (V1 holds every second key; V2's first
-    level in global memory) and the main path's 8 pairs of 12."""
+    and even n, Vf = 1, the main path's 8 pairs of 12, a hit count past
+    65535; in clusters of 2 (default caps), 4 (40000 slots), 8 (an
+    escalation of auto caps) and in the scratch (``--caps large``, and
+    270000 points, four levels of fold_sum above a dense level longer than
+    the shared one)."""
     from test_torch_fine_kernels import FINE_CASES
 
     for name in FINE_CASES:
-        score = _fine_equal(*_fine_case_on(name, cuda))
+        score = _fine_equal(name, *_fine_case_on(name, cuda))
         assert bool(torch.isfinite(score).all()), name
 
 
@@ -2174,7 +2177,7 @@ def test_fine_verify_pair_alone_equals_batch(cuda):
 
 def test_fine_kernels_in_a_capture(cuda):
     """fine_verify called twice in a captured CUDA graph, replayed twice:
-    every replay equals the eager calls and V1 and V2 count at each
+    every replay equals the eager calls and the join counts at each
     replay."""
     from fccf_pcr_torch.ops import fine_kernels as fk
     from fccf_pcr_torch.verify.fine import fine_verify
@@ -2193,12 +2196,12 @@ def test_fine_kernels_in_a_capture(cuda):
     want = fn(*args)
     graphs = graph.Graphs(max_graphs=1)
     graphs.replay(fn, args)  # the capture
-    counts = (fk.LOOKUPS, fk.SCORES)
+    counts = fk.JOINS
     for _ in range(2):
         got = graphs.replay(fn, args)
         torch.cuda.synchronize()
         assert _all_equal(got, want)
-    assert (fk.LOOKUPS, fk.SCORES) == tuple(c + 4 for c in counts)
+    assert fk.JOINS == counts + 4
     graphs.clear()
 
 
@@ -2208,21 +2211,27 @@ def test_fine_kernels_reject_bad_inputs(cuda):
     T, table, pts, mask = _fine_case_on("plain", cuda)
     params = FCCFParams()
     with pytest.raises(ValueError):
-        fk.lookup(T.double(), table, pts, mask, params)
+        fk.join(T.double(), table, pts, mask, params)
     with pytest.raises(ValueError):
-        fk.lookup(T, table._replace(keys=table.keys.int()), pts, mask, params)
+        fk.join(T, table._replace(keys=table.keys.int()), pts, mask, params)
     with pytest.raises(ValueError):
-        fk.lookup(T, table, pts.cpu(), mask, params)
-    hit, below = fk.lookup(T, table, pts, mask, params)
+        fk.join(T, table, pts.cpu(), mask, params)
     with pytest.raises(ValueError):
-        fk.score(hit.long(), below, table, mask)
-    with pytest.raises(ValueError):
-        fk.score(hit, below[..., :-1], table, mask)
+        fk.join(T, table._replace(counts=table.counts[..., :-1]), pts, mask,
+                params)
+    with pytest.raises(ValueError):  # 2^24 points
+        fk.join(T, table, pts.new_zeros(2, 1 << 24, 3),
+                mask.new_zeros(2, 1 << 24), params)
+    lib = fk.build()
+    assert lib.fccf_fine_join_shared(512, 500, 3) == -1  # no cluster of 3
+    assert lib.fccf_fine_join_shared(40000, 100000, 1) == -1
+    assert lib.fccf_fine_join_shared(65536, 0, 8) == -1  # past 16 bits
+    assert lib.fccf_fine_join_scratch(65536, 131072) > 0
 
 
 def test_register_pair_launches_v1_v2_and_no_plain_fine(cuda):
-    """register_pair on the card launches V1 and V2 once each a step (the
-    step graph's replay); the eager step runs neither plain version."""
+    """register_pair on the card launches the join once a step (the step
+    graph's replay); the eager step runs neither plain version."""
     from fccf_pcr_torch import register_pair
     from fccf_pcr_torch.ops import fine_kernels as fk
     from fccf_pcr_torch.pipeline import register
@@ -2234,10 +2243,10 @@ def test_register_pair_launches_v1_v2_and_no_plain_fine(cuda):
     tp, tm = synthetic.pad_points(tar, TEST_CAPS.max_points)
     register_pair(sp, sm, tp, tm, params, TEST_CAPS)  # warm: the capture
     torch.cuda.synchronize()
-    counts = (fk.LOOKUPS, fk.SCORES)
+    counts = fk.JOINS
     res = register_pair(sp, sm, tp, tm, params, TEST_CAPS)
     torch.cuda.synchronize()
-    assert (fk.LOOKUPS, fk.SCORES) == (counts[0] + 1, counts[1] + 1)
+    assert fk.JOINS == counts + 1
     assert bool((res.fine_score > 0).any())
 
     def refused(*a):

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """A/B of the LM kernel L1, the floor walk C2, the scans S1 and S2, the
-faces kernels F1 and F2 and fine verify's V1 and V2 of two checkouts on
+faces kernels F1 and F2 and fine verify's join of two checkouts on
 one CUDA card, in turns (old, new, new, old), at the inputs the batched
 main path gives them at batch 8 (heritage and office presets).
 
@@ -35,10 +35,13 @@ split every cloud over that many blocks (``kMaxSplits``, with
 same turns;
 a fused S2 call of this tree against the other tree's S2 on the columns
 concatenated first, the concatenation timed with it, as that tree's step
-runs it; V1 and V2 on the calls ``chip_smoke.record_fine`` records,
-behind this tree's wrappers, with the other tree's ``csrc/fine.cu`` and
-each ``--fine-sources`` file (the same C entries) as further arms, each
-held to this tree's bits), each in ``--turns`` rounds of old, new, new, old (2K pairs); a
+runs it; the join on the calls ``chip_smoke.record_fine`` records, with
+the other tree's ``csrc/fine.cu`` and each ``--fine-sources`` file as
+further arms (a source with the two-kernel entries ``fccf_fine_lookup``
+and ``fccf_fine_score``, as the tree up to commit 1662b43 has them, runs
+as that tree's step ran it: its counters' fill, V1, V2; one with this
+tree's entry behind this tree's wrapper), each held to this tree's
+bits), each in ``--turns`` rounds of old, new, new, old (2K pairs); a
 line gives every time in order and each arm's median, and a step's sum
 of S1's and of S2's calls a turn. Prints one line a comparison with the
 card's name and power limit, and the whole as JSON last. Exits non-zero
@@ -116,6 +119,91 @@ def bind_faces(lib, source):
     fn.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_longlong] * 3 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
+
+
+def bind_fine(lib, source):
+    """Bind a ``fine.cu``'s C entries by the signature its source has: the
+    two-kernel entries (``fccf_fine_lookup`` and ``fccf_fine_score``) or
+    this tree's join."""
+    if "fccf_fine_lookup" in source.read_text():
+        bind_two_kernel_fine(lib)
+    else:
+        from fccf_pcr_torch.ops import fine_kernels as fnk
+        fnk._bind(lib)
+
+
+def bind_two_kernel_fine(lib):
+    """The two-kernel entries' signatures on ``lib``."""
+    fn = lib.fccf_fine_lookup
+    fn.argtypes = [ctypes.c_void_p] * 8 + [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    fn = lib.fccf_fine_score
+    fn.argtypes = [ctypes.c_void_p] * 7 + [
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    fn = lib.fccf_fine_row_floats
+    fn.argtypes = []
+    fn.restype = ctypes.c_longlong
+
+
+def _stream(dev):
+    import torch
+
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def two_kernel_lookup(lib, T, table, pts, mask, params, hit, below):
+    """The two-kernel source's V1 on fine verify's inputs (T (P, C, 4, 4),
+    one leading pair axis), counted into ``hit`` and ``below``."""
+    from fccf_pcr_torch.ops.voxelize import _inv
+
+    (P, C), (M, Vf) = T.shape[:2], (mask.shape[-1], table.keys.shape[-1])
+    rc = lib.fccf_fine_lookup(
+        *(x.data_ptr() for x in (T, pts, mask, table.keys, table.cell_min,
+                                 table.cell_max, hit, below)),
+        P, C, M, Vf, _inv(params.fine_voxel), _stream(T.device))
+    if rc:
+        raise RuntimeError(f"fccf_fine_lookup returned {rc}")
+
+
+def two_kernel_counts(lib, T, table, pts, mask, params):
+    """The counters' fill and V1 of the two-kernel source: (hit, below)."""
+    import torch
+
+    counts = torch.zeros((2,) + tuple(T.shape[:2]) + table.keys.shape[-1:],
+                         dtype=torch.int32, device=T.device)
+    two_kernel_lookup(lib, T, table, pts, mask, params, counts[0], counts[1])
+    return counts[0], counts[1]
+
+
+def two_kernel_score(lib, hit, below, table, mask):
+    """The two-kernel source's V2: the scores (P, C)."""
+    import torch
+
+    (P, C, Vf), M = hit.shape, mask.shape[-1]
+    out = torch.empty((P, C), dtype=torch.float32, device=hit.device)
+    width = (Vf + M + 1) // 2
+    scratch = (torch.empty((P, C, width), dtype=torch.float32,
+                           device=hit.device)
+               if width > lib.fccf_fine_row_floats() else None)
+    rc = lib.fccf_fine_score(
+        *(x.data_ptr() for x in (hit, below, table.counts, table.n_src, mask,
+                                 out)),
+        None if scratch is None else scratch.data_ptr(), P, C, M, Vf,
+        _stream(hit.device))
+    if rc:
+        raise RuntimeError(f"fccf_fine_score returned {rc}")
+    return out
+
+
+def two_kernel_join(lib, T, table, pts, mask, params):
+    """The whole join of the two-kernel source, as its step ran it: the
+    counters' fill, V1, V2. Returns the scores (P, C)."""
+    return two_kernel_score(lib, *two_kernel_counts(lib, T, table, pts, mask,
+                                                    params), table, mask)
 
 
 def faces_variants(a):
@@ -283,22 +371,22 @@ def faces_ab(old, variants, dev, smi, res, turns):
 
 
 def fine_ab(sources, dev, smi, res, turns):
-    """V1 and V2 of other ``fine.cu`` sources (``sources``: {arm:
+    """Fine verify's join of other ``fine.cu`` sources (``sources``: {arm:
     library}) against this tree's in turns on the eager batch-8 steps' own
-    calls, behind this tree's wrappers."""
+    calls: a source with the two-kernel entries through
+    ``two_kernel_join`` (its counters' fill, V1 and V2), one with this
+    tree's entry behind this tree's wrapper."""
     import chip_smoke as cs
     from fccf_pcr_torch.evaluation import configs
     from fccf_pcr_torch.models.fccf import get_model
     from fccf_pcr_torch.ops import fine_kernels as fnk
 
-    def behind(lib, form, x):
-        launch = getattr(fnk, f"_launch_{form}")
-
+    def behind(lib, x):
         def call():
             kept = fnk._LIBRARY._lib
             fnk._LIBRARY._lib = lib
             try:
-                return launch(*x)
+                return fnk._launch_join(*x)
             finally:
                 fnk._LIBRARY._lib = kept
         return call
@@ -311,14 +399,20 @@ def fine_ab(sources, dev, smi, res, turns):
         r = res.setdefault(name, {})
         r["fine"] = []
         for form, x in calls:
+            x = tuple(t.contiguous() if hasattr(t, "contiguous") else t
+                      for t in x[:5])
+            x = (x[0], type(x[1])(*(t.contiguous() for t in x[1]))) + x[2:]
             kernel, plain = cs.fine_forms(form, x)
             got = kernel()
             cs.check(cs.faces_equal(got, plain()),
                      f"{name}: {form} differs from plain")
             arms = {"new": kernel}
             for arm, lib in sources.items():
-                arms[arm] = behind(lib, form, x)
-                cs.check(cs.faces_equal(arms[arm](), got),
+                arms[arm] = ((lambda lib=lib: two_kernel_join(lib, *x))
+                             if hasattr(lib, "fccf_fine_lookup")
+                             else behind(lib, x))
+            for arm, call in arms.items():
+                cs.check(cs.faces_equal(call(), got),
                          f"{name}: {form} at {arm} differs")
             names = list(arms)
             order = (names + names[::-1]) * turns
@@ -377,11 +471,10 @@ def main():
                    ("lm.cu", bind_lm),
                    ("cluster.cu", lambda lib, _: ck._bind(lib)),
                    ("scan.cu", bind_scan), ("faces.cu", bind_faces),
-                   ("fine.cu", lambda lib, _: fnk._bind(lib)))
+                   ("fine.cu", bind_fine))
                if src[:-3] in only]
     # More fine.cu arms, named by their file's stem.
-    sources += [(pathlib.Path(x).stem, pathlib.Path(x),
-                 lambda lib, _: fnk._bind(lib))
+    sources += [(pathlib.Path(x).stem, pathlib.Path(x), bind_fine)
                 for x in a.fine_sources.split(",") if x and "fine" in only]
     for src, path, bind in sources:
         out = cuda_build.BUILD_DIR / f"ab_parent_{src.replace('.', '_')}.so"
@@ -399,7 +492,9 @@ def main():
             [cuda_build.nvcc(), *cuda_build.NVCC_FLAGS, "-o", str(out),
              str(cu)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True), out, kind)
-    cs.phase_build([lp, gt, ck, lmk, scan, fk, fnk])
+    from fccf_pcr_torch.ops import hypotheses_kernels as hk
+
+    cs.phase_build([lp, gt, ck, lmk, scan, fk, hk, fnk])
     old = {}
     for src, (proc, out, bind) in builds.items():
         log = proc.communicate()[0]
