@@ -260,11 +260,13 @@ result:
      at random float32 of any magnitude; then every H1, H2 and H3 input
      of the heritage and office batch-8 eager steps (one call each a
      step; the bases form on the steps' 2P face sets) and the edge cases
-     (random faces at F = 16, 5, 24 and 64, PER_MATCH 16 and 48 and above F *
-     F + 1, each overflow (M, H and a row's PER_MATCH), no valid face,
-     zero normals, NaN normals, centroids and point sizes, one face; a
-     lane alone against a batch of 8; H2's hits compared where kept, H3
-     also on H2's own slots); the stage called
+     (random faces at F = 16, 5, 24, 64 and 96, PER_MATCH 16 and 48 and
+     above F * F + 1, each overflow (M, H and a row's PER_MATCH), no valid
+     face, zero normals, NaN normals, centroids and point sizes, one
+     face; H2 on matches whose runs of one source base cross its chunks,
+     are cut by the count, hold every match or one match each; a lane
+     alone against a batch of 8; H2's hits compared where kept, H3 also
+     on H2's own slots); the stage called
      twice in one captured CUDA graph, replayed twice, equal to the eager
      calls; at the steps' inputs each call's device time (a graph of 10
      calls) beside the plain version's and the bound (no one PyTorch call
@@ -3694,9 +3696,14 @@ def phase_faces(steps, eager, dev):
 # two offsets, the fallback translation and the quaternion (384); a
 # source face's test, offset d13 and P = inv(A^T A) A^T (154); a target
 # face's rotation, test and offset d23 (51); a slot's angle test (12); a
-# kept hit's translation (16). H2's are counted for every face of a valid
-# match and for the slots it tests: its rounds of 32 slots until more than
-# PER_MATCH are valid (``hyp_slots_tested``).
+# kept hit's translation (16). H2's bound counts the work its function
+# needs (``hyp_slots_ops``): a prelude and F target faces a valid match, F
+# source faces once for each distinct source base (pair, i1, j1) among
+# them, the angle test of each slot whose two faces pass, in slot order
+# up to the one that makes more than PER_MATCH valid. PR 18's count, a
+# valid match's F source faces and every slot of its rounds of 32 until
+# more than PER_MATCH are valid (``hyp_slots_tested``), stays beside it as
+# the yardstick its times and later ones share.
 HYP_BASE_OPS = 30
 HYP_MASK_OPS = 5
 HYP_MATCH_OPS = 384
@@ -3806,12 +3813,45 @@ def hyp_slots_tested(f1, f2, m, params, per_match_hits):
     return int(torch.where(m.valid, tested, 0).sum())
 
 
-def hyp_bound(form, a, out):
+def hyp_slots_ops(f1, f2, m, params, per_match_hits):
+    """The operations H2's function needs on these inputs (HYP_*_OPS but
+    the hits'): a prelude and F target faces for each valid match, F
+    source faces once for each distinct (pair, i1, j1) among them, and the
+    angle test of each slot whose source and target faces both pass, in
+    slot order up to the first after which more than PER_MATCH slots are
+    valid (``match_all``'s pair tests; with an infinite angle limit they
+    are the faces' tests alone)."""
+    import dataclasses
+
+    import torch
+
+    from fccf_pcr_torch.ops import hypotheses_kernels as hk
+
+    F = f1.valid.shape[-1]
+    K = min(per_match_hits, F * F + 1)
+    faces = (f1, f2, m.i1, m.j1, m.i2, m.j2)
+    ok = hk.match_all(*faces, params)[2].flatten(-2)
+    both = hk.match_all(*faces, dataclasses.replace(
+        params, third_normal_threshold=float("inf")))[2].flatten(-2)
+    before = torch.cumsum(ok, -1) - ok.to(torch.int64)
+    tested = torch.where(m.valid[..., None], both & (before <= K), False)
+    pair = torch.arange(m.i1.numel() // m.i1.shape[-1],
+                        device=m.i1.device).view(m.i1.shape[:-1] + (1,))
+    base = (pair * F + m.i1) * F + m.j1
+    sources = torch.unique(base[m.valid]).numel()
+    valid = int(m.count.sum())
+    return (valid * (HYP_MATCH_OPS + F * HYP_TARGET_OPS)
+            + sources * F * HYP_SOURCE_OPS
+            + int(tested.sum()) * HYP_SLOT_OPS)
+
+
+def hyp_bound(form, a, out, yardstick=False):
     """The least time the card could take for one call of a hypotheses
     kernel, in ms, and what bounds it: the inputs it needs read once and
     its outputs written once (H2's kept hits only) over the memory rate,
     against its operations (HYP_*_OPS) over the float32 rate. ``out`` is
-    the call's result (its data-dependent counts)."""
+    the call's result (its data-dependent counts). H2's operations are
+    ``hyp_slots_ops``', or with ``yardstick`` PR 18's count."""
     fields = {"bases": ("normal", "theta", "valid"),
               "matches": ("normal", "theta", "valid"),
               "slots": ("normal", "centroid", "point_size", "valid")}
@@ -3836,11 +3876,12 @@ def hyp_bound(form, a, out):
                      for k in fields[form])
         nbytes += tensor_bytes((m.count, m.i1, m.j1, m.i2, m.j2))
         hits = int(out.count.sum())
-        ops = (int(m.count.sum()) * (HYP_MATCH_OPS + F * HYP_SOURCE_OPS
-                                      + F * HYP_TARGET_OPS)
-               + hyp_slots_tested(f1, f2, m, params, per_match_hits)
-               * HYP_SLOT_OPS
-               + hits * HYP_HIT_OPS)
+        ops = hits * HYP_HIT_OPS + (
+            int(m.count.sum()) * (HYP_MATCH_OPS + F * HYP_SOURCE_OPS
+                                  + F * HYP_TARGET_OPS)
+            + hyp_slots_tested(f1, f2, m, params, per_match_hits)
+            * HYP_SLOT_OPS if yardstick else
+            hyp_slots_ops(f1, f2, m, params, per_match_hits))
         nbytes += (tensor_bytes((out.quat, out.count, out.row_overflow))
                    + hits * 12)
         out = ()
@@ -3954,6 +3995,9 @@ def hyp_edge_cases(dev):
                  (16, 300), (64, 16)):
         cases.append((f"F {F} PER_MATCH {K}", *hyp_faces(F + K, 4, F, (), dev),
                       TEST_CAPS.replace(per_match_hits=K)))
+    # 4560 bases a cloud: H1's rows' ballot words past its shared memory.
+    cases.append(("F 96 PER_MATCH 16", *hyp_faces(112, 2, 96, (), dev),
+                  TEST_CAPS.replace(per_match_hits=16)))
     for what, over in (("M overflow", dict(max_matches=64)),
                        ("H overflow", dict(max_hypotheses=256)),
                        ("row overflow", dict(per_match_hits=2))):
@@ -3963,6 +4007,67 @@ def hyp_edge_cases(dev):
                   *hyp_faces(41, 4, 16, ("none", "zero", "nan", "one"), dev),
                   TEST_CAPS))
     return cases
+
+
+# H2's runs of one source base (i1, j1) that phase 24 feeds it:
+# ``hyp_run_matches``' kinds.
+HYP_RUNS = {"across": "runs of 20, 40 and 12 (one over a chunk boundary)",
+            "cut": "the count inside a run", "one": "one source base",
+            "own": "a source base a match"}
+
+
+def hyp_run_matches(kind, F, M, P, dev):
+    """P pairs of the same M matches, whose source bases (i1, j1) run as
+    ``kind`` says: "across" runs of 20, 40 (over the boundary of H2's
+    chunks of 32 matches) and 12 each; "cut" the same with the count
+    inside a run of 12; "one" one source base for every match; "own" a
+    source base of its own for each. The target bases walk the bases in
+    triu order."""
+    import numpy as np
+    import torch
+
+    from fccf_pcr_torch.ops.hypotheses_kernels import Matches
+
+    ii, jj = np.triu_indices(F, 1)
+    B = len(ii)
+    runs = np.repeat(np.arange(M + 2) % B, [20, 40] + [12] * M)[:M]
+    src = {"one": np.full(M, 5), "own": np.arange(M) % B}.get(kind, runs)
+    count = {"own": min(M, B), "cut": 20 + 40 + 2 * 12 + 5}.get(kind, M)
+    tgt = np.arange(M) % B
+    valid = np.arange(M) < count
+
+    def rows(x):
+        return torch.from_numpy(np.where(valid, x, 0)).to(dev).expand(
+            P, M).contiguous()
+    return Matches(
+        count=torch.full((P,), count, dtype=torch.int32, device=dev),
+        overflow=torch.zeros(P, dtype=torch.bool, device=dev),
+        valid=rows(valid).bool(), i1=rows(ii[src]), j1=rows(jj[src]),
+        i2=rows(ii[tgt]), j2=rows(jj[tgt]),
+        type_=rows(np.zeros(M, np.int32)))
+
+
+def hyp_runs_equal(dev):
+    """H2 against its plain version on each kind of ``HYP_RUNS`` at
+    PER_MATCH 16 and 48 (H2's hits where kept), and H3 on H2's slots
+    against ``emit_plain``. Returns (cases, kernel calls held)."""
+    from fccf_pcr_torch import FCCFParams
+    from fccf_pcr_torch.ops import hypotheses_kernels as hk
+
+    f1, f2 = hyp_faces(81, 2, 16, (), dev)
+    calls = 0
+    for kind, what in HYP_RUNS.items():
+        m = hyp_run_matches(kind, 16, 128, 2, dev)
+        for K in (16, 48):
+            want = hk.slots_plain(f1, f2, m, FCCFParams(), K)
+            got = hk._launch_slots(f1, f2, m, FCCFParams(), K)
+            check(hyp_equal("slots", got, want),
+                  f"H2 on {what}, PER_MATCH {K}: differs from plain")
+            check(faces_equal(hk._launch_emit(got, m, 2048),
+                              hk.emit_plain(want, m, 2048)),
+                  f"H3 on H2's slots of {what}: differs from plain")
+            calls += 2
+    return len(HYP_RUNS), calls
 
 
 def hyp_stage_equal(what, f1, f2, caps):
@@ -4085,7 +4190,9 @@ def phase_hypotheses(steps, eager, dev):
                 shape=shape, ms=graph_ms(k), plain_ms=graph_ms(plain),
                 library_ms=None, bound_ms=bound_ms, bound_by=bound_by)
             if form == "slots":
+                ys_ms, ys_by = hyp_bound(form, a, want, yardstick=True)
                 out[kernel][name].update(
+                    yardstick_ms=ys_ms, yardstick_by=ys_by,
                     matches=int(a[2].count.sum()),
                     hits=int(want.count.sum()),
                     row_overflows=int(want.row_overflow.sum()))
@@ -4095,6 +4202,9 @@ def phase_hypotheses(steps, eager, dev):
     for what, f1, f2, caps in cases:
         out["edge_calls"] += hyp_stage_equal(what, f1, f2, caps)
     out["edge_cases"] = len(cases)
+    runs, calls = hyp_runs_equal(dev)
+    out["edge_cases"] += runs
+    out["edge_calls"] += calls
     out["lane_alone"] = hyp_lane_alone(dev)
     out["replayed_calls"] = hyp_replays(cases[:3] + cases[-1:])
     return out
@@ -5248,8 +5358,12 @@ def main():
                       f"{c['ms'] * 1e3:.2f} us device vs plain "
                       f"{c['plain_ms'] * 1e3:.2f} us; bound "
                       f"{c['bound_ms'] * 1e3:.3f} us ({c['bound_by']}), "
-                      f"{c['ms'] / c['bound_ms']:.1f}x it | ptxas "
-                      f"{ptxas[ptx]} | {smi}", flush=True)
+                      f"{c['ms'] / c['bound_ms']:.1f}x it"
+                      + (f"; PR 18's count {c['yardstick_ms'] * 1e3:.3f} us "
+                         f"({c['yardstick_by']}), "
+                         f"{c['ms'] / c['yardstick_ms']:.1f}x it"
+                         if "yardstick_ms" in c else "")
+                      + f" | ptxas {ptxas[ptx]} | {smi}", flush=True)
         print(f"[hypotheses] {hc['edge_cases']} edge cases "
               f"({hc['edge_calls']} kernel calls) equal to plain; a pair "
               f"alone equal to its row of {hc['lane_alone']}; "
@@ -5546,7 +5660,10 @@ def main():
                      "the calls that differ"
                      + ("; off the main path (select_bases on a card), "
                         "timed on the step's 2P face sets"
-                        if kernel == "bases" else ""))
+                        if kernel == "bases" else "")
+                     + ("; bound_ms the work its function needs "
+                        "(hyp_slots_ops), by_config's yardstick_ms PR 18's "
+                        "count" if kernel == "H2" else ""))
           for kernel, ptx in HYP_PTXAS.items()),
         *(dict(KERNELS[f"fine_{form}"], launches=launches[f"fine_{form}"],
                max_abs_err=vc["differ"], ms=vc[kernel]["heritage"]["ms"],

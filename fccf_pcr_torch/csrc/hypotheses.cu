@@ -7,30 +7,56 @@
 // fused XLA loops, where the port ran it as some 450 PyTorch kernels a
 // step, a stable sort of every match's F * F + 1 slots among them.
 //
-// H1, fccf_hyp_matches, one block a pair: both clouds' bases formed from
-// their faces (the face pairs i < j in triu_indices order, their angle,
-// type and validity), the B x B compatibility mask in b1-major order (both
-// valid, |angle difference| < angle_same, the same type) and its stable
-// compaction to M matches: each thread counts a contiguous run of the
-// mask, an exclusive scan of the counts gives each run its first place,
-// and the entries past M are dropped (overflow). fccf_hyp_bases writes
-// the bases alone (select_bases on a card), one block a face set, with
-// the same device code.
+// H1, fccf_hyp_matches, a cluster of kMatchRanks (8) blocks a pair: both
+// clouds' bases formed from their faces (the face pairs i < j in
+// triu_indices order, their angle, type and validity), the B x B
+// compatibility mask in b1-major order (both valid, |angle difference| <
+// angle_same, the same type) and its stable compaction to M matches.
+// What bounded a block a pair: 8 SMs busy at batch 8, 240 of 1024
+// threads forming bases, the mask walked twice by runs of entries with a
+// division an entry. Here rank r takes the b1 rows [r rows, (r + 1) rows)
+// and forms cloud 2's B bases and its own rows of cloud 1's; a warp a row
+// holds the row's angle and type in registers and ballots over cloud 2's
+// bases 32 a round (no division), counting the row and keeping its
+// ballot words where they fit in shared memory (else the write pass takes
+// them again: F = 96; kept, ~0.2 us faster at the presets, PERF.md); a
+// block scan of the rows' counts gives each row's place in the rank, and
+// the ranks' totals, read through the cluster's shared memory, the ranks
+// before it; the write pass places each match at its row's place plus the
+// set lanes below it, drops places past M, and the ranks share the empty
+// places' fill. By phase (PERF.md): launch
+// ~2 us, then the cluster barrier the largest, then the bases.
+// fccf_hyp_bases writes the bases alone (select_bases on a card), one
+// block a face set, with the same device code.
 //
-// H2, fccf_hyp_slots, one warp a match, up to eight matches a block (a
-// grid of (M / 8, P)): warps past the pair's match count write their
-// empty outputs and return. Lane 0 forms the match's rotation R = R2 R1
-// (with R1 m2), its quaternion, the fallback translation and the two
-// fixed offsets d11 - d21 and d12 - d22 into the warp's shared memory;
-// lanes then form, a face each, source face s's third-plane test, its
-// offset d13 and P = inv(A^T A) A^T, and target face t's rotated normal,
-// its test and offset d23. Then a lane a (s, t) slot, 32 at a time, tests
-// the slot (pair_ok) and the warp's ballot ranks the valid slots in slot
-// order: the first PER_MATCH have their translation T3 formed and written
-// to (M, PER_MATCH); the fallback slot F * F is valid where no slot is.
-// No sort, and the loop stops once PER_MATCH + 1 slots are valid: the
-// per-match hit count and the row's overflow bit go beside the hits, and
-// a row's entries past its count are not written (H3 reads none).
+// H2, fccf_hyp_slots, a block of kSlotThreads (256) a chunk of up to
+// kSlotChunk (32) consecutive matches of a pair (fewer where F needs more
+// shared memory), grid (M / C, P). What bounded a warp a match: the
+// prelude on one lane while 31 waited, each match's source faces formed
+// anew, all F x F slots tested. Here:
+//   - the runs of equal source bases (i1, j1) are found from the matches
+//     given (a chunk's first match starts one), so any Matches will do;
+//     per run the source faces' third-plane tests and P = inv(A^T A) A^T,
+//     per chunk each source face's |normal| and d13, formed once;
+//   - warp 0, a lane a match, forms the chunk's preludes (R = R2 R1 with
+//     R1 m2, n2 x m2r normalized, the offsets d11 - d21 and d12 - d22, the
+//     fallback translation, the quaternion) while the other warps form
+//     the runs' source faces; then a thread a (match, target face) the
+//     rotated normal, its test, norm and d23;
+//   - a warp a match (w, w + 8, ...) lists the source faces of its run and
+//     its target faces that pass (two ballots), and tests only the (s, t)
+//     slots both pass, s-major, which is slot order, 32 at a time (slot e
+//     is list entries (e / nt, e % nt), moved by 32 a round without a
+//     division), ranked by the warp's ballot: the first PER_MATCH have
+//     their translation T3 written to (M, PER_MATCH); the fallback slot
+//     F * F is valid where no slot is. No round begins once more than
+//     PER_MATCH slots are valid (an ineligible slot is never valid, so
+//     the kept hits, counts and overflow are the full test's). A row's
+//     entries past its count are not written (H3 reads none).
+// By phase (PERF.md): launch ~2 us; of a block's cycles the slot
+// rounds over half, not their arithmetic (acosf, the division and the
+// hits' stores out of them change little), then the preludes and the
+// target faces.
 //
 // H3, fccf_hyp_emit, one thread a place of H (a grid of (H / 256, P)):
 // each block scans the pair's per-match hit counts over M into shared
@@ -61,13 +87,17 @@
 //   - built with nvcc --fmad=false and no fast math; the arithmetic is
 //     written with the _rn intrinsics besides.
 // Bound: H2's operations (a slot's test ~12, a source face's ~150, a
-// target face's ~50, a match's prelude ~400); H1 the mask's few
-// operations an entry; H3 the bytes of H.
+// target face's ~50, a match's prelude ~400: chip_smoke.py counts every
+// face of a valid match and the slots a full walk's rounds test); H1 the
+// mask's few operations an entry; H3 the bytes of H.
 //
 // Every entry launches on the given stream, allocates nothing and returns
 // cudaGetLastError() after its launch.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -78,10 +108,14 @@ constexpr float kDetFloor = static_cast<float>(1e-20);
 constexpr float kDegrees = static_cast<float>(180.0 / 3.141592653589793);
 
 constexpr int kBasesThreads = 128;
-constexpr int kMatchThreads = 1024;
-// H2's matches a block (a warp each), fewer where F needs more shared
-// memory.
-constexpr int kSlotWarps = 8;
+// H1: a cluster of kMatchRanks blocks a pair, a warp a base row.
+constexpr int kMatchRanks = 8;
+constexpr int kMatchThreads = 512;
+// H2: a block a chunk of at most kSlotChunk consecutive matches (fewer
+// where F needs more shared memory), a warp a match in the slot rounds.
+constexpr int kSlotThreads = 256;
+constexpr int kSlotWarps = kSlotThreads / 32;
+constexpr int kSlotChunk = 32;
 constexpr int kEmitThreads = 256;
 // Dynamic shared memory a block may have on the card.
 constexpr long long kMaxShared = 232448;
@@ -364,94 +398,206 @@ struct CloudFaces {
   const unsigned char* valid;
 };
 
-// One cloud's B bases of pair p, formed from its faces into shared memory.
-__device__ void load_bases(const CloudFaces& cf, long long p, int F, int B,
-                           float angle_min, float angle_max,
-                           float rough_threshold, long long* si,
-                           long long* sj, float* sa, int* st,
-                           unsigned char* sv) {
-  for (int b = threadIdx.x; b < B; b += blockDim.x) {
-    int i, j;
-    base_pair(b, F, &i, &j);
-    const BaseOut o = form_base(cf.normal + p * F * 3, cf.theta + p * F,
-                                cf.valid + p * F, i, j, angle_min, angle_max,
-                                rough_threshold);
-    si[b] = i;
-    sj[b] = j;
-    sa[b] = o.angle;
-    st[b] = o.type;
-    sv[b] = o.valid;
-  }
+// A base's key in H1's tables: its type where it is valid, else a value no
+// row's key equals (kNoTarget for cloud 2, kNoRow for cloud 1's rows).
+constexpr unsigned char kNoTarget = 3;
+constexpr unsigned char kNoRow = 4;
+
+// H1's shared memory, byte offsets: cloud 2's B bases (angle, faces i | j
+// << 16, key) and this rank's `rows` bases of cloud 1 (the same, and each
+// row's count, then its first place among the rank's matches), with `keep`
+// each row's W = ceil(B / 32) ballot words.
+struct MatchLayout {
+  long long a2, ij2, ra1, rij1, rpos, words, k2, rk1, bytes;
+};
+
+__host__ __device__ inline MatchLayout match_layout(int B, int rows,
+                                                   bool keep) {
+  const long long W = (B + 31) / 32;
+  MatchLayout l;
+  l.a2 = 0;
+  l.ij2 = l.a2 + 4LL * B;
+  l.ra1 = l.ij2 + 4LL * B;
+  l.rij1 = l.ra1 + 4LL * rows;
+  l.rpos = l.rij1 + 4LL * rows;
+  l.words = l.rpos + 4LL * rows;
+  l.k2 = l.words + (keep ? 4LL * rows * W : 0);
+  l.rk1 = l.k2 + B;
+  l.bytes = (l.rk1 + rows + 15) / 16 * 16;
+  return l;
 }
 
-__global__ void __launch_bounds__(kMatchThreads)
-hyp_matches_kernel(CloudFaces c1, CloudFaces c2, int F, int B, long long M,
-                   float angle_min, float angle_max, float rough_threshold,
-                   float angle_same, int* count, unsigned char* overflow,
-                   unsigned char* mvalid, long long* mi1, long long* mj1,
-                   long long* mi2, long long* mj2, int* mtype) {
-  extern __shared__ long long smem[];
-  __shared__ int wsum[32];
-  const long long p = blockIdx.x;
-  long long* si1 = smem;
-  long long* sj1 = si1 + B;
-  long long* si2 = sj1 + B;
-  long long* sj2 = si2 + B;
-  float* sa1 = reinterpret_cast<float*>(sj2 + B);
-  float* sa2 = sa1 + B;
-  int* st1 = reinterpret_cast<int*>(sa2 + B);
-  int* st2 = st1 + B;
-  unsigned char* sv1 = reinterpret_cast<unsigned char*>(st2 + B);
-  unsigned char* sv2 = sv1 + B;
-  load_bases(c1, p, F, B, angle_min, angle_max, rough_threshold, si1, sj1,
-             sa1, st1, sv1);
-  load_bases(c2, p, F, B, angle_min, angle_max, rough_threshold, si2, sj2,
-             sa2, st2, sv2);
-  __syncthreads();
+// Mask entry (row, b) of the b1-major mask: both bases valid, the same
+// type, their angles less than angle_same apart.
+__device__ __forceinline__ bool mask_entry(int key, float angle, int b, int B,
+                                           const unsigned char* k2,
+                                           const float* a2,
+                                           float angle_same) {
+  return b < B && k2[b] == key && fabsf(sub(angle, a2[b])) < angle_same;
+}
 
-  // A contiguous run of the b1-major mask a thread.
-  // (B * B below 2^31: the entry checks it.)
-  const int L = B * B;
-  const int run = (L + (int)blockDim.x - 1) / (int)blockDim.x;
-  const int lo = threadIdx.x * run;
-  const int hi = lo + run < L ? lo + run : L;
-  int n = 0;
-  for (int e = lo; e < hi; ++e) {
-    const int a = e / B, b = e - a * B;
-    n += sv1[a] && sv2[b] && fabsf(sub(sa1[a], sa2[b])) < angle_same &&
-         st1[a] == st2[b];
-  }
-  int total;
-  long long pos = block_exclusive_scan(n, wsum, &total);
-  const long long base = p * M;
-  for (int e = lo; e < hi && pos < M; ++e) {
-    const int a = e / B, b = e - a * B;
-    if (sv1[a] && sv2[b] && fabsf(sub(sa1[a], sa2[b])) < angle_same &&
-        st1[a] == st2[b]) {
-      const long long at = base + pos;
-      mvalid[at] = 1;
-      mi1[at] = si1[a];
-      mj1[at] = sj1[a];
-      mi2[at] = si2[b];
-      mj2[at] = sj2[b];
-      mtype[at] = st1[a];
-      ++pos;
+// The cluster barrier in halves: a block arrives once its reads of the
+// other ranks' shared memory are done and waits before it exits, so no
+// block's shared memory goes while another reads it.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// Pair blockIdx.x / K on a cluster of K blocks; rank r takes the b1 rows
+// [r * rows, (r + 1) * rows).
+__global__ void __launch_bounds__(kMatchThreads)
+hyp_matches_kernel(CloudFaces c1, CloudFaces c2, int F, int B, int rows,
+                   bool keep, long long M, float angle_min, float angle_max,
+                   float rough_threshold, float angle_same, int* count,
+                   unsigned char* overflow, unsigned char* mvalid,
+                   long long* mi1, long long* mj1, long long* mi2,
+                   long long* mj2, int* mtype) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int wsum[32];
+  __shared__ int s_total;
+  __shared__ int s_before, s_all;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int K = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const long long p = blockIdx.x / K;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  const int W = (B + 31) / 32;
+  const MatchLayout l = match_layout(B, rows, keep);
+  float* a2 = reinterpret_cast<float*>(smem + l.a2);
+  int* ij2 = reinterpret_cast<int*>(smem + l.ij2);
+  float* ra1 = reinterpret_cast<float*>(smem + l.ra1);
+  int* rij1 = reinterpret_cast<int*>(smem + l.rij1);
+  int* rpos = reinterpret_cast<int*>(smem + l.rpos);
+  unsigned* words = reinterpret_cast<unsigned*>(smem + l.words);
+  unsigned char* k2 = smem + l.k2;
+  unsigned char* rk1 = smem + l.rk1;
+  const int row0 = rank * rows;
+  const int nrows = max(0, min(rows, B - row0));
+
+  // Cloud 2's bases and this rank's rows of cloud 1's, a thread a base.
+  for (int x = threadIdx.x; x < B + nrows; x += blockDim.x) {
+    const bool target = x < B;
+    const int b = target ? x : row0 + x - B;
+    int i, j;
+    base_pair(b, F, &i, &j);
+    const BaseOut o = form_base(
+        (target ? c2.normal : c1.normal) + p * F * 3,
+        (target ? c2.theta : c1.theta) + p * F,
+        (target ? c2.valid : c1.valid) + p * F, i, j, angle_min, angle_max,
+        rough_threshold);
+    if (target) {
+      a2[b] = o.angle;
+      ij2[b] = i | j << 16;
+      k2[b] = o.valid ? (unsigned char)o.type : kNoTarget;
+    } else {
+      ra1[x - B] = o.angle;
+      rij1[x - B] = i | j << 16;
+      rk1[x - B] = o.valid ? (unsigned char)o.type : kNoRow;
     }
   }
-  const long long kept = total < M ? total : M;
-  for (long long m = kept + threadIdx.x; m < M; m += blockDim.x) {
-    const long long at = base + m;
-    mvalid[at] = 0;
-    mi1[at] = 0;
-    mj1[at] = 0;
-    mi2[at] = 0;
-    mj2[at] = 0;
-    mtype[at] = 0;
+  __syncthreads();
+
+  // A warp a row: its entries 32 a round by a ballot, counted (and the
+  // words kept where they fit).
+  for (int a = warp; a < nrows; a += warps) {
+    const int key = rk1[a];
+    const float angle = ra1[a];
+    int n = 0;
+    if (key != kNoRow)
+      for (int k = 0; k < W; ++k) {
+        const unsigned word = __ballot_sync(
+            0xffffffffu,
+            mask_entry(key, angle, 32 * k + lane, B, k2, a2, angle_same));
+        if (keep && lane == 0) words[(long long)a * W + k] = word;
+        n += __popc(word);
+      }
+    if (lane == 0) rpos[a] = n;
   }
-  if (threadIdx.x == 0) {
+  __syncthreads();
+
+  // Each row's first place among the rank's matches (a run of rows a
+  // thread, scanned over the block), then the ranks before this one and
+  // all K through the cluster's shared memory.
+  const int run = (nrows + (int)blockDim.x - 1) / (int)blockDim.x;
+  const int lo = min((int)threadIdx.x * run, nrows);
+  const int hi = min(lo + run, nrows);
+  int n = 0;
+  for (int a = lo; a < hi; ++a) n += rpos[a];
+  int total;
+  int pos = block_exclusive_scan(n, wsum, &total);
+  for (int a = lo; a < hi; ++a) {
+    const int c = rpos[a];
+    rpos[a] = pos;
+    pos += c;
+  }
+  if (threadIdx.x == 0) s_total = total;
+  cluster.sync();
+  if (warp == 0) {  // lane r reads rank r's total (all K: B * B < 2^31)
+    const int v = lane < K ? *cluster.map_shared_rank(&s_total, lane) : 0;
+    int before = lane < rank ? v : 0, all = v;
+#pragma unroll
+    for (int d = 16; d > 0; d >>= 1) {
+      before += __shfl_xor_sync(0xffffffffu, before, d);
+      all += __shfl_xor_sync(0xffffffffu, all, d);
+    }
+    if (lane == 0) {
+      s_before = before;
+      s_all = all;
+    }
+  }
+  cluster_arrive();
+  __syncthreads();
+
+  // A warp a row again: each match at its row's first place plus the
+  // matches before it in the row; places past M are dropped.
+  const long long before = s_before, all = s_all;
+  const long long kept = all < M ? all : M;
+  const long long base = p * M;
+  for (int a = warp; a < nrows; a += warps) {
+    const int key = rk1[a];
+    long long at0 = before + rpos[a];
+    if (key == kNoRow || at0 >= M) continue;
+    const float angle = ra1[a];
+    const int ij = rij1[a];
+    for (int k = 0; k < W && at0 < M; ++k) {
+      const int b = 32 * k + lane;
+      const unsigned word =
+          keep ? words[(long long)a * W + k]
+               : __ballot_sync(0xffffffffu, mask_entry(key, angle, b, B, k2,
+                                                       a2, angle_same));
+      const long long at = at0 + __popc(word & ((1u << lane) - 1u));
+      if ((word >> lane & 1u) && at < M) {
+        const long long o = base + at;
+        mvalid[o] = 1;
+        mi1[o] = ij & 0xffff;
+        mj1[o] = ij >> 16;
+        mi2[o] = ij2[b] & 0xffff;
+        mj2[o] = ij2[b] >> 16;
+        mtype[o] = key;
+      }
+      at0 += __popc(word);
+    }
+  }
+  // The empty places past the matches, split over the ranks.
+  for (long long m = kept + (long long)rank * blockDim.x + threadIdx.x;
+       m < M; m += (long long)K * blockDim.x) {
+    const long long o = base + m;
+    mvalid[o] = 0;
+    mi1[o] = 0;
+    mj1[o] = 0;
+    mi2[o] = 0;
+    mj2[o] = 0;
+    mtype[o] = 0;
+  }
+  if (rank == 0 && threadIdx.x == 0) {
     count[p] = (int)kept;
-    overflow[p] = total > M;
+    overflow[p] = all > M;
   }
+  cluster_wait();
 }
 
 // ---------------------------------------------------------------- H2 --
@@ -463,240 +609,358 @@ struct Faces {
   const unsigned char* valid;
 };
 
-// The per-match values lane 0 forms, in the warp's shared memory.
+// A match's prelude: R = R2 R1, its quaternion, the fallback translation,
+// n2 x m2r normalized, the two fixed offsets d11 - d21 and d12 - d22, the
+// target base's faces and the match's run in its chunk.
 struct MatchPrelude {
   float R[9];
   float quat[4];
   float t_fb[3];
-  float n1[3];
-  float m1[3];
-  float n1cm1[3];
   float n2cm2[3];
   float D0, D1;
-  int i1, j1, i2, j2;
+  int i2, j2, run;
 };
 
-constexpr long long kPreludeBytes = (sizeof(MatchPrelude) + 15) / 16 * 16;
+// H2's shared memory for a chunk of C matches of F faces, byte offsets:
+// each match's prelude; each run's source base (i1 | j1 << 16); per source
+// face its normal, |normal| and d13; per run and source face P = inv(A^T
+// A) A^T (row-major); per match and target face its rotated normal, its
+// norm and d23; the source and target faces a warp's match lets through
+// (16 bits each, for the min(C, kSlotWarps) warps that take matches); per
+// run and source face, and per match and target face, the test.
+struct SlotLayout {
+  long long pre, run_ij, s_n, s_norm, s_d13, r_P, t_n, t_norm, t_d23, lists,
+      r_ok, t_ok, bytes;
+};
 
-// A warp's shared memory: the prelude, then per source face s its normal,
-// |normal|, d13, P (row-major) and test, per target face t its rotated
-// normal, its norm, d23 and test; a multiple of 16 bytes.
-long long slot_warp_bytes(int F) {
-  return kPreludeBytes + ((long long)F * (4 * 19 + 2) + 15) / 16 * 16;
+__host__ __device__ inline SlotLayout slot_layout(int F, int C) {
+  const int warps = C < kSlotWarps ? C : kSlotWarps;
+  SlotLayout l;
+  l.pre = 0;
+  l.run_ij = l.pre + (long long)sizeof(MatchPrelude) * C;
+  l.s_n = l.run_ij + 4LL * C;
+  l.s_norm = l.s_n + 12LL * F;
+  l.s_d13 = l.s_norm + 4LL * F;
+  l.r_P = l.s_d13 + 4LL * F;
+  l.t_n = l.r_P + 36LL * F * C;
+  l.t_norm = l.t_n + 12LL * F * C;
+  l.t_d23 = l.t_norm + 4LL * F * C;
+  l.lists = l.t_d23 + 4LL * F * C;
+  l.r_ok = l.lists + 4LL * F * warps;
+  l.t_ok = l.r_ok + (long long)F * C;
+  l.bytes = (l.t_ok + (long long)F * C + 15) / 16 * 16;
+  return l;
 }
 
-__global__ void __launch_bounds__(kSlotWarps * 32)
+// Match (i1, j1, i2, j2)'s prelude (pair p's faces at N1, C1, W1 and N2,
+// C2, W2).
+__device__ void match_prelude(const float* N1, const float* C1,
+                              const float* W1, const float* N2,
+                              const float* C2, const float* W2, int i1,
+                              int j1, int i2, int j2, MatchPrelude& pre) {
+  float n1[3], m1[3], n2[3], m2[3], c11[3], c12[3], c21[3], c22[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    n1[k] = N1[3 * i1 + k];
+    m1[k] = N1[3 * j1 + k];
+    n2[k] = N2[3 * i2 + k];
+    m2[k] = N2[3 * j2 + k];
+    c11[k] = C1[3 * i1 + k];
+    c12[k] = C1[3 * j1 + k];
+    c21[k] = C2[3 * i2 + k];
+    c22[k] = C2[3 * j2 + k];
+  }
+  float R[9], m2r[3], c[3], n2cm2[3];
+  rotation_between_planes(n1, m1, n2, m2, R, m2r);
+  cross3(n2, m2r, c);
+  normalize3(c, n2cm2);
+  // The fallback translation: the point-size-weighted base centroids.
+  const float w11 = W1[i1], w12 = W1[j1], w21 = W2[i2], w22 = W2[j2];
+  const float sden = clamp_min(add(w11, w12), kEps);
+  const float tden = clamp_min(add(w21, w22), kEps);
+  float sc[3], tc[3], Rtc[3], q[4];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    sc[k] = dv(add(mul(c11[k], w11), mul(c12[k], w12)), sden);
+    tc[k] = dv(add(mul(c21[k], w21), mul(c22[k], w22)), tden);
+  }
+  matvec3(R, tc, Rtc);
+  matrix_to_quat(R, q);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    pre.t_fb[k] = sub(sc[k], Rtc[k]);
+    pre.n2cm2[k] = n2cm2[k];
+  }
+#pragma unroll
+  for (int k = 0; k < 9; ++k) pre.R[k] = R[k];
+#pragma unroll
+  for (int k = 0; k < 4; ++k) pre.quat[k] = q[k];
+  pre.D0 = sub(dot3(c11, n1), dot3(c21, n2));
+  pre.D1 = sub(dot3(c12, m1), dot3(c22, m2r));
+  pre.i2 = i2;
+  pre.j2 = j2;
+}
+
+// Source face s's third-plane test against base (i1, j1), and where it
+// passes P = inv(A^T A) A^T (A's rows n1, m1, n_s; each product in index
+// order, small_matmul's, the inverse by the adjugate, _inv3x3's).
+__device__ void source_plane(const float* N1, const unsigned char* V1, int s,
+                             int i1, int j1, float plane_threshold,
+                             unsigned char* ok_out, float* P_out) {
+  float n1[3], m1[3], ns[3], c[3], n1cm1[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    n1[k] = N1[3 * i1 + k];
+    m1[k] = N1[3 * j1 + k];
+    ns[k] = N1[3 * s + k];
+  }
+  cross3(n1, m1, c);
+  normalize3(c, n1cm1);
+  const bool ok = V1[s] && fabsf(dot3(ns, n1cm1)) > plane_threshold &&
+                  s != i1 && s != j1;
+  *ok_out = ok;
+  if (!ok) return;
+  const float* A[3] = {n1, m1, ns};
+  float G[9];
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      G[3 * i + j] = add(add(mul(A[0][i], A[0][j]), mul(A[1][i], A[1][j])),
+                         mul(A[2][i], A[2][j]));
+  const float a = G[0], b = G[1], cc = G[2], d = G[3], e = G[4], f = G[5],
+              g = G[6], h = G[7], i = G[8];
+  const float co[9] = {
+      sub(mul(e, i), mul(f, h)), sub(mul(cc, h), mul(b, i)),
+      sub(mul(b, f), mul(cc, e)), sub(mul(f, g), mul(d, i)),
+      sub(mul(a, i), mul(cc, g)), sub(mul(cc, d), mul(a, f)),
+      sub(mul(d, h), mul(e, g)),  sub(mul(b, g), mul(a, h)),
+      sub(mul(a, e), mul(b, d))};
+  float det = add(add(mul(a, co[0]), mul(b, co[3])), mul(cc, co[6]));
+  det = fabsf(det) > kDetFloor ? det : kDetFloor;
+  float inv[9];
+#pragma unroll
+  for (int k = 0; k < 9; ++k) inv[k] = dv(co[k], det);
+#pragma unroll
+  for (int r = 0; r < 3; ++r)
+#pragma unroll
+    for (int q = 0; q < 3; ++q)
+      P_out[3 * r + q] =
+          add(add(mul(inv[3 * r], A[q][0]), mul(inv[3 * r + 1], A[q][1])),
+              mul(inv[3 * r + 2], A[q][2]));
+}
+
+// Target face t rotated by the match's R (small_matmul with R^T): its
+// normal, norm, offset d23 and test.
+__device__ void target_plane(const float* N2, const float* C2,
+                             const unsigned char* V2, int t,
+                             const MatchPrelude& pre, float plane_threshold,
+                             float* n_out, float* norm_out, float* d23_out,
+                             unsigned char* ok_out) {
+  float nt[3], ct[3];
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+    nt[r] = add(add(mul(N2[3 * t], pre.R[3 * r]),
+                    mul(N2[3 * t + 1], pre.R[3 * r + 1])),
+                mul(N2[3 * t + 2], pre.R[3 * r + 2]));
+    ct[r] = add(add(mul(C2[3 * t], pre.R[3 * r]),
+                    mul(C2[3 * t + 1], pre.R[3 * r + 1])),
+                mul(C2[3 * t + 2], pre.R[3 * r + 2]));
+  }
+  const bool ok = V2[t] && fabsf(dot3(nt, pre.n2cm2)) > plane_threshold &&
+                  t != pre.i2 && t != pre.j2;
+  *ok_out = ok;
+  if (!ok) return;
+#pragma unroll
+  for (int k = 0; k < 3; ++k) n_out[k] = nt[k];
+  *norm_out = norm3(nt);
+  *d23_out = dot3(ct, nt);
+}
+
+// Chunk blockIdx.x of pair blockIdx.y: its matches [C x, C (x + 1)).
+__global__ void __launch_bounds__(kSlotThreads)
 hyp_slots_kernel(Faces f1, Faces f2, const int* __restrict__ mcount,
                  const long long* __restrict__ mi1,
                  const long long* __restrict__ mj1,
                  const long long* __restrict__ mi2,
                  const long long* __restrict__ mj2, int F, long long M, int K,
-                 float plane_threshold, float normal_threshold,
-                 long long warp_bytes, float* quat_out, float* t_out,
-                 int* hit_count, unsigned char* row_overflow) {
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  const long long m = (long long)blockIdx.x * (blockDim.x >> 5) + w;
-  const long long p = blockIdx.y;
-  if (m >= M) return;
-  const long long pm = p * M + m;
-  if (m >= mcount[p]) {  // no match: the empty outputs
-    if (lane < 4) quat_out[pm * 4 + lane] = 0.0f;
-    if (lane == 0) {
-      hit_count[pm] = 0;
-      row_overflow[pm] = 0;
-    }
-    return;
-  }
-
+                 int C, float plane_threshold, float normal_threshold,
+                 float* quat_out, float* t_out, int* hit_count,
+                 unsigned char* row_overflow) {
   extern __shared__ __align__(16) unsigned char shm[];
-  unsigned char* region = shm + w * warp_bytes;
-  MatchPrelude& pre = *reinterpret_cast<MatchPrelude*>(region);
-  float* s_n = reinterpret_cast<float*>(region + kPreludeBytes);
-  float* s_norm = s_n + 3 * F;
-  float* s_d13 = s_norm + F;
-  float* s_P = s_d13 + F;
-  float* t_n = s_P + 9 * F;
-  float* t_norm = t_n + 3 * F;
-  float* t_d23 = t_norm + F;
-  unsigned char* s_ok = reinterpret_cast<unsigned char*>(t_d23 + F);
-  unsigned char* t_ok = s_ok + F;
+  __shared__ int s_runs;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const long long p = blockIdx.y;
+  const long long m0 = (long long)blockIdx.x * C;
+  const int in_chunk = M - m0 < C ? (int)(M - m0) : C;
+  const long long left = mcount[p] - m0;
+  const int n = left <= 0 ? 0 : left < in_chunk ? (int)left : in_chunk;
+  for (int c = n + threadIdx.x; c < in_chunk; c += blockDim.x) {
+    const long long pm = p * M + m0 + c;  // no match: the empty outputs
+#pragma unroll
+    for (int r = 0; r < 4; ++r) quat_out[pm * 4 + r] = 0.0f;
+    hit_count[pm] = 0;
+    row_overflow[pm] = 0;
+  }
+  if (n == 0) return;
 
+  const SlotLayout l = slot_layout(F, C);
+  MatchPrelude* pres = reinterpret_cast<MatchPrelude*>(shm + l.pre);
+  int* run_ij = reinterpret_cast<int*>(shm + l.run_ij);
+  float* s_n = reinterpret_cast<float*>(shm + l.s_n);
+  float* s_norm = reinterpret_cast<float*>(shm + l.s_norm);
+  float* s_d13 = reinterpret_cast<float*>(shm + l.s_d13);
+  float* r_P = reinterpret_cast<float*>(shm + l.r_P);
+  float* t_n = reinterpret_cast<float*>(shm + l.t_n);
+  float* t_norm = reinterpret_cast<float*>(shm + l.t_norm);
+  float* t_d23 = reinterpret_cast<float*>(shm + l.t_d23);
+  short* lists = reinterpret_cast<short*>(shm + l.lists);
+  unsigned char* r_ok = shm + l.r_ok;
+  unsigned char* t_ok = shm + l.t_ok;
   const float* N1 = f1.normal + p * F * 3;
   const float* C1 = f1.centroid + p * F * 3;
   const float* N2 = f2.normal + p * F * 3;
   const float* C2 = f2.centroid + p * F * 3;
+  const long long first = p * M + m0;
 
-  if (lane == 0) {
-    const int i1 = (int)mi1[pm], j1 = (int)mj1[pm];
-    const int i2 = (int)mi2[pm], j2 = (int)mj2[pm];
-    float n1[3], m1[3], n2[3], m2[3], c11[3], c12[3], c21[3], c22[3];
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      n1[k] = N1[3 * i1 + k];
-      m1[k] = N1[3 * j1 + k];
-      n2[k] = N2[3 * i2 + k];
-      m2[k] = N2[3 * j2 + k];
-      c11[k] = C1[3 * i1 + k];
-      c12[k] = C1[3 * j1 + k];
-      c21[k] = C2[3 * i2 + k];
-      c22[k] = C2[3 * j2 + k];
-    }
-    float R[9], m2r[3], c[3];
-    rotation_between_planes(n1, m1, n2, m2, R, m2r);
-    cross3(n1, m1, c);
-    normalize3(c, pre.n1cm1);
-    cross3(n2, m2r, c);
-    normalize3(c, pre.n2cm2);
-    pre.D0 = sub(dot3(c11, n1), dot3(c21, n2));
-    pre.D1 = sub(dot3(c12, m1), dot3(c22, m2r));
-    // The fallback translation: the point-size-weighted base centroids.
-    const float* W1 = f1.point_size + p * F;
-    const float* W2 = f2.point_size + p * F;
-    const float w11 = W1[i1], w12 = W1[j1], w21 = W2[i2], w22 = W2[j2];
-    const float sden = clamp_min(add(w11, w12), kEps);
-    const float tden = clamp_min(add(w21, w22), kEps);
-    float sc[3], tc[3], Rtc[3];
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      sc[k] = dv(add(mul(c11[k], w11), mul(c12[k], w12)), sden);
-      tc[k] = dv(add(mul(c21[k], w21), mul(c22[k], w22)), tden);
-    }
-    matvec3(R, tc, Rtc);
-#pragma unroll
-    for (int k = 0; k < 3; ++k) {
-      pre.t_fb[k] = sub(sc[k], Rtc[k]);
-      pre.n1[k] = n1[k];
-      pre.m1[k] = m1[k];
-    }
-#pragma unroll
-    for (int k = 0; k < 9; ++k) pre.R[k] = R[k];
-    matrix_to_quat(R, pre.quat);
-    pre.i1 = i1;
-    pre.j1 = j1;
-    pre.i2 = i2;
-    pre.j2 = j2;
+  // The runs of equal source bases (i1, j1) among the chunk's matches (C
+  // <= 32, a lane a match).
+  if (w == 0) {
+    const int ij = lane < n ? ((int)mi1[first + lane] |
+                               (int)mj1[first + lane] << 16)
+                            : -1;
+    const int before = __shfl_up_sync(0xffffffffu, ij, 1);
+    const bool start = lane < n && (lane == 0 || ij != before);
+    const unsigned starts = __ballot_sync(0xffffffffu, start);
+    const int run = __popc(starts & (0xffffffffu >> (31 - lane))) - 1;
+    if (lane < n) pres[lane].run = run;
+    if (start) run_ij[run] = ij;
+    if (lane == 0) s_runs = __popc(starts);
   }
-  __syncwarp();
+  __syncthreads();
 
-  for (int x = lane; x < 2 * F; x += 32) {
-    if (x < F) {  // source face s
-      const int s = x;
-      float ns[3], cs[3];
+  // Warp 0 a lane a match: its prelude. The other warps meanwhile: each
+  // source face's own values, then each run's source-face tests and P.
+  const int runs = s_runs;
+  if (w == 0) {
+    if (lane < n) {
+      const long long pm = first + lane;
+      match_prelude(N1, C1, f1.point_size + p * F, N2, C2,
+                    f2.point_size + p * F, (int)mi1[pm], (int)mj1[pm],
+                    (int)mi2[pm], (int)mj2[pm], pres[lane]);
+    }
+  } else {
+    for (int x = threadIdx.x - 32; x < F * (runs + 1);
+         x += blockDim.x - 32) {
+      if (x < F) {
+        float ns[3], cs[3];
 #pragma unroll
-      for (int k = 0; k < 3; ++k) {
-        ns[k] = N1[3 * s + k];
-        cs[k] = C1[3 * s + k];
+        for (int k = 0; k < 3; ++k) {
+          ns[k] = N1[3 * x + k];
+          cs[k] = C1[3 * x + k];
+          s_n[3 * x + k] = ns[k];
+        }
+        s_norm[x] = norm3(ns);
+        s_d13[x] = dot3(cs, ns);
+      } else {
+        const int q = x / F - 1, s = x - (q + 1) * F;
+        const int ij = run_ij[q];
+        source_plane(N1, f1.valid + p * F, s, ij & 0xffff, ij >> 16,
+                     plane_threshold, r_ok + q * F + s,
+                     r_P + 9LL * (q * F + s));
       }
-      const bool ok = f1.valid[p * F + s] &&
-                      fabsf(dot3(ns, pre.n1cm1)) > plane_threshold &&
-                      s != pre.i1 && s != pre.j1;
-      s_ok[s] = ok;
-      if (ok) {
-#pragma unroll
-        for (int k = 0; k < 3; ++k) s_n[3 * s + k] = ns[k];
-        s_norm[s] = norm3(ns);
-        s_d13[s] = dot3(cs, ns);
-        // A's rows n1, m1, n_s; P = inv(A^T A) A^T, each product in index
-        // order (small_matmul), the inverse by the adjugate (_inv3x3).
-        const float* A[3] = {pre.n1, pre.m1, ns};
-        float G[9];
-#pragma unroll
-        for (int i = 0; i < 3; ++i)
-#pragma unroll
-          for (int j = 0; j < 3; ++j)
-            G[3 * i + j] =
-                add(add(mul(A[0][i], A[0][j]), mul(A[1][i], A[1][j])),
-                    mul(A[2][i], A[2][j]));
-        const float a = G[0], b = G[1], c = G[2], d = G[3], e = G[4],
-                    f = G[5], g = G[6], h = G[7], i = G[8];
-        const float co[9] = {
-            sub(mul(e, i), mul(f, h)), sub(mul(c, h), mul(b, i)),
-            sub(mul(b, f), mul(c, e)), sub(mul(f, g), mul(d, i)),
-            sub(mul(a, i), mul(c, g)), sub(mul(c, d), mul(a, f)),
-            sub(mul(d, h), mul(e, g)), sub(mul(b, g), mul(a, h)),
-            sub(mul(a, e), mul(b, d))};
-        float det = add(add(mul(a, co[0]), mul(b, co[3])), mul(c, co[6]));
-        det = fabsf(det) > kDetFloor ? det : kDetFloor;
-        float inv[9];
-#pragma unroll
-        for (int k = 0; k < 9; ++k) inv[k] = dv(co[k], det);
+    }
+  }
+  __syncthreads();
+
+  // Each match's target faces, a thread a (match, face).
+  for (int x = threadIdx.x; x < n * F; x += blockDim.x) {
+    const int c = x / F;
+    target_plane(N2, C2, f2.valid + p * F, x - c * F, pres[c],
+                 plane_threshold, t_n + 3LL * x, t_norm + x, t_d23 + x,
+                 t_ok + x);
+  }
+  __syncthreads();
+
+  // A warp a match: the (s, t) slots whose faces both pass, s-major (slot
+  // order), a lane each, 32 at a time, ranked by the warp's ballot; past
+  // K + 1 valid slots the rest cannot change the kept hits or the
+  // overflow.
+  short* s_list = lists + 2LL * w * F;
+  short* t_list = s_list + F;
+  const unsigned below = (1u << lane) - 1u;
+  for (int c = w; c < n; c += kSlotWarps) {
+    const MatchPrelude& pre = pres[c];
+    const unsigned char* sok = r_ok + pre.run * F;
+    const unsigned char* tok = t_ok + c * F;
+    int ns = 0, nt = 0;
+    for (int f0 = 0; f0 < F; f0 += 32) {
+      const int f = f0 + lane;
+      const bool so = f < F && sok[f], to = f < F && tok[f];
+      const unsigned bs = __ballot_sync(0xffffffffu, so);
+      const unsigned bt = __ballot_sync(0xffffffffu, to);
+      if (so) s_list[ns + __popc(bs & below)] = (short)f;
+      if (to) t_list[nt + __popc(bt & below)] = (short)f;
+      ns += __popc(bs);
+      nt += __popc(bt);
+    }
+    __syncwarp();
+    const long long pm = first + c;
+    float* to_ = t_out + pm * K * 3;
+    const float* tn = t_n + 3LL * c * F;
+    const float* tnorm = t_norm + c * F;
+    const int E = ns * nt;
+    // The lane's slot e is list entries (si, ti) = (e / nt, e % nt); a
+    // round moves e by 32 = dq nt + dr.
+    int si = 0, ti = 0, dq = 0, dr = 0;
+    if (E > 0) {
+      si = lane / nt;
+      ti = lane - si * nt;
+      dq = 32 / nt;
+      dr = 32 - dq * nt;
+    }
+    int running = 0;
+    for (int e0 = 0; e0 < E && running <= K; e0 += 32) {
+      bool ok = false;
+      int s = 0, t = 0;
+      if (e0 + lane < E) {
+        s = s_list[si];
+        t = t_list[ti];
+        ok = angle_of(dot3(s_n + 3 * s, tn + 3 * t), s_norm[s], tnorm[t]) <
+             normal_threshold;
+      }
+      si += dq;
+      ti += dr;
+      if (ti >= nt) {
+        ti -= nt;
+        ++si;
+      }
+      const unsigned bal = __ballot_sync(0xffffffffu, ok);
+      const int rank = running + __popc(bal & below);
+      if (ok && rank < K) {
+        const float* P = r_P + 9LL * (pre.run * F + s);
+        const float D2 = sub(s_d13[s], t_d23[c * F + t]);
 #pragma unroll
         for (int r = 0; r < 3; ++r)
-#pragma unroll
-          for (int q = 0; q < 3; ++q)
-            s_P[9 * s + 3 * r + q] = add(
-                add(mul(inv[3 * r], A[q][0]), mul(inv[3 * r + 1], A[q][1])),
-                mul(inv[3 * r + 2], A[q][2]));
+          to_[3 * rank + r] =
+              add(add(mul(pre.D0, P[3 * r]), mul(pre.D1, P[3 * r + 1])),
+                  mul(D2, P[3 * r + 2]));
       }
-    } else {  // target face t, rotated by R (small_matmul with R^T)
-      const int t = x - F;
-      float nt[3], ct[3];
-#pragma unroll
-      for (int r = 0; r < 3; ++r) {
-        nt[r] = add(add(mul(N2[3 * t], pre.R[3 * r]),
-                        mul(N2[3 * t + 1], pre.R[3 * r + 1])),
-                    mul(N2[3 * t + 2], pre.R[3 * r + 2]));
-        ct[r] = add(add(mul(C2[3 * t], pre.R[3 * r]),
-                        mul(C2[3 * t + 1], pre.R[3 * r + 1])),
-                    mul(C2[3 * t + 2], pre.R[3 * r + 2]));
-      }
-      const bool ok = f2.valid[p * F + t] &&
-                      fabsf(dot3(nt, pre.n2cm2)) > plane_threshold &&
-                      t != pre.i2 && t != pre.j2;
-      t_ok[t] = ok;
-      if (ok) {
-#pragma unroll
-        for (int k = 0; k < 3; ++k) t_n[3 * t + k] = nt[k];
-        t_norm[t] = norm3(nt);
-        t_d23[t] = dot3(ct, nt);
-      }
+      running += __popc(bal);
     }
+    // The fallback slot F * F: valid where no (s, t) slot is.
+    const int total = running + (running == 0);
+    if (lane == 0) {
+      if (running == 0 && K > 0) {
+#pragma unroll
+        for (int r = 0; r < 3; ++r) to_[r] = pre.t_fb[r];
+      }
+      hit_count[pm] = total < K ? total : K;
+      row_overflow[pm] = total > K;
+    }
+    if (lane < 4) quat_out[pm * 4 + lane] = pre.quat[lane];
+    __syncwarp();
   }
-  __syncwarp();
-
-  // The (s, t) slots in slot order, a lane each, 32 at a time, ranked by
-  // the warp's ballot; past K + 1 valid slots the rest cannot change the
-  // kept hits or the overflow.
-  float* to = t_out + pm * K * 3;
-  const int FF = F * F;
-  int running = 0;
-  for (int first = 0; first < FF && running <= K; first += 32) {
-    const int slot = first + lane;
-    bool ok = false;
-    int s = 0, t = 0;
-    if (slot < FF) {
-      s = slot / F;
-      t = slot - s * F;
-      if (s_ok[s] && t_ok[t]) {
-        const float* ns = s_n + 3 * s;
-        const float* nt = t_n + 3 * t;
-        ok = angle_of(dot3(ns, nt), s_norm[s], t_norm[t]) < normal_threshold;
-      }
-    }
-    const unsigned bal = __ballot_sync(0xffffffffu, ok);
-    const int rank = running + __popc(bal & ((1u << lane) - 1u));
-    if (ok && rank < K) {
-      const float* P = s_P + 9 * s;
-      const float D2 = sub(s_d13[s], t_d23[t]);
-#pragma unroll
-      for (int r = 0; r < 3; ++r)
-        to[3 * rank + r] =
-            add(add(mul(pre.D0, P[3 * r]), mul(pre.D1, P[3 * r + 1])),
-                mul(D2, P[3 * r + 2]));
-    }
-    running += __popc(bal);
-  }
-  // The fallback slot F * F: valid where no (s, t) slot is.
-  const int total = running + (running == 0);
-  if (lane == 0) {
-    if (running == 0 && K > 0) {
-#pragma unroll
-      for (int r = 0; r < 3; ++r) to[r] = pre.t_fb[r];
-    }
-    hit_count[pm] = total < K ? total : K;
-    row_overflow[pm] = total > K;
-  }
-  if (lane < 4) quat_out[pm * 4 + lane] = pre.quat[lane];
 }
 
 // ---------------------------------------------------------------- H3 --
@@ -774,8 +1038,6 @@ __global__ void hyp_acos_probe_kernel(const float* __restrict__ x,
   if (i < n) out[i] = acosf(x[i]);
 }
 
-long long match_shared_bytes(int B) { return (long long)B * 50; }
-
 // Raises the block's dynamic shared memory where it needs more than 48 KB.
 template <typename Kernel>
 cudaError_t allow_shared(Kernel kernel, long long bytes) {
@@ -820,21 +1082,40 @@ int fccf_hyp_matches(const void* n1, const void* th1, const void* v1,
                      void* stream) {
   const int B = F * (F - 1) / 2;
   if (P <= 0) return 0;
-  if (P > 0x7fffffffLL || (long long)B * B > 0x7fffffffLL)
+  if (P > 0x7fffffffLL / kMatchRanks || (long long)B * B > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
-  const long long bytes = match_shared_bytes(B);
+  const int rows = (B + kMatchRanks - 1) / kMatchRanks;
+  bool keep = match_layout(B, rows, true).bytes <= kMaxShared;
+  const long long bytes = match_layout(B, rows, keep).bytes;
   cudaError_t err = allow_shared(hyp_matches_kernel, bytes);
   if (err != cudaSuccess) return (int)err;
-  const CloudFaces c1{(const float*)n1, (const float*)th1,
-                      (const unsigned char*)v1};
-  const CloudFaces c2{(const float*)n2, (const float*)th2,
-                      (const unsigned char*)v2};
-  hyp_matches_kernel<<<(unsigned)P, kMatchThreads, bytes,
-                       (cudaStream_t)stream>>>(
-      c1, c2, F, B, M, angle_min, angle_max, rough_threshold, angle_same,
-      (int*)count, (unsigned char*)overflow, (unsigned char*)mvalid,
-      (long long*)mi1, (long long*)mj1, (long long*)mi2, (long long*)mj2,
-      (int*)mtype);
+  CloudFaces c1{(const float*)n1, (const float*)th1,
+                (const unsigned char*)v1};
+  CloudFaces c2{(const float*)n2, (const float*)th2,
+                (const unsigned char*)v2};
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(P * kMatchRanks));
+  cfg.blockDim = dim3(kMatchThreads);
+  cfg.dynamicSmemBytes = (size_t)bytes;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kMatchRanks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int* cnt = (int*)count;
+  unsigned char *ovf = (unsigned char*)overflow, *mv = (unsigned char*)mvalid;
+  long long *i1 = (long long*)mi1, *j1 = (long long*)mj1;
+  long long *i2 = (long long*)mi2, *j2 = (long long*)mj2;
+  int* mt = (int*)mtype;
+  int b = B, r = rows;
+  void* args[] = {&c1, &c2, &F, &b, &r, &keep, &M, &angle_min, &angle_max,
+                  &rough_threshold, &angle_same, &cnt, &ovf, &mv, &i1, &j1,
+                  &i2, &j2, &mt};
+  err = cudaLaunchKernelExC(&cfg, (const void*)hyp_matches_kernel, args);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
@@ -852,25 +1133,24 @@ int fccf_hyp_slots(const void* n1, const void* c1, const void* w1,
                    float plane_threshold, float normal_threshold,
                    void* stream) {
   if (P <= 0 || M <= 0) return 0;
-  const long long warp_bytes = slot_warp_bytes(F);
-  long long warps = kMaxShared / warp_bytes;
-  warps = warps < kSlotWarps ? warps : kSlotWarps;
-  const long long blocks = (M + warps - 1) / (warps > 0 ? warps : 1);
-  if (P > 65535 || warps < 1 || blocks > 0x7fffffffLL)
+  int C = kSlotChunk;
+  while (C > 1 && slot_layout(F, C).bytes > kMaxShared) C >>= 1;
+  const long long bytes = slot_layout(F, C).bytes;
+  const long long blocks = (M + C - 1) / C;
+  if (P > 65535 || F > 32767 || bytes > kMaxShared || blocks > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
-  const long long bytes = warps * warp_bytes;
   cudaError_t err = allow_shared(hyp_slots_kernel, bytes);
   if (err != cudaSuccess) return (int)err;
   const Faces f1{(const float*)n1, (const float*)c1, (const float*)w1,
                  (const unsigned char*)v1};
   const Faces f2{(const float*)n2, (const float*)c2, (const float*)w2,
                  (const unsigned char*)v2};
-  hyp_slots_kernel<<<dim3((unsigned)blocks, (unsigned)P),
-                     (unsigned)(32 * warps), bytes, (cudaStream_t)stream>>>(
+  hyp_slots_kernel<<<dim3((unsigned)blocks, (unsigned)P), kSlotThreads, bytes,
+                     (cudaStream_t)stream>>>(
       f1, f2, (const int*)mcount, (const long long*)mi1,
       (const long long*)mj1, (const long long*)mi2, (const long long*)mj2, F,
-      M, K, plane_threshold, normal_threshold, warp_bytes, (float*)quat,
-      (float*)t, (int*)hit_count, (unsigned char*)row_overflow);
+      M, K, C, plane_threshold, normal_threshold, (float*)quat, (float*)t,
+      (int*)hit_count, (unsigned char*)row_overflow);
   return (int)cudaGetLastError();
 }
 

@@ -1961,11 +1961,13 @@ def test_acos_matches_torch(cuda):
 
 @pytest.mark.parametrize("F,per_match,kinds", [
     (16, 16, ()), (16, 48, ()), (5, 16, ()), (24, 16, ()), (24, 48, ()),
-    (64, 16, ()), (16, 16, ("nan", "zero", "none", "plain")),
+    (64, 16, ()), (16, 16, ("nan", "zero", "none", "plain")), (96, 16, ()),
 ])
 def test_hypotheses_kernels_match_plain(cuda, F, per_match, kinds):
-    """At F = 64 H1 keeps its 2016 bases a cloud in 100 KB of dynamic
-    shared memory and H2 walks 4096 slots 32 at a time."""
+    """At F = 64 H1 keeps its rows' ballot words in shared memory (252
+    rows of 63 words a rank); at F = 96 (4560 bases a cloud) they do not
+    fit and its write pass takes the ballots again; H2 lists the faces of
+    up to 4096 slots."""
     f1, f2 = _hyp_faces(F * 10 + per_match, 4, F, kinds, cuda)
     h = _hyp_stage_equal(f1, f2, TEST_CAPS.replace(per_match_hits=per_match))
     assert int(h.count.sum()) > 0
@@ -1992,6 +1994,27 @@ def test_hypotheses_kernels_edge_faces(cuda):
     f1.valid[3, 1:] = False
     h = _hyp_stage_equal(f1, f2, TEST_CAPS)
     assert int(h.count[0]) == 0 and bool(torch.isnan(h.t[2]).any())
+
+
+@pytest.mark.parametrize("runs", ["across", "cut", "one", "own"])
+def test_hypotheses_slots_runs(cuda, runs):
+    """H2 equals slots_plain (and H3 on its slots emit_plain) on matches
+    whose runs of one source base cross H2's chunks, are cut by the
+    count, hold every match or hold one match each: the matches phase 24
+    of chip_smoke.py feeds H2 (``hyp_run_matches``)."""
+    from chip_smoke import HYP_RUNS, hyp_run_matches
+    from fccf_pcr_torch.ops import hypotheses_kernels as hk
+
+    assert runs in HYP_RUNS
+    f1, f2 = _hyp_faces(81, 2, 16, (), cuda)
+    m = hyp_run_matches(runs, 16, 128, 2, cuda)
+    for K in (16, 48):
+        want = hk.slots_plain(f1, f2, m, FCCFParams(), K)
+        got = hk._launch_slots(f1, f2, m, FCCFParams(), K)
+        assert _all_equal(hk.kept_hits(got), want)
+        assert _all_equal(hk._launch_emit(got, m, 2048),
+                          hk.emit_plain(want, m, 2048))
+    assert int(want.count.sum()) > 0
 
 
 def test_hypotheses_lane_alone_equals_batch(cuda):

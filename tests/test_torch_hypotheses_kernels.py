@@ -10,12 +10,16 @@ bases, H1's matches, H2's slots and H3's emission) on the CPU.
     overflow exact; quaternions atol 1e-5; translations atol 1e-4 + rtol
     1e-4 (a 3x3 normal-equation inverse can amplify float32 rounding by
     its condition number).
-  - A NumPy emulation of the kernels' selection (H1's runs of the mask a
-    thread and their exclusive scan, H2's warp ballots over 32 slots at a
-    time, H3's scan of the hit counts and a binary search a place) equals
-    the plain versions' stable sort and ``compact``, on rows with no hit,
-    exactly PER_MATCH hits, more than PER_MATCH, more than M matches and
-    more than H hits.
+  - A NumPy emulation of the kernels' selection (H1's ranks of rows, a
+    warp's ballots a row, the scans over a rank's rows and over the
+    cluster's ranks; H2's runs of equal source bases in its chunks, the
+    source table of a match's run, its eligible slots listed and ranked
+    by warp ballots 32 at a time; H3's scan of the hit counts and a
+    binary search a place) equals the plain versions' stable sort and
+    ``compact``, on rows with no hit, exactly PER_MATCH hits, more than
+    PER_MATCH, more than M matches and more than H hits, and on runs
+    over a chunk boundary, cut by the count, one base for every match
+    and a base of its own for each.
   - A pair alone equals the same pair in a batch of 4, bit for bit.
   - CPU calls build nothing and launch nothing.
 
@@ -206,46 +210,115 @@ def _runs(n, threads):
     return [(min(x * run, n), min(x * run + run, n)) for x in range(threads)]
 
 
-def h1_compaction(mask, capacity, threads=1024):
-    """H1's compaction of one row of the b1-major mask: each thread counts
-    its run, an exclusive scan of the counts gives the run's first place,
-    places past ``capacity`` are dropped. Returns (the source entry of
-    each kept place, count kept, overflow)."""
-    runs = _runs(len(mask), threads)
-    counts = [int(mask[lo:hi].sum()) for lo, hi in runs]
-    first = np.concatenate([[0], np.cumsum(counts)[:-1]])
+def _exclusive(counts):
+    return np.concatenate([[0], np.cumsum(counts)[:-1]]).astype(np.int64)
+
+
+def h1_compaction(mask, capacity, ranks=8, threads=512):
+    """H1's compaction of one pair's b1-major (B1 x B2) mask: rank r of
+    the cluster takes rows [r * rows, (r + 1) * rows), rows = ceil(B1 /
+    ranks); a warp a row ballots over the B2 entries 32 a round and
+    counts them (the words kept); each row's first place is the
+    exclusive scan of the rank's row counts (a run of rows a thread) plus
+    the totals of the ranks before it (read from the cluster); the write
+    pass places a set lane at its row's place so far plus the set lanes
+    below it in the word, and drops places past ``capacity``. Returns
+    (the source entry of each kept place, count kept, overflow)."""
+    B1, B2 = mask.shape
+    rows = -(-B1 // ranks)
+    W = -(-B2 // 32)
+    words = np.zeros((B1, W * 32), bool)
+    words[:, :B2] = mask
+    words = words.reshape(B1, W, 32)
     src = np.zeros(capacity, np.int64)
-    for (lo, hi), pos in zip(runs, first):
-        for e in range(lo, hi):
-            if mask[e] and pos < capacity:
-                src[pos] = e
-                pos += 1
-    total = int(sum(counts))
-    return src, min(total, capacity), total > capacity
+    row_start, totals = [], []
+    for r in range(ranks):
+        mine = range(min(r * rows, B1), min(r * rows + rows, B1))
+        counts = [int(words[a].sum()) for a in mine]
+        # The block scan: a run of rows a thread, then within the run.
+        sums = [sum(counts[lo:hi]) for lo, hi in _runs(len(mine), threads)]
+        pos = []
+        for (lo, hi), first in zip(_runs(len(mine), threads),
+                                   _exclusive(sums)):
+            for c in counts[lo:hi]:
+                pos.append(int(first))
+                first += c
+        row_start.append((mine, pos))
+        totals.append(sum(counts))
+    total = int(sum(totals))
+    kept = min(total, capacity)
+    for r, (mine, pos) in enumerate(row_start):
+        before = int(sum(totals[:r]))
+        for a, p0 in zip(mine, pos):
+            at0 = before + p0
+            for k in range(W):
+                if at0 >= capacity:
+                    break
+                word = words[a, k]
+                below = np.cumsum(word) - word  # set lanes below each lane
+                for lane in np.flatnonzero(word):
+                    at = at0 + int(below[lane])
+                    if at < capacity:
+                        src[at] = a * B2 + 32 * k + int(lane)
+                at0 += int(word.sum())
+    return src, kept, total > capacity
 
 
-def h2_ranking(pair_ok, K):
-    """H2's selection for one valid match: its F * F slot tests 32 at a
-    time (a warp), each round's valid slots ranked by the warp's ballot (a
-    lane's rank the popcount of the ballot below it, plus the valid slots
-    of the rounds before), the first K kept, no round begun once more than
-    K slots are valid; the fallback slot F * F at rank 0 where no slot is
-    valid. Returns (kept slots, valid slots counted)."""
-    FF = len(pair_ok)
+def h2_runs(ij, count, chunk=32):
+    """H2's runs of equal source bases: chunk x of ``chunk`` consecutive
+    matches takes its matches below ``count``; a match starts a run where
+    it is the chunk's first or its (i1, j1) differs from the match before.
+    Returns, for each match below count, (its chunk, its run's first
+    match)."""
+    out = []
+    for m0 in range(0, count, chunk):
+        first = m0
+        for m in range(m0, min(m0 + chunk, count)):
+            if m == m0 or ij[m] != ij[m - 1]:
+                first = m
+            out.append((m0 // chunk, first))
+    return out
+
+
+def h2_ranking(s_ok, t_ok, angle_ok, K):
+    """H2's selection for one valid match: the (s, t) slots with s_ok[s]
+    and t_ok[t] (the source and target faces the warp's ballots let
+    through, listed), in s-major order, which is slot order; a lane a slot
+    (entries (e // nt, e % nt) of the lists, moved by 32 = dq nt + dr a
+    round), 32 at a time, each round's valid slots ranked by the warp's
+    ballot (a lane's rank the popcount of the ballot below it, plus the
+    valid slots of the rounds before), the first K kept, no round begun
+    once more than K slots are valid; the fallback slot F * F at rank 0
+    where no slot is valid. Returns (kept slots, valid slots counted)."""
+    F = len(s_ok)
+    s_list, t_list = np.flatnonzero(s_ok), np.flatnonzero(t_ok)
+    ns, nt = len(s_list), len(t_list)
+    E = ns * nt
     kept, running = [], 0
-    for first in range(0, FF, 32):
+    if E:
+        si = np.arange(32) // nt
+        ti = np.arange(32) - si * nt
+        dq, dr = 32 // nt, 32 - (32 // nt) * nt
+    for e0 in range(0, E, 32):
         if running > K:
             break
         ok = np.zeros(32, bool)
-        ok[:min(32, FF - first)] = pair_ok[first:first + 32]
+        slot = np.zeros(32, np.int64)
+        for lane in range(32):
+            if e0 + lane < E:
+                s, t = s_list[si[lane]], t_list[ti[lane]]
+                ok[lane], slot[lane] = angle_ok[s, t], s * F + t
+        si, ti = si + dq, ti + dr
+        si, ti = np.where(ti >= nt, si + 1, si), np.where(ti >= nt, ti - nt,
+                                                           ti)
         ballot = sum(1 << lane for lane in range(32) if ok[lane])
         for lane in np.flatnonzero(ok):
             rank = running + bin(ballot & ((1 << int(lane)) - 1)).count("1")
             if rank < K:
-                kept.append((rank, first + int(lane)))
+                kept.append((rank, int(slot[lane])))
         running += bin(ballot).count("1")
     if running == 0 and K > 0:
-        kept.append((0, FF))
+        kept.append((0, F * F))
     return [slot for _, slot in sorted(kept)], running + (running == 0)
 
 
@@ -278,32 +351,78 @@ def h3_places(hit_count, H, threads=256):
     return places, total
 
 
-def _slot_masks(rng, M, F, kind):
-    """(M, F * F) pair tests of one pair's matches and the matches' valid
-    flags: each kind of row the ranking meets."""
-    FF = F * F
-    ok = rng.uniform(size=(M, FF)) < rng.choice([0.0, 0.01, 0.05, 0.3],
-                                                (M, 1))
+def _source_bases(rng, M, B, runs):
+    """Each match's source base (an index of the B bases), b1-major as H1
+    emits them: "h1" runs of 1-30 matches a base, "across" a run of 40
+    from match 20 (over the boundary of the chunks of 32), "one" every
+    match on one base, "own" a base of its own for every match."""
+    if runs == "one":
+        return np.full(M, 7)
+    if runs == "own":
+        return np.arange(M) % B
+    lengths = rng.integers(1, 31, M)
+    if runs == "across":
+        lengths[:3] = (8, 12, 40)
+    base = np.repeat(np.sort(rng.choice(B, M, replace=False)
+                             if M <= B else rng.integers(0, B, M)), lengths)
+    return base[:M]
+
+
+def _slot_tables(rng, M, F, kind, runs):
+    """One pair's matches: each match's source base (i1, j1), its source
+    faces' tests (one table a base), its target faces' tests, the angle
+    test of each (s, t), and the matches' valid flags (the last 3 not, or
+    a count that cuts a run short for runs "cut")."""
+    ii, jj = np.triu_indices(F, 1)
+    B = len(ii)
+    base = _source_bases(rng, M, B, "h1" if runs == "cut" else runs)
+    density = rng.choice([0.0, 0.3, 0.7, 1.0], B)
+    src_ok = rng.uniform(size=(B, F)) < density[:, None]
+    src_ok[np.arange(B), ii] = False
+    src_ok[np.arange(B), jj] = False
+    t_ok = rng.uniform(size=(M, F)) < rng.choice([0.2, 0.8, 1.0], (M, 1))
+    angle_ok = rng.uniform(size=(M, F, F)) < rng.choice(
+        [0.0, 0.01, 0.05, 0.3], (M, 1, 1))
     if kind == "exact":
-        ok[:] = False
+        src_ok[:], t_ok[:], angle_ok[:] = True, True, False
+        src_ok[np.arange(B), ii] = src_ok[np.arange(B), jj] = False
         for m in range(M):
-            ok[m, rng.choice(FF, 16, replace=False)] = True
+            s = [x for x in range(F) if x not in (ii[base[m]], jj[base[m]])]
+            picks = rng.choice(len(s) * F, 16, replace=False)
+            angle_ok[m, np.array(s)[picks // F], picks % F] = True
     elif kind == "dense":
-        ok = rng.uniform(size=(M, FF)) < 0.6
-    m_valid = np.arange(M) < (M - 3 if kind != "dense" else M)
-    return ok, m_valid
+        angle_ok = rng.uniform(size=(M, F, F)) < 0.6
+    count = M - 3 if kind != "dense" else M
+    if runs == "cut":  # the count falls inside a run of one base
+        ends = np.flatnonzero(np.diff(base) != 0)
+        long_run = ends[np.argmax(np.diff(ends))] + 1
+        count = int(long_run + 1 + (ends[np.argmax(np.diff(ends)) + 1]
+                                    - long_run) // 2)
+    m_valid = np.arange(M) < count
+    return base, ii, jj, src_ok, t_ok, angle_ok, m_valid
 
 
-@pytest.mark.parametrize("F,K,kind", [(16, 16, "mixed"), (16, 16, "exact"),
-                                      (16, 48, "mixed"), (24, 48, "dense"),
-                                      (5, 16, "mixed"), (16, 16, "dense")])
-def test_kernel_ranking_equals_sort_and_compact(F, K, kind):
-    """H2's ballots and H3's scan and search (NumPy) against the plain
-    versions' stable sort of the negated slot index and compact of the
-    hits."""
-    rng = np.random.default_rng(F * 100 + K)
+@pytest.mark.parametrize("F,K,kind,runs", [
+    pytest.param(F, K, kind, runs, id="-".join(
+        map(str, (F, K, kind) + ((runs,) * (runs != "h1")))))
+    for F, K, kind, runs in (
+        (16, 16, "mixed", "h1"), (16, 16, "exact", "h1"),
+        (16, 48, "mixed", "h1"), (24, 48, "dense", "h1"),
+        (5, 16, "mixed", "h1"), (16, 16, "dense", "h1"),
+        (16, 48, "mixed", "across"), (16, 16, "mixed", "cut"),
+        (16, 48, "mixed", "one"), (16, 16, "dense", "own"))])
+def test_kernel_ranking_equals_sort_and_compact(F, K, kind, runs):
+    """H2's runs, its eligible slots and ballots and H3's scan and search
+    (NumPy) against the plain versions' stable sort of the negated slot
+    index and compact of the hits: runs of equal source bases as H1 emits
+    them, one over a chunk boundary, a count that cuts a run, one base for
+    every match and a base of its own for each."""
+    rng = np.random.default_rng(F * 100 + K + len(runs))
     M, H = 96, 700
-    ok, m_valid = _slot_masks(rng, M, F, kind)
+    base, ii, jj, src_ok, t_ok, angle_ok, m_valid = _slot_tables(
+        rng, M, F, kind, runs)
+    ok = (src_ok[base][:, :, None] & t_ok[:, None, :] & angle_ok).reshape(
+        M, F * F)
     S = F * F + 1
     Kc = min(K, S)
     fb = ~ok.any(-1)
@@ -319,14 +438,17 @@ def test_kernel_ranking_equals_sort_and_compact(F, K, kind):
     flat = torch.arange(M)[:, None] * S + idxs
     count, overflow, h_valid, hflat = compact(hit_valid[None], H, flat[None],
                                               batch_dims=1)
-    # The kernels' selection.
+    # The kernels' selection: each match's source faces from its run's
+    # table (the base of the run's first match).
+    ij = ii[base] | jj[base] << 16
     hit_count = np.zeros(M, np.int64)
     row_over = np.zeros(M, bool)
     kept_slots = {}
-    for m in range(M):
-        if not m_valid[m]:
-            continue
-        kept, total = h2_ranking(ok[m], Kc)
+    chunks = set()
+    for m, (chunk, first) in enumerate(h2_runs(ij, int(m_valid.sum()))):
+        chunks.add((chunk, first))
+        kept, total = h2_ranking(src_ok[base[first]], t_ok[m], angle_ok[m],
+                                 Kc)
         kept_slots[m] = kept
         hit_count[m] = len(kept)
         row_over[m] = total > Kc
@@ -341,21 +463,33 @@ def test_kernel_ranking_equals_sort_and_compact(F, K, kind):
     got = [m * S + kept_slots[m][k] for m, k in places]
     np.testing.assert_array_equal(np.array(got, np.int64),
                                   hflat[0][h_valid[0]].numpy())
+    n_runs = len(chunks)
+    valid = int(m_valid.sum())
     if kind == "exact":
         assert (hit_count[m_valid] == 16).all() and not row_over.any()
     if kind == "dense":
         assert row_over.any() and total > H
+    if runs == "one":
+        assert n_runs == -(-valid // 32)  # a run a chunk
+    if runs == "own":
+        assert n_runs == valid
+    if runs == "across":  # the run of 40 from match 20 is three runs
+        assert {(0, 20), (1, 32)} <= chunks and base[20] == base[59]
+    if runs == "cut":
+        assert base[valid - 1] == base[valid]
 
 
-@pytest.mark.parametrize("B,M,density", [(120, 1024, 0.05), (120, 64, 0.05),
-                                         (10, 1024, 0.5), (276, 2048, 0.2)])
+@pytest.mark.parametrize("B,M,density", [
+    (120, 1024, 0.05), (120, 64, 0.05), (10, 1024, 0.5), (276, 2048, 0.2),
+    (3, 4, 1.0), (15, 100, 0.3), (2016, 2048, 0.0005)])
 def test_match_compaction_equals_compact(B, M, density):
-    """H1's runs and scan (NumPy) against compact of the b1-major mask,
-    with more matches than M among the cases."""
+    """H1's ranks, rows, ballots and scans (NumPy) against compact of the
+    b1-major mask, with more matches than M among the cases, ranks with
+    no row (B = 3) and rows of 63 words (B = 2016)."""
     rng = np.random.default_rng(B + M)
-    mask = rng.uniform(size=B * B) < density
+    mask = rng.uniform(size=(B, B)) < density
     src, count, over = h1_compaction(mask, M)
-    c, o, valid, got = compact(torch.from_numpy(mask)[None], M,
+    c, o, valid, got = compact(torch.from_numpy(mask.reshape(-1))[None], M,
                                torch.arange(B * B)[None], batch_dims=1)
     assert (count, over) == (int(c[0]), bool(o[0]))
     np.testing.assert_array_equal(src[:count], got[0][valid[0]].numpy())

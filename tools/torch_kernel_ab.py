@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """A/B of the LM kernel L1, the floor walk C2, the scans S1 and S2, the
-faces kernels F1 and F2 and fine verify's join of two checkouts on
-one CUDA card, in turns (old, new, new, old), at the inputs the batched
-main path gives them at batch 8 (heritage and office presets).
+faces kernels F1 and F2, fine verify's join and the hypotheses kernels
+H1 and H2 of two checkouts on one CUDA card, in turns (old, new, new,
+old), at the inputs the batched main path gives them at batch 8
+(heritage and office presets).
 
     python3 tools/torch_kernel_ab.py --parent DIR [--reps N] [--turns K]
-        [--only lm,cluster,scan,faces,fine] [--f2-splits 2,4,16]
+        [--only lm,cluster,scan,faces,fine,hyp] [--f2-splits 2,4,16]
         [--f1-threads 32,128,256] [--fine-sources A.cu,B.cu]
+        [--hyp-sources A.cu,B.cu]
 
 ``DIR`` holds the other checkout (unpack it with ``git archive`` into
 the gitignored ``smoke_checkout/``); its ``fccf_pcr_torch/csrc/lm.cu``,
@@ -41,7 +43,12 @@ further arms (a source with the two-kernel entries ``fccf_fine_lookup``
 and ``fccf_fine_score``, as the tree up to commit 1662b43 has them, runs
 as that tree's step ran it: its counters' fill, V1, V2; one with this
 tree's entry behind this tree's wrapper), each held to this tree's
-bits), each in ``--turns`` rounds of old, new, new, old (2K pairs); a
+bits); H1 and H2 on the calls ``chip_smoke.record_hypotheses`` records
+(H2 fed the same recorded matches in every arm), with the other tree's
+``csrc/hypotheses.cu`` and each ``--hyp-sources`` file as further arms
+behind this tree's wrappers, each held to this tree's plain versions (H2
+on its kept hits), each in ``--turns`` rounds of old, new, new, old (2K
+pairs); a
 line gives every time in order and each arm's median, and a step's sum
 of S1's and of S2's calls a turn. Prints one line a comparison with the
 card's name and power limit, and the whole as JSON last. Exits non-zero
@@ -147,6 +154,17 @@ def bind_two_kernel_fine(lib):
     fn = lib.fccf_fine_row_floats
     fn.argtypes = []
     fn.restype = ctypes.c_longlong
+
+
+def bind_hyp(lib, source):
+    """Bind a ``hypotheses.cu``'s C entries by the signature its source
+    has: every source from the block-a-pair H1 and warp-a-match H2 on
+    takes the same arguments, so each takes this tree's binding."""
+    from fccf_pcr_torch.ops import hypotheses_kernels as hk
+
+    if "int fccf_hyp_slots(" not in source.read_text():
+        raise SystemExit(f"{source} exports no fccf_hyp_slots")
+    hk._bind(lib)
 
 
 def _stream(dev):
@@ -429,16 +447,73 @@ def fine_ab(sources, dev, smi, res, turns):
                   + f"; {meds} | {smi}", flush=True)
 
 
+def hyp_ab(sources, dev, smi, res, turns):
+    """H1 and H2 of other ``hypotheses.cu`` sources (``sources``: {arm:
+    library}) against this tree's in turns, behind this tree's wrappers,
+    on the eager batch-8 steps' own calls; every arm held to this tree's
+    plain versions (``chip_smoke.hyp_equal``: H2 on its kept hits)."""
+    import chip_smoke as cs
+    from fccf_pcr_torch.evaluation import configs
+    from fccf_pcr_torch.models.fccf import get_model
+    from fccf_pcr_torch.ops import hypotheses_kernels as hk
+
+    def behind(lib, form, x):
+        def call():
+            kept = hk._LIBRARY._lib
+            hk._LIBRARY._lib = lib
+            try:
+                return getattr(hk, f"_launch_{form}")(*x)
+            finally:
+                hk._LIBRARY._lib = kept
+        return call
+
+    for name in ("heritage", "office"):
+        model = get_model(configs.CONFIGS[name]["model"])
+        args, _ = cs.config_batch(name, list(range(8)), model.params,
+                                  model.caps, dev)
+        calls = cs.record_hypotheses(cs.eager_step(model.params, model.caps),
+                                     args)
+        r = res.setdefault(name, {})
+        r["hyp"] = []
+        for form, x in calls:
+            if form == "emit":
+                continue
+            kernel, plain = cs.hyp_forms(form, x)
+            want = plain()
+            arms = {"new": kernel}
+            arms.update({arm: behind(lib, form, x)
+                         for arm, lib in sources.items()})
+            for arm, call in arms.items():
+                cs.check(cs.hyp_equal(form, call(), want),
+                         f"{name}: {form} at {arm} differs from plain")
+            names = ["old"] + [arm for arm in arms if arm != "old"]
+            order = (names + names[::-1]) * turns
+            c = dict(what=form, us=[(arm, cs.graph_ms(arms[arm]) * 1e3)
+                                    for arm in order])
+            r["hyp"].append(c)
+            meds = ", ".join(
+                f"median {arm} "
+                f"{statistics.median([us for y, us in c['us'] if y == arm]):.2f} us"
+                for arm in names)
+            shape = list((x[2].valid if form == "slots" else x[0].valid).shape)
+            print(f"[ab] {'H1' if form == 'matches' else 'H2'} {name} {form} "
+                  f"{shape}, a call: "
+                  + ", ".join(f"{arm} {us:.2f} us" for arm, us in c["us"])
+                  + f"; {meds} | {smi}", flush=True)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", required=True, type=pathlib.Path)
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--turns", type=int, default=1)
     ap.add_argument("--only", default="lm,cluster,scan,faces",
-                    help="comma-separated: lm, cluster, scan, faces, fine")
+                    help="comma-separated: lm, cluster, scan, faces, fine, "
+                    "hyp")
     ap.add_argument("--f2-splits", default="")
     ap.add_argument("--f1-threads", default="")
     ap.add_argument("--fine-sources", default="")
+    ap.add_argument("--hyp-sources", default="")
     a = ap.parse_args()
     only = set(a.only.split(","))
     import torch
@@ -467,15 +542,19 @@ def main():
     cuda_build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     builds = {}
     sources = [(src, a.parent / "fccf_pcr_torch" / "csrc" / src, bind)
-               for src, bind in (
-                   ("lm.cu", bind_lm),
-                   ("cluster.cu", lambda lib, _: ck._bind(lib)),
-                   ("scan.cu", bind_scan), ("faces.cu", bind_faces),
-                   ("fine.cu", bind_fine))
-               if src[:-3] in only]
+               for src, bind, key in (
+                   ("lm.cu", bind_lm, "lm"),
+                   ("cluster.cu", lambda lib, _: ck._bind(lib), "cluster"),
+                   ("scan.cu", bind_scan, "scan"),
+                   ("faces.cu", bind_faces, "faces"),
+                   ("fine.cu", bind_fine, "fine"),
+                   ("hypotheses.cu", bind_hyp, "hyp"))
+               if key in only]
     # More fine.cu arms, named by their file's stem.
     sources += [(pathlib.Path(x).stem, pathlib.Path(x), bind_fine)
                 for x in a.fine_sources.split(",") if x and "fine" in only]
+    sources += [(pathlib.Path(x).stem, pathlib.Path(x), bind_hyp)
+                for x in a.hyp_sources.split(",") if x and "hyp" in only]
     for src, path, bind in sources:
         out = cuda_build.BUILD_DIR / f"ab_parent_{src.replace('.', '_')}.so"
         builds[src] = (subprocess.Popen(
@@ -597,11 +676,17 @@ def main():
     res = {"card": smi, "parent": str(a.parent)}
     if "faces" in only:
         faces_ab(old["faces.cu"], variants, dev, smi, res, a.turns)
+    def arms(main, extra):
+        """The other tree's ``main`` source as "old", and the extra
+        sources' libraries by their files' stems."""
+        stems = {pathlib.Path(x).stem for x in extra.split(",") if x}
+        return {"old" if src == main else src: lib
+                for src, lib in old.items() if src == main or src in stems}
+
     if "fine" in only:
-        fine_ab({"old" if src == "fine.cu" else src: lib
-                 for src, lib in old.items()
-                 if src == "fine.cu" or not src.endswith(".cu")},
-                dev, smi, res, a.turns)
+        fine_ab(arms("fine.cu", a.fine_sources), dev, smi, res, a.turns)
+    if "hyp" in only:
+        hyp_ab(arms("hypotheses.cu", a.hyp_sources), dev, smi, res, a.turns)
     for name in ("heritage", "office") if {"lm", "cluster"} <= only else ():
         kw = cs.lm_inputs(name, list(range(8)), dev)
         planes = tuple(kw[k].contiguous() for k in ("n1", "p1", "n2", "p2",
