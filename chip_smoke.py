@@ -4000,9 +4000,20 @@ def hyp_edge_cases(dev):
                   TEST_CAPS.replace(per_match_hits=16)))
     for what, over in (("M overflow", dict(max_matches=64)),
                        ("H overflow", dict(max_hypotheses=256)),
-                       ("row overflow", dict(per_match_hits=2))):
+                       ("row overflow", dict(per_match_hits=2)),
+                       # --caps large, and the heritage preset escalated
+                       # (auto_escalation_caps doubles M, H, PER_MATCH).
+                       ("--caps large", dict(max_matches=4096,
+                                             max_hypotheses=16384)),
+                       ("escalated heritage", dict(
+                           max_matches=4096, max_hypotheses=6144,
+                           per_match_hits=96)),
+                       ("M 1001", dict(max_matches=1001)),
+                       ("H 0", dict(max_hypotheses=0)),
+                       ("H 1", dict(max_hypotheses=1))):
         cases.append((what, *hyp_faces(31, 3, 16, (), dev),
                       TEST_CAPS.replace(**over)))
+    cases.append(("a pair alone", *hyp_faces(33, 1, 16, (), dev), TEST_CAPS))
     cases.append(("no valid face, zero normals, NaN entries, one face",
                   *hyp_faces(41, 4, 16, ("none", "zero", "nan", "one"), dev),
                   TEST_CAPS))
@@ -4068,6 +4079,116 @@ def hyp_runs_equal(dev):
                   f"H3 on H2's slots of {what}: differs from plain")
             calls += 2
     return len(HYP_RUNS), calls
+
+
+# H3's own cases (``hyp_emit_case``), held to emit_plain and not timed:
+# their counts are made up. (what, P, M, K, counts, H), H a number or
+# "below" / "at" / "above" the first pair's total: the sizes of --caps
+# large and of the heritage preset escalated, an M that is no multiple of
+# 4 (nor of 32), H 0 and 1, no hit, one match holding every hit, a pair
+# alone and the most pairs a launch takes.
+HYP_EMIT_CASES = (
+    ("--caps large", 8, 4096, 16, "mixed", 16384),
+    ("escalated heritage", 8, 4096, 96, "mixed", 6144),
+    ("M 1001", 8, 1001, 48, "mixed", "below"),
+    ("H 0", 8, 2048, 48, "mixed", 0),
+    ("H 1", 8, 2048, 48, "mixed", 1),
+    ("H below the total", 8, 2048, 48, "mixed", "below"),
+    ("H at the total", 8, 2048, 48, "mixed", "at"),
+    ("H above the total", 8, 2048, 48, "mixed", "above"),
+    ("no hit", 8, 2048, 48, "zero", 3072),
+    ("one match holds every hit", 8, 2048, 96, "one", "at"),
+    ("a pair alone", 1, 2048, 48, "mixed", "above"),
+    ("65535 pairs", 65535, 8, 2, "mixed", 4),
+)
+# H3's timed cases besides the presets' steps: the heritage batch-8
+# step's own H3 call at the hypotheses stage's capacities of --caps large
+# and of the preset escalated (``hyp_timed_caps``, ``record_emit``).
+HYP_EMIT_TIMED = ("--caps large", "escalated heritage")
+
+
+def hyp_timed_caps(what, caps):
+    """The capacities of one of ``HYP_EMIT_TIMED`` from the heritage
+    preset's ``caps``: its M, H and PER_MATCH replaced by those of --caps
+    large (4096, 16384, 16), or ``auto_escalation_caps`` of it (M 4096, H
+    6144, PER_MATCH 96)."""
+    from fccf_pcr_torch.cli import _caps_preset
+    from fccf_pcr_torch.models.auto import auto_escalation_caps
+
+    if what == "--caps large":
+        large = _caps_preset("large")
+        return caps.replace(max_matches=large.max_matches,
+                            max_hypotheses=large.max_hypotheses,
+                            per_match_hits=large.per_match_hits)
+    return auto_escalation_caps(caps)
+
+
+def record_emit(what, args):
+    """The args of H3's launch in the heritage eager step on ``args`` (the
+    heritage batch) at ``hyp_timed_caps(what)``."""
+    from fccf_pcr_torch.evaluation import configs
+    from fccf_pcr_torch.models.fccf import get_model
+
+    model = get_model(configs.CONFIGS["heritage"]["model"])
+    calls = record_hypotheses(
+        eager_step(model.params, hyp_timed_caps(what, model.caps)), args)
+    forms = [form for form, _ in calls]
+    check(forms == ["matches", "slots", "emit"],
+          f"heritage at {what}'s capacities: the eager step's hypotheses "
+          f"calls are {forms} (want one H1, H2 and H3)")
+    return calls[2][1]
+
+
+def hyp_emit_case(case, dev):
+    """H3's inputs for one of ``HYP_EMIT_CASES``: (Slots, Matches, H).
+    Counts "mixed" are about 60% zero and the others 1 to K (a step's are
+    about 1 a match), "zero" none, "one" K at one match of each pair; the
+    quaternions, translations and types random; rows over PER_MATCH at
+    0.1% in every pair but the first, and pair 1's matches over M."""
+    import numpy as np
+    import torch
+
+    from fccf_pcr_torch.ops.hypotheses_kernels import Matches, Slots
+
+    what, P, M, K, counts, H = case
+    rng = np.random.default_rng(M + K + P)
+    if counts == "zero":
+        c = np.zeros((P, M), np.int64)
+    elif counts == "one":
+        c = np.zeros((P, M), np.int64)
+        c[np.arange(P), rng.integers(0, M, P)] = K
+    else:
+        c = np.where(rng.uniform(size=(P, M)) < 0.6, 0,
+                     rng.integers(1, K + 1, (P, M)))
+    total0 = int(c[0].sum())
+    H = {"below": total0 // 2 + 1, "at": total0,
+         "above": total0 + 37}.get(H, H)
+    rows = rng.uniform(size=(P, M)) < 0.001
+    rows[0] = False
+
+    def dev_(x, dtype=None):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev, dtype)
+
+    s = Slots(quat=dev_(rng.normal(size=(P, M, 4)), torch.float32),
+              t=dev_(rng.normal(size=(P, M, K, 3)), torch.float32),
+              count=dev_(c, torch.int32), row_overflow=dev_(rows))
+    idx = torch.zeros((P, M), dtype=torch.int64, device=dev)
+    m = Matches(count=torch.full((P,), M, dtype=torch.int32, device=dev),
+                overflow=dev_(np.arange(P) == 1),
+                valid=torch.ones((P, M), dtype=torch.bool, device=dev),
+                i1=idx, j1=idx, i2=idx, j2=idx,
+                type_=dev_(rng.integers(0, 3, (P, M)), torch.int32))
+    return s, m, H
+
+
+def hyp_emit_equal(dev):
+    """H3 against ``emit_plain`` on each of ``HYP_EMIT_CASES``, bit for
+    bit. Returns the cases."""
+    for case in HYP_EMIT_CASES:
+        k, plain = hyp_forms("emit", hyp_emit_case(case, dev))
+        check(hyp_equal("emit", k(), plain()), f"H3 on {case[0]} "
+              f"{case[1:]}: differs from plain")
+    return len(HYP_EMIT_CASES)
 
 
 def hyp_stage_equal(what, f1, f2, caps):
@@ -4159,8 +4280,9 @@ def phase_hypotheses(steps, eager, dev):
     (``hyp_edge_cases``), a pair alone against a batch of 8
     (``hyp_lane_alone``) and the stage twice in one replayed graph
     (``hyp_replays``); at each step's inputs the device time a call
-    (``graph_ms``) of the kernel and the plain version beside the
-    bound."""
+    (``graph_ms``) of the kernel and the plain version beside the bound;
+    so too H3 on the heritage step's own call at the capacities of each
+    of ``HYP_EMIT_TIMED`` (``record_emit``)."""
     import torch
 
     names = {"matches": "H1", "slots": "H2", "emit": "H3", "bases": "bases"}
@@ -4198,6 +4320,20 @@ def phase_hypotheses(steps, eager, dev):
                     row_overflows=int(want.row_overflow.sum()))
             elif form == "emit":
                 out[kernel][name]["hypotheses"] = int(want[4].sum())
+    out["emit_timed"] = {}
+    for what in HYP_EMIT_TIMED:
+        a = record_emit(what, steps["heritage"][1])
+        k, plain = hyp_forms("emit", a)
+        want = plain()
+        ok = hyp_equal("emit", k(), want)
+        out["differ"] += not ok
+        check(ok, f"heritage at {what}'s capacities: H3 differs from plain")
+        bound_ms, bound_by = hyp_bound("emit", a, want)
+        out["emit_timed"][what] = dict(
+            shape=tuple(a[0].t.shape[:3]), H=a[2],
+            hits=int(a[0].count.clamp(0, a[0].t.shape[2]).sum()),
+            hypotheses=int(want[4].sum()), ms=graph_ms(k),
+            plain_ms=graph_ms(plain), bound_ms=bound_ms, bound_by=bound_by)
     cases = hyp_edge_cases(dev)
     for what, f1, f2, caps in cases:
         out["edge_calls"] += hyp_stage_equal(what, f1, f2, caps)
@@ -4205,6 +4341,9 @@ def phase_hypotheses(steps, eager, dev):
     runs, calls = hyp_runs_equal(dev)
     out["edge_cases"] += runs
     out["edge_calls"] += calls
+    emits = hyp_emit_equal(dev)
+    out["edge_cases"] += emits
+    out["edge_calls"] += emits
     out["lane_alone"] = hyp_lane_alone(dev)
     out["replayed_calls"] = hyp_replays(cases[:3] + cases[-1:])
     return out
@@ -5364,6 +5503,15 @@ def main():
                          f"{c['ms'] / c['yardstick_ms']:.1f}x it"
                          if "yardstick_ms" in c else "")
                       + f" | ptxas {ptxas[ptx]} | {smi}", flush=True)
+        for what, c in hc["emit_timed"].items():
+            print(f"[hypotheses] H3 heritage batch-8 step at {what}'s "
+                  f"capacities (P, M, PER_MATCH) {c['shape']}, H {c['H']}, "
+                  f"{c['hits']} hits, {c['hypotheses']} hypotheses: equal "
+                  "to plain; "
+                  f"{c['ms'] * 1e3:.2f} us device vs plain "
+                  f"{c['plain_ms'] * 1e3:.2f} us; bound "
+                  f"{c['bound_ms'] * 1e3:.3f} us ({c['bound_by']}), "
+                  f"{c['ms'] / c['bound_ms']:.1f}x it | {smi}", flush=True)
         print(f"[hypotheses] {hc['edge_cases']} edge cases "
               f"({hc['edge_calls']} kernel calls) equal to plain; a pair "
               f"alone equal to its row of {hc['lane_alone']}; "

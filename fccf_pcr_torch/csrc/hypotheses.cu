@@ -58,13 +58,27 @@
 // hits' stores out of them change little), then the preludes and the
 // target faces.
 //
-// H3, fccf_hyp_emit, one thread a place of H (a grid of (H / 256, P)):
-// each block scans the pair's per-match hit counts over M into shared
-// memory (a run of matches a thread), and place e takes hit k of the
-// first match whose scanned end is past e (a binary search); its
-// quaternion, translation and type are written there, the places past
-// the count hold +0.0 and 0, and the overflow is H's, the matches' or any
-// row's.
+// H3, fccf_hyp_emit, a block of kEmitThreads (128) a run of as many
+// matches of a pair, a thread a match, grid (M / 128, P). What bounded a
+// thread a place of H: every block of a pair scanned all M counts again
+// by loads 32 B apart, three barriers before a place was written, and
+// each place paid a binary search over M ends in shared memory (which
+// also capped M). Here each block starts all its loads of the pair's
+// counts at once (int4 where a row is 16-byte aligned), a warp scans its
+// 32 matches' counts by shuffles, and one barrier gives each warp where
+// its run of places starts. Which match and hit a place of the run takes
+// does not depend on that start, so the run's first 64 places are
+// gathered before the barrier: lane l takes places l, l + 32, ...
+// (kEmitPlaces rounds at once), each place's match the first lane whose
+// scanned end is past it (5 shuffles), its quaternion one float4. The
+// places past the kept hits hold +0.0 and 0, split over the pair's
+// blocks and stored while the gathers are in flight; block 0 also reads
+// the rows' overflow flags and writes the count and the overflow (H's,
+// the matches' or any row's). A run past 64 places takes its later
+// rounds in turn, each loaded then stored. In turns (PERF.md): blocks of
+// 128 as fast as 64 and faster than 256, 512 and 1024; two rounds at once
+// faster than four at office, as fast at heritage; loading a later round
+// before storing the one before no faster on a step's calls.
 //
 // Bit for bit the plain versions' operations on the card, in their order
 // (ops/hypotheses_kernels.py; ops/geometry.py, ops/batch.py):
@@ -116,7 +130,12 @@ constexpr int kMatchThreads = 512;
 constexpr int kSlotThreads = 256;
 constexpr int kSlotWarps = kSlotThreads / 32;
 constexpr int kSlotChunk = 32;
-constexpr int kEmitThreads = 256;
+// H3: a block a run of kEmitThreads matches of a pair, a thread a match
+// (a multiple of 32, at most 1024); a thread's loads of the pair's counts
+// started at once, and the rounds of 32 places a warp takes at once.
+constexpr int kEmitThreads = 128;
+constexpr int kEmitLoads = 4;
+constexpr int kEmitPlaces = 2;
 // Dynamic shared memory a block may have on the card.
 constexpr long long kMaxShared = 232448;
 
@@ -965,6 +984,90 @@ hyp_slots_kernel(Faces f1, Faces f2, const int* __restrict__ mcount,
 
 // ---------------------------------------------------------------- H3 --
 
+// A match's hits as H3 takes them: its count held to [0, K], as
+// emit_plain's arange(K) < count.
+__device__ __forceinline__ int kept_count(int c, int K) {
+  return c < 0 ? 0 : (c > K ? K : c);
+}
+
+// The sum of a group of counts, each held to [0, K].
+__device__ __forceinline__ int group_hits(int4 v, int K) {
+  return kept_count(v.x, K) + kept_count(v.y, K) + kept_count(v.z, K) +
+         kept_count(v.w, K);
+}
+
+// kEmitPlaces places of each lane (rounds of 32 places of a warp's run
+// at once), loaded before they are stored.
+struct EmitRound {
+  float4 q[kEmitPlaces];
+  float t[kEmitPlaces][3];
+  int type[kEmitPlaces];
+};
+
+// Loads places r0 + 32 u + lane below lim of the warp's run: place r's
+// match is the first lane whose end is past r (the ends rise with the
+// lane: 5 shuffles), its hit r - beg of that lane. Every lane calls it.
+__device__ __forceinline__ void emit_load(EmitRound& e, int r0, int lim,
+                                          int end, int beg, long long m0,
+                                          int K, bool vec,
+                                          const float* __restrict__ quat,
+                                          const float* __restrict__ hit_t,
+                                          const int* __restrict__ mtype) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int u = 0; u < kEmitPlaces; ++u) {
+    const int r = r0 + 32 * u + lane;
+    int j = 0;
+#pragma unroll
+    for (int s = 16; s > 0; s >>= 1)
+      if (__shfl_sync(0xffffffffu, end, j + s - 1) <= r) j += s;
+    const int k = r - __shfl_sync(0xffffffffu, beg, j);
+    if (r < lim) {
+      const long long pm = m0 + j;
+      if (vec) {
+        e.q[u] = reinterpret_cast<const float4*>(quat)[pm];
+      } else {
+        e.q[u] = make_float4(quat[4 * pm], quat[4 * pm + 1], quat[4 * pm + 2],
+                             quat[4 * pm + 3]);
+      }
+      const float* src = hit_t + (pm * K + k) * 3;
+#pragma unroll
+      for (int c = 0; c < 3; ++c) e.t[u][c] = src[c];
+      e.type[u] = mtype[pm];
+    }
+  }
+}
+
+// Stores the places of emit_load's round below n, at h0 + r.
+__device__ __forceinline__ void emit_store(const EmitRound& e, int r0, int n,
+                                           long long h0, bool vec,
+                                           float* __restrict__ q_out,
+                                           float* __restrict__ t_out,
+                                           int* __restrict__ type_out,
+                                           unsigned char* __restrict__ valid) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int u = 0; u < kEmitPlaces; ++u) {
+    const int r = r0 + 32 * u + lane;
+    if (r < n) {
+      const long long h = h0 + r;
+      if (vec) {
+        reinterpret_cast<float4*>(q_out)[h] = e.q[u];
+      } else {
+        q_out[4 * h] = e.q[u].x;
+        q_out[4 * h + 1] = e.q[u].y;
+        q_out[4 * h + 2] = e.q[u].z;
+        q_out[4 * h + 3] = e.q[u].w;
+      }
+#pragma unroll
+      for (int c = 0; c < 3; ++c) t_out[3 * h + c] = e.t[u][c];
+      type_out[h] = e.type[u];
+      valid[h] = 1;
+    }
+  }
+}
+
+// Block b of pair p owns the matches [b T, (b + 1) T), a thread a match.
 __global__ void __launch_bounds__(kEmitThreads)
 hyp_emit_kernel(const int* __restrict__ hit_count,
                 const unsigned char* __restrict__ row_overflow,
@@ -972,63 +1075,132 @@ hyp_emit_kernel(const int* __restrict__ hit_count,
                 const float* __restrict__ hit_t,
                 const int* __restrict__ mtype,
                 const unsigned char* __restrict__ m_overflow, long long M,
-                int K, long long H, float* q_out, float* t_out, int* type_out,
-                unsigned char* valid_out, int* count_out,
+                int K, long long H, float* __restrict__ q_out,
+                float* __restrict__ t_out, int* __restrict__ type_out,
+                unsigned char* __restrict__ valid_out, int* count_out,
                 unsigned char* overflow_out) {
-  extern __shared__ int ends[];  // (M) each match's last place + 1
-  __shared__ int wsum[32];
+  constexpr int kWarps = kEmitThreads / 32;
+  __shared__ int s_before[kWarps], s_all[kWarps], s_own[kWarps];
   const long long p = blockIdx.y;
+  const long long start = (long long)blockIdx.x * kEmitThreads;
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   const int* cnt = hit_count + p * M;
-  // A contiguous run of matches a thread, scanned over the block.
-  const long long run = (M + blockDim.x - 1) / blockDim.x;
-  const long long lo = threadIdx.x * run;
-  const long long hi = lo + run < M ? lo + run : M;
-  int n = 0;
-  bool over = false;
-  for (long long m = lo; m < hi; ++m) {
-    n += cnt[m];
-    over |= row_overflow[p * M + m] != 0;
+  const unsigned char* rows = row_overflow + p * M;
+  const long long m = start + threadIdx.x;
+  // Every load of the counts (and block 0's of the rows' flags) is started
+  // before any is summed: groups of 4 where the row is 16-byte aligned
+  // (start is a multiple of 4), kEmitLoads a thread at once, then any
+  // further ones in turn.
+  const bool vec_c =
+      (M & 3) == 0 && (reinterpret_cast<size_t>(cnt) & 15) == 0;
+  const bool vec_r =
+      (M & 3) == 0 && (reinterpret_cast<size_t>(rows) & 3) == 0;
+  const long long n_c = vec_c ? M >> 2 : M;
+  const long long n_r = vec_r ? M >> 2 : M;
+  const bool flags = blockIdx.x == 0;
+  const int own = m < M ? kept_count(cnt[m], K) : 0;
+  int4 v[kEmitLoads];
+  unsigned f[kEmitLoads];
+#pragma unroll
+  for (int u = 0; u < kEmitLoads; ++u) {
+    const long long i = threadIdx.x + (long long)u * kEmitThreads;
+    v[u] = make_int4(0, 0, 0, 0);
+    f[u] = 0u;
+    if (i < n_c) {
+      if (vec_c) v[u] = reinterpret_cast<const int4*>(cnt)[i];
+      else v[u].x = cnt[i];
+    }
+    if (flags && i < n_r)
+      f[u] = vec_r ? reinterpret_cast<const unsigned*>(rows)[i] : rows[i];
   }
-  const bool any_row = __syncthreads_or(over);
-  int total;
-  int end = block_exclusive_scan(n, wsum, &total);
-  for (long long m = lo; m < hi; ++m) {
-    end += cnt[m];
-    ends[m] = end;
+  const int m_over = flags && threadIdx.x == 0 ? m_overflow[p] : 0;
+  // The warp's scan of its matches' counts: each lane's match ends at
+  // place `end` of the warp's run of wsum places.
+  int end = own;
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int u = __shfl_up_sync(0xffffffffu, end, d);
+    if (lane >= d) end += u;
   }
-  __syncthreads();
+  const int beg = end - own;
+  const int wsum = __shfl_sync(0xffffffffu, end, 31);
+  // The pair's hits before the block's matches and all of them.
+  const int width = vec_c ? 4 : 1;
+  int before = 0, all = 0;
+  unsigned any = 0u;
+#pragma unroll
+  for (int u = 0; u < kEmitLoads; ++u) {
+    const long long i = threadIdx.x + (long long)u * kEmitThreads;
+    const int s = group_hits(v[u], K);
+    all += s;
+    if (i * width < start) before += s;
+    any |= f[u];
+  }
+  for (long long i = threadIdx.x + (long long)kEmitLoads * kEmitThreads;
+       i < n_c; i += kEmitThreads) {
+    const int s = vec_c ? group_hits(reinterpret_cast<const int4*>(cnt)[i], K)
+                        : kept_count(cnt[i], K);
+    all += s;
+    if (i * width < start) before += s;
+  }
+  if (flags)
+    for (long long i = threadIdx.x + (long long)kEmitLoads * kEmitThreads;
+         i < n_r; i += kEmitThreads)
+      any |= vec_r ? reinterpret_cast<const unsigned*>(rows)[i] : rows[i];
+  before = __reduce_add_sync(0xffffffffu, before);
+  all = __reduce_add_sync(0xffffffffu, all);
+  if (lane == 0) {
+    s_before[w] = before;
+    s_all[w] = all;
+    s_own[w] = wsum;
+  }
+  // The run's first round is gathered before the barrier: which match
+  // and hit a place takes does not depend on where the run starts.
+  const long long m0 = p * M + start + (w << 5);
+  const bool vec = ((reinterpret_cast<size_t>(quat) |
+                     reinterpret_cast<size_t>(q_out)) & 15) == 0;
+  EmitRound e;
+  emit_load(e, 0, wsum, end, beg, m0, K, vec, quat, hit_t, mtype);
+  const bool any_row = __syncthreads_or(any != 0u);
+  // The warps' sums, read by every thread; the warp's run of places
+  // [ws, ws + n), clipped to the kept ones.
+  int total = 0;
+  long long ws = 0;
+#pragma unroll
+  for (int x = 0; x < kWarps; ++x) {
+    total += s_all[x];
+    ws += s_before[x] + (x < w ? s_own[x] : 0);
+  }
   const long long kept = total < H ? total : H;
-  const long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e < H) {
-    const long long h = p * H + e;
-    if (e < kept) {
-      // Place e is hit k of the first match whose end is past e.
-      long long a = 0, b = M - 1;
-      while (a < b) {
-        const long long mid = (a + b) >> 1;
-        if (ends[mid] > e) b = mid; else a = mid + 1;
-      }
-      const long long pm = p * M + a;
-      const long long k = e - (ends[a] - cnt[a]);
-#pragma unroll
-      for (int r = 0; r < 4; ++r) q_out[4 * h + r] = quat[4 * pm + r];
-#pragma unroll
-      for (int r = 0; r < 3; ++r)
-        t_out[3 * h + r] = hit_t[(pm * K + k) * 3 + r];
-      type_out[h] = mtype[pm];
-      valid_out[h] = 1;
+  const long long room = kept - ws;
+  const int n = room <= 0 ? 0 : (room < wsum ? (int)room : wsum);
+  const long long h0 = p * H + ws;
+  // The places past the kept hits, split over the pair's blocks, stored
+  // while the first round's gathers are in flight.
+  const long long stride = (long long)gridDim.x * kEmitThreads;
+  for (long long x = kept + start + threadIdx.x; x < H; x += stride) {
+    const long long h = p * H + x;
+    if (vec) {
+      reinterpret_cast<float4*>(q_out)[h] = make_float4(0.f, 0.f, 0.f, 0.f);
     } else {
 #pragma unroll
-      for (int r = 0; r < 4; ++r) q_out[4 * h + r] = 0.0f;
-#pragma unroll
-      for (int r = 0; r < 3; ++r) t_out[3 * h + r] = 0.0f;
-      type_out[h] = 0;
-      valid_out[h] = 0;
+      for (int c = 0; c < 4; ++c) q_out[4 * h + c] = 0.0f;
     }
+#pragma unroll
+    for (int c = 0; c < 3; ++c) t_out[3 * h + c] = 0.0f;
+    type_out[h] = 0;
+    valid_out[h] = 0;
   }
   if (blockIdx.x == 0 && threadIdx.x == 0) {
     count_out[p] = (int)kept;
-    overflow_out[p] = total > H || m_overflow[p] != 0 || any_row;
+    overflow_out[p] = total > H || m_over != 0 || any_row;
+  }
+  emit_store(e, 0, n, h0, vec, q_out, t_out, type_out, valid_out);
+  // Later rounds (a run past 32 kEmitPlaces places), in turn.
+  constexpr int kStep = 32 * kEmitPlaces;
+  for (int r0 = kStep; r0 < n; r0 += kStep) {
+    emit_load(e, r0, n, end, beg, m0, K, vec, quat, hit_t, mtype);
+    emit_store(e, r0, n, h0, vec, q_out, t_out, type_out, valid_out);
   }
 }
 
@@ -1165,13 +1337,11 @@ int fccf_hyp_emit(const void* hit_count, const void* row_overflow,
                   void* overflow_out, long long P, long long M, int K,
                   long long H, void* stream) {
   if (P <= 0) return 0;
-  const long long blocks = H > 0 ? (H + kEmitThreads - 1) / kEmitThreads : 1;
-  const long long bytes = M * (long long)sizeof(int);
-  if (P > 65535 || M <= 0 || M * K > 0x7fffffffLL || blocks > 0x7fffffffLL)
+  const long long blocks = (M + kEmitThreads - 1) / kEmitThreads;
+  if (P > 65535 || M <= 0 || K < 0 || H < 0 || M * K > 0x7fffffffLL ||
+      blocks > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
-  cudaError_t err = allow_shared(hyp_emit_kernel, bytes);
-  if (err != cudaSuccess) return (int)err;
-  hyp_emit_kernel<<<dim3((unsigned)blocks, (unsigned)P), kEmitThreads, bytes,
+  hyp_emit_kernel<<<dim3((unsigned)blocks, (unsigned)P), kEmitThreads, 0,
                     (cudaStream_t)stream>>>(
       (const int*)hit_count, (const unsigned char*)row_overflow,
       (const float*)quat, (const float*)hit_t, (const int*)mtype,

@@ -48,7 +48,12 @@ verify's join (the lookup and counts, the places and the score, one
 kernel) against its plain versions bit for bit on
 tests/test_torch_fine_kernels.py's cases, each in the cluster size the
 wrapper picks for it (1, 2, 4, 8 blocks or the scratch), a pair alone against its row of 8, twice in a replayed graph, and
-once a step of register_pair.
+once a step of register_pair; the hypotheses stage's kernels H1-H3 and
+the bases form against their plain versions bit for bit (edge faces,
+the overflows, H2's runs, H3 on chip_smoke.py's own H3 cases: the sizes
+of --caps large and of escalated heritage caps, M 1001, H 0 and 1, H
+below, at and above the total, a pair alone, 65535 pairs), a pair alone
+against its batch, inside a capture.
 
 This file imports no jax, so it runs on a machine without it (the
 repository's conftest.py imports jax, hence --noconftest):
@@ -2015,6 +2020,24 @@ def test_hypotheses_slots_runs(cuda, runs):
         assert _all_equal(hk._launch_emit(got, m, 2048),
                           hk.emit_plain(want, m, 2048))
     assert int(want.count.sum()) > 0
+
+
+@pytest.mark.parametrize("what", [
+    "--caps large", "escalated heritage", "M 1001", "H 0", "H 1",
+    "H below the total", "H at the total", "H above the total", "no hit",
+    "one match holds every hit", "a pair alone", "65535 pairs"])
+def test_hypotheses_emit_cases(cuda, what):
+    """H3 equals emit_plain bit for bit on phase 24's own H3 cases
+    (chip_smoke.HYP_EMIT_CASES): the sizes of --caps large (M 4096, H
+    16384) and of the heritage preset escalated (M 4096, H 6144, PER_MATCH
+    96), M 1001, H 0 and 1, H below, at and above the total, no hit, one
+    match holding every hit, a pair alone and 65535 pairs."""
+    from chip_smoke import HYP_EMIT_CASES, hyp_emit_case
+    from fccf_pcr_torch.ops import hypotheses_kernels as hk
+
+    (case,) = [c for c in HYP_EMIT_CASES if c[0] == what]
+    s, m, H = hyp_emit_case(case, cuda)
+    assert _all_equal(hk._launch_emit(s, m, H), hk.emit_plain(s, m, H))
 
 
 def test_hypotheses_lane_alone_equals_batch(cuda):

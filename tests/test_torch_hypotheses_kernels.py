@@ -14,12 +14,17 @@ bases, H1's matches, H2's slots and H3's emission) on the CPU.
     warp's ballots a row, the scans over a rank's rows and over the
     cluster's ranks; H2's runs of equal source bases in its chunks, the
     source table of a match's run, its eligible slots listed and ranked
-    by warp ballots 32 at a time; H3's scan of the hit counts and a
-    binary search a place) equals the plain versions' stable sort and
-    ``compact``, on rows with no hit, exactly PER_MATCH hits, more than
-    PER_MATCH, more than M matches and more than H hits, and on runs
-    over a chunk boundary, cut by the count, one base for every match
-    and a base of its own for each.
+    by warp ballots 32 at a time; H3's blocks of matches, their sums of
+    the pair's counts, the warps' scans, each place's match found by
+    halving steps over its warp's ends and the tail split over the
+    blocks) equals the plain versions' stable sort and ``compact``, on
+    rows with no hit, exactly PER_MATCH hits, more than PER_MATCH, more
+    than M matches and more than H hits, and on runs over a chunk
+    boundary, cut by the count, one base for every match and a base of
+    its own for each; H3's alone gives ``emit_plain``'s outputs bit for
+    bit at M = 96 to 4096 (1001 among them), H = 0, 1, below, at and
+    above the total, no hit, one match holding every hit, every match
+    full, PER_MATCH 16, 48 and 96, blocks of 128, 256 and 1024.
   - A pair alone equals the same pair in a batch of 4, bit for bit.
   - CPU calls build nothing and launch nothing.
 
@@ -322,33 +327,69 @@ def h2_ranking(s_ok, t_ok, angle_ok, K):
     return [slot for _, slot in sorted(kept)], running + (running == 0)
 
 
-def h3_places(hit_count, H, threads=256):
-    """H3's places of one pair's hits: the hit counts scanned (a run of
-    matches a thread, an exclusive scan of the runs' sums, a match's end
-    its run's first place plus its own count and those before it in the
-    run), and each place e below the total takes hit e - (end - count)
-    of the first match whose end is past e (a binary search). Returns
-    ((match, k) of each place below H, total hits)."""
-    M = len(hit_count)
-    runs = _runs(M, threads)
-    sums = [int(hit_count[lo:hi].sum()) for lo, hi in runs]
-    ends = np.zeros(M, np.int64)
-    for (lo, hi), pos in zip(runs, np.concatenate([[0], np.cumsum(sums)])):
-        for m in range(lo, hi):
-            pos += int(hit_count[m])
-            ends[m] = pos
-    total = int(sum(sums))
-    places = []
-    for e in range(min(total, H)):
-        a, b = 0, M - 1
-        while a < b:
-            mid = (a + b) // 2
-            if ends[mid] > e:
-                b = mid
-            else:
-                a = mid + 1
-        places.append((a, e - int(ends[a] - hit_count[a])))
-    return places, total
+# H3's block size (kEmitThreads in csrc/hypotheses.cu); the cases below
+# also take blocks of 256 and 1024, so the emulation holds at each.
+H3_THREADS = 128
+
+
+def h3_places(hit_count, H, K, threads=H3_THREADS):
+    """H3's places of one pair's hits as its blocks and warps form them.
+    Block b takes the matches [b T, (b + 1) T), a thread a match, each
+    count held to [0, K]. It sums the counts before its matches and all
+    of them as its loads do (groups of 4 where M % 4 == 0, a group before
+    the block where its first count is); a warp scans its 32 counts, and
+    its run of places starts after the hits before the block and those of
+    the warps before it, clipped to min(total, H). The warp writes its run
+    32 places a round, lane l place r = r0 + l, whose match is the first
+    lane with end > r, found by 5 halving steps over the warp's ends (the
+    shuffles), and hit r - (end - count) of it. The places past the kept
+    hits go to the blocks in turn (thread t of block b from place kept + b
+    T + t, a stride of blocks * T). Asserts every place below H is written
+    once. Returns ((kept, 2) rows (match, k) of the kept places, total
+    hits)."""
+    c = np.clip(np.asarray(hit_count, np.int64), 0, K)
+    M = len(c)
+    width = 4 if M % 4 == 0 else 1
+    groups = c.reshape(-1, width).sum(-1)
+    first = np.arange(len(groups)) * width
+    total = int(groups.sum())
+    kept = min(total, H)
+    blocks = max(1, -(-M // threads))
+    owner = np.full(H, -1, np.int64)
+    hit = np.full(H, -1, np.int64)
+    for b in range(blocks):
+        start = b * threads
+        before = int(groups[first < start].sum())
+        own = np.zeros(threads, np.int64)
+        mine = c[start:start + threads]
+        own[:len(mine)] = mine
+        ends = np.cumsum(own.reshape(-1, 32), axis=1)
+        warp_before = _exclusive(ends[:, -1])
+        for w in range(threads // 32):
+            end = ends[w]
+            beg = end - own[32 * w:32 * w + 32]
+            ws = before + int(warp_before[w])
+            n = max(0, min(int(end[-1]), kept - ws))
+            # Every round's lanes at once: place r is lane r % 32 of round
+            # r // 32, and its search reads the warp's ends alone.
+            r = np.arange(n)
+            j = np.zeros(n, np.int64)
+            for step in (16, 8, 4, 2, 1):
+                j = np.where(end[j + step - 1] <= r, j + step, j)
+            e = ws + r
+            assert (owner[e] == -1).all()
+            owner[e] = start + 32 * w + j
+            hit[e] = r - beg[j]
+    stride = blocks * threads
+    for b in range(blocks):
+        for i in range(kept + b * threads, H, stride):
+            seg = owner[i:i + threads]  # thread t writes place i + t
+            assert (seg == -1).all()
+            seg[:] = -2
+    assert (owner[kept:] == -2).all()
+    assert (owner[:kept] >= 0).all()
+    assert ((hit[:kept] >= 0) & (hit[:kept] < c[owner[:kept]])).all()
+    return np.stack([owner[:kept], hit[:kept]], 1), total
 
 
 def _source_bases(rng, M, B, runs):
@@ -457,7 +498,7 @@ def test_kernel_ranking_equals_sort_and_compact(F, K, kind, runs):
     np.testing.assert_array_equal(hit_count, hit_valid.sum(-1).numpy())
     np.testing.assert_array_equal(row_over,
                                   tv.sum(-1).numpy() > Kc)
-    places, total = h3_places(hit_count, H)
+    places, total = h3_places(hit_count, H, Kc)
     assert int(count[0]) == min(total, H) == len(places)
     assert bool(overflow[0]) == (total > H)
     got = [m * S + kept_slots[m][k] for m, k in places]
@@ -477,6 +518,91 @@ def test_kernel_ranking_equals_sort_and_compact(F, K, kind, runs):
         assert {(0, 20), (1, 32)} <= chunks and base[20] == base[59]
     if runs == "cut":
         assert base[valid - 1] == base[valid]
+
+
+def _emit_counts(rng, M, K, kind):
+    """One pair's hit counts: "mixed" about 60% zero and the others 1 to
+    K (K itself among them, and one count past K and one below 0, which
+    emit_plain and H3 hold to [0, K]), "zero" none, "one" a single match
+    holding every hit, "full" K every match."""
+    if kind == "zero":
+        return np.zeros(M, np.int64)
+    if kind == "one":
+        c = np.zeros(M, np.int64)
+        c[int(rng.integers(M))] = K
+        return c
+    if kind == "full":
+        return np.full(M, K, np.int64)
+    c = np.where(rng.uniform(size=M) < 0.6, 0, rng.integers(1, K + 1, M))
+    c[rng.choice(M, 3, replace=False)] = (K, K + 5, -3)
+    return c
+
+
+# (M, K, counts, H, threads): H a number, or "below" / "at" / "above"
+# pair 0's total.
+H3_CASES = [(M, K, "mixed", H, H3_THREADS)
+            for M, K in ((96, 16), (700, 48), (2048, 48), (4096, 96))
+            for H in (0, 1, "below", "at", "above")] + [
+    (700, 16, "zero", 1, H3_THREADS), (700, 16, "zero", "above", H3_THREADS),
+    (2048, 96, "one", "below", H3_THREADS),
+    (2048, 96, "one", "at", H3_THREADS),
+    (2048, 96, "one", "above", H3_THREADS),
+    (96, 16, "full", "at", H3_THREADS),
+    (1001, 48, "mixed", "below", H3_THREADS),
+    (1001, 48, "mixed", "above", H3_THREADS),
+    (2048, 48, "mixed", "below", 1024), (4096, 96, "mixed", "above", 256)]
+
+
+@pytest.mark.parametrize("M,K,counts,H,threads", [
+    pytest.param(*case, id="-".join(map(str, case))) for case in H3_CASES])
+def test_h3_places_equal_compact(M, K, counts, H, threads):
+    """H3's blocks, warp scans, shuffle placement and tail split (NumPy,
+    ``h3_places``) give emit_plain's outputs bit for bit on two pairs
+    (the second's counts reversed): every field, the count and the
+    overflow (H's, the matches' or a row's)."""
+    rng = np.random.default_rng(M + K + len(counts))
+    c0 = _emit_counts(rng, M, K, counts)
+    counts2 = np.stack([c0, c0[::-1]])
+    total0 = int(np.clip(c0, 0, K).sum())
+    H = {"below": total0 // 2 + 1, "at": total0,
+         "above": total0 + 37}.get(H, H)
+    P = 2
+    s = hk.Slots(
+        quat=torch.from_numpy(rng.normal(size=(P, M, 4)).astype(np.float32)),
+        t=torch.from_numpy(rng.normal(size=(P, M, K, 3)).astype(np.float32)),
+        count=torch.from_numpy(counts2.astype(np.int32)),
+        row_overflow=torch.from_numpy(rng.uniform(size=(P, M)) < np.array(
+            [[0.0], [0.002 if counts != "zero" else 0.0]])))
+    zeros = torch.zeros((P, M), dtype=torch.int64)
+    m = hk.Matches(count=torch.full((P,), M, dtype=torch.int32),
+                   overflow=torch.tensor([False, counts == "one"]),
+                   valid=torch.ones((P, M), dtype=torch.bool), i1=zeros,
+                   j1=zeros, i2=zeros, j2=zeros,
+                   type_=torch.from_numpy(rng.integers(0, 3, (P, M))
+                                          .astype(np.int32)))
+    want = hk.emit_plain(s, m, H)
+    q = torch.zeros((P, H, 4))
+    t = torch.zeros((P, H, 3))
+    ty = torch.zeros((P, H), dtype=torch.int32)
+    valid = torch.zeros((P, H), dtype=torch.bool)
+    count = torch.zeros(P, dtype=torch.int32)
+    over = torch.zeros(P, dtype=torch.bool)
+    for k in range(P):
+        places, total = h3_places(counts2[k], H, K, threads)
+        mm, hh = (torch.from_numpy(x) for x in places.T)
+        n = len(places)
+        q[k, :n], t[k, :n] = s.quat[k, mm], s.t[k, mm, hh]
+        ty[k, :n], valid[k, :n] = m.type_[k, mm], True
+        count[k] = n
+        over[k] = (total > H or bool(m.overflow[k])
+                   or bool(s.row_overflow[k].any()))
+    got = (q, t, ty, valid, count, over)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        if g.is_floating_point():
+            g, w = g.view(torch.int32), w.view(torch.int32)
+        assert torch.equal(g, w)
+    assert bool(over[0]) == (H < total0)  # pair 0: no row or M overflow
 
 
 @pytest.mark.parametrize("B,M,density", [

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """A/B of the LM kernel L1, the floor walk C2, the scans S1 and S2, the
 faces kernels F1 and F2, fine verify's join and the hypotheses kernels
-H1 and H2 of two checkouts on one CUDA card, in turns (old, new, new,
+H1, H2 and H3 of two checkouts on one CUDA card, in turns (old, new, new,
 old), at the inputs the batched main path gives them at batch 8
 (heritage and office presets).
 
@@ -43,13 +43,16 @@ further arms (a source with the two-kernel entries ``fccf_fine_lookup``
 and ``fccf_fine_score``, as the tree up to commit 1662b43 has them, runs
 as that tree's step ran it: its counters' fill, V1, V2; one with this
 tree's entry behind this tree's wrapper), each held to this tree's
-bits); H1 and H2 on the calls ``chip_smoke.record_hypotheses`` records
-(H2 fed the same recorded matches in every arm), with the other tree's
+bits); H1, H2 and H3 on the calls ``chip_smoke.record_hypotheses``
+records (H2 fed the same recorded matches and H3 the same recorded slots
+in every arm), and H3 also on the heritage step's own call at the
+capacities of ``--caps large`` and of the escalated preset
+(``chip_smoke.record_emit``), with the other tree's
 ``csrc/hypotheses.cu`` and each ``--hyp-sources`` file as further arms
 behind this tree's wrappers, each held to this tree's plain versions (H2
-on its kept hits), each in ``--turns`` rounds of old, new, new, old (2K
-pairs); a
-line gives every time in order and each arm's median, and a step's sum
+on its kept hits, H3 to ``emit_plain``), each in ``--turns`` rounds of
+old, new, new, old (2K pairs); a line gives every time in order and each
+arm's median, and a step's sum
 of S1's and of S2's calls a turn. Prints one line a comparison with the
 card's name and power limit, and the whole as JSON last. Exits non-zero
 without a card or when a check fails.
@@ -448,10 +451,12 @@ def fine_ab(sources, dev, smi, res, turns):
 
 
 def hyp_ab(sources, dev, smi, res, turns):
-    """H1 and H2 of other ``hypotheses.cu`` sources (``sources``: {arm:
+    """H1, H2 and H3 of other ``hypotheses.cu`` sources (``sources``: {arm:
     library}) against this tree's in turns, behind this tree's wrappers,
     on the eager batch-8 steps' own calls; every arm held to this tree's
-    plain versions (``chip_smoke.hyp_equal``: H2 on its kept hits)."""
+    plain versions (``chip_smoke.hyp_equal``: H2 on its kept hits, H3 to
+    ``emit_plain``); H3 also on the heritage step's own call at the
+    capacities of each of ``chip_smoke.HYP_EMIT_TIMED``."""
     import chip_smoke as cs
     from fccf_pcr_torch.evaluation import configs
     from fccf_pcr_torch.models.fccf import get_model
@@ -467,17 +472,19 @@ def hyp_ab(sources, dev, smi, res, turns):
                 hk._LIBRARY._lib = kept
         return call
 
+    suites, args = [], {}
     for name in ("heritage", "office"):
         model = get_model(configs.CONFIGS[name]["model"])
-        args, _ = cs.config_batch(name, list(range(8)), model.params,
-                                  model.caps, dev)
-        calls = cs.record_hypotheses(cs.eager_step(model.params, model.caps),
-                                     args)
+        args[name], _ = cs.config_batch(name, list(range(8)), model.params,
+                                        model.caps, dev)
+        suites.append((name, cs.record_hypotheses(
+            cs.eager_step(model.params, model.caps), args[name])))
+    suites += [(what, [("emit", cs.record_emit(what, args["heritage"]))])
+               for what in cs.HYP_EMIT_TIMED]
+    for name, calls in suites:
         r = res.setdefault(name, {})
         r["hyp"] = []
         for form, x in calls:
-            if form == "emit":
-                continue
             kernel, plain = cs.hyp_forms(form, x)
             want = plain()
             arms = {"new": kernel}
@@ -495,8 +502,10 @@ def hyp_ab(sources, dev, smi, res, turns):
                 f"median {arm} "
                 f"{statistics.median([us for y, us in c['us'] if y == arm]):.2f} us"
                 for arm in names)
-            shape = list((x[2].valid if form == "slots" else x[0].valid).shape)
-            print(f"[ab] {'H1' if form == 'matches' else 'H2'} {name} {form} "
+            shape = list((x[2].valid if form == "slots" else x[0].count
+                          if form == "emit" else x[0].valid).shape)
+            label = {"matches": "H1", "slots": "H2", "emit": "H3"}[form]
+            print(f"[ab] {label} {name} {form} "
                   f"{shape}, a call: "
                   + ", ".join(f"{arm} {us:.2f} us" for arm, us in c["us"])
                   + f"; {meds} | {smi}", flush=True)
